@@ -2,27 +2,37 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 from fluctus_tpu_torch/csrc, holds it against its plain
-PyTorch version on the kitchen scene's rays, renders the kitchen scene
-(lockstep, 512x512, 8 bounces, 16 spp) through the port's entry points,
-checks that the frame went through K1, and holds two small renders against
-the committed goldens. Each phase prints one line with its wall time; the
-last two lines are the kernels record and the device record. Any failed
-check raises, so the script exits non-zero. It needs a CUDA device and
-the repository around it.
+Builds kernels K1, K2 and K3 from fluctus_tpu_torch/csrc (one nvcc per
+source, started together). Kitchen: holds K1 against its plain PyTorch
+version on the scene's rays, renders the kitchen (lockstep, 512x512,
+8 bounces, 16 spp) through the port's entry points, checks that the frame
+went through K1, and holds two small renders against the committed
+goldens. Conference (232k triangles, above the fast-big cutover, so its
+session holds a brute-chunk forest and no hierarchy): holds K2 and K3
+against their plain versions through the same schedulers, times them
+beside K1 on a full hierarchy of the same scene, renders the conference
+(lockstep, 512x512, 6 bounces, 4 spp) and checks that it went through K2
+only, and holds the conference golden through K2 and, under
+FLUCTUS_BRUTE_SCHED=rounds, through K3. Each phase prints one line with
+its wall time; the last three lines are the kernels record, the card and
+the device record. Any failed check raises, so the script exits non-zero.
+It needs a CUDA device and the repository around it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KITCHEN = os.path.join(REPO, "assets", "kitchen_proxy.obj")
 CORNELL = os.path.join(REPO, "assets", "cornell_proxy.obj")
+CONFERENCE = os.path.join(REPO, "assets", "conference_proxy.obj")
 STATES = os.path.join(REPO, "data", "states")
 GOLDENS = os.path.join(REPO, "tests", "goldens")
 
@@ -44,7 +54,8 @@ NODE_ROW_BYTES = 56 * 4
 # matches on every pixel; the kitchen, as on the CPU, differs on a few
 # pixels where op order flips a path.
 RTOL, ATOL = 1e-3, 1e-4
-GOLDEN_LIMITS = {"cornell_area": (1.0, 1e-4), "kitchen_cfg3": (0.995, 1e-4)}
+GOLDEN_LIMITS = {"cornell_area": (1.0, 1e-4), "kitchen_cfg3": (0.995, 1e-4),
+                 "conference": (0.995, 1e-4)}
 T_REL_TOL = 1e-5
 
 _T0 = time.perf_counter()
@@ -304,6 +315,300 @@ def phase_goldens(dev):
               f"golden {name} not held on the card")
 
 
+# ------------------------------------------------------------ big scene
+
+@contextlib.contextmanager
+def env(**kw):
+    """Set environment variables for the duration of a block."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+KERNEL_OF = {"vlist": "K2", "rounds": "K3"}
+
+
+def brute_launchers(sched):
+    """(kernel wrapper, plain version) of the scheduler `sched`."""
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    if sched == "vlist":
+        return tb.vlaunch_kernel, tb.vlaunch_plain
+    return tb.launch_kernel, tb.launch_plain
+
+
+def brute_rays(sess, n: int, seed: int):
+    """n closest-form rays (every 8th primary ray of the frame, then
+    seeded bounce rays; t_max 3.4e38) and n shadow rays toward the area
+    light with per-lane t_max (any-hit form), built by kernel_rays."""
+    import torch
+    o, d, t_c, o_s, d_s, t_s = kernel_rays(sess, n, seed)
+    n_p = o.shape[0] - n
+    half = n // 2
+    pick = torch.cat([
+        torch.arange(0, n_p, max(n_p // half, 1), device=o.device)[:half],
+        torch.arange(n_p, n_p + n - half, device=o.device)])
+    return (o[pick].contiguous(), d[pick].contiguous(),
+            t_c[pick].contiguous(), o_s, d_s, t_s)
+
+
+def compare_closest(kc, pc):
+    """(prim mismatches outside equal-t ties, ties, max rel t error, max
+    abs t error) of two closest-hit results."""
+    diff = kc.prim != pc.prim
+    ties = diff & (kc.t == pc.t)
+    hit = (kc.prim >= 0) & (pc.prim >= 0)
+    t_abs = (kc.t - pc.t).abs()
+    t_rel = float((t_abs / pc.t.abs().clamp(min=1e-30))[hit].max()) \
+        if bool(hit.any()) else 0.0
+    t_max_abs = float(t_abs[hit].max()) if bool(hit.any()) else 0.0
+    return int((diff & ~ties).sum()), int(ties.sum()), t_rel, t_max_abs
+
+
+def phase_brute_check(bf, rays, sched):
+    """K2 (sched "vlist") or K3 ("rounds") against its plain version
+    through the same scheduler, both forms, on the same rays."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+
+    name = KERNEL_OF[sched]
+    t0 = time.perf_counter()
+    o, d, t_c, o_s, d_s, t_s = rays
+    kern, plain = brute_launchers(sched)
+    with env(FLUCTUS_BRUTE_SCHED=sched):
+        kc, ex_kc = tb.traverse_closest(bf, o, d, t_c, with_flag=True,
+                                        launch=kern)
+        pc, ex_pc = tb.traverse_closest(bf, o, d, t_c, with_flag=True,
+                                        launch=plain)
+        ka, ex_ka = tb.traverse_any(bf, o_s, d_s, t_s, with_flag=True,
+                                    launch=kern)
+        pa, ex_pa = tb.traverse_any(bf, o_s, d_s, t_s, with_flag=True,
+                                    launch=plain)
+    torch.cuda.synchronize()
+    n_mis, n_ties, t_rel, t_abs = compare_closest(kc, pc)
+    uv_equal = bool(torch.equal(kc.u, pc.u) and torch.equal(kc.v, pc.v))
+    flag_mis = int((ka != pa).sum())
+    exhausted = [ex_kc, ex_pc, ex_ka, ex_pa]
+    say(f"{name.lower()}-check", t0,
+        f"{name} vs its plain version, both through the {sched} scheduler "
+        f"on a subset of the frame's rays, the same for both: "
+        f"{o.shape[0]} closest rays ({o.shape[0] // 2} primary, the rest "
+        f"bounce) and {o_s.shape[0]} shadow rays: closest "
+        f"{int((kc.prim >= 0).sum())}"
+        f" hits, prim mismatches {n_mis} (+{n_ties} equal-t ties), max rel"
+        f" t err {t_rel:.3e}, u/v bit-equal {uv_equal}; any-hit "
+        f"{int(ka.sum())} blocked, flag mismatches {flag_mis}; exhausted "
+        f"{exhausted}")
+    check(n_mis == 0, f"{name} closest prim ids differ from the plain "
+          "version")
+    check(t_rel <= T_REL_TOL, f"{name} t error {t_rel} > {T_REL_TOL}")
+    check(flag_mis == 0, f"{name} any-hit flags differ from the plain "
+          "version")
+    check(not any(exhausted), f"{name}: the round cap cut a walk")
+    return t_abs, flag_mis
+
+
+class Recorder:
+    """A launch function that keeps the arguments of every call."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.fn(*args)
+
+
+def brute_bound(sched, calls, stats_list):
+    """Least time for the launches of one traversal call: bytes (every
+    launch's ray slots, seeds and outputs once, plus the table rows and
+    boxes its visits need) over HBM bandwidth, or the tile or chunk slab
+    tests and the Moller tests of live lanes against real triangles over
+    the f32 instruction rate; the larger."""
+    byts = ops = 0
+    for args, st in zip(calls, stats_list):
+        if sched == "vlist":
+            _, _, tris, _, rays8, *_, blk, tt, v_per, gr = args
+            cap, tp = rays8.shape[0], tris.shape[2]
+            byts += cap * 64 + 8 * (cap // blk) * v_per
+            byts += int(st["chunks_run"].sum()) * (tp // tt) * 6 * 4
+            byts += int(st["groups_run"].sum()) * gr * tt * 10 * 4
+        else:
+            _, tris, boxes_t, rays8, *_, blk, tt, mm, c_real = args
+            cap, tp = rays8.shape[0], tris.shape[2]
+            byts += cap * (64 + 4 * mm) + 4 * (cap // blk)
+            byts += boxes_t.shape[1] * 6 * 4
+            byts += int(st["chunks_run"].sum()) * tp * 10 * 4
+        ops += st["slab_tests"] * OPS_PER_CHILD + st["tri_tests"] * OPS_PER_TRI
+    t_bytes = byts / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_brute_time(bf, rays, sched, wbvh_full):
+    """Per 65,536-ray traversal call: the kernel's time summed over the
+    call's launches (replayed on the recorded inputs), launches per call,
+    the plain version's time on the same inputs, the bound, the whole
+    call's wall time, and K1's time on the same rays over a full hierarchy
+    of the scene."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+
+    name = KERNEL_OF[sched]
+    o, d, t_c, o_s, d_s, t_s = rays
+    kern, plain = brute_launchers(sched)
+    out = {}
+    for form, (ro, rd, rt) in (("closest", (o, d, t_c)),
+                               ("any", (o_s, d_s, t_s))):
+        t0 = time.perf_counter()
+        anyh = form == "any"
+        trav = tb.traverse_any if anyh else tb.traverse_closest
+        rec = Recorder(kern)
+        with env(FLUCTUS_BRUTE_SCHED=sched):
+            trav(bf, ro, rd, rt, launch=rec)
+            torch.cuda.synchronize()
+            call_ms = time_cuda(lambda: trav(bf, ro, rd, rt, launch=kern), 3)
+        stats_list = []
+        for args in rec.calls:
+            st: dict = {}
+            plain(*args, stats=st)
+            stats_list.append(st)
+        p1 = sum(time_cuda(lambda: plain(*a), 1) for a in rec.calls)
+        k1 = sum(time_cuda(lambda: kern(*a), 10) for a in rec.calls)
+        k2 = sum(time_cuda(lambda: kern(*a), 10) for a in rec.calls)
+        p2 = sum(time_cuda(lambda: plain(*a), 1) for a in rec.calls)
+        b_ms, b_by = brute_bound(sched, rec.calls, stats_list)
+        k1_ms = time_cuda(
+            lambda: ts.traverse_kernel(wbvh_full, ro, rd, rt, anyh), 10)
+        n = ro.shape[0]
+        slab = sum(s["slab_tests"] for s in stats_list)
+        tri = sum(s["tri_tests"] for s in stats_list)
+        out[form] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                         bound_ms=b_ms, bound_by=b_by,
+                         launches_per_call=len(rec.calls), call_ms=call_ms,
+                         k1_ms=k1_ms)
+        r = out[form]
+        unit = "passes" if sched == "vlist" else "launches (scout + rounds)"
+        say(f"{name.lower()}-time", t0,
+            f"{form}: {r['ms']:.3f} ms of {name} per {n}-ray call, "
+            f"{len(rec.calls)} {unit} per call; whole call with its "
+            f"scheduler {call_ms:.3f} ms; plain {r['plain_ms']:.1f} ms; "
+            f"bound {b_ms:.4f} ms by {b_by} ({slab / n:.1f} slab and "
+            f"{tri / n:.1f} Moller tests per ray); K1 on the same rays over"
+            f" the full hierarchy {k1_ms:.4f} ms")
+    return out
+
+
+def conference_cfg(width, height):
+    return kitchen_cfg(width, height, max_bounces=6)
+
+
+def phase_frame_big(sess, spp: int, card: str):
+    """The big-scene slice: one lockstep frame of the conference through
+    the entry points; K2 only, counts read around exactly this call."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.render.benchmark import ray_counts_per_sample
+
+    t0 = time.perf_counter()
+    ts.reset_counts()
+    tb.reset_counts()
+    img = driver.render(sess, spp, integrator="lockstep")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tb.LAUNCHES)
+    plain = {**tb.PLAIN_CALLS, **{f"k1_{k}": v
+                                  for k, v in ts.PLAIN_CALLS.items()}}
+    cfg = sess.cfg
+    n = cfg.width * cfg.height * spp
+    prim, ext, shadow = ray_counts_per_sample(cfg, n)
+    check(launches["k2_closest"] > 0 and launches["k2_any"] > 0,
+          f"conference frame did not launch K2 in both forms: {launches}")
+    check(launches["k3_closest"] + launches["k3_any"] == 0,
+          f"conference frame launched K3: {launches}")
+    check(sum(ts.LAUNCHES.values()) == 0,
+          f"conference frame launched K1: {ts.LAUNCHES}")
+    check(sum(plain.values()) == 0, f"plain traversal ran: {plain}")
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3), "image shape")
+    check(bool(torch.isfinite(img).all()), "image has non-finite values")
+    check(bool((img >= 0).all()), "image has negative values")
+    say("frame-big", t0,
+        f"conference {cfg.width}x{cfg.height} {spp} spp, "
+        f"{cfg.max_bounces} bounces: {secs:.3f} s, "
+        f"{(prim + ext + shadow) / secs / 1e6:.3f} MRays/s analytic, "
+        f"{n / secs / 1e6:.4f} Msamples/s, launches {launches}, plain "
+        f"calls {plain}, mean radiance {float(img.mean()):.5f}, on {card}")
+    return secs, launches
+
+
+def phase_golden_big():
+    """conference.npz (64x64, 6 bounces, 4 spp) through K2 and, under
+    FLUCTUS_BRUTE_SCHED=rounds, through K3. The rounds render is K3's path
+    run: its counts are read around it."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.render import driver
+
+    t0 = time.perf_counter()
+    sess = driver.create_session(CONFERENCE, cfg=conference_cfg(64, 64),
+                                 state_dir=STATES, auto_frame=False,
+                                 device="cuda")
+    check(sess.scene.bforest is not None and sess.scene.wbvh is None,
+          "conference golden session is not a brute-forest session")
+    gold = np.load(os.path.join(GOLDENS, "conference.npz"))["img"]
+    counts = {}
+    for sched in ("vlist", "rounds"):
+        ts.reset_counts()
+        tb.reset_counts()
+        with env(FLUCTUS_BRUTE_SCHED=sched):
+            img = driver.render(sess, 4).cpu().numpy()
+        torch.cuda.synchronize()
+        counts[sched] = dict(tb.LAUNCHES)
+        k = KERNEL_OF[sched].lower()
+        other = "k3" if k == "k2" else "k2"
+        check(counts[sched][f"{k}_closest"] > 0
+              and counts[sched][f"{k}_any"] > 0,
+              f"{sched} golden did not launch {k} in both forms")
+        check(counts[sched][f"{other}_closest"] + counts[sched][f"{other}_any"]
+              + sum(ts.LAUNCHES.values()) == 0,
+              f"{sched} golden launched other kernels: {counts[sched]}")
+        check(sum(tb.PLAIN_CALLS.values()) == 0, "plain traversal ran")
+        within = np.isclose(img, gold, rtol=RTOL, atol=ATOL).all(-1)
+        share = float(within.mean())
+        mean_rel = float(np.abs(img - gold).mean() / np.abs(gold).mean())
+        need_share, need_rel = GOLDEN_LIMITS["conference"]
+        say("golden", t0,
+            f"conference through {KERNEL_OF[sched]} ({sched}): "
+            f"{share * 100:.3f}% of pixels within rtol {RTOL} / atol {ATOL}"
+            f" (need {need_share * 100:.1f}%), mean relative error "
+            f"{mean_rel:.3e} (need <= {need_rel:.0e}), max abs diff "
+            f"{float(np.abs(img - gold).max()):.3e}; launches "
+            f"{counts[sched]}")
+        check(share >= need_share and mean_rel <= need_rel,
+              f"golden conference not held through {KERNEL_OF[sched]}")
+    return counts["rounds"]
+
+
+def full_hierarchy(host):
+    """The 8-wide hierarchy of a scene above the cutover, as
+    FLUCTUS_FAST_BIG=0 uploads it (SAH build, no spatial splits)."""
+    with env(FLUCTUS_FAST_BIG="0"):
+        host.bvh = None
+        return host.to_device("cuda").wbvh
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -312,6 +617,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import fluctus_tpu_torch   # noqa: F401  (fails outside the repository)
+    from fluctus_tpu_torch.ops import traverse_brute as tb
     from fluctus_tpu_torch.ops import traverse_stack as ts
     from fluctus_tpu_torch.render import driver
 
@@ -322,11 +628,15 @@ def main() -> int:
         f"{torch.version.cuda} | python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    ts.load_kernel()
-    regs = [ln.strip() for ln in ts.BUILD_INFO["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
-    say("build", t0, f"K1 nvcc {' '.join(ts.NVCC_FLAGS)}: "
-        f"{ts.BUILD_INFO['seconds']:.1f} s; " + " | ".join(regs))
+    with ThreadPoolExecutor(2) as pool:      # one nvcc per source, together
+        for f in [pool.submit(ts.load_kernel), pool.submit(tb.load_kernel)]:
+            f.result()
+    for name, info in (("K1", ts.BUILD_INFO), ("K2+K3", tb.BUILD_INFO)):
+        regs = [ln.split(":", 1)[-1].strip()
+                for ln in info["log"].splitlines()
+                if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        say("build", t0, f"{name} nvcc {' '.join(ts.NVCC_FLAGS)}: "
+            f"{info['seconds']:.1f} s; " + " | ".join(regs))
 
     t0 = time.perf_counter()
     sess = driver.create_session(KITCHEN, cfg=kitchen_cfg(512, 512),
@@ -348,8 +658,52 @@ def main() -> int:
 
     secs, launches, _ = phase_frame(sess, spp=16, card=card)
     phase_goldens("cuda")
+    del sess, small
+    torch.cuda.empty_cache()
 
-    replaces = "fluctus_tpu/ops/traverse_mxu.py:97"
+    t0 = time.perf_counter()
+    big = driver.create_session(CONFERENCE, cfg=conference_cfg(512, 512),
+                                state_dir=STATES, auto_frame=False,
+                                device="cuda")
+    bf = big.scene.bforest
+    check(bf is not None and big.scene.wbvh is None,
+          "the conference session is not a brute-forest session")
+    say("session-big", t0,
+        f"conference: {big.host_scene.n_tris} tris, no hierarchy; brute "
+        f"forest C={bf.tris.shape[0]} chunks, Tp={bf.tris.shape[2]}, "
+        f"NTp={bf.tboxes.shape[2]}, tile {bf.tile}, Cp={bf.boxes_t.shape[1]}"
+        f", {(bf.tris.numel() + bf.tboxes.numel()) * 4 / 1e6:.1f} MB; "
+        f"session (load + forest + upload) {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    wbvh_full = full_hierarchy(big.host_scene)
+    say("session-big", t0, f"full hierarchy for K1 (FLUCTUS_FAST_BIG=0, "
+        f"SAH): nodes {tuple(wbvh_full.nodes.shape)}, leaves "
+        f"{tuple(wbvh_full.leaves.shape)}, depth {wbvh_full.depth}")
+    rays = brute_rays(big, 1 << 16, seed=11)
+    err = {s_: phase_brute_check(bf, rays, s_) for s_ in ("vlist", "rounds")}
+    btimes = {s_: phase_brute_time(bf, rays, s_, wbvh_full)
+              for s_ in ("vlist", "rounds")}
+    t0 = time.perf_counter()
+    o, d, t_c = rays[:3]
+    k1c = ts.traverse_kernel(wbvh_full, o, d, t_c, any_hit=False)
+    k2c = tb.traverse_closest(bf, o, d, t_c)
+    n_mis, n_ties, t_rel, _ = compare_closest(k2c, k1c)
+    say("k1-vs-k2", t0, f"K2 vs K1 over the full hierarchy, same "
+        f"{o.shape[0]} closest rays: prim mismatches {n_mis} (+{n_ties} "
+        f"equal-t ties), max rel t err {t_rel:.3e}")
+    check(n_mis == 0, "K2 and K1 disagree on the conference")
+    del wbvh_full
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    driver.render(dataclasses.replace(big, cfg=big.cfg.replace(
+        width=64, height=64)), 1)
+    torch.cuda.synchronize()
+    say("warm-up", t0, "conference 64x64 1 spp")
+    secs_big, launches_big = phase_frame_big(big, spp=4, card=card)
+    launches_k3 = phase_golden_big()
+
     kernels = []
     for form, name in (("closest", "K1 traverse_stack closest"),
                        ("any", "K1 traverse_stack any-hit")):
@@ -357,12 +711,31 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fluctus_tpu_torch/csrc/traverse_stack.cu",
-            "replaces": replaces, "launches": launches[form],
+            "replaces": "fluctus_tpu/ops/traverse_mxu.py:97",
+            "launches": launches[form],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
-    print(f"[total] {time.perf_counter() - _T0:8.2f}s  frame {secs:.3f} s "
-          f"on {card}", flush=True)
+    for sched, replaces, counts in (
+            ("vlist", "fluctus_tpu/ops/traverse_brute.py:578", launches_big),
+            ("rounds", "fluctus_tpu/ops/traverse_brute.py:70", launches_k3)):
+        k = KERNEL_OF[sched]
+        for form, label in (("closest", "closest"), ("any", "any-hit")):
+            r = btimes[sched][form]
+            t_abs, flag_mis = err[sched]
+            kernels.append({
+                "name": f"{k} traverse_brute {label}", "route": "cuda",
+                "source": "fluctus_tpu_torch/csrc/traverse_brute.cu",
+                "replaces": replaces,
+                "launches": counts[f"{k.lower()}_{form}"],
+                "max_abs_err": t_abs if form == "closest"
+                else float(flag_mis > 0),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None})
+    print(f"[total] {time.perf_counter() - _T0:8.2f}s  kitchen frame "
+          f"{secs:.3f} s, conference frame {secs_big:.3f} s on {card}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

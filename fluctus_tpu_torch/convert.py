@@ -2,7 +2,9 @@
 
 The JAX package's `DeviceScene` and `RenderParams` are handed over as a flat
 dict of NumPy arrays keyed by dotted field path ("geom.v0", "wbvh.nodes",
-"camera.pos", ...), which the caller builds with `np.asarray` on each leaf.
+"camera.pos", ...), which the caller builds with `np.asarray` on each leaf;
+a `BruteForest` as a dict keyed by its field names ("tris", "boxes",
+"boxes_t", "tboxes", "tile").
 This is the renderer's counterpart of loading a model's weights: both
 packages then trace the same hierarchy under the same camera.
 """
@@ -12,8 +14,8 @@ import numpy as np
 import torch
 
 from fluctus_tpu_torch.core.types import (
-    AreaLight, Camera, DeviceScene, Geometry, Materials, RenderParams,
-    TextureAtlas, WideBVH)
+    AreaLight, BruteForest, Camera, DeviceScene, Geometry, Materials,
+    RenderParams, TextureAtlas, WideBVH)
 
 GEOM_KEYS = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
              "mat_id")
@@ -32,22 +34,44 @@ def _t(a, device):
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
+def brute_from_numpy(arrays: dict, device="cuda") -> BruteForest:
+    """BruteForest from the JAX BruteForest's fields as NumPy arrays."""
+    def f32(key):
+        return _t(np.asarray(arrays[key], np.float32), device)
+
+    tboxes = arrays.get("tboxes")
+    return BruteForest(tris=f32("tris"), boxes=f32("boxes"),
+                       boxes_t=f32("boxes_t"),
+                       tboxes=None if tboxes is None else f32("tboxes"),
+                       tile=int(arrays["tile"]))
+
+
 def scene_from_numpy(arrays: dict, device="cuda") -> DeviceScene:
-    """DeviceScene from the JAX scene's leaves (see module docstring)."""
+    """DeviceScene from the JAX scene's leaves (see module docstring). The
+    "wbvh.*" keys may be absent (a fast-big scene); "bforest.*" keys, where
+    present, carry a brute forest."""
     def group(prefix, keys):
         return {k: _t(arrays[f"{prefix}.{k}"], device) for k in keys}
 
-    wbvh = WideBVH(
-        nodes=_t(np.asarray(arrays["wbvh.nodes"], np.float32), device),
-        leaves=_t(np.asarray(arrays["wbvh.leaves"], np.float32), device),
-        root_ref=int(arrays["wbvh.root_ref"]),
-        depth=int(arrays["wbvh.depth"]),
-        leaf_width=int(arrays["wbvh.leaf_width"]))
+    wbvh = bforest = None
+    if "wbvh.nodes" in arrays:
+        wbvh = WideBVH(
+            nodes=_t(np.asarray(arrays["wbvh.nodes"], np.float32), device),
+            leaves=_t(np.asarray(arrays["wbvh.leaves"], np.float32),
+                      device),
+            root_ref=int(arrays["wbvh.root_ref"]),
+            depth=int(arrays["wbvh.depth"]),
+            leaf_width=int(arrays["wbvh.leaf_width"]))
+    if "bforest.tris" in arrays:
+        bforest = brute_from_numpy(
+            {k[len("bforest."):]: v for k, v in arrays.items()
+             if k.startswith("bforest.")}, device)
     return DeviceScene(geom=Geometry(**group("geom", GEOM_KEYS)),
                        wbvh=wbvh,
                        materials=Materials(**group("materials",
                                                    MATERIAL_KEYS)),
-                       atlas=TextureAtlas(**group("atlas", ATLAS_KEYS)))
+                       atlas=TextureAtlas(**group("atlas", ATLAS_KEYS)),
+                       bforest=bforest)
 
 
 def params_from_numpy(arrays: dict, device="cuda") -> RenderParams:

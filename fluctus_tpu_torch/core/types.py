@@ -71,6 +71,19 @@ class WideBVH:
 
 
 @dataclass
+class BruteForest:
+    """Brute-chunk tables of a big scene (accel/forest.py layout): spatial
+    bins of triangles with no hierarchy inside a bin. Traversed by
+    ops/traverse_brute.py (kernels K2 and K3)."""
+    tris: torch.Tensor      # (C, 16, Tp) f32: [ax ay az e1 e2 tid+1 0..]
+    boxes: torch.Tensor     # (C, 8) f32 chunk AABB lo(3) hi(3) pad(2)
+    boxes_t: torch.Tensor   # (8, Cp) f32 component-major chunk AABBs
+    # (C, 8, NTp) f32 per-tile AABBs; None selects the round-loop scheduler
+    tboxes: torch.Tensor | None = None
+    tile: int = 512         # triangles per tboxes entry
+
+
+@dataclass
 class Geometry:
     """SoA triangle soup (reference: src/geom.h:89-95)."""
     v0: torch.Tensor
@@ -110,12 +123,14 @@ class Camera:
 
 @dataclass
 class DeviceScene:
-    """Scene tensors on one device. The env map is not part of this port
-    yet: scenes render with `use_env_map=False`."""
+    """Scene tensors on one device. A scene above the fast-big cutover
+    carries `bforest` and no hierarchy (`wbvh` None). The env map is not
+    part of this port yet: scenes render with `use_env_map=False`."""
     geom: Geometry
-    wbvh: WideBVH
+    wbvh: WideBVH | None
     materials: Materials
     atlas: TextureAtlas
+    bforest: BruteForest | None = None
 
     @property
     def device(self) -> torch.device:
@@ -135,8 +150,9 @@ class RenderParams:
 @dataclass(frozen=True)
 class RenderConfig:
     """Static configuration, the reference's compile defines
-    (src/kernel_impl.hpp:49-67). The traversal is K1 on a CUDA scene and
-    its plain version on a CPU scene."""
+    (src/kernel_impl.hpp:49-67). The traversal is K1 (or K2/K3 on a
+    scene with a brute forest) on a CUDA scene and the kernels' plain
+    versions on a CPU scene."""
     width: int = 512
     height: int = 512
     max_bounces: int = 4

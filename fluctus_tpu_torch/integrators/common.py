@@ -2,8 +2,9 @@
 `fluctus_tpu/integrators/common.py`; reference: wf_logic.cl,
 mk_next_vertex.cl, mk_sample_bsdf.cl).
 
-Traversal goes through `ops.traverse_stack`: kernel K1 on a CUDA scene, its
-plain version on a CPU scene. Every stochastic decision draws from the
+Traversal goes through `ops.traverse_stack` (kernel K1) or, on a scene
+that carries a brute forest, `ops.traverse_brute` (kernels K2 and K3):
+the kernels on a CUDA scene, their plain versions on a CPU scene. Every stochastic decision draws from the
 counter-based RNG keyed by (pixel, sample, bounce, stream).
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ from fluctus_tpu_torch.core.types import (
     DeviceScene, Hit, RenderConfig, RenderParams)
 from fluctus_tpu_torch.ops import bsdf as bsdf_mod
 from fluctus_tpu_torch.ops import texture as tex_ops
-from fluctus_tpu_torch.ops import traverse_stack
+from fluctus_tpu_torch.ops import traverse_brute, traverse_stack
 from fluctus_tpu_torch.ops.intersect import ray_area_light
 from fluctus_tpu_torch.ops.traverse_stack import Traversal
 
@@ -26,6 +27,9 @@ OFFSET_CONT = 1e-4     # reference: wf_mat_diffuse.cl:54 (P + 1e-4*newDir)
 
 def _traverse_closest_tr(scene, orig, dir, t_max) -> Traversal:
     """Closest-hit traversal under a scalar or per-lane t_max."""
+    if scene.bforest is not None:
+        return traverse_brute.traverse_closest(
+            scene.bforest, orig.contiguous(), dir.contiguous(), t_max)
     return traverse_stack.traverse_closest(scene.wbvh, orig.contiguous(),
                                            dir.contiguous(), t_max)
 
@@ -110,8 +114,12 @@ def _shadow_blocked(scene, params, cfg, orig, ldir, lens, check_area_quad):
     lens = torch.broadcast_to(torch.as_tensor(lens, dtype=torch.float32,
                                               device=orig.device),
                               orig.shape[:1])
-    blocked = traverse_stack.traverse_any(scene.wbvh, orig.contiguous(),
-                                          ldir.contiguous(), lens)
+    if scene.bforest is not None:
+        blocked = traverse_brute.traverse_any(
+            scene.bforest, orig.contiguous(), ldir.contiguous(), lens)
+    else:
+        blocked = traverse_stack.traverse_any(
+            scene.wbvh, orig.contiguous(), ldir.contiguous(), lens)
     if check_area_quad and cfg.use_area_light:
         al = params.area_light
         q_hit, _ = ray_area_light(orig, ldir, al.pos, al.right, al.up,

@@ -17,7 +17,8 @@ from fluctus_tpu_torch.core.types import (
     DeviceScene, RenderConfig, RenderParams, default_params)
 from fluctus_tpu_torch.integrators import lockstep
 from fluctus_tpu_torch.ops import tonemap as tm
-from fluctus_tpu_torch.scene.scene import HostScene, load_scene
+from fluctus_tpu_torch.scene.scene import (
+    HostScene, fast_big_eligible, load_scene)
 
 
 def resolve_device(device) -> torch.device:
@@ -64,12 +65,14 @@ def create_session(scene_path: str, cfg: RenderConfig | None = None,
                    use_sbvh: bool = True, auto_frame: bool = True,
                    state_dir: str | None = "data/states",
                    device="cuda") -> RenderSession:
-    """Load the scene, build the hierarchy, upload it, derive parameters
-    and restore the scene's saved state (reference: Tracer::init,
-    src/tracer.cpp:55-80, loadState :634-687)."""
+    """Load the scene, build the hierarchy (none above the fast-big
+    cutover: the upload builds the brute-chunk forest instead), upload it,
+    derive parameters and restore the scene's saved state (reference:
+    Tracer::init, src/tracer.cpp:55-80, loadState :634-687)."""
     dev = resolve_device(device)
     host = load_scene(scene_path)
-    host.build_bvh(use_sbvh=use_sbvh)
+    if not fast_big_eligible(host, dev):
+        host.build_bvh(use_sbvh=use_sbvh)
     scene = host.to_device(dev)
     cfg = cfg or RenderConfig()
     # no env map on this path: lighting comes from the area light

@@ -1,11 +1,14 @@
 """Where a lockstep frame's time goes on the card.
 
-    python3 -m fluctus_tpu_torch.render.profile [--frames N]
+    python3 -m fluctus_tpu_torch.render.profile [--scene PATH]
+        [--bounces N] [--spp N] [--frames N]
 
-Traces one 65,536-ray tile at 1 spp of the kitchen frame (512x512,
-8 bounces, area light) with torch.profiler and prints the device time by
-kernel, the device-busy share of the traced wall time, and K1's share;
-then times N whole 16-spp frames to show the spread. Needs a CUDA card.
+Traces one 65,536-ray tile at 1 spp of a 512x512 lockstep frame (area
+light, the scene's saved state; the kitchen at 8 bounces by default) with
+torch.profiler and prints the device time by kernel, the device-busy
+share of the traced wall time, and the traversal kernels' share (K1, or
+K2/K3 on a scene above the fast-big cutover); then times N whole frames
+at --spp to show the spread. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -20,27 +23,39 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _session():
+TRAVERSAL_KERNELS = ("traverse_kernel", "k2_kernel", "k3_kernel")
+
+
+def _session(scene: str, bounces: int):
     from fluctus_tpu_torch.core.types import RenderConfig
     from fluctus_tpu_torch.render import driver
-    cfg = RenderConfig(width=512, height=512, max_bounces=8,
+    cfg = RenderConfig(width=512, height=512, max_bounces=bounces,
                        use_area_light=True, use_env_map=False)
     return driver.create_session(
-        os.path.join(REPO, "assets", "kitchen_proxy.obj"), cfg=cfg,
-        state_dir=os.path.join(REPO, "data", "states"), auto_frame=False,
-        device="cuda")
+        scene, cfg=cfg, state_dir=os.path.join(REPO, "data", "states"),
+        auto_frame=False, device="cuda")
+
+
+def _launch_counts() -> dict:
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    counts = {f"k1_{k}": v for k, v in ts.LAUNCHES.items()}
+    counts.update(tb.LAUNCHES)
+    return {k: v for k, v in counts.items() if v}
 
 
 def profile_tile(sess) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from fluctus_tpu_torch.integrators import lockstep
+    from fluctus_tpu_torch.ops import traverse_brute as tb
     from fluctus_tpu_torch.ops import traverse_stack as ts
 
     idx = torch.arange(1 << 16, dtype=torch.int32, device="cuda")
     lockstep.sample_radiance(sess.scene, sess.params, sess.cfg, idx, 0)
     torch.cuda.synchronize()
     ts.reset_counts()
+    tb.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -54,30 +69,36 @@ def profile_tile(sess) -> None:
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_us = sum(us for us, _ in by_name.values())
-    k1_us = sum(us for name, (us, _) in by_name.items()
-                if "traverse_kernel" in name)
+    trav_us = sum(us for name, (us, _) in by_name.items()
+                  if any(k in name for k in TRAVERSAL_KERNELS))
     print(f"tile 65536 rays, 1 spp, {sess.cfg.max_bounces} bounces: wall "
-          f"{wall * 1e3:.1f} ms (profiled), K1 launches {dict(ts.LAUNCHES)}")
+          f"{wall * 1e3:.1f} ms (profiled), traversal launches "
+          f"{_launch_counts()}")
     print(f"device kernels: {len(kernels)} launches, busy "
           f"{busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall * 100:.1f}% of "
-          f"wall; K1 {k1_us / 1e3:.2f} ms = "
-          f"{k1_us / max(busy_us, 1) * 100:.1f}% of device time")
+          f"wall; traversal kernels {trav_us / 1e3:.2f} ms = "
+          f"{trav_us / max(busy_us, 1) * 100:.1f}% of device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, n) in top:
         print(f"  {us / 1e3:9.2f} ms  {n:6d}x  {name[:100]}")
 
 
-def time_frames(sess, n: int) -> None:
+def time_frames(sess, n: int, spp: int) -> None:
     from fluctus_tpu_torch.render import driver
     for i in range(n):
         t0 = time.perf_counter()
-        driver.render(sess, 16)
+        driver.render(sess, spp)
         torch.cuda.synchronize()
-        print(f"frame {i}: 512x512 16 spp {time.perf_counter() - t0:.3f} s")
+        print(f"frame {i}: 512x512 {spp} spp "
+              f"{time.perf_counter() - t0:.3f} s")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", default=os.path.join(
+        REPO, "assets", "kitchen_proxy.obj"))
+    ap.add_argument("--bounces", type=int, default=8)
+    ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--frames", type=int, default=2)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -86,9 +107,12 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card} | torch {torch.__version__}")
-    sess = _session()
+    sess = _session(args.scene, args.bounces)
+    print(f"scene {os.path.basename(args.scene)}: "
+          f"{sess.host_scene.n_tris} tris, "
+          f"{'brute forest' if sess.scene.bforest is not None else 'BVH8'}")
     profile_tile(sess)
-    time_frames(sess, args.frames)
+    time_frames(sess, args.frames, args.spp)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 (counterpart of `fluctus_tpu/scene/scene.py`; reference: src/scene.cpp,
 src/tracer.cpp:574-590).
 
-Only the path of a scene whose 8-wide hierarchy is built in full is here:
-OBJ/MTL input, SBVH build, 8-wide collapse and upload of the f32 rows.
+OBJ/MTL input, then one of two uploads: the SBVH build, 8-wide collapse
+and upload of its f32 rows; or, for a scene above the fast-big cutover on
+a CUDA device, the brute-chunk forest alone (`fast_big_eligible`).
 """
 from __future__ import annotations
 
@@ -14,15 +15,17 @@ import numpy as np
 import torch
 
 from fluctus_tpu_torch.accel import bvh as bvh_mod
+from fluctus_tpu_torch.accel.forest import build_brute_forest
 from fluctus_tpu_torch.accel.wide import build_wide
 from fluctus_tpu_torch.core.types import (
-    BSDF_ID, BXDF_DIFFUSE, DeviceScene, Geometry, Materials, TextureAtlas,
-    WideBVH)
+    BSDF_ID, BXDF_DIFFUSE, BruteForest, DeviceScene, Geometry, Materials,
+    TextureAtlas, WideBVH)
 from fluctus_tpu_torch.scene.loaders.obj import MtlMaterial, load_obj
 from fluctus_tpu_torch.scene.textures import TexturePool
 from fluctus_tpu_torch.scene.xxh64 import file_hash
 
-__all__ = ["HostScene", "load_scene", "file_hash", "default_material"]
+__all__ = ["HostScene", "load_scene", "file_hash", "default_material",
+           "fast_big_eligible"]
 
 
 def default_material() -> MtlMaterial:
@@ -102,31 +105,69 @@ class HostScene:
                                np.int64))
 
     def to_device(self, device="cuda") -> DeviceScene:
-        """Upload geometry, the 8-wide hierarchy rows, materials and the
+        """Upload geometry, the traversal tables, materials and the
         texture atlas (reference: CLContext::uploadSceneData,
-        src/clcontext.cpp:522-611)."""
-        if self.bvh is None:
-            self.build_bvh(use_sbvh=False)
+        src/clcontext.cpp:522-611). Above the fast-big cutover the tables
+        are the brute-chunk forest and no hierarchy is built."""
+        dev = torch.device(device)
 
         def t(a, dtype=None):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                   device=device)
+                                   device=dev)
 
         geom = Geometry(v0=t(self.v0), v1=t(self.v1), v2=t(self.v2),
                         n0=t(self.n0), n1=t(self.n1), n2=t(self.n2),
                         uv0=t(self.uv0), uv1=t(self.uv1), uv2=t(self.uv2),
                         mat_id=t(self.mat_id, torch.int64))
-        wide = build_wide(self.bvh, self.v0, self.v1, self.v2)
-        wbvh = WideBVH(nodes=t(wide.nodes), leaves=t(wide.leaves),
-                       root_ref=int(wide.root_ref), depth=int(wide.depth),
-                       leaf_width=int(wide.leaves.shape[1]))
+        wbvh = bforest = None
+        if fast_big_eligible(self, dev):
+            target = int(os.environ.get("FLUCTUS_BRUTE_TARGET_TRIS",
+                                        _brute_auto_target(self.n_tris)))
+            hb = build_brute_forest(self.v0, self.v1, self.v2,
+                                    target_tris=target)
+            bforest = BruteForest(tris=t(hb.tris), boxes=t(hb.boxes),
+                                  boxes_t=t(hb.boxes_t),
+                                  tboxes=t(hb.tboxes), tile=hb.tile)
+        else:
+            if self.bvh is None:
+                self.build_bvh(use_sbvh=False)
+            wide = build_wide(self.bvh, self.v0, self.v1, self.v2)
+            wbvh = WideBVH(nodes=t(wide.nodes), leaves=t(wide.leaves),
+                           root_ref=int(wide.root_ref),
+                           depth=int(wide.depth),
+                           leaf_width=int(wide.leaves.shape[1]))
         m = self.material_arrays()
         mats = Materials(**{k: t(v, torch.int64 if v.dtype.kind == "i"
                                  else None) for k, v in m.items()})
         data, offs, ws, hs = self.textures.pack()
         atlas = TextureAtlas(data=t(data), offset=t(offs), width=t(ws),
                              height=t(hs))
-        return DeviceScene(geom=geom, wbvh=wbvh, materials=mats, atlas=atlas)
+        return DeviceScene(geom=geom, wbvh=wbvh, materials=mats, atlas=atlas,
+                           bforest=bforest)
+
+
+def _brute_auto_target(n_tris: int) -> int:
+    """Chunk size scaled to the scene: a power of two between 8192 and
+    32768 near n_tris / 192 (the JAX package's measured sweet spots)."""
+    import math
+    if n_tris <= 0:
+        return 8192
+    return 1 << int(np.clip(round(math.log2(max(n_tris / 192, 1))),
+                            13, 15))
+
+
+def fast_big_eligible(host, device) -> bool:
+    """True when `host` uploads to `device` as a brute-chunk forest alone:
+    a CUDA device and more triangles than the cutover, (8 << 20) // 68 =
+    123,361 by default (the JAX package's rule, whose platform test is an
+    accelerator backend; on the CPU both build the full hierarchy).
+    FLUCTUS_FAST_BIG_MIN_TRIS moves the cutover and FLUCTUS_FAST_BIG=0
+    turns the path off."""
+    min_tris = int(os.environ.get("FLUCTUS_FAST_BIG_MIN_TRIS",
+                                  (8 << 20) // 68))
+    return (len(host.v0) > min_tris
+            and torch.device(device).type == "cuda"
+            and os.environ.get("FLUCTUS_FAST_BIG", "1") != "0")
 
 
 def load_scene(path: str) -> HostScene:

@@ -1,7 +1,8 @@
 """The port stands alone: with jax, flax, xxhash, PIL and fluctus_tpu made
-unimportable, fluctus_tpu_torch and chip_smoke.py import and the kitchen
-renders on the CPU with its textures. The machine with the card has none
-of those packages."""
+unimportable, fluctus_tpu_torch and chip_smoke.py import, the kitchen
+renders on the CPU with its textures, and a brute-chunk forest builds and
+traverses under both schedulers. The machine with the card has none of
+those packages."""
 import os
 import re
 import subprocess
@@ -42,6 +43,26 @@ assert s.host_scene.hash == "c68e332cfae81cc6"
 img = driver.render(s, 1)
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 assert float(img.sum()) > 0.0
+import os
+from fluctus_tpu_torch.accel.forest import build_brute_forest
+from fluctus_tpu_torch.convert import brute_from_numpy
+from fluctus_tpu_torch.ops import traverse_brute, traverse_stack
+h = s.host_scene
+hb = build_brute_forest(h.v0, h.v1, h.v2, target_tris=4096)
+bf = brute_from_numpy({f: getattr(hb, f) for f in
+                       ("tris", "boxes", "boxes_t", "tboxes", "tile")}, "cpu")
+o = torch.tensor([[0.5, 1.0, 0.5]]).repeat(256, 1)
+d = torch.nn.functional.normalize(torch.randn(256, 3,
+                                  generator=torch.Generator().manual_seed(1)))
+ref = traverse_stack.traverse_closest(s.scene.wbvh, o, d, 3.4e38)
+assert int((ref.prim >= 0).sum()) > 200
+blocked = traverse_stack.traverse_any(s.scene.wbvh, o, d, 0.5)
+assert 0 < int(blocked.sum()) < 256
+for sched in ("vlist", "rounds"):
+    os.environ["FLUCTUS_BRUTE_SCHED"] = sched
+    r = traverse_brute.traverse_closest(bf, o, d, 3.4e38)
+    assert bool((r.prim == ref.prim).all()), sched
+    assert torch.equal(traverse_brute.traverse_any(bf, o, d, 0.5), blocked)
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked

@@ -1,8 +1,9 @@
-"""Kernel K1 (fluctus_tpu_torch/csrc/traverse_stack.cu) against its plain
-version, on the card. These need an NVIDIA card with nvcc, so they carry
-the `cuda` marker and skip elsewhere; run them on the card with
+"""Kernels K1 (fluctus_tpu_torch/csrc/traverse_stack.cu), K2 and K3
+(csrc/traverse_brute.cu) against their plain versions, on the card. These
+need an NVIDIA card with nvcc, so they carry the `cuda` marker and skip
+elsewhere; the file imports no JAX, so it runs on the card with
 
-    python -m pytest tests/test_torch_kernels.py -m cuda
+    python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 """
 import numpy as np
 import pytest
@@ -17,7 +18,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture(scope="module")
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (K1 has no CPU build)")
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
     ts.load_kernel()
     return torch.device("cuda")
 
@@ -84,3 +85,80 @@ def test_k1_counts_launches(card, kitchen):
     ts.traverse_any(w, o, d, t)
     assert ts.LAUNCHES == {"closest": 1, "any": 1}
     assert ts.PLAIN_CALLS == {"closest": 0, "any": 0}
+
+
+# ---------------------------------------------------------------- K2, K3
+# Kernels K2 and K3 (fluctus_tpu_torch/csrc/traverse_brute.cu) against
+# their plain versions through the same scheduler: the same visit slots
+# reach both, so the results are bit-equal.
+
+@pytest.fixture(scope="module")
+def brute(card):
+    from fluctus_tpu_torch.accel.forest import build_brute_forest
+    from fluctus_tpu_torch.convert import brute_from_numpy
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    tb.load_kernel()
+    host = load_scene("assets/kitchen_proxy.obj")
+    hb = build_brute_forest(host.v0, host.v1, host.v2, target_tris=2048)
+    bf = brute_from_numpy({f: getattr(hb, f) for f in
+                           ("tris", "boxes", "boxes_t", "tboxes", "tile")},
+                          device=card)
+    return host, bf
+
+
+def _brute_launchers(sched):
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    if sched == "vlist":
+        return tb.vlaunch_kernel, tb.vlaunch_plain
+    return tb.launch_kernel, tb.launch_plain
+
+
+@pytest.mark.parametrize("sched", ["vlist", "rounds"])
+def test_k2_k3_closest_equal_plain(card, brute, sched, monkeypatch):
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    monkeypatch.setenv("FLUCTUS_BRUTE_SCHED", sched)
+    host, bf = brute
+    o, d, t = _rays(host, 4096, 4, card)
+    kern, plain = _brute_launchers(sched)
+    k, kx = tb.traverse_closest(bf, o, d, t, with_flag=True, launch=kern)
+    p, px = tb.traverse_closest(bf, o, d, t, with_flag=True, launch=plain)
+    torch.cuda.synchronize()
+    assert not kx and not px
+    assert torch.equal(k.prim, p.prim) and torch.equal(k.t, p.t)
+    assert torch.equal(k.u, p.u) and torch.equal(k.v, p.v)
+    assert int((k.prim >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("sched", ["vlist", "rounds"])
+def test_k2_k3_any_equal_plain(card, brute, sched, monkeypatch):
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    monkeypatch.setenv("FLUCTUS_BRUTE_SCHED", sched)
+    host, bf = brute
+    o, d, t = _rays(host, 4096, 5, card)
+    kern, plain = _brute_launchers(sched)
+    k = tb.traverse_any(bf, o, d, t, launch=kern)
+    p = tb.traverse_any(bf, o, d, t, launch=plain)
+    assert torch.equal(k, p) and 0 < int(k.sum()) < 4096
+
+
+def test_k2_k3_count_launches_and_refuse_bad_input(card, brute, monkeypatch):
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    host, bf = brute
+    o, d, t = _rays(host, 300, 6, card)      # pads to a block multiple
+    tb.reset_counts()
+    tb.traverse_closest(bf, o, d, t)
+    tb.traverse_any(bf, o, d, t)
+    assert tb.LAUNCHES["k2_closest"] > 0 and tb.LAUNCHES["k2_any"] > 0
+    monkeypatch.setenv("FLUCTUS_BRUTE_SCHED", "rounds")
+    tb.traverse_closest(bf, o, d, t)
+    assert tb.LAUNCHES["k3_closest"] > 0
+    assert sum(tb.PLAIN_CALLS.values()) == 0
+    with pytest.raises(ValueError, match="K2"):
+        tb.vlaunch_kernel(torch.zeros(8, dtype=torch.int64, device=card),
+                          torch.zeros(8, dtype=torch.int32, device=card),
+                          bf.tris, bf.tboxes,
+                          torch.zeros((128, 8), device=card),
+                          *[torch.zeros((128, 1), dtype=dt, device=card)
+                            for dt in (torch.float32, torch.int32,
+                                       torch.float32, torch.float32)],
+                          False, 128, bf.tile, 8, 1)
