@@ -2,21 +2,28 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1, K2 and K3 from fluctus_tpu_torch/csrc (one nvcc per
-source, started together). Kitchen: holds K1 against its plain PyTorch
+Builds kernels K1, K2+K3, K5 and K4 from fluctus_tpu_torch/csrc (one nvcc
+per source, started together). Kitchen: holds K1 against its plain PyTorch
 version on the scene's rays, renders the kitchen (lockstep, 512x512,
 8 bounces, 16 spp) through the port's entry points, checks that the frame
 went through K1, and holds two small renders against the committed
-goldens. Conference (232k triangles, above the fast-big cutover, so its
+goldens. Then the packet path: holds K4 against its plain version, times
+it beside K1, renders the kitchen under backend="pallas" (512x512,
+8 bounces, 4 spp) through K4 only, and holds the same two goldens
+through K4. Conference (232k triangles, above the fast-big cutover, so its
 session holds a brute-chunk forest and no hierarchy): holds K2 and K3
 against their plain versions through the same schedulers, times them
 beside K1 on a full hierarchy of the same scene, renders the conference
 (lockstep, 512x512, 6 bounces, 4 spp) and checks that it went through K2
 only, and holds the conference golden through K2 and, under
-FLUCTUS_BRUTE_SCHED=rounds, through K3. Each phase prints one line with
-its wall time; the last three lines are the kernels record, the card and
-the device record. Any failed check raises, so the script exits non-zero.
-It needs a CUDA device and the repository around it.
+FLUCTUS_BRUTE_SCHED=rounds, through K3. Then the treelet path: a
+FLUCTUS_FOREST=treelet session of the conference (SBVH hierarchy and
+treelet forest), K5 against its plain version under both schedulers and
+against K1 on the session's hierarchy, K5's times, the same frame through
+K5 only, and the conference golden through K5. Each phase prints one line
+with its wall time; the last three lines are the kernels record, the card
+and the device record. Any failed check raises, so the script exits
+non-zero. It needs a CUDA device and the repository around it.
 """
 from __future__ import annotations
 
@@ -94,6 +101,12 @@ def time_cuda(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def larger(t_bytes, t_ops):
+    """The bound and what binds it: the larger of the byte time and the
+    operation time."""
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def kitchen_cfg(width, height, max_bounces=8):
     from fluctus_tpu_torch.core.types import RenderConfig
     return RenderConfig(width=width, height=height, max_bounces=max_bounces,
@@ -158,7 +171,7 @@ def bound_ms(bvh, n_rays, stats, any_hit):
            + stats["tri_tests"] * OPS_PER_TRI)
     t_bytes = (table + io) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_INSTR_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return larger(t_bytes, t_ops)
 
 
 def phase_kernel(sess, n_extra=1 << 17, tile=1 << 16):
@@ -247,72 +260,24 @@ def phase_kernel(sess, n_extra=1 << 17, tile=1 << 16):
     return out
 
 
-def phase_frame(sess, spp: int, card: str):
-    """The slice: one lockstep frame through the entry points, counts read
-    around exactly this call."""
-    import torch
-    from fluctus_tpu_torch.ops import traverse_stack as ts
-    from fluctus_tpu_torch.render import driver
-    from fluctus_tpu_torch.render.benchmark import ray_counts_per_sample
-
-    t0 = time.perf_counter()
-    ts.reset_counts()
-    img = driver.render(sess, spp, integrator="lockstep")
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(ts.LAUNCHES)
-    plain = dict(ts.PLAIN_CALLS)
-    cfg = sess.cfg
-    n = cfg.width * cfg.height * spp
-    prim, ext, shadow = ray_counts_per_sample(cfg, n)
-    check(launches["closest"] > 0 and launches["any"] > 0,
-          f"frame did not launch K1 in both forms: {launches}")
-    check(sum(plain.values()) == 0, f"plain traversal ran: {plain}")
-    check(tuple(img.shape) == (cfg.height, cfg.width, 3), "image shape")
-    check(bool(torch.isfinite(img).all()), "image has non-finite values")
-    check(bool((img >= 0).all()), "image has negative values")
-    say("frame", t0,
-        f"kitchen {cfg.width}x{cfg.height} {spp} spp, {cfg.max_bounces} "
-        f"bounces: {secs:.3f} s, {(prim + ext + shadow) / secs / 1e6:.3f} "
-        f"MRays/s analytic, {n / secs / 1e6:.4f} Msamples/s, K1 launches "
-        f"{launches}, plain calls {plain}, mean radiance "
-        f"{float(img.mean()):.5f}, on {card}")
-    return secs, launches, img
-
-
-def phase_goldens(dev):
-    import numpy as np
+def golden_sessions(dev, backend="auto"):
+    """The 64x64 golden sessions: {name: (session, spp)}."""
     import torch
     from fluctus_tpu_torch.core.types import AreaLight
     from fluctus_tpu_torch.render import driver
 
-    t0 = time.perf_counter()
     cornell = driver.create_session(
-        CORNELL, cfg=kitchen_cfg(64, 64, max_bounces=4), state_dir=None,
-        device=dev)
+        CORNELL, cfg=kitchen_cfg(64, 64, max_bounces=4).replace(
+            backend=backend), state_dir=None, device=dev)
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
     cornell.params = dataclasses.replace(cornell.params, area_light=AreaLight(
         pos=f([0.0, 3.95, 0.0]), right=f([1.0, 0.0, 0.0]),
         up=f([0.0, 0.0, -1.0]), normal=f([0.0, -1.0, 0.0]),
         emission=f([15.0, 15.0, 15.0]), size=f([1.0, 1.0])))
-    kitchen = driver.create_session(KITCHEN, cfg=kitchen_cfg(64, 64),
-                                    state_dir=STATES, auto_frame=False,
-                                    device=dev)
-    for name, sess, spp in (("cornell_area", cornell, 8),
-                            ("kitchen_cfg3", kitchen, 4)):
-        img = driver.render(sess, spp).cpu().numpy()
-        gold = np.load(os.path.join(GOLDENS, f"{name}.npz"))["img"]
-        within = np.isclose(img, gold, rtol=RTOL, atol=ATOL).all(-1)
-        share = float(within.mean())
-        mean_rel = float(np.abs(img - gold).mean() / np.abs(gold).mean())
-        need_share, need_rel = GOLDEN_LIMITS[name]
-        say("golden", t0,
-            f"{name}: {share * 100:.3f}% of pixels within rtol {RTOL} / "
-            f"atol {ATOL} (need {need_share * 100:.1f}%), mean relative "
-            f"error {mean_rel:.3e} (need <= {need_rel:.0e}), max "
-            f"abs diff {float(np.abs(img - gold).max()):.3e}")
-        check(share >= need_share and mean_rel <= need_rel,
-              f"golden {name} not held on the card")
+    kitchen = driver.create_session(
+        KITCHEN, cfg=kitchen_cfg(64, 64).replace(backend=backend),
+        state_dir=STATES, auto_frame=False, device=dev)
+    return {"cornell_area": (cornell, 8), "kitchen_cfg3": (kitchen, 4)}
 
 
 # ------------------------------------------------------------ big scene
@@ -449,7 +414,7 @@ def brute_bound(sched, calls, stats_list):
         ops += st["slab_tests"] * OPS_PER_CHILD + st["tri_tests"] * OPS_PER_TRI
     t_bytes = byts / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_INSTR_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return larger(t_bytes, t_ops)
 
 
 def phase_brute_time(bf, rays, sched, wbvh_full):
@@ -511,94 +476,20 @@ def conference_cfg(width, height):
     return kitchen_cfg(width, height, max_bounces=6)
 
 
-def phase_frame_big(sess, spp: int, card: str):
-    """The big-scene slice: one lockstep frame of the conference through
-    the entry points; K2 only, counts read around exactly this call."""
-    import torch
-    from fluctus_tpu_torch.ops import traverse_brute as tb
-    from fluctus_tpu_torch.ops import traverse_stack as ts
-    from fluctus_tpu_torch.render import driver
-    from fluctus_tpu_torch.render.benchmark import ray_counts_per_sample
-
-    t0 = time.perf_counter()
-    ts.reset_counts()
-    tb.reset_counts()
-    img = driver.render(sess, spp, integrator="lockstep")
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(tb.LAUNCHES)
-    plain = {**tb.PLAIN_CALLS, **{f"k1_{k}": v
-                                  for k, v in ts.PLAIN_CALLS.items()}}
-    cfg = sess.cfg
-    n = cfg.width * cfg.height * spp
-    prim, ext, shadow = ray_counts_per_sample(cfg, n)
-    check(launches["k2_closest"] > 0 and launches["k2_any"] > 0,
-          f"conference frame did not launch K2 in both forms: {launches}")
-    check(launches["k3_closest"] + launches["k3_any"] == 0,
-          f"conference frame launched K3: {launches}")
-    check(sum(ts.LAUNCHES.values()) == 0,
-          f"conference frame launched K1: {ts.LAUNCHES}")
-    check(sum(plain.values()) == 0, f"plain traversal ran: {plain}")
-    check(tuple(img.shape) == (cfg.height, cfg.width, 3), "image shape")
-    check(bool(torch.isfinite(img).all()), "image has non-finite values")
-    check(bool((img >= 0).all()), "image has negative values")
-    say("frame-big", t0,
-        f"conference {cfg.width}x{cfg.height} {spp} spp, "
-        f"{cfg.max_bounces} bounces: {secs:.3f} s, "
-        f"{(prim + ext + shadow) / secs / 1e6:.3f} MRays/s analytic, "
-        f"{n / secs / 1e6:.4f} Msamples/s, launches {launches}, plain "
-        f"calls {plain}, mean radiance {float(img.mean()):.5f}, on {card}")
-    return secs, launches
-
-
 def phase_golden_big():
     """conference.npz (64x64, 6 bounces, 4 spp) through K2 and, under
     FLUCTUS_BRUTE_SCHED=rounds, through K3. The rounds render is K3's path
     run: its counts are read around it."""
-    import numpy as np
-    import torch
-    from fluctus_tpu_torch.ops import traverse_brute as tb
-    from fluctus_tpu_torch.ops import traverse_stack as ts
     from fluctus_tpu_torch.render import driver
 
-    t0 = time.perf_counter()
     sess = driver.create_session(CONFERENCE, cfg=conference_cfg(64, 64),
                                  state_dir=STATES, auto_frame=False,
                                  device="cuda")
     check(sess.scene.bforest is not None and sess.scene.wbvh is None,
           "conference golden session is not a brute-forest session")
-    gold = np.load(os.path.join(GOLDENS, "conference.npz"))["img"]
-    counts = {}
-    for sched in ("vlist", "rounds"):
-        ts.reset_counts()
-        tb.reset_counts()
-        with env(FLUCTUS_BRUTE_SCHED=sched):
-            img = driver.render(sess, 4).cpu().numpy()
-        torch.cuda.synchronize()
-        counts[sched] = dict(tb.LAUNCHES)
-        k = KERNEL_OF[sched].lower()
-        other = "k3" if k == "k2" else "k2"
-        check(counts[sched][f"{k}_closest"] > 0
-              and counts[sched][f"{k}_any"] > 0,
-              f"{sched} golden did not launch {k} in both forms")
-        check(counts[sched][f"{other}_closest"] + counts[sched][f"{other}_any"]
-              + sum(ts.LAUNCHES.values()) == 0,
-              f"{sched} golden launched other kernels: {counts[sched]}")
-        check(sum(tb.PLAIN_CALLS.values()) == 0, "plain traversal ran")
-        within = np.isclose(img, gold, rtol=RTOL, atol=ATOL).all(-1)
-        share = float(within.mean())
-        mean_rel = float(np.abs(img - gold).mean() / np.abs(gold).mean())
-        need_share, need_rel = GOLDEN_LIMITS["conference"]
-        say("golden", t0,
-            f"conference through {KERNEL_OF[sched]} ({sched}): "
-            f"{share * 100:.3f}% of pixels within rtol {RTOL} / atol {ATOL}"
-            f" (need {need_share * 100:.1f}%), mean relative error "
-            f"{mean_rel:.3e} (need <= {need_rel:.0e}), max abs diff "
-            f"{float(np.abs(img - gold).max()):.3e}; launches "
-            f"{counts[sched]}")
-        check(share >= need_share and mean_rel <= need_rel,
-              f"golden conference not held through {KERNEL_OF[sched]}")
-    return counts["rounds"]
+    phase_golden_only(sess, "conference", 4, "K2")
+    with env(FLUCTUS_BRUTE_SCHED="rounds"):
+        return phase_golden_only(sess, "conference", 4, "K3")
 
 
 def full_hierarchy(host):
@@ -607,6 +498,359 @@ def full_hierarchy(host):
     with env(FLUCTUS_FAST_BIG="0"):
         host.bvh = None
         return host.to_device("cuda").wbvh
+
+
+
+# ------------------------------------------------------------ packets (K4)
+
+def sorted_by_ray_sort(bvh, o, d, t):
+    """Rays in the order the integrator hands them to K4: sorted by octant
+    and Morton code over the hierarchy's bounds."""
+    from fluctus_tpu_torch.ops import ray_sort
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    lo, hi = tp.wbvh_bounds(bvh)
+    order, _ = ray_sort.sort_order(o, d, lo, hi)
+    return o[order].contiguous(), d[order].contiguous(), t[order].contiguous()
+
+
+def phase_packet_check(sess):
+    """K4 against its plain version on the kitchen's kernel rays (seed 7,
+    as K1's check), sorted as the integrator sorts them, both forms."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+
+    t0 = time.perf_counter()
+    bvh = sess.scene.wbvh
+    o, d, t_c, o_s, d_s, t_s = kernel_rays(sess, 1 << 17, seed=7)
+    o, d, t_c = sorted_by_ray_sort(bvh, o, d, t_c)
+    o_s, d_s, t_s = sorted_by_ray_sort(bvh, o_s, d_s, t_s)
+    kc = tp.traverse_closest(bvh, o, d, t_c, launch=tp.packet_kernel)
+    pc = tp.traverse_closest(bvh, o, d, t_c, launch=tp.packet_plain)
+    ka = tp.traverse_any(bvh, o_s, d_s, t_s, launch=tp.packet_kernel)
+    pa = tp.traverse_any(bvh, o_s, d_s, t_s, launch=tp.packet_plain)
+    torch.cuda.synchronize()
+    n_mis, n_ties, t_rel, t_abs = compare_closest(kc, pc)
+    uv_equal = bool(torch.equal(kc.u, pc.u) and torch.equal(kc.v, pc.v))
+    t_equal = bool(torch.equal(kc.t, pc.t))
+    flag_mis = int((ka != pa).sum())
+    say("k4-check", t0,
+        f"K4 vs its plain version on the same sorted packets: closest "
+        f"{o.shape[0]} rays, {int((kc.prim >= 0).sum())} hits, prim "
+        f"mismatches {n_mis} (+{n_ties} equal-t ties), t bit-equal "
+        f"{t_equal}, u/v bit-equal {uv_equal}; any-hit {o_s.shape[0]} rays, "
+        f"{int(ka.sum())} blocked, flag mismatches {flag_mis}")
+    check(n_mis == 0 and n_ties == 0 and t_equal and uv_equal,
+          "K4 closest results differ from the plain version")
+    check(flag_mis == 0, "K4 any-hit flags differ from the plain version")
+    return t_abs, flag_mis
+
+
+def packet_bound(bvh, n_rays, stats):
+    """K4's packet-lane bound: bytes as K1's bound, or the slab tests of
+    the occupied child slots and the Moller tests of the real triangles
+    of every visited row, times the packet's real lanes, over the f32
+    instruction rate: (bytes ms, operations ms). It counts what the packet
+    design makes every lane do; `bound_ms` on K1's per-ray counts is what
+    the same closest hits need."""
+    table = (bvh.nodes.numel() + bvh.leaves.numel()) * 4
+    t_bytes = (table + n_rays * (28 + 16)) / HBM_BYTES_PER_S * 1e3
+    ops = (stats["child_tests"] * OPS_PER_CHILD
+           + stats["tri_tests"] * OPS_PER_TRI)
+    return t_bytes, ops / F32_INSTR_PER_S * 1e3
+
+
+def phase_packet_time(sess, tile=1 << 16):
+    """Per 65,536-ray K4 call, on the tiles K1's timing uses, each sorted
+    as the integrator sorts it: kernel ms, plain ms, the bound on K1's
+    per-ray counts of the same rays (reported as the kernel's bound) and
+    the packet-lane bound beside it, K1 on the same rays, and the packet
+    visits."""
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+
+    bvh = sess.scene.wbvh
+    o, d, t_c, o_s, d_s, t_s = kernel_rays(sess, 1 << 17, seed=7)
+    n_p = o.shape[0] - (1 << 17)
+    sets = {"closest": [(o[:tile], d[:tile], t_c[:tile]),
+                        (o[n_p:n_p + tile], d[n_p:n_p + tile],
+                         t_c[n_p:n_p + tile])],
+            "any": [(o_s[:tile], d_s[:tile], t_s[:tile])]}
+    out = {}
+    for form, rays in sets.items():
+        t1 = time.perf_counter()
+        anyh = form == "any"
+        stats: dict = {}
+        ray_stats: dict = {}
+        k_ms = p_ms = k1_ms = 0.0
+        for ro, rd, rt in rays:
+            ro, rd, rt = sorted_by_ray_sort(bvh, ro, rd, rt)
+            a = tp._prep(ro, rd, rt)[:3]
+            tp.packet_plain(*a, bvh, anyh, n_real=tile, stats=stats)
+            ts.traverse_plain(bvh, ro, rd, rt, anyh, stats=ray_stats)
+            run_k = lambda: tp.packet_kernel(*a, bvh, anyh)
+            run_p = lambda: tp.packet_plain(*a, bvh, anyh)
+            p1 = time_cuda(run_p, 1)
+            k1 = time_cuda(run_k, 10)
+            k2 = time_cuda(run_k, 10)
+            p2 = time_cuda(run_p, 1)
+            k_ms += (k1 + k2) / 2
+            p_ms += (p1 + p2) / 2
+            k1_ms += time_cuda(
+                lambda: ts.traverse_kernel(bvh, ro, rd, rt, anyh), 10)
+        n = len(rays)
+        b_ms, b_by = bound_ms(bvh, tile * n, ray_stats, anyh)
+        b_ms /= n
+        pk_bytes, pk_ops = (x / n for x in packet_bound(bvh, tile * n, stats))
+        pk_ms, pk_by = larger(pk_bytes, pk_ops)
+        out[form] = dict(ms=k_ms / n, plain_ms=p_ms / n, bound_ms=b_ms,
+                         bound_by=b_by, packet_bound_ms=pk_ms,
+                         k1_ms=k1_ms / n)
+        r = out[form]
+        say("k4-time", t1,
+            f"{form}: {r['ms']:.3f} ms per {tile}-ray launch (plain "
+            f"{r['plain_ms']:.1f} ms), bound {b_ms:.4f} ms by {b_by} on "
+            f"K1's per-ray counts ({ray_stats['child_tests'] / (n * tile):.1f}"
+            f" child slab and {ray_stats['tri_tests'] / (n * tile):.1f} "
+            f"triangle tests per ray); packet-lane bound {pk_ms:.4f} ms by "
+            f"{pk_by} (bytes {pk_bytes:.4f} ms, operations {pk_ops:.4f} ms; "
+            f"per packet {stats['node_visits'] / (n * tile / 512):.1f} node "
+            f"and {stats['leaf_visits'] / (n * tile / 512):.1f} leaf "
+            f"visits, per ray {stats['child_tests'] / (n * tile):.1f} child "
+            f"slab and {stats['tri_tests'] / (n * tile):.1f} triangle "
+            f"tests); K1 on the same rays {r['k1_ms']:.4f} ms")
+    return out
+
+
+# ------------------------------------------------------------ treelet (K5)
+
+def forest_bound(ft, n_rays, any_hit, stats_list):
+    """Least time for one K5 traversal call: bytes (the call's rays in and
+    hits out once, the chunk boxes once, and the real rows of every chunk
+    the call walks once, pad rows left out) over HBM bandwidth, or the
+    slab tests of the occupied child slots and the Moller tests of the
+    real triangles of the rows the walks visit over the f32 instruction
+    rate: (bytes ms, operations ms). The scheduler's extra launches, pad
+    slots and re-read tables are the port's cost, not the function's."""
+    import torch
+    walked = sorted(set().union(*(s.get("chunks_walked", set())
+                                  for s in stats_list)))
+    sel = torch.as_tensor(walked, dtype=torch.long, device=ft.nodes.device)
+    node_rows = int(torch.isfinite(ft.nodes[sel][:, :, 0:48:6]).any(-1)
+                    .sum())
+    ids = ft.leaves[sel][..., 9].contiguous().view(torch.int32)
+    leaf_rows = int((ids >= 0).any(-1).sum())
+    byts = (node_rows * NODE_ROW_BYTES + leaf_rows * ft.leaf_width * 10 * 4
+            + ft.boxes.numel() * 4 + n_rays * (28 + (1 if any_hit else 16)))
+    ops = sum(s["child_tests"] * OPS_PER_CHILD + s["tri_tests"] * OPS_PER_TRI
+              for s in stats_list)
+    return byts / HBM_BYTES_PER_S * 1e3, ops / F32_INSTR_PER_S * 1e3
+
+
+def phase_forest_check(ft, wbvh, rays):
+    """K5 against its plain version through the same scheduler, both
+    schedulers and forms, on the conference's 65,536-ray subsets; and K5
+    against K1 over the session's own full hierarchy."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+
+    o, d, t_c, o_s, d_s, t_s = rays
+    err = {}
+    for mode in tf.MODES:
+        t0 = time.perf_counter()
+        kc = tf.traverse_closest(ft, o, d, t_c, mode=mode,
+                                 launch=tf.launch_kernel)
+        pc = tf.traverse_closest(ft, o, d, t_c, mode=mode,
+                                 launch=tf.launch_plain)
+        ka = tf.traverse_any(ft, o_s, d_s, t_s, mode=mode,
+                             launch=tf.launch_kernel)
+        pa = tf.traverse_any(ft, o_s, d_s, t_s, mode=mode,
+                             launch=tf.launch_plain)
+        torch.cuda.synchronize()
+        n_mis, n_ties, t_rel, t_abs = compare_closest(kc, pc)
+        t_equal = bool(torch.equal(kc.t, pc.t))
+        uv_equal = bool(torch.equal(kc.u, pc.u) and torch.equal(kc.v, pc.v))
+        flag_mis = int((ka != pa).sum())
+        k1c = ts.traverse_kernel(wbvh, o, d, t_c, any_hit=False)
+        k1a = ts.traverse_kernel(wbvh, o_s, d_s, t_s, any_hit=True)
+        k1_mis, k1_ties, k1_rel, _ = compare_closest(kc, k1c)
+        k1_flag = int((ka != k1a).sum())
+        say("k5-check", t0,
+            f"K5 ({mode}) vs its plain version through the same scheduler, "
+            f"{o.shape[0]} closest rays ({o.shape[0] // 2} primary, the rest"
+            f" bounce) and {o_s.shape[0]} shadow rays: closest "
+            f"{int((kc.prim >= 0).sum())} hits, prim mismatches {n_mis} "
+            f"(+{n_ties} equal-t ties), t bit-equal {t_equal}, u/v bit-equal"
+            f" {uv_equal}; any-hit {int(ka.sum())} blocked, flag mismatches "
+            f"{flag_mis}. Against K1 over the session's hierarchy: prim "
+            f"mismatches {k1_mis} (+{k1_ties} ties), max rel t err "
+            f"{k1_rel:.3e}, flag mismatches {k1_flag}")
+        check(n_mis == 0 and n_ties == 0 and t_equal and uv_equal,
+              f"K5 ({mode}) closest results differ from the plain version")
+        check(flag_mis == 0, f"K5 ({mode}) any-hit flags differ from the "
+              "plain version")
+        check(k1_mis == 0 and k1_rel <= T_REL_TOL and k1_flag == 0,
+              f"K5 ({mode}) and K1 disagree on the conference")
+        err[mode] = (t_abs, flag_mis)
+    return err
+
+
+def phase_forest_time(ft, wbvh, rays):
+    """Per 65,536-ray call under each scheduler: K5's time summed over the
+    call's launches (replayed on the recorded inputs), launches (rounds or
+    passes) per call, the whole call with the scheduler's PyTorch work,
+    the plain version's time on the same inputs, the bound, and K1 on the
+    same rays over the session's hierarchy."""
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+
+    o, d, t_c, o_s, d_s, t_s = rays
+    out = {}
+    for mode in tf.MODES:
+        for form, (ro, rd, rt) in (("closest", (o, d, t_c)),
+                                   ("any", (o_s, d_s, t_s))):
+            t0 = time.perf_counter()
+            anyh = form == "any"
+            trav = tf.traverse_any if anyh else tf.traverse_closest
+            rec = Recorder(tf.launch_kernel)
+            trav(ft, ro, rd, rt, mode=mode, launch=rec)
+            call_ms = time_cuda(lambda: trav(ft, ro, rd, rt, mode=mode), 3)
+            stats_list = []
+            for args in rec.calls:
+                st: dict = {}
+                tf.launch_plain(*args, stats=st)
+                stats_list.append(st)
+            p1 = sum(time_cuda(lambda: tf.launch_plain(*a), 1)
+                     for a in rec.calls)
+            k1 = sum(time_cuda(lambda: tf.launch_kernel(*a), 10)
+                     for a in rec.calls)
+            k2 = sum(time_cuda(lambda: tf.launch_kernel(*a), 10)
+                     for a in rec.calls)
+            p2 = sum(time_cuda(lambda: tf.launch_plain(*a), 1)
+                     for a in rec.calls)
+            t_bytes, t_ops = forest_bound(ft, ro.shape[0], anyh, stats_list)
+            b_ms, b_by = larger(t_bytes, t_ops)
+            k1_ms = time_cuda(
+                lambda: ts.traverse_kernel(wbvh, ro, rd, rt, anyh), 10)
+            n = ro.shape[0]
+            child = sum(s["child_tests"] for s in stats_list)
+            tri = sum(s["tri_tests"] for s in stats_list)
+            out[(mode, form)] = dict(
+                ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                bound_by=b_by, launches_per_call=len(rec.calls),
+                call_ms=call_ms, k1_ms=k1_ms)
+            r = out[(mode, form)]
+            unit = "rounds" if mode == "workqueue" else "passes"
+            say("k5-time", t0,
+                f"{mode} {form}: {r['ms']:.3f} ms of K5 per {n}-ray call, "
+                f"{len(rec.calls)} {unit} per call; whole call with its "
+                f"scheduler {call_ms:.3f} ms; plain {r['plain_ms']:.1f} ms; "
+                f"bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, "
+                f"operations {t_ops:.4f} ms; {child / n:.1f} child slab "
+                f"and {tri / n:.1f} Moller tests per ray); K1 on the same "
+                f"rays over the session's hierarchy {k1_ms:.4f} ms")
+    return out
+
+
+def launch_counts(field: str = "LAUNCHES") -> dict:
+    """{kernel: {"closest": n, "any": n}} from the wrappers' counters
+    (`LAUNCHES`, or `PLAIN_CALLS` for the plain versions)."""
+    from fluctus_tpu_torch.ops import (traverse_brute, traverse_forest,
+                                       traverse_pallas, traverse_stack)
+    brute = getattr(traverse_brute, field)
+    return {"K1": dict(getattr(traverse_stack, field)),
+            "K2": {f: brute[f"k2_{f}"] for f in ("closest", "any")},
+            "K3": {f: brute[f"k3_{f}"] for f in ("closest", "any")},
+            "K5": dict(getattr(traverse_forest, field)),
+            "K4": dict(getattr(traverse_pallas, field))}
+
+
+def reset_counts() -> None:
+    from fluctus_tpu_torch.ops import (traverse_brute, traverse_forest,
+                                       traverse_pallas, traverse_stack)
+    for m in (traverse_stack, traverse_brute, traverse_forest,
+              traverse_pallas):
+        m.reset_counts()
+
+
+def traced_only(kernel: str, what: str) -> dict:
+    """Fail unless, since the last reset_counts, `kernel` launched in both
+    forms, no other traversal kernel launched and no plain version ran.
+    Returns the kernel's launches."""
+    launches = launch_counts()
+    mine = launches.pop(kernel)
+    check(mine["closest"] > 0 and mine["any"] > 0,
+          f"{what} did not launch {kernel} in both forms: {mine}")
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          f"{what} launched other kernels: {launches}")
+    plain = launch_counts("PLAIN_CALLS")
+    check(all(v == 0 for d in plain.values() for v in d.values()),
+          f"plain traversal ran in {what}: {plain}")
+    return mine
+
+
+def phase_frame_only(sess, spp: int, card: str, phase: str, kernel: str,
+                     what: str):
+    """One lockstep frame through the entry points that must trace through
+    `kernel` (a key of launch_counts) only, in both forms; counts read
+    around exactly this call."""
+    import torch
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.render.benchmark import ray_counts_per_sample
+
+    t0 = time.perf_counter()
+    reset_counts()
+    img = driver.render(sess, spp, integrator="lockstep")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cfg = sess.cfg
+    n = cfg.width * cfg.height * spp
+    prim, ext, shadow = ray_counts_per_sample(cfg, n)
+    mine = traced_only(kernel, f"the {what} frame")
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3), "image shape")
+    check(bool(torch.isfinite(img).all()), "image has non-finite values")
+    check(bool((img >= 0).all()), "image has negative values")
+    say(phase, t0,
+        f"{what} {cfg.width}x{cfg.height} {spp} spp, {cfg.max_bounces} "
+        f"bounces: {secs:.3f} s, {(prim + ext + shadow) / secs / 1e6:.3f} "
+        f"MRays/s analytic, {n / secs / 1e6:.4f} Msamples/s, {kernel} "
+        f"launches {mine}, no other kernel or plain version, mean radiance"
+        f" {float(img.mean()):.5f}, on {card}")
+    return secs, mine
+
+
+def golden_check(name, img, gold, t0, what):
+    """Hold one render against its golden at GOLDEN_LIMITS[name]."""
+    import numpy as np
+    within = np.isclose(img, gold, rtol=RTOL, atol=ATOL).all(-1)
+    share = float(within.mean())
+    mean_rel = float(np.abs(img - gold).mean() / np.abs(gold).mean())
+    need_share, need_rel = GOLDEN_LIMITS[name]
+    say("golden", t0,
+        f"{name} through {what}: {share * 100:.3f}% of pixels within rtol "
+        f"{RTOL} / atol {ATOL} (need {need_share * 100:.1f}%), mean relative"
+        f" error {mean_rel:.3e} (need <= {need_rel:.0e}), max abs diff "
+        f"{float(np.abs(img - gold).max()):.3e}")
+    check(share >= need_share and mean_rel <= need_rel,
+          f"golden {name} not held through {what}")
+
+
+def phase_golden_only(sess, name, spp, kernel):
+    """Render `sess` and hold it against golden `name`, checking that only
+    `kernel` (a key of launch_counts) traced, in both forms. Returns its
+    launches."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.render import driver
+
+    t0 = time.perf_counter()
+    reset_counts()
+    img = driver.render(sess, spp).cpu().numpy()
+    torch.cuda.synchronize()
+    mine = traced_only(kernel, f"golden {name}")
+    gold = np.load(os.path.join(GOLDENS, f"{name}.npz"))["img"]
+    golden_check(name, img, gold, t0, f"{kernel} only ({mine})")
+    return mine
 
 
 def main() -> int:
@@ -618,6 +862,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import fluctus_tpu_torch   # noqa: F401  (fails outside the repository)
     from fluctus_tpu_torch.ops import traverse_brute as tb
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
     from fluctus_tpu_torch.ops import traverse_stack as ts
     from fluctus_tpu_torch.render import driver
 
@@ -628,10 +874,12 @@ def main() -> int:
         f"{torch.version.cuda} | python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:      # one nvcc per source, together
-        for f in [pool.submit(ts.load_kernel), pool.submit(tb.load_kernel)]:
+    mods = (ts, tb, tf, tp)
+    with ThreadPoolExecutor(len(mods)) as pool:   # one nvcc per source
+        for f in [pool.submit(m.load_kernel) for m in mods]:
             f.result()
-    for name, info in (("K1", ts.BUILD_INFO), ("K2+K3", tb.BUILD_INFO)):
+    for name, info in (("K1", ts.BUILD_INFO), ("K2+K3", tb.BUILD_INFO),
+                       ("K5", tf.BUILD_INFO), ("K4", tp.BUILD_INFO)):
         regs = [ln.split(":", 1)[-1].strip()
                 for ln in info["log"].splitlines()
                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
@@ -656,9 +904,25 @@ def main() -> int:
     torch.cuda.synchronize()
     say("warm-up", t0, "64x64 1 spp")
 
-    secs, launches, _ = phase_frame(sess, spp=16, card=card)
-    phase_goldens("cuda")
-    del sess, small
+    secs, launches = phase_frame_only(sess, 16, card, "frame", "K1",
+                                      "kitchen")
+    for name, (gs, spp) in golden_sessions("cuda").items():
+        phase_golden_only(gs, name, spp, "K1")
+
+    # the packet path (K4): backend="pallas" on the same kitchen session
+    k4_err = phase_packet_check(sess)
+    ptimes = phase_packet_time(sess)
+    psess = dataclasses.replace(sess, cfg=sess.cfg.replace(backend="pallas"))
+    t0 = time.perf_counter()
+    driver.render(dataclasses.replace(psess, cfg=psess.cfg.replace(
+        width=64, height=64)), 1)
+    torch.cuda.synchronize()
+    say("warm-up", t0, "kitchen 64x64 1 spp, backend pallas")
+    secs_p, launches_p = phase_frame_only(psess, 4, card, "frame-packet",
+                                          "K4", "kitchen, backend pallas,")
+    for name, (gs, spp) in golden_sessions("cuda", "pallas").items():
+        phase_golden_only(gs, name, spp, "K4")
+    del sess, small, psess
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -701,8 +965,46 @@ def main() -> int:
         width=64, height=64)), 1)
     torch.cuda.synchronize()
     say("warm-up", t0, "conference 64x64 1 spp")
-    secs_big, launches_big = phase_frame_big(big, spp=4, card=card)
+    secs_big, launches_big = phase_frame_only(big, 4, card, "frame-big",
+                                              "K2", "conference")
     launches_k3 = phase_golden_big()
+    del big, bf
+    torch.cuda.empty_cache()
+
+    # the treelet path (K5): FLUCTUS_FOREST=treelet leaves the fast-big
+    # path, so the session builds the SBVH hierarchy and the forest
+    t0 = time.perf_counter()
+    with env(FLUCTUS_FOREST="treelet"):
+        tsess = driver.create_session(CONFERENCE,
+                                      cfg=conference_cfg(512, 512),
+                                      state_dir=STATES, auto_frame=False,
+                                      device="cuda")
+    ft, tw = tsess.scene.ftables, tsess.scene.wbvh
+    check(ft is not None and tw is not None and tsess.scene.bforest is None,
+          "the treelet session holds no treelet forest")
+    say("session-treelet", t0,
+        f"conference under FLUCTUS_FOREST=treelet: session (load + SBVH "
+        f"hierarchy + 8-wide collapse + treelet forest + upload) "
+        f"{time.perf_counter() - t0:.2f} s; hierarchy nodes "
+        f"{tuple(tw.nodes.shape)}, leaves {tuple(tw.leaves.shape)}, depth "
+        f"{tw.depth}, {(tw.nodes.numel() + tw.leaves.numel()) * 4 / 1e6:.1f}"
+        f" MB; forest C={ft.nodes.shape[0]} chunks, nodes "
+        f"{tuple(ft.nodes.shape)}, leaves {tuple(ft.leaves.shape)}, lvl "
+        f"{ft.lvl}, {(ft.nodes.numel() + ft.leaves.numel()) * 4 / 1e6:.1f} "
+        f"MB")
+    trays = brute_rays(tsess, 1 << 16, seed=11)
+    k5_err = phase_forest_check(ft, tw, trays)
+    ftimes = phase_forest_time(ft, tw, trays)
+    t0 = time.perf_counter()
+    driver.render(dataclasses.replace(tsess, cfg=tsess.cfg.replace(
+        width=64, height=64)), 1)
+    torch.cuda.synchronize()
+    say("warm-up", t0, "conference 64x64 1 spp, treelet forest")
+    secs_t, launches_t = phase_frame_only(
+        tsess, 4, card, "frame-treelet", "K5",
+        "conference, FLUCTUS_FOREST=treelet,")
+    phase_golden_only(dataclasses.replace(tsess, cfg=tsess.cfg.replace(
+        width=64, height=64)), "conference", 4, "K5")
 
     kernels = []
     for form, name in (("closest", "K1 traverse_stack closest"),
@@ -727,15 +1029,42 @@ def main() -> int:
                 "name": f"{k} traverse_brute {label}", "route": "cuda",
                 "source": "fluctus_tpu_torch/csrc/traverse_brute.cu",
                 "replaces": replaces,
-                "launches": counts[f"{k.lower()}_{form}"],
+                "launches": counts[form],
                 "max_abs_err": t_abs if form == "closest"
                 else float(flag_mis > 0),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None})
+    for form, label in (("closest", "closest"), ("any", "any-hit")):
+        r = ftimes[("workqueue", form)]
+        t_abs, flag_mis = k5_err["workqueue"]
+        kernels.append({
+            "name": f"K5 traverse_forest {label}", "route": "cuda",
+            "source": "fluctus_tpu_torch/csrc/traverse_forest.cu",
+            "replaces": "fluctus_tpu/ops/traverse_forest.py:151",
+            "launches": launches_t[form],
+            "max_abs_err": t_abs if form == "closest"
+            else float(flag_mis > 0),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    for form, label in (("closest", "closest"), ("any", "any-hit")):
+        r = ptimes[form]
+        t_abs, flag_mis = k4_err
+        kernels.append({
+            "name": f"K4 traverse_packet {label}", "route": "cuda",
+            "source": "fluctus_tpu_torch/csrc/traverse_packet.cu",
+            "replaces": "fluctus_tpu/ops/traverse_pallas.py:60",
+            "launches": launches_p[form],
+            "max_abs_err": t_abs if form == "closest"
+            else float(flag_mis > 0),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     print(f"[total] {time.perf_counter() - _T0:8.2f}s  kitchen frame "
-          f"{secs:.3f} s, conference frame {secs_big:.3f} s on {card}",
-          flush=True)
+          f"{secs:.3f} s, kitchen packet frame {secs_p:.3f} s, conference "
+          f"frame {secs_big:.3f} s (brute), {secs_t:.3f} s (treelet) on "
+          f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,19 @@
-"""Host-side builder of the brute-chunk forest for big scenes (counterpart
-of `fluctus_tpu/accel/forest.py`: `_split_chunks`, `HostBrute`,
-`build_brute_forest`; NumPy only, so its arrays equal the JAX package's
-bit for bit).
+"""Host-side builders of the two big-scene forests (counterpart of
+`fluctus_tpu/accel/forest.py`: `_split_chunks`, `HostBrute`,
+`build_brute_forest`, `HostForest`, `_wrap_leaf_root`,
+`build_host_forest`; their arrays equal the JAX package's bit for bit).
 
-The triangle set is cut by spatial median splits into chunks of at most
-`target_tris` triangles; a chunk carries no hierarchy. Inside a chunk the
-triangles are re-ordered by a second median-split recursion down to
-`tile`, so every run of `tile` consecutive triangles is spatially tight
-and gets its own AABB (`tboxes`), which lets the traversal skip tiles
-that no ray of a block can hit (ops/traverse_brute.py).
+Both cut the triangle set by spatial median splits into chunks of at most
+`target_tris` triangles.
+
+- The brute-chunk forest carries no hierarchy inside a chunk. The
+  triangles are re-ordered by a second median-split recursion down to
+  `tile`, so every run of `tile` consecutive triangles is spatially tight
+  and gets its own AABB (`tboxes`), which lets the traversal skip tiles
+  that no ray of a block can hit (ops/traverse_brute.py).
+- The treelet forest gives every chunk its own 8-wide BVH (SBVH build,
+  8-wide collapse) with global triangle ids in the leaf rows, rooted at
+  node 0, padded to one table shape (ops/traverse_forest.py).
 """
 from __future__ import annotations
 
@@ -16,6 +21,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from fluctus_tpu_torch.accel import bvh as bvh_mod
+from fluctus_tpu_torch.accel.wide import LEAF_WIDTH, build_wide
+
+# triangles per treelet chunk (the JAX package's TARGET_TRIS)
+TARGET_TRIS = 8192
 BRUTE_TARGET_TRIS = 8192
 # triangles per tile AABB; the K2 kernel's Moller tile equals it
 BRUTE_TILE = 128
@@ -101,3 +111,95 @@ def build_brute_forest(v0, v1, v2, target_tris: int = BRUTE_TARGET_TRIS,
     boxes_t[3:6, :c] = boxes[:, 3:6].T
     return HostBrute(tris=tris, boxes=boxes, boxes_t=boxes_t,
                      tboxes=tboxes, tile=tile)
+
+
+@dataclass
+class HostForest:
+    """Stacked, padded per-chunk wide-BVH tables (f32, accel/wide.py row
+    layout). Pad node rows have every child slot empty (lo.x = +inf); pad
+    leaf slots carry triangle id -1."""
+    nodes: np.ndarray     # (C, Tp, 56) f32
+    leaves: np.ndarray    # (C, Lp, W, 10) f32, global triangle ids
+    boxes: np.ndarray     # (C, 8) f32 chunk AABB lo(3) hi(3) pad(2)
+    lvl: int              # max wide depth over chunks + 1
+    leaf_width: int
+
+
+def _wrap_leaf_root(h):
+    """A chunk whose triangles fit one fat leaf gets a one-node wrapper, so
+    every chunk's root is node 0."""
+    if h.root_ref >= 0:
+        return h
+    lv = h.leaves
+    a = lv[:, :, 0:3]
+    b = a + lv[:, :, 3:6]
+    c = a + lv[:, :, 6:9]
+    tid = lv[:, :, 9].view(np.int32)
+    m = (tid >= 0)[..., None]
+    big = np.float32(3e37)
+    lo = np.minimum(np.minimum(np.where(m, a, big).min((0, 1)),
+                               np.where(m, b, big).min((0, 1))),
+                    np.where(m, c, big).min((0, 1)))
+    hi = np.maximum(np.maximum(np.where(m, a, -big).max((0, 1)),
+                               np.where(m, b, -big).max((0, 1))),
+                    np.where(m, c, -big).max((0, 1)))
+    row = np.zeros(56, np.float32)
+    row[0:48:6] = np.inf
+    row[0:3] = lo
+    row[3:6] = hi
+    refs = np.zeros(8, np.int32)
+    refs[0] = h.root_ref
+    row[48:56] = refs.view(np.float32)
+    h.nodes = row[None, :]
+    h.root_ref = 0
+    h.depth = 1
+    return h
+
+
+def build_sbvh(v0, v1, v2):
+    """The per-chunk binary build: the native builder with spatial splits,
+    as the JAX package builds its chunks."""
+    from fluctus_tpu_torch.accel import native
+    return native.build_native(v0, v1, v2, bvh_mod.MAX_LEAF,
+                               bvh_mod.MAX_DEPTH, 1e-5, True)
+
+
+def build_host_forest(v0, v1, v2, leaf_width: int = LEAF_WIDTH,
+                      target_tris: int = TARGET_TRIS) -> HostForest:
+    """Build and stack one wide BVH per spatial chunk (`build_sbvh`, then
+    the 8-wide collapse), with the chunk's triangle ids remapped to global
+    ids and tables padded to a common shape (a multiple of 128 rows)."""
+    chunk_ids = _split_chunks(v0, v1, v2, target_tris)
+    hosts = []
+    for ids in chunk_ids:
+        built = build_sbvh(v0[ids], v1[ids], v2[ids])
+        h = build_wide(built, v0[ids], v1[ids], v2[ids],
+                       leaf_width=leaf_width)
+        h = _wrap_leaf_root(h)
+        tid = h.leaves[:, :, 9].view(np.int32).copy()
+        valid = tid >= 0
+        tid[valid] = ids[tid[valid]].astype(np.int32)
+        h.leaves[:, :, 9] = tid.view(np.float32)
+        hosts.append(h)
+
+    n_max = -(-max(h.nodes.shape[0] for h in hosts) // 128) * 128
+    l_max = -(-max(h.leaves.shape[0] for h in hosts) // 128) * 128
+    c = len(hosts)
+    nodes = np.zeros((c, n_max, 56), np.float32)
+    nodes[:, :, 0:48:6] = np.inf           # pad rows: children never hit
+    leaves = np.zeros((c, l_max, leaf_width, 10), np.float32)
+    leaves[..., 9] = np.int32(-1).view(np.float32)   # pad slots: tid -1
+    boxes = np.zeros((c, 8), np.float32)
+    lvl = 1
+    for i, (h, ids) in enumerate(zip(hosts, chunk_ids)):
+        nodes[i, :h.nodes.shape[0]] = h.nodes
+        leaves[i, :h.leaves.shape[0]] = h.leaves
+        lvl = max(lvl, int(h.depth) + 1)
+        t = np.concatenate([v0[ids], v1[ids], v2[ids]])
+        boxes[i, 0:3] = t.min(0)
+        boxes[i, 3:6] = t.max(0)
+        assert h.nodes.shape[0] < (1 << 16), "forest chunk node count"
+        assert h.leaves.shape[0] < (1 << 16), "forest chunk leaf count"
+    assert len(v0) < (1 << 24) - 1, "global tri ids exceed 3-byte encoding"
+    return HostForest(nodes=nodes, leaves=leaves, boxes=boxes, lvl=lvl,
+                      leaf_width=leaf_width)

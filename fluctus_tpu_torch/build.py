@@ -1,8 +1,9 @@
 """Build shared libraries from the package's C++ and CUDA sources at first use.
 
 Outputs go to `fluctus_tpu_torch/build/` (listed in .gitignore), keyed by
-a hash of the source and the compiler command, so a changed source or flag
-rebuilds. A failed compile raises with the compiler's output.
+a hash of the source, the headers it includes and the compiler command, so
+a changed source, header or flag rebuilds. A failed compile raises with
+the compiler's output.
 """
 from __future__ import annotations
 
@@ -20,12 +21,16 @@ def build_dir() -> str:
     return d
 
 
-def build_shared(src: str, stem: str, cmd: list[str]):
+def build_shared(src: str, stem: str, cmd: list[str], deps=()):
     """Compile `src` with `cmd + [src, "-o", out]` unless a library built
-    from the same source and command exists. Returns (path, log, seconds);
-    log and seconds are empty and 0 for a cached library."""
-    with open(src, "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(cmd).encode()).hexdigest()[:12]
+    from the same source, headers `deps` and command exists. Returns
+    (path, log, seconds); log and seconds are empty and 0 for a cached
+    library."""
+    h = hashlib.sha1(" ".join(cmd).encode())
+    for path in (src, *deps):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    tag = h.hexdigest()[:12]
     out = os.path.join(build_dir(), f"lib{stem}_{tag}.so")
     if os.path.exists(out):
         return out, "", 0.0

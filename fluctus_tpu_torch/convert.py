@@ -4,7 +4,8 @@ The JAX package's `DeviceScene` and `RenderParams` are handed over as a flat
 dict of NumPy arrays keyed by dotted field path ("geom.v0", "wbvh.nodes",
 "camera.pos", ...), which the caller builds with `np.asarray` on each leaf;
 a `BruteForest` as a dict keyed by its field names ("tris", "boxes",
-"boxes_t", "tboxes", "tile").
+"boxes_t", "tboxes", "tile"); a treelet forest as the JAX `HostForest`'s
+fields ("nodes", "leaves", "boxes", "lvl", "leaf_width").
 This is the renderer's counterpart of loading a model's weights: both
 packages then trace the same hierarchy under the same camera.
 """
@@ -14,8 +15,8 @@ import numpy as np
 import torch
 
 from fluctus_tpu_torch.core.types import (
-    AreaLight, BruteForest, Camera, DeviceScene, Geometry, Materials,
-    RenderParams, TextureAtlas, WideBVH)
+    AreaLight, BruteForest, Camera, DeviceScene, ForestTables, Geometry,
+    Materials, RenderParams, TextureAtlas, WideBVH)
 
 GEOM_KEYS = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
              "mat_id")
@@ -46,14 +47,31 @@ def brute_from_numpy(arrays: dict, device="cuda") -> BruteForest:
                        tile=int(arrays["tile"]))
 
 
+def forest_from_numpy(arrays: dict, device="cuda") -> ForestTables:
+    """ForestTables from a JAX HostForest's f32 staging arrays (the tables
+    before the JAX package's bf16 encode)."""
+    def f32(key):
+        return _t(np.asarray(arrays[key], np.float32), device)
+
+    return ForestTables(nodes=f32("nodes"), leaves=f32("leaves"),
+                        boxes=f32("boxes"), lvl=int(arrays["lvl"]),
+                        leaf_width=int(arrays["leaf_width"]))
+
+
+def _prefixed(arrays: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in arrays.items()
+            if k.startswith(prefix)}
+
+
 def scene_from_numpy(arrays: dict, device="cuda") -> DeviceScene:
     """DeviceScene from the JAX scene's leaves (see module docstring). The
     "wbvh.*" keys may be absent (a fast-big scene); "bforest.*" keys, where
-    present, carry a brute forest."""
+    present, carry a brute forest, and "ftables.*" keys a treelet
+    forest."""
     def group(prefix, keys):
         return {k: _t(arrays[f"{prefix}.{k}"], device) for k in keys}
 
-    wbvh = bforest = None
+    wbvh = bforest = ftables = None
     if "wbvh.nodes" in arrays:
         wbvh = WideBVH(
             nodes=_t(np.asarray(arrays["wbvh.nodes"], np.float32), device),
@@ -63,15 +81,15 @@ def scene_from_numpy(arrays: dict, device="cuda") -> DeviceScene:
             depth=int(arrays["wbvh.depth"]),
             leaf_width=int(arrays["wbvh.leaf_width"]))
     if "bforest.tris" in arrays:
-        bforest = brute_from_numpy(
-            {k[len("bforest."):]: v for k, v in arrays.items()
-             if k.startswith("bforest.")}, device)
+        bforest = brute_from_numpy(_prefixed(arrays, "bforest."), device)
+    if "ftables.nodes" in arrays:
+        ftables = forest_from_numpy(_prefixed(arrays, "ftables."), device)
     return DeviceScene(geom=Geometry(**group("geom", GEOM_KEYS)),
                        wbvh=wbvh,
                        materials=Materials(**group("materials",
                                                    MATERIAL_KEYS)),
                        atlas=TextureAtlas(**group("atlas", ATLAS_KEYS)),
-                       bforest=bforest)
+                       bforest=bforest, ftables=ftables)
 
 
 def params_from_numpy(arrays: dict, device="cuda") -> RenderParams:

@@ -84,6 +84,21 @@ class BruteForest:
 
 
 @dataclass
+class ForestTables:
+    """Treelet-forest tables of a big scene (accel/forest.py
+    `build_host_forest`): one 8-wide BVH per spatial chunk, each rooted at
+    node 0 with global triangle ids, stacked and padded to one shape.
+    Traversed by ops/traverse_forest.py (kernel K5). The JAX package
+    re-encodes these rows in bf16 for its one-hot matmul gathers; the
+    port keeps the f32 staging rows, which K5 reads per thread."""
+    nodes: torch.Tensor     # (C, Tp, 56) f32 wide-node rows
+    leaves: torch.Tensor    # (C, Lp, W, 10) f32 leaf rows
+    boxes: torch.Tensor     # (C, 8) f32 chunk AABB lo(3) hi(3) pad(2)
+    lvl: int = 1            # max wide depth over chunks + 1
+    leaf_width: int = 16
+
+
+@dataclass
 class Geometry:
     """SoA triangle soup (reference: src/geom.h:89-95)."""
     v0: torch.Tensor
@@ -124,13 +139,16 @@ class Camera:
 @dataclass
 class DeviceScene:
     """Scene tensors on one device. A scene above the fast-big cutover
-    carries `bforest` and no hierarchy (`wbvh` None). The env map is not
-    part of this port yet: scenes render with `use_env_map=False`."""
+    carries `bforest` and no hierarchy (`wbvh` None); a scene uploaded
+    under FLUCTUS_FOREST=treelet with wide tables above 8 MB carries
+    `ftables` beside `wbvh`. The env map is not part of this port yet:
+    scenes render with `use_env_map=False`."""
     geom: Geometry
     wbvh: WideBVH | None
     materials: Materials
     atlas: TextureAtlas
     bforest: BruteForest | None = None
+    ftables: ForestTables | None = None
 
     @property
     def device(self) -> torch.device:
@@ -150,9 +168,18 @@ class RenderParams:
 @dataclass(frozen=True)
 class RenderConfig:
     """Static configuration, the reference's compile defines
-    (src/kernel_impl.hpp:49-67). The traversal is K1 (or K2/K3 on a
-    scene with a brute forest) on a CUDA scene and the kernels' plain
-    versions on a CPU scene."""
+    (src/kernel_impl.hpp:49-67). The traversal runs the kernels on a CUDA
+    scene and their plain versions on a CPU scene. `backend` selects it:
+
+    - "auto" or "mxu": the per-lane kernels, K1 over the 8-wide BVH, K2/K3
+      on a scene with a brute forest, K5 on one with a treelet forest.
+      The JAX package resolves "auto" to "wide" on its CPU; the port's
+      plain K1 is that same restart-trail walk, so one name serves both.
+    - "pallas": the packet kernel K4 over the 8-wide BVH (a forest scene
+      still takes the per-lane kernels, as in the JAX package).
+    - "jnp", "packed", "wide": not ported (ROADMAP Queue 1, XLA traversal
+      backends).
+    """
     width: int = 512
     height: int = 512
     max_bounces: int = 4
@@ -163,6 +190,7 @@ class RenderConfig:
     tonemap_op: int = 2
     bsdf_types_mask: int = 0xFE
     tile_size: int = 1 << 16
+    backend: str = "auto"
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

@@ -2,10 +2,13 @@
 `fluctus_tpu/integrators/common.py`; reference: wf_logic.cl,
 mk_next_vertex.cl, mk_sample_bsdf.cl).
 
-Traversal goes through `ops.traverse_stack` (kernel K1) or, on a scene
-that carries a brute forest, `ops.traverse_brute` (kernels K2 and K3):
-the kernels on a CUDA scene, their plain versions on a CPU scene. Every stochastic decision draws from the
-counter-based RNG keyed by (pixel, sample, bounce, stream).
+Traversal goes, in the JAX package's order, through `ops.traverse_brute`
+(kernels K2 and K3) on a scene that carries a brute forest,
+`ops.traverse_forest` (K5) on one with a treelet forest, and otherwise
+`ops.traverse_stack` (K1), or `ops.traverse_pallas` (K4) under
+`backend="pallas"`: the kernels on a CUDA scene, their plain versions on a
+CPU scene. Every stochastic decision draws from the counter-based RNG
+keyed by (pixel, sample, bounce, stream).
 """
 from __future__ import annotations
 
@@ -16,7 +19,9 @@ from fluctus_tpu_torch.core.types import (
     DeviceScene, Hit, RenderConfig, RenderParams)
 from fluctus_tpu_torch.ops import bsdf as bsdf_mod
 from fluctus_tpu_torch.ops import texture as tex_ops
-from fluctus_tpu_torch.ops import traverse_brute, traverse_stack
+from fluctus_tpu_torch.ops import (
+    ray_sort, traverse_brute, traverse_forest, traverse_pallas,
+    traverse_stack)
 from fluctus_tpu_torch.ops.intersect import ray_area_light
 from fluctus_tpu_torch.ops.traverse_stack import Traversal
 
@@ -25,20 +30,79 @@ OFFSET_SHADOW = 1e-3   # reference: wf_logic.cl:184 (orig = P - 1e-3*dir)
 OFFSET_CONT = 1e-4     # reference: wf_mat_diffuse.cl:54 (P + 1e-4*newDir)
 
 
-def _traverse_closest_tr(scene, orig, dir, t_max) -> Traversal:
+BACKENDS = ("auto", "mxu", "pallas")
+UNPORTED_BACKENDS = ("jnp", "packed", "wide")
+
+
+def resolve_backend(name: str) -> str:
+    """"auto" and "mxu" -> "mxu" (the per-lane kernels K1/K2/K3/K5);
+    "pallas" -> "pallas" (the packet kernel K4). The JAX package's XLA
+    backends are not ported."""
+    if name in UNPORTED_BACKENDS:
+        raise NotImplementedError(
+            f"backend {name!r} is not ported yet (ROADMAP Queue 1, XLA "
+            "traversal backends); use 'auto', 'mxu' or 'pallas'")
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r}")
+    return "pallas" if name == "pallas" else "mxu"
+
+
+def _check_backend_data(scene, cfg):
+    if cfg.backend in UNPORTED_BACKENDS + ("pallas",) and scene.wbvh is None:
+        raise ValueError(
+            f"backend '{cfg.backend}' needs the full hierarchy, but this "
+            "scene was uploaded via the fast big-scene path (brute forest "
+            "only). Use backend='mxu' or set FLUCTUS_FAST_BIG=0.")
+
+
+def _packets(scene, cfg) -> bool:
+    """Whether traversal takes K4: backend "pallas" on a scene without a
+    forest (a forest scene takes its per-lane kernel, as in the JAX
+    package, whose packet forest is not ported)."""
+    _check_backend_data(scene, cfg)
+    return (resolve_backend(cfg.backend) == "pallas"
+            and scene.bforest is None and scene.ftables is None)
+
+
+def _traverse_closest_tr(scene, cfg, orig, dir, t_max) -> Traversal:
     """Closest-hit traversal under a scalar or per-lane t_max."""
+    orig, dir = orig.contiguous(), dir.contiguous()
+    if _packets(scene, cfg):
+        t_vec = torch.broadcast_to(torch.as_tensor(
+            t_max, dtype=torch.float32, device=orig.device), orig.shape[:1])
+        return ray_sort.sorted_apply(
+            orig, dir, *traverse_pallas.wbvh_bounds(scene.wbvh),
+            lambda o, d, t: traverse_pallas.traverse_closest(scene.wbvh, o,
+                                                             d, t), t_vec)
     if scene.bforest is not None:
-        return traverse_brute.traverse_closest(
-            scene.bforest, orig.contiguous(), dir.contiguous(), t_max)
-    return traverse_stack.traverse_closest(scene.wbvh, orig.contiguous(),
-                                           dir.contiguous(), t_max)
+        return traverse_brute.traverse_closest(scene.bforest, orig, dir,
+                                               t_max)
+    if scene.ftables is not None:
+        return traverse_forest.traverse_closest(scene.ftables, orig, dir,
+                                                t_max)
+    return traverse_stack.traverse_closest(scene.wbvh, orig, dir, t_max)
+
+
+def _traverse_any(scene, cfg, orig, dir, lens) -> torch.Tensor:
+    """Any-hit traversal under the per-lane distance `lens`."""
+    orig, dir = orig.contiguous(), dir.contiguous()
+    if _packets(scene, cfg):
+        return ray_sort.sorted_apply(
+            orig, dir, *traverse_pallas.wbvh_bounds(scene.wbvh),
+            lambda o, d, t: traverse_pallas.traverse_any(scene.wbvh, o, d, t),
+            lens)
+    if scene.bforest is not None:
+        return traverse_brute.traverse_any(scene.bforest, orig, dir, lens)
+    if scene.ftables is not None:
+        return traverse_forest.traverse_any(scene.ftables, orig, dir, lens)
+    return traverse_stack.traverse_any(scene.wbvh, orig, dir, lens)
 
 
 def trace_scene(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
                 orig, dir) -> Hit:
     """Closest hit + area-light quad + attribute interpolation
     (reference: src/mk_next_vertex.cl:38-43)."""
-    tr = _traverse_closest_tr(scene, orig, dir, T_MAX)
+    tr = _traverse_closest_tr(scene, cfg, orig, dir, T_MAX)
     return hit_from_traversal(scene, params, cfg, orig, dir, tr)
 
 
@@ -114,12 +178,7 @@ def _shadow_blocked(scene, params, cfg, orig, ldir, lens, check_area_quad):
     lens = torch.broadcast_to(torch.as_tensor(lens, dtype=torch.float32,
                                               device=orig.device),
                               orig.shape[:1])
-    if scene.bforest is not None:
-        blocked = traverse_brute.traverse_any(
-            scene.bforest, orig.contiguous(), ldir.contiguous(), lens)
-    else:
-        blocked = traverse_stack.traverse_any(
-            scene.wbvh, orig.contiguous(), ldir.contiguous(), lens)
+    blocked = _traverse_any(scene, cfg, orig, ldir, lens)
     if check_area_quad and cfg.use_area_light:
         al = params.area_light
         q_hit, _ = ray_area_light(orig, ldir, al.pos, al.right, al.up,

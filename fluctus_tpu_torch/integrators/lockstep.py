@@ -31,7 +31,7 @@ def sample_radiance(scene: DeviceScene, params: RenderParams,
     is alive (the JAX package's early_exit=True)."""
     if cfg.use_env_map:
         raise NotImplementedError(
-            "env-map lighting is not ported yet (ROADMAP Queue 1 item 1)")
+            "env-map lighting is not ported yet (ROADMAP Queue 1, env maps)")
     types = cfg.bsdf_types_mask
     dev = pixel_idx.device
     pix = pixel_idx

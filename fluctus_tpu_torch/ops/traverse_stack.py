@@ -221,8 +221,10 @@ def traverse_plain(bvh: WideBVH, orig, dir, t_max, any_hit: bool,
 
 # ---------------------------------------------------------------- kernel
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "traverse_stack.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+_SRC = os.path.join(CSRC, "traverse_stack.cu")
+WALK_HEADER = os.path.join(CSRC, "wide_walk.cuh")   # shared with K5
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]
@@ -242,7 +244,8 @@ def load_kernel():
     if _lib is None:
         from fluctus_tpu_torch.build import build_shared
         path, log, secs = build_shared(_SRC, "k1_traverse",
-                                       [_nvcc()] + NVCC_FLAGS)
+                                       [_nvcc()] + NVCC_FLAGS,
+                                       deps=[WALK_HEADER])
         BUILD_INFO.update(path=path, log=log, seconds=secs)
         lib = ctypes.CDLL(path)
         lib.k1_traverse.argtypes = [ctypes.c_void_p] * 5 + [

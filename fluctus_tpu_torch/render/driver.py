@@ -15,7 +15,7 @@ import torch
 
 from fluctus_tpu_torch.core.types import (
     DeviceScene, RenderConfig, RenderParams, default_params)
-from fluctus_tpu_torch.integrators import lockstep
+from fluctus_tpu_torch.integrators import common, lockstep
 from fluctus_tpu_torch.ops import tonemap as tm
 from fluctus_tpu_torch.scene.scene import (
     HostScene, fast_big_eligible, load_scene)
@@ -68,15 +68,19 @@ def create_session(scene_path: str, cfg: RenderConfig | None = None,
     """Load the scene, build the hierarchy (none above the fast-big
     cutover: the upload builds the brute-chunk forest instead), upload it,
     derive parameters and restore the scene's saved state (reference:
-    Tracer::init, src/tracer.cpp:55-80, loadState :634-687)."""
+    Tracer::init, src/tracer.cpp:55-80, loadState :634-687). The
+    traversal backend resolves as `common.resolve_backend` says: "auto"
+    to the per-lane kernels, "pallas" to the packet kernel K4."""
     dev = resolve_device(device)
+    cfg = cfg or RenderConfig()
+    backend = common.resolve_backend(cfg.backend)
     host = load_scene(scene_path)
     if not fast_big_eligible(host, dev):
         host.build_bvh(use_sbvh=use_sbvh)
     scene = host.to_device(dev)
-    cfg = cfg or RenderConfig()
     # no env map on this path: lighting comes from the area light
-    cfg = cfg.replace(bsdf_types_mask=host.material_types_mask,
+    cfg = cfg.replace(backend=backend,
+                      bsdf_types_mask=host.material_types_mask,
                       use_env_map=False)
     params = default_params(world_radius=host.world_radius(), device=dev)
     if auto_frame:
@@ -95,7 +99,7 @@ def render(session: RenderSession, spp: int,
     if integrator == "stream":
         raise NotImplementedError(
             "the streaming wavefront integrator is not ported yet "
-            "(ROADMAP Queue 1 item 4)")
+            "(ROADMAP Queue 1, streaming wavefront)")
     if integrator != "lockstep":
         raise ValueError(f"unknown integrator {integrator!r}")
     return lockstep.render(session.scene, session.params, session.cfg, spp)

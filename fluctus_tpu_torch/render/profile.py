@@ -1,14 +1,15 @@
 """Where a lockstep frame's time goes on the card.
 
     python3 -m fluctus_tpu_torch.render.profile [--scene PATH]
-        [--bounces N] [--spp N] [--frames N]
+        [--bounces N] [--spp N] [--frames N] [--backend auto|pallas]
 
 Traces one 65,536-ray tile at 1 spp of a 512x512 lockstep frame (area
 light, the scene's saved state; the kitchen at 8 bounces by default) with
 torch.profiler and prints the device time by kernel, the device-busy
-share of the traced wall time, and the traversal kernels' share (K1, or
-K2/K3 on a scene above the fast-big cutover); then times N whole frames
-at --spp to show the spread. Needs a CUDA card.
+share of the traced wall time, and the traversal kernels' share (K1; K2/K3
+on a scene above the fast-big cutover; K5 under FLUCTUS_FOREST=treelet;
+K4 under --backend pallas); then times N whole frames at --spp to show
+the spread. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -23,24 +24,33 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-TRAVERSAL_KERNELS = ("traverse_kernel", "k2_kernel", "k3_kernel")
+TRAVERSAL_KERNELS = ("traverse_kernel", "k2_kernel", "k3_kernel",
+                     "forest_kernel", "packet_kernel")
 
 
-def _session(scene: str, bounces: int):
+def _session(scene: str, bounces: int, backend: str):
     from fluctus_tpu_torch.core.types import RenderConfig
     from fluctus_tpu_torch.render import driver
     cfg = RenderConfig(width=512, height=512, max_bounces=bounces,
-                       use_area_light=True, use_env_map=False)
+                       use_area_light=True, use_env_map=False,
+                       backend=backend)
     return driver.create_session(
         scene, cfg=cfg, state_dir=os.path.join(REPO, "data", "states"),
         auto_frame=False, device="cuda")
 
 
+def _modules():
+    from fluctus_tpu_torch.ops import (traverse_brute, traverse_forest,
+                                       traverse_pallas, traverse_stack)
+    return {"k1": traverse_stack, "": traverse_brute,
+            "k5": traverse_forest, "k4": traverse_pallas}
+
+
 def _launch_counts() -> dict:
-    from fluctus_tpu_torch.ops import traverse_brute as tb
-    from fluctus_tpu_torch.ops import traverse_stack as ts
-    counts = {f"k1_{k}": v for k, v in ts.LAUNCHES.items()}
-    counts.update(tb.LAUNCHES)
+    counts = {}
+    for prefix, m in _modules().items():
+        counts.update({f"{prefix}_{k}" if prefix else k: v
+                       for k, v in m.LAUNCHES.items()})
     return {k: v for k, v in counts.items() if v}
 
 
@@ -48,14 +58,12 @@ def profile_tile(sess) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from fluctus_tpu_torch.integrators import lockstep
-    from fluctus_tpu_torch.ops import traverse_brute as tb
-    from fluctus_tpu_torch.ops import traverse_stack as ts
 
     idx = torch.arange(1 << 16, dtype=torch.int32, device="cuda")
     lockstep.sample_radiance(sess.scene, sess.params, sess.cfg, idx, 0)
     torch.cuda.synchronize()
-    ts.reset_counts()
-    tb.reset_counts()
+    for m in _modules().values():
+        m.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -100,6 +108,7 @@ def main() -> None:
     ap.add_argument("--bounces", type=int, default=8)
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--frames", type=int, default=2)
+    ap.add_argument("--backend", default="auto", choices=("auto", "pallas"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -107,10 +116,13 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"card: {card} | torch {torch.__version__}")
-    sess = _session(args.scene, args.bounces)
+    sess = _session(args.scene, args.bounces, args.backend)
+    sc = sess.scene
+    tables = ("brute forest" if sc.bforest is not None else
+              "BVH8 + treelet forest" if sc.ftables is not None else "BVH8")
     print(f"scene {os.path.basename(args.scene)}: "
-          f"{sess.host_scene.n_tris} tris, "
-          f"{'brute forest' if sess.scene.bforest is not None else 'BVH8'}")
+          f"{sess.host_scene.n_tris} tris, {tables}, backend "
+          f"{sess.cfg.backend}")
     profile_tile(sess)
     time_frames(sess, args.frames, args.spp)
 

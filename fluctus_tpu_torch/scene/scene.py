@@ -3,8 +3,10 @@
 src/tracer.cpp:574-590).
 
 OBJ/MTL input, then one of two uploads: the SBVH build, 8-wide collapse
-and upload of its f32 rows; or, for a scene above the fast-big cutover on
-a CUDA device, the brute-chunk forest alone (`fast_big_eligible`).
+and upload of its f32 rows (with a treelet forest beside them under
+FLUCTUS_FOREST=treelet, see `HostScene.to_device`); or, for a scene above
+the fast-big cutover on a CUDA device, the brute-chunk forest alone
+(`fast_big_eligible`).
 """
 from __future__ import annotations
 
@@ -15,17 +17,22 @@ import numpy as np
 import torch
 
 from fluctus_tpu_torch.accel import bvh as bvh_mod
-from fluctus_tpu_torch.accel.forest import build_brute_forest
-from fluctus_tpu_torch.accel.wide import build_wide
+from fluctus_tpu_torch.accel.forest import (
+    TARGET_TRIS, build_brute_forest, build_host_forest)
+from fluctus_tpu_torch.accel.wide import LEAF_WIDTH, build_wide
 from fluctus_tpu_torch.core.types import (
-    BSDF_ID, BXDF_DIFFUSE, BruteForest, DeviceScene, Geometry, Materials,
-    TextureAtlas, WideBVH)
+    BSDF_ID, BXDF_DIFFUSE, BruteForest, DeviceScene, ForestTables, Geometry,
+    Materials, TextureAtlas, WideBVH)
 from fluctus_tpu_torch.scene.loaders.obj import MtlMaterial, load_obj
 from fluctus_tpu_torch.scene.textures import TexturePool
 from fluctus_tpu_torch.scene.xxh64 import file_hash
 
 __all__ = ["HostScene", "load_scene", "file_hash", "default_material",
            "fast_big_eligible"]
+
+# wide tables above this many bytes take a forest in the JAX package
+# (its TPU kernels keep the tables in VMEM); the port follows its rule
+FOREST_TABLE_BYTES = 8 << 20
 
 
 def default_material() -> MtlMaterial:
@@ -107,8 +114,24 @@ class HostScene:
     def to_device(self, device="cuda") -> DeviceScene:
         """Upload geometry, the traversal tables, materials and the
         texture atlas (reference: CLContext::uploadSceneData,
-        src/clcontext.cpp:522-611). Above the fast-big cutover the tables
-        are the brute-chunk forest and no hierarchy is built."""
+        src/clcontext.cpp:522-611).
+
+        Tables: above the fast-big cutover, the brute-chunk forest alone
+        (no hierarchy). Otherwise the 8-wide BVH; when its tables pass
+        FOREST_TABLE_BYTES (8 MB), the forest knobs decide what goes
+        beside it:
+
+        - FLUCTUS_PACKET_FOREST=1: the per-chunk packet forest, not ported
+          (raises NotImplementedError);
+        - FLUCTUS_FOREST=treelet: the treelet forest (`ftables`, traced by
+          K5), sized by FLUCTUS_FOREST_TARGET_TRIS and
+          FLUCTUS_FOREST_LEAF_WIDTH;
+        - otherwise nothing: the hierarchy alone, traced by K1. The JAX
+          package builds a brute forest here and traces through it; on
+          the card K1 over the full hierarchy is much faster than K2 on
+          the same rays, and both return the same hits up to equal-t
+          ties, so the port keeps K1 (ROADMAP Queue 3).
+        """
         dev = torch.device(device)
 
         def t(a, dtype=None):
@@ -119,7 +142,7 @@ class HostScene:
                         n0=t(self.n0), n1=t(self.n1), n2=t(self.n2),
                         uv0=t(self.uv0), uv1=t(self.uv1), uv2=t(self.uv2),
                         mat_id=t(self.mat_id, torch.int64))
-        wbvh = bforest = None
+        wbvh = bforest = ftables = None
         if fast_big_eligible(self, dev):
             target = int(os.environ.get("FLUCTUS_BRUTE_TARGET_TRIS",
                                         _brute_auto_target(self.n_tris)))
@@ -136,6 +159,22 @@ class HostScene:
                            root_ref=int(wide.root_ref),
                            depth=int(wide.depth),
                            leaf_width=int(wide.leaves.shape[1]))
+            if (wide.nodes.size + wide.leaves.size) * 4 > FOREST_TABLE_BYTES:
+                if os.environ.get("FLUCTUS_PACKET_FOREST", "0") == "1":
+                    raise NotImplementedError(
+                        "FLUCTUS_PACKET_FOREST=1: the packet forest is not "
+                        "ported yet (ROADMAP Queue 1, packet forest)")
+                if _forest_knob() == "treelet":
+                    hf = build_host_forest(
+                        self.v0, self.v1, self.v2,
+                        target_tris=int(os.environ.get(
+                            "FLUCTUS_FOREST_TARGET_TRIS", TARGET_TRIS)),
+                        leaf_width=int(os.environ.get(
+                            "FLUCTUS_FOREST_LEAF_WIDTH", LEAF_WIDTH)))
+                    ftables = ForestTables(
+                        nodes=t(hf.nodes), leaves=t(hf.leaves),
+                        boxes=t(hf.boxes), lvl=hf.lvl,
+                        leaf_width=hf.leaf_width)
         m = self.material_arrays()
         mats = Materials(**{k: t(v, torch.int64 if v.dtype.kind == "i"
                                  else None) for k, v in m.items()})
@@ -143,7 +182,7 @@ class HostScene:
         atlas = TextureAtlas(data=t(data), offset=t(offs), width=t(ws),
                              height=t(hs))
         return DeviceScene(geom=geom, wbvh=wbvh, materials=mats, atlas=atlas,
-                           bforest=bforest)
+                           bforest=bforest, ftables=ftables)
 
 
 def _brute_auto_target(n_tris: int) -> int:
@@ -156,17 +195,29 @@ def _brute_auto_target(n_tris: int) -> int:
                             13, 15))
 
 
+def _forest_knob() -> str:
+    """FLUCTUS_FOREST: "brute" (the default) or "treelet"."""
+    knob = os.environ.get("FLUCTUS_FOREST", "brute")
+    if knob not in ("brute", "treelet"):
+        raise ValueError(f"FLUCTUS_FOREST={knob!r}: use brute or treelet")
+    return knob
+
+
 def fast_big_eligible(host, device) -> bool:
     """True when `host` uploads to `device` as a brute-chunk forest alone:
     a CUDA device and more triangles than the cutover, (8 << 20) // 68 =
     123,361 by default (the JAX package's rule, whose platform test is an
     accelerator backend; on the CPU both build the full hierarchy).
-    FLUCTUS_FAST_BIG_MIN_TRIS moves the cutover and FLUCTUS_FAST_BIG=0
-    turns the path off."""
+    FLUCTUS_FAST_BIG_MIN_TRIS moves the cutover; FLUCTUS_FAST_BIG=0,
+    FLUCTUS_FOREST=treelet and FLUCTUS_PACKET_FOREST=1 turn the path off,
+    as in the JAX package (the latter two ask for another forest beside
+    the full hierarchy, see `HostScene.to_device`)."""
     min_tris = int(os.environ.get("FLUCTUS_FAST_BIG_MIN_TRIS",
                                   (8 << 20) // 68))
     return (len(host.v0) > min_tris
             and torch.device(device).type == "cuda"
+            and _forest_knob() == "brute"
+            and os.environ.get("FLUCTUS_PACKET_FOREST", "0") != "1"
             and os.environ.get("FLUCTUS_FAST_BIG", "1") != "0")
 
 

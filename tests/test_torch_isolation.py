@@ -1,8 +1,9 @@
 """The port stands alone: with jax, flax, xxhash, PIL and fluctus_tpu made
 unimportable, fluctus_tpu_torch and chip_smoke.py import, the kitchen
-renders on the CPU with its textures, and a brute-chunk forest builds and
-traverses under both schedulers. The machine with the card has none of
-those packages."""
+renders on the CPU with its textures, a brute-chunk forest and a treelet
+forest build and traverse under both of their schedulers, and a packet
+call (backend "pallas") runs. The machine with the card has none of those
+packages."""
 import os
 import re
 import subprocess
@@ -63,6 +64,22 @@ for sched in ("vlist", "rounds"):
     r = traverse_brute.traverse_closest(bf, o, d, 3.4e38)
     assert bool((r.prim == ref.prim).all()), sched
     assert torch.equal(traverse_brute.traverse_any(bf, o, d, 0.5), blocked)
+from fluctus_tpu_torch.accel.forest import build_host_forest
+from fluctus_tpu_torch.core.types import ForestTables
+from fluctus_tpu_torch.ops import traverse_forest, traverse_pallas
+hf = build_host_forest(h.v0, h.v1, h.v2, target_tris=4096)
+ft = ForestTables(*(torch.from_numpy(x) for x in (hf.nodes, hf.leaves,
+                                                  hf.boxes)),
+                  lvl=hf.lvl, leaf_width=hf.leaf_width)
+for mode in ("workqueue", "blocksched"):
+    r = traverse_forest.traverse_closest(ft, o, d, 3.4e38, mode=mode)
+    assert torch.equal(r.t, ref.t), mode
+    assert torch.equal(traverse_forest.traverse_any(ft, o, d, 0.5, mode=mode),
+                       blocked)
+r = traverse_pallas.traverse_closest(s.scene.wbvh, o, d, 3.4e38)
+assert torch.equal(r.t, ref.t)
+assert torch.equal(traverse_pallas.traverse_any(s.scene.wbvh, o, d, 0.5),
+                   blocked)
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked

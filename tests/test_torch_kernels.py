@@ -1,5 +1,6 @@
 """Kernels K1 (fluctus_tpu_torch/csrc/traverse_stack.cu), K2 and K3
-(csrc/traverse_brute.cu) against their plain versions, on the card. These
+(csrc/traverse_brute.cu), K5 (csrc/traverse_forest.cu) and K4
+(csrc/traverse_packet.cu) against their plain versions, on the card. These
 need an NVIDIA card with nvcc, so they carry the `cuda` marker and skip
 elsewhere; the file imports no JAX, so it runs on the card with
 
@@ -162,3 +163,93 @@ def test_k2_k3_count_launches_and_refuse_bad_input(card, brute, monkeypatch):
                             for dt in (torch.float32, torch.int32,
                                        torch.float32, torch.float32)],
                           False, 128, bf.tile, 8, 1)
+
+
+# ---------------------------------------------------------------- K5, K4
+# Kernel K5 (csrc/traverse_forest.cu) against its plain version through
+# the same scheduler, and K4 (csrc/traverse_packet.cu) against its plain
+# version on the same packets: bit-equal.
+
+@pytest.fixture(scope="module")
+def treelet(card):
+    from fluctus_tpu_torch.accel.forest import build_host_forest
+    from fluctus_tpu_torch.core.types import ForestTables
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    tf.load_kernel()
+    host = load_scene("assets/kitchen_proxy.obj")
+    hf = build_host_forest(host.v0, host.v1, host.v2, target_tris=2048)
+    ft = ForestTables(*(torch.from_numpy(x).to(card)
+                        for x in (hf.nodes, hf.leaves, hf.boxes)),
+                      lvl=hf.lvl, leaf_width=hf.leaf_width)
+    return host, ft
+
+
+@pytest.mark.parametrize("mode", ["workqueue", "blocksched"])
+def test_k5_closest_equals_plain(card, treelet, mode):
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    host, ft = treelet
+    o, d, t = _rays(host, 4096, 7, card)
+    k = tf.traverse_closest(ft, o, d, t, mode=mode, launch=tf.launch_kernel)
+    p = tf.traverse_closest(ft, o, d, t, mode=mode, launch=tf.launch_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(k.prim, p.prim) and torch.equal(k.t, p.t)
+    assert torch.equal(k.u, p.u) and torch.equal(k.v, p.v)
+    assert int((k.prim >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("mode", ["workqueue", "blocksched"])
+def test_k5_any_equals_plain(card, treelet, mode):
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    host, ft = treelet
+    o, d, t = _rays(host, 4096, 8, card)
+    k = tf.traverse_any(ft, o, d, t, mode=mode, launch=tf.launch_kernel)
+    p = tf.traverse_any(ft, o, d, t, mode=mode, launch=tf.launch_plain)
+    assert torch.equal(k, p) and 0 < int(k.sum()) < 4096
+
+
+def test_k4_closest_equals_plain(card, kitchen):
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    host, w = kitchen
+    o, d, t = _rays(host, 3000, 9, card)     # pads to 6 packets
+    k = tp.traverse_closest(w, o, d, t, launch=tp.packet_kernel)
+    p = tp.traverse_closest(w, o, d, t, launch=tp.packet_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(k.prim, p.prim) and torch.equal(k.t, p.t)
+    assert torch.equal(k.u, p.u) and torch.equal(k.v, p.v)
+    assert int((k.prim >= 0).sum()) > 100
+
+
+def test_k4_any_equals_plain(card, kitchen):
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    host, w = kitchen
+    o, d, t = _rays(host, 3000, 10, card)
+    k = tp.traverse_any(w, o, d, t, launch=tp.packet_kernel)
+    p = tp.traverse_any(w, o, d, t, launch=tp.packet_plain)
+    assert torch.equal(k, p) and 0 < int(k.sum()) < 3000
+
+
+def test_k4_k5_count_launches_and_refuse_bad_input(card, kitchen, treelet):
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    host, w = kitchen
+    _, ft = treelet
+    o, d, t = _rays(host, 300, 11, card)
+    tf.reset_counts()
+    tp.reset_counts()
+    tf.traverse_closest(ft, o, d, t)
+    tf.traverse_any(ft, o, d, t, mode="blocksched")
+    tp.traverse_closest(w, o, d, t)
+    tp.traverse_any(w, o, d, t)
+    assert tf.LAUNCHES["closest"] > 0 and tf.LAUNCHES["any"] > 0
+    assert tp.LAUNCHES == {"closest": 1, "any": 1}
+    assert sum(tf.PLAIN_CALLS.values()) + sum(tp.PLAIN_CALLS.values()) == 0
+    z = torch.zeros((128, 3), device=card)
+    zi = torch.zeros(128, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="K5"):        # chunk id out of range
+        tf.launch_kernel(torch.full((1, 1), 99, dtype=torch.int32,
+                                    device=card),
+                         torch.zeros((1, 1), device=card), ft.nodes,
+                         ft.leaves, z, z, z[:, 0], zi, z[:, 0], z[:, 0],
+                         False, 128, ft.lvl, ft.leaf_width)
+    with pytest.raises(ValueError, match="K4"):        # not a packet multiple
+        tp.packet_kernel(z, z, z[:, 0], w, False)

@@ -55,3 +55,25 @@ def golden_stats(img, gold, rtol, atol):
     within = np.isclose(img, gold, rtol=rtol, atol=atol).all(-1)
     return float(within.mean()), float(np.abs(img - gold).mean()
                                        / np.abs(gold).mean())
+
+
+def assert_hits_match(rp, rj, t_rel=1e-5, uv_atol=1e-4):
+    """A port Traversal `rp` against a JAX one `rj`: prim ids equal except
+    where the two hit at equal t (a tie), the same lanes hit, t within
+    `t_rel` relative on every lane (misses too), u and v within `uv_atol`
+    where the prims agree. u and v are divided by the determinant, so the
+    few-ulp differences of XLA's FMA-contracted dot products grow on
+    triangles seen edge-on; t is not."""
+    prim, prim_j = rp.prim.numpy(), np.asarray(rj.prim)
+    t, t_j = rp.t.numpy(), np.asarray(rj.t)
+    diff = prim != prim_j
+    assert diff.mean() < 0.01
+    np.testing.assert_allclose(t[diff], t_j[diff], rtol=t_rel,
+                               err_msg="prim mismatches that are not ties")
+    np.testing.assert_array_equal(prim >= 0, prim_j >= 0)
+    np.testing.assert_allclose(t, t_j, rtol=t_rel)
+    same = ~diff & (prim_j >= 0)
+    np.testing.assert_allclose(rp.u.numpy()[same], np.asarray(rj.u)[same],
+                               atol=uv_atol)
+    np.testing.assert_allclose(rp.v.numpy()[same], np.asarray(rj.v)[same],
+                               atol=uv_atol)
