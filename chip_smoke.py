@@ -2,36 +2,50 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1, K2+K3, K5 and K4 from fluctus_tpu_torch/csrc (one nvcc
-per source, started together). Kitchen: holds K1 against its plain PyTorch
-version on the scene's rays, renders the kitchen (lockstep, 512x512,
+Builds kernels K1, K2+K3, K5, K4 and the probes P1+P2 from
+fluctus_tpu_torch/csrc (one nvcc per source, started together). Kitchen:
+holds K1 against its plain PyTorch version on the scene's rays; holds P1
+and P2 against theirs and runs the launch-floor and peak-rate probes
+(P1 at 1 and 64 blocks, K1 at 1k and 64k rays; P2 fused and unfused, the
+bf16 matmul, the HBM bandwidth); renders the kitchen (lockstep, 512x512,
 8 bounces, 16 spp) through the port's entry points, checks that the frame
 went through K1, and holds two small renders against the committed
-goldens. Then the packet path: holds K4 against its plain version, times
-it beside K1, renders the kitchen under backend="pallas" (512x512,
-8 bounces, 4 spp) through K4 only, and holds the same two goldens
-through K4. Conference (232k triangles, above the fast-big cutover, so its
-session holds a brute-chunk forest and no hierarchy): holds K2 and K3
-against their plain versions through the same schedulers, times them
-beside K1 on a full hierarchy of the same scene, renders the conference
-(lockstep, 512x512, 6 bounces, 4 spp) and checks that it went through K2
-only, and holds the conference golden through K2 and, under
-FLUCTUS_BRUTE_SCHED=rounds, through K3. Then the treelet path: a
-FLUCTUS_FOREST=treelet session of the conference (SBVH hierarchy and
-treelet forest), K5 against its plain version under both schedulers and
-against K1 on the session's hierarchy, K5's times, the same frame through
-K5 only, and the conference golden through K5. Each phase prints one line
-with its wall time; the last three lines are the kernels record, the card
-and the device record. Any failed check raises, so the script exits
-non-zero. It needs a CUDA device and the repository around it.
+goldens. The stream: holds it against the lockstep without next-event
+estimation and deferred against immediate with it (64x64), runs the
+integrator choice's openness probe on the kitchen, renders the
+kitchen through driver.render(integrator="stream") (512x512, 8 bounces,
+4 spp) through K1's closest form only, holds the two golden sessions'
+stream renders against the same stream on the host's CPU, holds one
+fused call of each stream render ([extension ; shadow] rays with per-lane
+t_max) through its kernel against the plain version, and runs both
+benchmark harnesses for about 8 s each. Then the packet path: holds K4
+against its plain version, times it beside K1, renders the kitchen under
+backend="pallas" (512x512, 8 bounces, 4 spp) through K4 only, and holds
+the same two goldens through K4. Conference (232k triangles, above the
+fast-big cutover, so its session holds a brute-chunk forest and no
+hierarchy): holds K2 and K3 against their plain versions through the same
+schedulers, times them beside K1 on a full hierarchy of the same scene,
+renders the conference (lockstep, 512x512, 6 bounces, 4 spp) and checks
+that it went through K2 only, holds the conference golden through K2 and,
+under FLUCTUS_BRUTE_SCHED=rounds, through K3, and holds its stream
+through the fused K2 call against the same stream through K1 over the
+full hierarchy, with one of its fused calls held through K2 against the
+plain version. Then the treelet path: a FLUCTUS_FOREST=treelet session
+of the conference (SBVH hierarchy and treelet forest), K5 against its
+plain version under both schedulers and against K1 on the session's
+hierarchy, K5's times, the same frame through K5 only, and the conference
+golden through K5. Each phase prints one line with its wall time; the
+last three lines are the kernels record, the card and the device record.
+Any failed check raises, so the script exits non-zero. It needs a CUDA
+device and the repository around it.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -76,29 +90,6 @@ def say(phase: str, t_start: float, msg: str) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0]
-
-
-def time_cuda(fn, reps: int) -> float:
-    """Mean milliseconds per call over `reps` calls, after one warm-up."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def larger(t_bytes, t_ops):
@@ -179,6 +170,7 @@ def phase_kernel(sess, n_extra=1 << 17, tile=1 << 16):
     at the main path's launch shape (tile rays per launch)."""
     import torch
     from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.timing import time_launches
 
     t0 = time.perf_counter()
     bvh = sess.scene.wbvh
@@ -225,14 +217,12 @@ def phase_kernel(sess, n_extra=1 << 17, tile=1 << 16):
         k_ms = p_ms = 0.0
         for (ro, rd, rt) in rays:
             ts.traverse_plain(bvh, ro, rd, rt, anyh, stats=stats)
-            p1 = time_cuda(lambda: ts.traverse_plain(bvh, ro, rd, rt, anyh),
-                           2)
-            k1 = time_cuda(lambda: ts.traverse_kernel(bvh, ro, rd, rt, anyh),
-                           20)
-            k2 = time_cuda(lambda: ts.traverse_kernel(bvh, ro, rd, rt, anyh),
-                           20)
-            p2 = time_cuda(lambda: ts.traverse_plain(bvh, ro, rd, rt, anyh),
-                           2)
+            run_p = lambda: ts.traverse_plain(bvh, ro, rd, rt, anyh)
+            run_k = lambda: ts.traverse_kernel(bvh, ro, rd, rt, anyh)
+            p1 = time_launches(run_p, 2, 1)
+            k1 = time_launches(run_k, 20, 1)
+            k2 = time_launches(run_k, 20, 1)
+            p2 = time_launches(run_p, 2, 1)
             k_ms += (k1 + k2) / 2
             p_ms += (p1 + p2) / 2
         n = len(rays)
@@ -426,6 +416,7 @@ def phase_brute_time(bf, rays, sched, wbvh_full):
     import torch
     from fluctus_tpu_torch.ops import traverse_brute as tb
     from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.timing import time_launches
 
     name = KERNEL_OF[sched]
     o, d, t_c, o_s, d_s, t_s = rays
@@ -440,19 +431,20 @@ def phase_brute_time(bf, rays, sched, wbvh_full):
         with env(FLUCTUS_BRUTE_SCHED=sched):
             trav(bf, ro, rd, rt, launch=rec)
             torch.cuda.synchronize()
-            call_ms = time_cuda(lambda: trav(bf, ro, rd, rt, launch=kern), 3)
+            call_ms = time_launches(
+                lambda: trav(bf, ro, rd, rt, launch=kern), 3, 1)
         stats_list = []
         for args in rec.calls:
             st: dict = {}
             plain(*args, stats=st)
             stats_list.append(st)
-        p1 = sum(time_cuda(lambda: plain(*a), 1) for a in rec.calls)
-        k1 = sum(time_cuda(lambda: kern(*a), 10) for a in rec.calls)
-        k2 = sum(time_cuda(lambda: kern(*a), 10) for a in rec.calls)
-        p2 = sum(time_cuda(lambda: plain(*a), 1) for a in rec.calls)
+        p1 = sum(time_launches(lambda: plain(*a), 1, 1) for a in rec.calls)
+        k1 = sum(time_launches(lambda: kern(*a), 10, 1) for a in rec.calls)
+        k2 = sum(time_launches(lambda: kern(*a), 10, 1) for a in rec.calls)
+        p2 = sum(time_launches(lambda: plain(*a), 1, 1) for a in rec.calls)
         b_ms, b_by = brute_bound(sched, rec.calls, stats_list)
-        k1_ms = time_cuda(
-            lambda: ts.traverse_kernel(wbvh_full, ro, rd, rt, anyh), 10)
+        k1_ms = time_launches(
+            lambda: ts.traverse_kernel(wbvh_full, ro, rd, rt, anyh), 10, 1)
         n = ro.shape[0]
         slab = sum(s["slab_tests"] for s in stats_list)
         tri = sum(s["tri_tests"] for s in stats_list)
@@ -479,7 +471,8 @@ def conference_cfg(width, height):
 def phase_golden_big():
     """conference.npz (64x64, 6 bounces, 4 spp) through K2 and, under
     FLUCTUS_BRUTE_SCHED=rounds, through K3. The rounds render is K3's path
-    run: its counts are read around it."""
+    run: its counts are read around it. Returns (K3's launches, the
+    session)."""
     from fluctus_tpu_torch.render import driver
 
     sess = driver.create_session(CONFERENCE, cfg=conference_cfg(64, 64),
@@ -489,7 +482,7 @@ def phase_golden_big():
           "conference golden session is not a brute-forest session")
     phase_golden_only(sess, "conference", 4, "K2")
     with env(FLUCTUS_BRUTE_SCHED="rounds"):
-        return phase_golden_only(sess, "conference", 4, "K3")
+        return phase_golden_only(sess, "conference", 4, "K3"), sess
 
 
 def full_hierarchy(host):
@@ -567,6 +560,7 @@ def phase_packet_time(sess, tile=1 << 16):
     visits."""
     from fluctus_tpu_torch.ops import traverse_pallas as tp
     from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.timing import time_launches
 
     bvh = sess.scene.wbvh
     o, d, t_c, o_s, d_s, t_s = kernel_rays(sess, 1 << 17, seed=7)
@@ -589,14 +583,14 @@ def phase_packet_time(sess, tile=1 << 16):
             ts.traverse_plain(bvh, ro, rd, rt, anyh, stats=ray_stats)
             run_k = lambda: tp.packet_kernel(*a, bvh, anyh)
             run_p = lambda: tp.packet_plain(*a, bvh, anyh)
-            p1 = time_cuda(run_p, 1)
-            k1 = time_cuda(run_k, 10)
-            k2 = time_cuda(run_k, 10)
-            p2 = time_cuda(run_p, 1)
+            p1 = time_launches(run_p, 1, 1)
+            k1 = time_launches(run_k, 10, 1)
+            k2 = time_launches(run_k, 10, 1)
+            p2 = time_launches(run_p, 1, 1)
             k_ms += (k1 + k2) / 2
             p_ms += (p1 + p2) / 2
-            k1_ms += time_cuda(
-                lambda: ts.traverse_kernel(bvh, ro, rd, rt, anyh), 10)
+            k1_ms += time_launches(
+                lambda: ts.traverse_kernel(bvh, ro, rd, rt, anyh), 10, 1)
         n = len(rays)
         b_ms, b_by = bound_ms(bvh, tile * n, ray_stats, anyh)
         b_ms /= n
@@ -703,6 +697,7 @@ def phase_forest_time(ft, wbvh, rays):
     same rays over the session's hierarchy."""
     from fluctus_tpu_torch.ops import traverse_forest as tf
     from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.timing import time_launches
 
     o, d, t_c, o_s, d_s, t_s = rays
     out = {}
@@ -714,24 +709,25 @@ def phase_forest_time(ft, wbvh, rays):
             trav = tf.traverse_any if anyh else tf.traverse_closest
             rec = Recorder(tf.launch_kernel)
             trav(ft, ro, rd, rt, mode=mode, launch=rec)
-            call_ms = time_cuda(lambda: trav(ft, ro, rd, rt, mode=mode), 3)
+            call_ms = time_launches(
+                lambda: trav(ft, ro, rd, rt, mode=mode), 3, 1)
             stats_list = []
             for args in rec.calls:
                 st: dict = {}
                 tf.launch_plain(*args, stats=st)
                 stats_list.append(st)
-            p1 = sum(time_cuda(lambda: tf.launch_plain(*a), 1)
+            p1 = sum(time_launches(lambda: tf.launch_plain(*a), 1, 1)
                      for a in rec.calls)
-            k1 = sum(time_cuda(lambda: tf.launch_kernel(*a), 10)
+            k1 = sum(time_launches(lambda: tf.launch_kernel(*a), 10, 1)
                      for a in rec.calls)
-            k2 = sum(time_cuda(lambda: tf.launch_kernel(*a), 10)
+            k2 = sum(time_launches(lambda: tf.launch_kernel(*a), 10, 1)
                      for a in rec.calls)
-            p2 = sum(time_cuda(lambda: tf.launch_plain(*a), 1)
+            p2 = sum(time_launches(lambda: tf.launch_plain(*a), 1, 1)
                      for a in rec.calls)
             t_bytes, t_ops = forest_bound(ft, ro.shape[0], anyh, stats_list)
             b_ms, b_by = larger(t_bytes, t_ops)
-            k1_ms = time_cuda(
-                lambda: ts.traverse_kernel(wbvh, ro, rd, rt, anyh), 10)
+            k1_ms = time_launches(
+                lambda: ts.traverse_kernel(wbvh, ro, rd, rt, anyh), 10, 1)
             n = ro.shape[0]
             child = sum(s["child_tests"] for s in stats_list)
             tri = sum(s["tri_tests"] for s in stats_list)
@@ -819,12 +815,18 @@ def phase_frame_only(sess, spp: int, card: str, phase: str, kernel: str,
     return secs, mine
 
 
+def golden_share(img, ref):
+    """(share of pixels within RTOL/ATOL, mean relative error)."""
+    import numpy as np
+    within = np.isclose(img, ref, rtol=RTOL, atol=ATOL).all(-1)
+    return float(within.mean()), float(np.abs(img - ref).mean()
+                                       / np.abs(ref).mean())
+
+
 def golden_check(name, img, gold, t0, what):
     """Hold one render against its golden at GOLDEN_LIMITS[name]."""
     import numpy as np
-    within = np.isclose(img, gold, rtol=RTOL, atol=ATOL).all(-1)
-    share = float(within.mean())
-    mean_rel = float(np.abs(img - gold).mean() / np.abs(gold).mean())
+    share, mean_rel = golden_share(img, gold)
     need_share, need_rel = GOLDEN_LIMITS[name]
     say("golden", t0,
         f"{name} through {what}: {share * 100:.3f}% of pixels within rtol "
@@ -845,12 +847,376 @@ def phase_golden_only(sess, name, spp, kernel):
 
     t0 = time.perf_counter()
     reset_counts()
-    img = driver.render(sess, spp).cpu().numpy()
+    img = driver.render(sess, spp, integrator="lockstep").cpu().numpy()
     torch.cuda.synchronize()
     mine = traced_only(kernel, f"golden {name}")
     gold = np.load(os.path.join(GOLDENS, f"{name}.npz"))["img"]
     golden_check(name, img, gold, t0, f"{kernel} only ({mine})")
     return mine
+
+
+# ------------------------------------------------------------ probes (P1, P2)
+
+def phase_p1(sess):
+    """P1 against its plain version (bit-equal), then the launch-floor
+    probe (the path P1 serves): P1 at 1 and 64 blocks and K1 closest at
+    1,024 and 65,536 rays, with P1's launches counted per shape."""
+    import torch
+    from fluctus_tpu_torch.ops import probes
+    from fluctus_tpu_torch.scripts import probe_launch_floor as plf
+    from fluctus_tpu_torch.timing import time_launches
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xs = {b: torch.rand((8 * b, 128), generator=g, device="cuda")
+          for b in (1, 64)}
+    err = {}
+    for b, x in xs.items():
+        k = probes.copy_plus_one_kernel(x)
+        p = probes.copy_plus_one_plain(x)
+        torch.cuda.synchronize()
+        err[b] = float((k - p).abs().max())
+        check(torch.equal(k, p), f"P1 ({b} blocks) differs from x + 1")
+    say("p1-check", t0, "P1 bit-equal to its plain version x + 1.0 on "
+        f"(8, 128) and (512, 128) random f32 tiles (max abs err "
+        f"{err[1]:.3e} / {err[64]:.3e})")
+
+    t1 = time.perf_counter()
+    lo, hi = sess.host_scene.bounds()
+    out = {}
+    for key, fn in plf.probes(sess.scene.wbvh, lo, hi).items():
+        probes.reset_counts()
+        ms = time_launches(fn)
+        out[key] = dict(ms=ms, launches=probes.LAUNCHES["p1"])
+    for key, b in (("p1_1_block", 1), ("p1_64_blocks", 64)):
+        x = xs[b]
+        r = out[key]
+        check(r["launches"] > 0, f"the launch-floor probe did not launch "
+              f"P1 at {b} blocks")
+        r["plain_ms"] = time_launches(
+            lambda: probes.copy_plus_one_plain(x))
+        r["bound_ms"] = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        r["max_abs_err"] = err[b]
+    say("p1-time", t1,
+        "launch floor, per launch (16 back to back, best of 3): "
+        + ", ".join(f"{k} {v['ms'] * 1e3:.2f} us" for k, v in out.items())
+        + f"; P1 plain {out['p1_1_block']['plain_ms'] * 1e3:.2f} / "
+        f"{out['p1_64_blocks']['plain_ms'] * 1e3:.2f} us; P1 launches "
+        f"{out['p1_1_block']['launches']} / "
+        f"{out['p1_64_blocks']['launches']}")
+    return out
+
+
+def phase_p2():
+    """P2, both forms, against their plain versions (bit-equal) on a
+    random (512, 1024) tile at 512 trips. Then the MFU probe: P2's rates,
+    the bf16 matmul and the HBM bandwidth, against the data-sheet peaks
+    the bounds use."""
+    import torch
+    from fluctus_tpu_torch.ops import probes
+    from fluctus_tpu_torch.scripts import measure_mfu as mfu
+    from fluctus_tpu_torch.timing import time_launches
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand(mfu.P2_SHAPE, generator=g, device="cuda") + 0.5
+    err = {}
+    for fused in (False, True):
+        p = probes.fma_chain_plain(x, mfu.P2_ITERS, fused)
+        k = probes.fma_chain_kernel(x, mfu.P2_ITERS, fused)
+        torch.cuda.synchronize()
+        err[fused] = (float((k - p).abs().max()), bool(torch.equal(k, p)))
+    p_u = probes.fma_chain_plain(x, mfu.P2_ITERS, False)
+    p_f = probes.fma_chain_plain(x, mfu.P2_ITERS, True)
+    say("p2-check", t0,
+        f"P2 vs its plain versions on a random {mfu.P2_SHAPE} tile, "
+        f"{mfu.P2_ITERS} trips: unfused bit-equal {err[False][1]}, fused "
+        f"bit-equal {err[True][1]} (max abs err {err[False][0]:.3e} / "
+        f"{err[True][0]:.3e}); the two plain forms part by up to "
+        f"{float(((p_u - p_f).abs() / p_f).max()):.3e} relative")
+    check(err[False][1] and err[True][1], "P2 differs from its plain "
+          "version")
+
+    t1 = time.perf_counter()
+    out = {}
+    steps = 8 * mfu.P2_ITERS * x.numel()
+    for fused in (True, False):
+        plain_ms = time_launches(lambda: probes.fma_chain_plain(
+            x, mfu.P2_ITERS, fused), reps=1, best_of=2)
+        probes.reset_counts()
+        flops, ms = mfu.p2_rate(fused)
+        key = "p2_fused" if fused else "p2_unfused"
+        launches = probes.LAUNCHES[key]
+        check(launches > 0, f"the MFU probe did not launch {key}")
+        instr = steps if fused else 2 * steps
+        out[fused] = dict(
+            ms=ms, plain_ms=plain_ms, launches=launches, flops=flops,
+            instr_s=instr / (ms * 1e-3),
+            bound_ms=instr / F32_INSTR_PER_S * 1e3,
+            max_abs_err=err[fused][0])
+    mm = mfu.matmul_bf16()
+    bw = mfu.hbm_bw()
+    f, u = out[True], out[False]
+    say("p2-time", t1,
+        f"P2 fused {f['flops'] / 1e12:.3f} TFLOP/s = "
+        f"{f['instr_s'] / 1e12:.3f} T instr/s, "
+        f"{f['flops'] / (2 * F32_INSTR_PER_S) * 100:.1f}% of the 67 "
+        f"TFLOP/s data-sheet peak ({f['ms']:.4f} ms per launch); unfused "
+        f"{u['flops'] / 1e12:.3f} TFLOP/s = {u['instr_s'] / 1e12:.3f} T "
+        f"instr/s, {u['instr_s'] / F32_INSTR_PER_S * 100:.1f}% of the "
+        f"{F32_INSTR_PER_S / 1e12:.1f} T instr/s the bounds use "
+        f"({u['ms']:.4f} ms); plain {f['plain_ms']:.1f} / "
+        f"{u['plain_ms']:.1f} ms; HBM stream "
+        f"{bw / 1e9:.1f} GB/s ({bw / HBM_BYTES_PER_S * 100:.1f}% of "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); bf16 matmul 2048^2 "
+        f"{mm / 1e12:.1f} TFLOP/s ({mm / 989e12 * 100:.1f}% of 989)")
+    return out
+
+
+# ------------------------------------------------------------ stream
+
+@contextlib.contextmanager
+def capture_returns(module, name: str):
+    """Record the return value of every call of `module.name` while the
+    block runs."""
+    orig = getattr(module, name)
+    got = []
+
+    def wrapped(*a, **k):
+        r = orig(*a, **k)
+        got.append(r)
+        return r
+    setattr(module, name, wrapped)
+    try:
+        yield got
+    finally:
+        setattr(module, name, orig)
+
+
+FUSED_SEGMENT = 8    # a segment past the first, whose pending rays are real
+
+
+@contextlib.contextmanager
+def capture_fused_call():
+    """Keep copies of the ray arguments (orig, dir, sh_orig, sh_dir,
+    sh_len) of call FUSED_SEGMENT of common.trace_scene_with_shadow, or of
+    the last call if there are fewer, while the block runs."""
+    from fluctus_tpu_torch.integrators import common
+    orig = common.trace_scene_with_shadow
+    got = {"calls": 0, "args": None}
+
+    def wrapped(*a, **k):
+        if got["calls"] <= FUSED_SEGMENT:
+            got["args"] = tuple(x.clone() for x in a[3:8])
+        got["calls"] += 1
+        return orig(*a, **k)
+    common.trace_scene_with_shadow = wrapped
+    try:
+        yield got
+    finally:
+        common.trace_scene_with_shadow = orig
+
+
+def fused_check(sess, got, kernel: str, what: str) -> None:
+    """One deferred segment's fused call, rebuilt from its captured rays
+    ([ext ; shadow], t_max T_MAX and the shadow lengths), through
+    `kernel`'s wrapper and its plain version on the same inputs: prim, t,
+    u and v bit-equal. Run after the main path's counts are read."""
+    import torch
+    from fluctus_tpu_torch.integrators import common
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+
+    t0 = time.perf_counter()
+    check(got["args"] is not None, f"{what}: no fused call was made")
+    b = got["args"][0].shape[0]
+    o, d, t = common.fused_rays(*got["args"])
+    if kernel == "K1":
+        w = sess.scene.wbvh
+        k = ts.traverse_kernel(w, o, d, t, any_hit=False)
+        p, _ = ts.traverse_plain(w, o, d, t, any_hit=False)
+    else:
+        kern, plain = brute_launchers("vlist")
+        k = tb.traverse_closest(sess.scene.bforest, o, d, t, launch=kern)
+        p = tb.traverse_closest(sess.scene.bforest, o, d, t, launch=plain)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(k, f), getattr(p, f))
+               for f in ("prim", "t", "u", "v"))
+    say("fused-check", t0,
+        f"{what}: fused call {min(FUSED_SEGMENT, got['calls'] - 1)} of "
+        f"{got['calls']}, {b} extension rays ({int((k.prim[:b] >= 0).sum())}"
+        f" hits) + {o.shape[0] - b} shadow rays with per-lane t_max "
+        f"({int((k.prim[b:] >= 0).sum())} blocked), {kernel} against its "
+        f"plain version: prim, t, u, v bit-equal {same}")
+    check(same, f"{what}: {kernel} differs from its plain version on the "
+          "fused call")
+
+
+def traced_closest_only(kernel: str, what: str) -> dict:
+    """Fail unless, since the last reset_counts, `kernel` launched in its
+    closest form only (every shadow ray went through the fused call), no
+    other traversal kernel launched and no plain version ran."""
+    launches = launch_counts()
+    mine = launches.pop(kernel)
+    check(mine["closest"] > 0 and mine["any"] == 0,
+          f"{what} did not launch {kernel} in the closest form only: {mine}")
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          f"{what} launched other kernels: {launches}")
+    plain = launch_counts("PLAIN_CALLS")
+    check(all(v == 0 for d in plain.values() for v in d.values()),
+          f"plain traversal ran in {what}: {plain}")
+    return mine
+
+
+def no_nee(sess):
+    return dataclasses.replace(sess, cfg=sess.cfg.replace(sample_expl=False))
+
+
+def phase_stream_check(sess):
+    """The kitchen at 64x64, 2 spp, through K1 only. Without next-event
+    estimation the stream and the lockstep trace the same paths with the
+    same random numbers, so their images agree to atol 1e-5; with it, the
+    stream's light sampling is the reference wavefront's (the light
+    distance shortened by 0.995, wf_logic.cl:272), so it is held deferred
+    against immediate (rtol 1e-4, atol 1e-5) and against the lockstep
+    only through the case above. Spawns equal n_pix * spp."""
+    import torch
+    from fluctus_tpu_torch.render import driver
+
+    t0 = time.perf_counter()
+    choice = driver.choose_integrator(sess)     # the openness probe
+    small = dataclasses.replace(sess, cfg=sess.cfg.replace(width=64,
+                                                          height=64))
+    spp, n_pix = 2, 64 * 64
+    reset_counts()
+    plain = no_nee(small)
+    img_l = driver.render(plain, spp, integrator="lockstep")
+    img_s, cnt_s = driver.render_stream(plain, spp)
+    img_d, cnt_d = driver.render_stream(small, spp, deferred=True)
+    img_i, cnt_i = driver.render_stream(small, spp, deferred=False)
+    torch.cuda.synchronize()
+    traced_only("K1", "stream-check")
+    d_ls = float((img_s - img_l).abs().max())
+    di_ok = bool(torch.allclose(img_d, img_i, rtol=1e-4, atol=1e-5))
+    di_err = float((img_d - img_i).abs().max())
+    spawns = [int(c[0]) for c in (cnt_s, cnt_d, cnt_i)]
+    say("stream-check", t0,
+        f"kitchen 64x64 {spp} spp through K1: without NEE stream vs "
+        f"lockstep max abs diff {d_ls:.3e} (limit 1e-5); with NEE "
+        f"deferred vs immediate max abs diff {di_err:.3e} (rtol 1e-4, "
+        f"atol 1e-5: {di_ok}); spawns {spawns} (need {n_pix * spp}); "
+        f"counters deferred {cnt_d.tolist()} immediate {cnt_i.tolist()}; "
+        f"integrator=\"auto\" picks {choice} for the 512x512 kitchen")
+    check(d_ls <= 1e-5, "stream and lockstep differ without NEE")
+    check(di_ok, "deferred and immediate streams differ")
+    check(spawns == [n_pix * spp] * 3, "stream spawn count is not exact")
+    check(torch.equal(cnt_d, cnt_i), "deferred and immediate counters "
+          "differ")
+
+
+def phase_frame_stream(sess, spp: int, card: str):
+    """The kitchen frame through driver.render(integrator="stream"): K1
+    in closest form only (every shadow ray fused), no plain version;
+    spawns n_pix * spp; analytic and actual-queue MRays/s, Msamples/s."""
+    import torch
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.render.benchmark import ray_counts_per_sample
+
+    t0 = time.perf_counter()
+    reset_counts()
+    with capture_returns(driver, "render_stream") as got, \
+            capture_fused_call() as fused:
+        img = driver.render(sess, spp, integrator="stream")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    mine = traced_closest_only("K1", "the kitchen stream frame")
+    fused_check(sess, fused, "K1", "the kitchen stream frame")
+    cfg = sess.cfg
+    n = cfg.width * cfg.height * spp
+    counters = got[0][1].tolist()
+    prim, ext, shadow = ray_counts_per_sample(cfg, n)
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3), "image shape")
+    check(bool(torch.isfinite(img).all()) and bool((img >= 0).all()),
+          "stream image has non-finite or negative values")
+    check(counters[0] == n, f"spawns {counters[0]} != {n}")
+    say("frame-stream", t0,
+        f"kitchen stream {cfg.width}x{cfg.height} {spp} spp, "
+        f"{cfg.max_bounces} bounces, pool {driver.stream_pool(cfg)}: "
+        f"{secs:.3f} s, {(prim + ext + shadow) / secs / 1e6:.3f} MRays/s "
+        f"analytic, {sum(counters) / secs / 1e6:.3f} MRays/s actual queue "
+        f"(spawns, extension, shadow = {counters}), "
+        f"{n / secs / 1e6:.4f} Msamples/s, K1 launches {mine}, no any-hit "
+        f"launch, no other kernel or plain version, mean radiance "
+        f"{float(img.mean()):.5f}, on {card}")
+    return secs, mine
+
+
+def phase_golden_stream(sess, name, spp, kernel, reference, ref_what):
+    """Golden session `name` through the stream. Without NEE: the stream
+    against the lockstep on the card (atol 1e-5: the same paths). With
+    NEE, through `kernel` in closest form only: against `reference` (an
+    image of the same stream from an independent route, `ref_what`) at
+    GOLDEN_LIMITS[name]; and, for the record only, against the lockstep
+    golden, from which the reference wavefront's light sampling moves it
+    (the 0.995 shortening)."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.render import driver
+
+    t0 = time.perf_counter()
+    plain = no_nee(sess)
+    img_l = driver.render(plain, spp, integrator="lockstep")
+    img_s, _ = driver.render_stream(plain, spp)
+    d_ls = float((img_s - img_l).abs().max())
+    check(d_ls <= 1e-5, f"{name}: stream and lockstep differ without NEE "
+          f"({d_ls})")
+    reset_counts()
+    with capture_fused_call() as fused:
+        img = driver.render(sess, spp, integrator="stream").cpu().numpy()
+    torch.cuda.synchronize()
+    mine = traced_closest_only(kernel, f"golden {name} through the stream")
+    fused_check(sess, fused, kernel, f"golden {name} through the stream")
+    golden_check(name, img, reference, t0,
+                 f"the stream, {kernel} closest only ({mine}), against "
+                 f"{ref_what}; without NEE stream vs lockstep max abs diff "
+                 f"{d_ls:.3e}")
+    gold = np.load(os.path.join(GOLDENS, f"{name}.npz"))["img"]
+    share, rel = golden_share(img, gold)
+    say("golden", t0, f"{name}: the stream against the lockstep golden, "
+        f"for the record: {share * 100:.3f}% of pixels within rtol {RTOL} /"
+        f" atol {ATOL}, mean relative error {rel:.3e}")
+    return mine
+
+
+def phase_bench(sess):
+    """benchmark.run_benchmark (lockstep, 4 spp per tile step) and
+    run_benchmark_stream (1 spp per frame, so that a frame fits the 8 s)
+    on the session for about 8 s each, with the reference CSV schema."""
+    import math
+    from fluctus_tpu_torch.render import benchmark as bm
+
+    out_dir = os.path.join(REPO, "out")     # gitignored
+    os.makedirs(out_dir, exist_ok=True)
+    results = {}
+    for label, run in (
+            ("lockstep", bm.run_benchmark),
+            ("stream", functools.partial(bm.run_benchmark_stream,
+                                         spp_per_frame=1))):
+        t0 = time.perf_counter()
+        csv = os.path.join(out_dir, f"smoke_bench_{label}.csv")
+        r = run(sess, duration_s=8.0, scene_name="kitchen", csv_path=csv)
+        lines = open(csv).read().splitlines()
+        check(lines[0] == bm.CSV_HEADER and len(lines) >= 2
+              and all(len(ln.split(";")) == 7 for ln in lines[1:]),
+              f"{label} benchmark CSV does not follow the schema")
+        check(all(math.isfinite(r[k]) and r[k] > 0 for k in (
+            "primary_mrays_s", "extension_mrays_s", "total_mrays_s",
+            "samples_mrays_s", "samples_per_pixel")),
+            f"{label} benchmark result: {r}")
+        say("bench", t0, f"{label}: {json.dumps(r)} | {bm.summary_line(r)}"
+            f" | {len(lines) - 1} CSV rows")
+        results[label] = r
+    return results
 
 
 def main() -> int:
@@ -861,11 +1227,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import fluctus_tpu_torch   # noqa: F401  (fails outside the repository)
+    from fluctus_tpu_torch.ops import probes
     from fluctus_tpu_torch.ops import traverse_brute as tb
     from fluctus_tpu_torch.ops import traverse_forest as tf
     from fluctus_tpu_torch.ops import traverse_pallas as tp
     from fluctus_tpu_torch.ops import traverse_stack as ts
     from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.timing import card_line
 
     t0 = time.perf_counter()
     card = card_line()
@@ -874,12 +1242,13 @@ def main() -> int:
         f"{torch.version.cuda} | python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    mods = (ts, tb, tf, tp)
+    mods = (ts, tb, tf, tp, probes)
     with ThreadPoolExecutor(len(mods)) as pool:   # one nvcc per source
         for f in [pool.submit(m.load_kernel) for m in mods]:
             f.result()
     for name, info in (("K1", ts.BUILD_INFO), ("K2+K3", tb.BUILD_INFO),
-                       ("K5", tf.BUILD_INFO), ("K4", tp.BUILD_INFO)):
+                       ("K5", tf.BUILD_INFO), ("K4", tp.BUILD_INFO),
+                       ("P1+P2", probes.BUILD_INFO)):
         regs = [ln.split(":", 1)[-1].strip()
                 for ln in info["log"].splitlines()
                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
@@ -896,18 +1265,36 @@ def main() -> int:
         f"depth {w.depth}, state {sess.host_scene.hash}")
 
     ktimes = phase_kernel(sess)
+    p1 = phase_p1(sess)
+    p2 = phase_p2()
 
     t0 = time.perf_counter()
     small = dataclasses.replace(sess, cfg=sess.cfg.replace(width=64,
                                                           height=64))
-    driver.render(small, 1)
+    driver.render(small, 1, integrator="lockstep")
     torch.cuda.synchronize()
     say("warm-up", t0, "64x64 1 spp")
 
     secs, launches = phase_frame_only(sess, 16, card, "frame", "K1",
                                       "kitchen")
-    for name, (gs, spp) in golden_sessions("cuda").items():
+    gold = golden_sessions("cuda")
+    for name, (gs, spp) in gold.items():
         phase_golden_only(gs, name, spp, "K1")
+
+    # the streaming wavefront through K1 (fused extension + shadow calls)
+    phase_stream_check(sess)
+    secs_s, launches_s = phase_frame_stream(sess, 4, card)
+    cpu_golden = golden_sessions("cpu")
+    for name, (gs, spp) in gold.items():
+        t0 = time.perf_counter()
+        ref = driver.render(cpu_golden[name][0], spp,
+                            integrator="stream").numpy()
+        say("golden", t0, f"{name}: the stream on this host's CPU (plain "
+            f"versions), the reference for the card's stream")
+        phase_golden_stream(gs, name, spp, "K1", ref,
+                            "the same stream on this host's CPU")
+    del cpu_golden, gold
+    bench = phase_bench(sess)
 
     # the packet path (K4): backend="pallas" on the same kitchen session
     k4_err = phase_packet_check(sess)
@@ -915,7 +1302,7 @@ def main() -> int:
     psess = dataclasses.replace(sess, cfg=sess.cfg.replace(backend="pallas"))
     t0 = time.perf_counter()
     driver.render(dataclasses.replace(psess, cfg=psess.cfg.replace(
-        width=64, height=64)), 1)
+        width=64, height=64)), 1, integrator="lockstep")
     torch.cuda.synchronize()
     say("warm-up", t0, "kitchen 64x64 1 spp, backend pallas")
     secs_p, launches_p = phase_frame_only(psess, 4, card, "frame-packet",
@@ -957,17 +1344,26 @@ def main() -> int:
         f"{o.shape[0]} closest rays: prim mismatches {n_mis} (+{n_ties} "
         f"equal-t ties), max rel t err {t_rel:.3e}")
     check(n_mis == 0, "K2 and K1 disagree on the conference")
-    del wbvh_full
-    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     driver.render(dataclasses.replace(big, cfg=big.cfg.replace(
-        width=64, height=64)), 1)
+        width=64, height=64)), 1, integrator="lockstep")
     torch.cuda.synchronize()
     say("warm-up", t0, "conference 64x64 1 spp")
     secs_big, launches_big = phase_frame_only(big, 4, card, "frame-big",
                                               "K2", "conference")
-    launches_k3 = phase_golden_big()
+    launches_k3, gbig = phase_golden_big()
+    t0 = time.perf_counter()
+    k1_scene = dataclasses.replace(gbig.scene, wbvh=wbvh_full, bforest=None)
+    ref = driver.render_stream(dataclasses.replace(gbig, scene=k1_scene),
+                               4)[0]
+    say("golden", t0, "conference: the stream through the fused K1 call "
+        "over the full hierarchy, the reference for the fused K2 call")
+    phase_golden_stream(gbig, "conference", 4, "K2", ref.cpu().numpy(),
+                        "the same stream through K1 over the full "
+                        "hierarchy")
+    del wbvh_full, gbig, k1_scene
+    torch.cuda.empty_cache()
     del big, bf
     torch.cuda.empty_cache()
 
@@ -997,7 +1393,7 @@ def main() -> int:
     ftimes = phase_forest_time(ft, tw, trays)
     t0 = time.perf_counter()
     driver.render(dataclasses.replace(tsess, cfg=tsess.cfg.replace(
-        width=64, height=64)), 1)
+        width=64, height=64)), 1, integrator="lockstep")
     torch.cuda.synchronize()
     say("warm-up", t0, "conference 64x64 1 spp, treelet forest")
     secs_t, launches_t = phase_frame_only(
@@ -1061,8 +1457,34 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+    for key, replaces in (("p1_1_block", "scripts/probe_pallas_floor.py:55"),
+                          ("p1_64_blocks",
+                           "scripts/probe_pallas_floor.py:65")):
+        r = p1[key]
+        kernels.append({
+            "name": f"P1 probes copy_plus_one, {key[3:].replace('_', ' ')}",
+            "route": "cuda", "source": "fluctus_tpu_torch/csrc/probes.cu",
+            "replaces": replaces, "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            # the plain version is one PyTorch call, x + 1.0
+            "library_ms": r["plain_ms"]})
+    for fused in (True, False):
+        r = p2[fused]
+        kernels.append({
+            "name": f"P2 probes fma_chain {'fused' if fused else 'unfused'}",
+            "route": "cuda", "source": "fluctus_tpu_torch/csrc/probes.cu",
+            "replaces": "scripts/measure_mfu.py:37",
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "operations",
+            "library_ms": None})
     print(f"[total] {time.perf_counter() - _T0:8.2f}s  kitchen frame "
-          f"{secs:.3f} s, kitchen packet frame {secs_p:.3f} s, conference "
+          f"{secs:.3f} s, kitchen stream frame {secs_s:.3f} s (bench: "
+          f"lockstep {bench['lockstep']['total_mrays_s']:.3f}, stream "
+          f"{bench['stream']['total_mrays_s']:.3f} MRays/s), kitchen "
+          f"packet frame {secs_p:.3f} s, conference "
           f"frame {secs_big:.3f} s (brute), {secs_t:.3f} s (treelet) on "
           f"{card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -187,10 +187,14 @@ class RenderConfig:
     use_area_light: bool = False
     sample_impl: bool = True
     sample_expl: bool = True
+    use_roulette: bool = False
     tonemap_op: int = 2
     bsdf_types_mask: int = 0xFE
     tile_size: int = 1 << 16
     backend: str = "auto"
+    # paths in flight in the wavefront integrators (reference wfBufferSize
+    # default 2^20, src/settings.cpp:20)
+    pool_size: int = 1 << 20
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
@@ -206,6 +210,23 @@ class Hit:
     uv: torch.Tensor
     mat_id: torch.Tensor
     area_light: torch.Tensor  # bool
+
+
+@dataclass
+class PathState:
+    """Per-path wavefront state over the path pool (reference:
+    src/geom.h:196-236 `GPUTaskState`). The JAX package keeps the counters
+    as uint32; here they are int64 tensors holding the same values."""
+    orig: torch.Tensor           # (N, 3) f32
+    dir: torch.Tensor            # (N, 3) f32
+    throughput: torch.Tensor     # (N, 3) f32
+    radiance: torch.Tensor       # (N, 3) f32
+    pixel_index: torch.Tensor    # (N,) i64
+    sample_index: torch.Tensor   # (N,) i64, the per-pixel sample counter
+    path_len: torch.Tensor       # (N,) i64
+    last_pdf_w: torch.Tensor     # (N,) f32
+    last_specular: torch.Tensor  # (N,) bool
+    alive: torch.Tensor          # (N,) bool
 
 
 def _vec(x, device):

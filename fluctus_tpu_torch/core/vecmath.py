@@ -70,6 +70,11 @@ def ortho_basis(n: torch.Tensor):
     return t, bt
 
 
+def luminance(c: torch.Tensor) -> torch.Tensor:
+    """sRGB luminance (reference: src/utils.cl:237-240)."""
+    return 0.212671 * c[..., 0] + 0.715160 * c[..., 1] + 0.072169 * c[..., 2]
+
+
 def is_zero(v: torch.Tensor) -> torch.Tensor:
     return (v == 0.0).all(dim=-1)
 

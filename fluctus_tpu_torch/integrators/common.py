@@ -106,6 +106,48 @@ def trace_scene(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
     return hit_from_traversal(scene, params, cfg, orig, dir, tr)
 
 
+def fused_rays(orig, dir, sh_orig, sh_dir, sh_len):
+    """The rays of the fused call: [ext ; shadow] origins and directions,
+    and t_max T_MAX for the extension rays, max(sh_len, 1e-6) for the
+    shadow rays."""
+    t_ext = torch.full((orig.shape[0],), T_MAX, dtype=torch.float32,
+                       device=orig.device)
+    return (torch.cat([orig, sh_orig]).contiguous(),
+            torch.cat([dir, sh_dir]).contiguous(),
+            torch.cat([t_ext, torch.clamp(sh_len, min=1e-6)]))
+
+
+def trace_scene_with_shadow(scene: DeviceScene, params: RenderParams,
+                            cfg: RenderConfig, orig, dir, sh_orig, sh_dir,
+                            sh_len, check_area_quad: bool = True):
+    """Extension hits and shadow flags of two independent ray sets
+    (counterpart of the JAX `common.trace_scene_with_shadow`). Returns
+    (hit, blocked).
+
+    One closest call over [ext ; shadow] rays, the extension rays under
+    T_MAX and the shadow rays under t_max = max(sh_len, 1e-6), so a
+    shadow ray is blocked exactly when it returns a triangle. Every
+    traversal kernel of the port takes a per-lane t_max in closest form
+    (K1, K2, K4 and K5), so the port fuses on every scene and backend.
+    The JAX package keeps a second form (closest, then any-hit) for its
+    treelet forest, its packet backend and tables that fail `_mxu_ok`, a
+    test of whether they fit the TPU core's VMEM; that test has no
+    meaning on the card."""
+    b = orig.shape[0]
+    o2, d2, t2 = fused_rays(orig, dir, sh_orig, sh_dir, sh_len)
+    lens = t2[b:]
+    tr2 = _traverse_closest_tr(scene, cfg, o2, d2, t2)
+    tr = Traversal(*(x[:b] for x in tr2))
+    blocked = tr2.prim[b:] >= 0
+    hit = hit_from_traversal(scene, params, cfg, orig, dir, tr)
+    if check_area_quad and cfg.use_area_light:
+        al = params.area_light
+        q_hit, _ = ray_area_light(sh_orig, sh_dir, al.pos, al.right, al.up,
+                                  al.normal, al.size, lens)
+        blocked = blocked | q_hit
+    return hit, blocked
+
+
 def hit_from_traversal(scene: DeviceScene, params: RenderParams,
                        cfg: RenderConfig, orig, dir, tr: Traversal) -> Hit:
     """Hit record from a traversal: t/u/v recomputed on the hit triangle

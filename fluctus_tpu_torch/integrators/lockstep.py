@@ -102,11 +102,24 @@ def sample_radiance(scene: DeviceScene, params: RenderParams,
     return ei
 
 
+def _render_tile_spp(scene: DeviceScene, params: RenderParams,
+                     cfg: RenderConfig, pixel_idx: torch.Tensor,
+                     sample0: int, n_samples: int) -> torch.Tensor:
+    """Sum of samples sample0 .. sample0 + n_samples - 1 of the pixels
+    `pixel_idx`, (B, 3): one launch of the JAX package's fused samples."""
+    acc = torch.zeros((pixel_idx.shape[0], 3), dtype=torch.float32,
+                      device=pixel_idx.device)
+    for k in range(n_samples):
+        acc = acc + sample_radiance(scene, params, cfg, pixel_idx,
+                                    sample0 + k)
+    return acc
+
+
 def render(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
            spp: int) -> torch.Tensor:
     """cfg.width x cfg.height at exactly `spp` samples per pixel; returns
     (H, W, 3) float32 linear radiance. Pixels go in tiles of cfg.tile_size
-    rays."""
+    rays, samples in groups of SAMPLES_PER_LAUNCH."""
     dev = scene.device
     n_pix = cfg.width * cfg.height
     tile = min(cfg.tile_size, n_pix)
@@ -116,10 +129,11 @@ def render(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
                            dtype=torch.int32)
         tile_acc = torch.zeros((idx.shape[0], 3), dtype=torch.float32,
                                device=dev)
-        for s0 in range(0, spp, SAMPLES_PER_LAUNCH):
-            group = torch.zeros_like(tile_acc)
-            for s in range(s0, min(s0 + SAMPLES_PER_LAUNCH, spp)):
-                group = group + sample_radiance(scene, params, cfg, idx, s)
-            tile_acc = tile_acc + group
+        s = 0
+        while s < spp:
+            k = min(SAMPLES_PER_LAUNCH, spp - s)
+            tile_acc = tile_acc + _render_tile_spp(scene, params, cfg, idx,
+                                                   s, k)
+            s += k
         acc[start:start + idx.shape[0]] += tile_acc
     return (acc / spp).reshape(cfg.height, cfg.width, 3)

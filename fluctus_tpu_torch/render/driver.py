@@ -8,14 +8,17 @@ with no card and no such request they raise.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from fluctus_tpu_torch.core import samplers
 from fluctus_tpu_torch.core.types import (
     DeviceScene, RenderConfig, RenderParams, default_params)
-from fluctus_tpu_torch.integrators import common, lockstep
+from fluctus_tpu_torch.integrators import common, lockstep, wavefront
+from fluctus_tpu_torch.ops import camera as cam_ops
 from fluctus_tpu_torch.ops import tonemap as tm
 from fluctus_tpu_torch.scene.scene import (
     HostScene, fast_big_eligible, load_scene)
@@ -36,6 +39,8 @@ class RenderSession:
     scene: DeviceScene
     params: RenderParams
     cfg: RenderConfig
+    integrator_choice: str | None = None  # cached choose_integrator result
+    _choice_key: tuple | None = None      # (params digest, cfg) at choice
 
     @property
     def device(self) -> torch.device:
@@ -92,23 +97,139 @@ def create_session(scene_path: str, cfg: RenderConfig | None = None,
                          cfg=cfg)
 
 
+def _openness_probe(scene: DeviceScene, params: RenderParams,
+                    cfg: RenderConfig, pix: torch.Tensor):
+    """(primary hit rate, bounce escape rate) on probe pixels: primary rays
+    through the pixel centres, then one deterministic low-discrepancy
+    cosine bounce from each hit. Returns two 0-d tensors."""
+    half = torch.full(pix.shape, 0.5, dtype=torch.float32, device=pix.device)
+    zero = torch.zeros(pix.shape, dtype=torch.float32, device=pix.device)
+    orig, dir = cam_ops.generate_rays(params.camera, pix, cfg.width,
+                                      cfg.height, half, half, zero, zero,
+                                      params.world_radius)
+    hit = common.trace_scene(scene, params, cfg, orig, dir)
+    hit_mask = hit.prim >= 0
+    ctx = common.make_shading_ctx(scene, hit, dir)
+    f = pix.to(torch.float32)
+    u = torch.remainder(f * 0.7548777, 1.0)
+    v = torch.remainder(f * 0.5698403, 1.0)
+    d2, _ = samplers.cosine_hemisphere(ctx.n, u, v)
+    hit2 = common.trace_scene(scene, params, cfg,
+                              hit.p + common.OFFSET_CONT * d2, d2)
+    esc = hit_mask & (hit2.prim < 0)
+    n_hit = hit_mask.sum()
+    return (n_hit / pix.shape[0],
+            esc.sum() / torch.clamp(n_hit, min=1))
+
+
+def integrator_decision(hit_rate: float, escape_rate: float,
+                        max_bounces: int, nee: bool = True) -> str:
+    """The rule behind choose_integrator (the JAX package's, calibrated on
+    its TPU protocol sweep). Without next-event estimation: lockstep.
+    With it: the expected traced segments per path, 1 + h * min(1/e, mb),
+    against the lockstep's mb + 1 trips: the stream where that is at most
+    0.55 (mb + 1)."""
+    if not nee:
+        return "lockstep"
+    mb = max_bounces
+    mean_len = 1.0 + hit_rate * min(
+        1.0 / max(escape_rate, 1.0 / (mb + 1.0)), float(mb))
+    return "stream" if mean_len <= 0.55 * (mb + 1) else "lockstep"
+
+
+def choose_integrator(session: RenderSession, n_probe: int = 4096) -> str:
+    """Integrator for the session's scene from an openness probe of about
+    n_probe pixels (primary hit rate h, bounce escape rate e) and
+    integrator_decision. A CPU session takes the lockstep, as the JAX
+    package does on its CPU backend."""
+    if session.device.type == "cpu":
+        return "lockstep"
+    cfg = session.cfg
+    n_pix = cfg.width * cfg.height
+    stride = max(1, n_pix // n_probe)
+    pix = torch.arange(0, n_pix, stride, dtype=torch.int64,
+                       device=session.device)
+    h, e = _openness_probe(session.scene, session.params, cfg, pix)
+    nee = bool(cfg.sample_expl and (cfg.use_env_map or cfg.use_area_light))
+    return integrator_decision(float(h), float(e), cfg.max_bounces, nee)
+
+
+def _tensor_leaves(rec):
+    if isinstance(rec, torch.Tensor):
+        yield rec
+    elif dataclasses.is_dataclass(rec):
+        for f in dataclasses.fields(rec):
+            yield from _tensor_leaves(getattr(rec, f.name))
+
+
+def _params_digest(params: RenderParams) -> bytes:
+    """Content hash of the parameters: with the config, the key of the
+    cached integrator choice, so a moved camera or light probes again."""
+    h = hashlib.blake2b(digest_size=16)
+    for leaf in _tensor_leaves(params):
+        h.update(leaf.detach().cpu().numpy().tobytes())
+    return h.digest()
+
+
+def _cached_choice(session: RenderSession) -> str:
+    key = (_params_digest(session.params), session.cfg)
+    if session.integrator_choice is None or session._choice_key != key:
+        session.integrator_choice = choose_integrator(session)
+        session._choice_key = key
+    return session.integrator_choice
+
+
+def stream_pool(cfg: RenderConfig) -> int:
+    """Stream pool size: n_pix / 16 within [2^12, 2^16], at most
+    cfg.pool_size (the JAX package's rule, tuned on its 512^2 frame)."""
+    n_pix = cfg.width * cfg.height
+    return min(cfg.pool_size, int(np.clip(n_pix // 16, 1 << 12, 1 << 16)))
+
+
+def render_stream(session: RenderSession, spp: int, deferred: bool = True):
+    """The driver's streaming wavefront: pool `stream_pool`, 32 segments
+    per launch, deferred shadow rays. Returns ((H, W, 3) image, counters
+    [spawns, extension rays, shadow rays])."""
+    cfg = session.cfg.replace(pool_size=stream_pool(session.cfg))
+    return wavefront.render_stream(session.scene, session.params, cfg, spp,
+                                   segments_per_launch=32, deferred=deferred)
+
+
 def render(session: RenderSession, spp: int,
-           integrator: str = "lockstep") -> torch.Tensor:
+           integrator: str = "auto") -> torch.Tensor:
     """Linear-radiance frame (H, W, 3) at exactly `spp`, on the session's
-    device."""
+    device. integrator: "lockstep", "stream" (`render_stream`) or "auto"
+    (an openness probe picks per scene; see choose_integrator)."""
+    if integrator == "auto":
+        integrator = _cached_choice(session)
     if integrator == "stream":
-        raise NotImplementedError(
-            "the streaming wavefront integrator is not ported yet "
-            "(ROADMAP Queue 1, streaming wavefront)")
+        return render_stream(session, spp)[0]
     if integrator != "lockstep":
         raise ValueError(f"unknown integrator {integrator!r}")
     return lockstep.render(session.scene, session.params, session.cfg, spp)
 
 
 def render_ldr(session: RenderSession, spp: int,
-               integrator: str = "lockstep") -> torch.Tensor:
+               integrator: str = "auto") -> torch.Tensor:
     """Frame after exposure, tonemap and display gamma."""
     img = render(session, spp, integrator=integrator)
     w = torch.ones(img.shape[:2], dtype=torch.float32, device=img.device)
     return tm.postprocess(img, w, session.params.exposure,
                           session.cfg.tonemap_op)
+
+
+def mrays_benchmark(session: RenderSession, duration_s: float = 10.0,
+                    integrator: str = "auto") -> dict:
+    """MRays/s of the session's integrator through render/benchmark.py:
+    the lockstep counts every lane at every bounce, the stream counts the
+    rays its queues really traced (reference: src/clcontext.cpp:648-656,
+    src/tracer.cpp:333-345)."""
+    from fluctus_tpu_torch.render import benchmark as bm
+
+    if integrator == "auto":
+        integrator = _cached_choice(session)
+    run = (bm.run_benchmark_stream if integrator == "stream"
+           else bm.run_benchmark)
+    out = run(session, duration_s=duration_s)
+    out["integrator"] = integrator
+    return out

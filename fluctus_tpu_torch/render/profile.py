@@ -1,21 +1,24 @@
-"""Where a lockstep frame's time goes on the card.
+"""Where a frame's time goes on the card.
 
     python3 -m fluctus_tpu_torch.render.profile [--scene PATH]
         [--bounces N] [--spp N] [--frames N] [--backend auto|pallas]
+        [--integrator lockstep|stream]
 
-Traces one 65,536-ray tile at 1 spp of a 512x512 lockstep frame (area
-light, the scene's saved state; the kitchen at 8 bounces by default) with
-torch.profiler and prints the device time by kernel, the device-busy
-share of the traced wall time, and the traversal kernels' share (K1; K2/K3
-on a scene above the fast-big cutover; K5 under FLUCTUS_FOREST=treelet;
-K4 under --backend pallas); then times N whole frames at --spp to show
-the spread. Needs a CUDA card.
+Traces, with torch.profiler, one piece of a 512x512 frame (area light, the
+scene's saved state; the kitchen at 8 bounces by default): under the
+lockstep integrator one 65,536-ray tile at 1 spp, under the stream one
+deferred segment of the driver's pool (2^14 lanes) after 8 warm segments,
+with a spawn budget of 64 spp so the pool stays full. It prints the
+device time by kernel, the device-busy share of the traced wall time, and
+the traversal kernels' share (K1; K2/K3 on a scene above the fast-big
+cutover; K5 under FLUCTUS_FOREST=treelet; K4 under --backend pallas); then
+times N whole frames at --spp through the same integrator to show the
+spread. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import time
 
 import torch
@@ -54,20 +57,52 @@ def _launch_counts() -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def profile_tile(sess) -> None:
-    from torch.profiler import ProfilerActivity, profile
-
+def _tile_step(sess):
+    """A warm-up and a traced call: one lockstep tile-sample."""
     from fluctus_tpu_torch.integrators import lockstep
 
     idx = torch.arange(1 << 16, dtype=torch.int32, device="cuda")
     lockstep.sample_radiance(sess.scene, sess.params, sess.cfg, idx, 0)
+    title = (f"tile 65536 rays, 1 spp, {sess.cfg.max_bounces} bounces")
+    return title, lambda: lockstep.sample_radiance(
+        sess.scene, sess.params, sess.cfg, idx, 1)
+
+
+def _segment_step(sess, spp: int = 64, warm: int = 8):
+    """A warm-up and a traced call: one deferred stream segment of the
+    driver's pool, after `warm` segments."""
+    from fluctus_tpu_torch.integrators import wavefront as wf
+    from fluctus_tpu_torch.render.driver import stream_pool
+
+    cfg = sess.cfg.replace(pool_size=stream_pool(sess.cfg))
+    pool = cfg.pool_size
+    state, counters = wf.init_stream_state(sess.params, cfg, pool)
+    carry = [state, counters, wf._pend_init(pool, "cuda"),
+             torch.full((pool,), -1, dtype=torch.int64, device="cuda"),
+             torch.zeros((pool, 3), device="cuda")]
+
+    def step():
+        carry[:] = wf._stream_segment_d(sess.scene, sess.params, cfg,
+                                        *carry[:2], spp, *carry[2:])[:5]
+    for _ in range(warm):
+        step()
+    title = (f"stream segment, pool {pool}, {sess.cfg.max_bounces} bounces, "
+             f"after {warm} segments")
+    return title, step
+
+
+def profile_step(sess, integrator: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    title, step = (_segment_step(sess) if integrator == "stream"
+                   else _tile_step(sess))
     torch.cuda.synchronize()
     for m in _modules().values():
         m.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lockstep.sample_radiance(sess.scene, sess.params, sess.cfg, idx, 1)
+        step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -79,8 +114,8 @@ def profile_tile(sess) -> None:
     busy_us = sum(us for us, _ in by_name.values())
     trav_us = sum(us for name, (us, _) in by_name.items()
                   if any(k in name for k in TRAVERSAL_KERNELS))
-    print(f"tile 65536 rays, 1 spp, {sess.cfg.max_bounces} bounces: wall "
-          f"{wall * 1e3:.1f} ms (profiled), traversal launches "
+    print(f"{title}: wall {wall * 1e3:.1f} ms (profiled), traversal "
+          f"launches "
           f"{_launch_counts()}")
     print(f"device kernels: {len(kernels)} launches, busy "
           f"{busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall * 100:.1f}% of "
@@ -91,13 +126,13 @@ def profile_tile(sess) -> None:
         print(f"  {us / 1e3:9.2f} ms  {n:6d}x  {name[:100]}")
 
 
-def time_frames(sess, n: int, spp: int) -> None:
+def time_frames(sess, n: int, spp: int, integrator: str) -> None:
     from fluctus_tpu_torch.render import driver
     for i in range(n):
         t0 = time.perf_counter()
-        driver.render(sess, spp)
+        driver.render(sess, spp, integrator=integrator)
         torch.cuda.synchronize()
-        print(f"frame {i}: 512x512 {spp} spp "
+        print(f"frame {i}: 512x512 {spp} spp, {integrator}: "
               f"{time.perf_counter() - t0:.3f} s")
 
 
@@ -109,13 +144,13 @@ def main() -> None:
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--backend", default="auto", choices=("auto", "pallas"))
+    ap.add_argument("--integrator", default="lockstep",
+                    choices=("lockstep", "stream"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    print(f"card: {card} | torch {torch.__version__}")
+    from fluctus_tpu_torch.timing import card_line
+    print(f"card: {card_line()} | torch {torch.__version__}")
     sess = _session(args.scene, args.bounces, args.backend)
     sc = sess.scene
     tables = ("brute forest" if sc.bforest is not None else
@@ -123,8 +158,8 @@ def main() -> None:
     print(f"scene {os.path.basename(args.scene)}: "
           f"{sess.host_scene.n_tris} tris, {tables}, backend "
           f"{sess.cfg.backend}")
-    profile_tile(sess)
-    time_frames(sess, args.frames, args.spp)
+    profile_step(sess, args.integrator)
+    time_frames(sess, args.frames, args.spp, args.integrator)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """The port stands alone: with jax, flax, xxhash, PIL and fluctus_tpu made
-unimportable, fluctus_tpu_torch and chip_smoke.py import, the kitchen
-renders on the CPU with its textures, a brute-chunk forest and a treelet
-forest build and traverse under both of their schedulers, and a packet
-call (backend "pallas") runs. The machine with the card has none of those
-packages."""
+unimportable, fluctus_tpu_torch (the stream, the benchmark harness, the
+bench, the probes and their scripts included) and chip_smoke.py import,
+the kitchen renders on the CPU with its textures through the lockstep and
+the stream, a brute-chunk forest and a treelet forest build and traverse
+under both of their schedulers, and a packet call (backend "pallas")
+runs. The machine with the card has none of those packages."""
 import os
 import re
 import subprocess
@@ -44,6 +45,16 @@ assert s.host_scene.hash == "c68e332cfae81cc6"
 img = driver.render(s, 1)
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 assert float(img.sum()) > 0.0
+import fluctus_tpu_torch.bench
+from fluctus_tpu_torch.integrators import wavefront
+from fluctus_tpu_torch.ops import probes
+from fluctus_tpu_torch.render import benchmark
+from fluctus_tpu_torch.scripts import measure_mfu, probe_launch_floor
+img = driver.render(s, 2, integrator="stream")
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+assert float(img.sum()) > 0.0
+assert torch.equal(probes.copy_plus_one(torch.zeros(8, 128)),
+                   torch.ones(8, 128))
 import os
 from fluctus_tpu_torch.accel.forest import build_brute_forest
 from fluctus_tpu_torch.convert import brute_from_numpy

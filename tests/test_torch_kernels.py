@@ -1,6 +1,8 @@
 """Kernels K1 (fluctus_tpu_torch/csrc/traverse_stack.cu), K2 and K3
-(csrc/traverse_brute.cu), K5 (csrc/traverse_forest.cu) and K4
-(csrc/traverse_packet.cu) against their plain versions, on the card. These
+(csrc/traverse_brute.cu), K5 (csrc/traverse_forest.cu), K4
+(csrc/traverse_packet.cu) and the probes P1 and P2 (csrc/probes.cu) against
+their plain versions, and the streaming wavefront against the lockstep
+integrator through K1, on the card. These
 need an NVIDIA card with nvcc, so they carry the `cuda` marker and skip
 elsewhere; the file imports no JAX, so it runs on the card with
 
@@ -253,3 +255,71 @@ def test_k4_k5_count_launches_and_refuse_bad_input(card, kitchen, treelet):
                          False, 128, ft.lvl, ft.leaf_width)
     with pytest.raises(ValueError, match="K4"):        # not a packet multiple
         tp.packet_kernel(z, z, z[:, 0], w, False)
+
+
+# ---------------------------------------------------------------- P1, P2
+# The probes (fluctus_tpu_torch/csrc/probes.cu) round as their plain
+# versions do (the fused P2's plain version rounds once per step), so
+# they are bit-equal.
+
+def test_p1_equals_plain(card):
+    from fluctus_tpu_torch.ops import probes
+    g = torch.Generator(device=card).manual_seed(0)
+    for rows in (8, 512):
+        x = torch.rand((rows, 128), generator=g, device=card)
+        assert torch.equal(probes.copy_plus_one_kernel(x), x + 1.0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_p2_matches_plain(card, fused):
+    from fluctus_tpu_torch.ops import probes
+    g = torch.Generator(device=card).manual_seed(1)
+    x = torch.rand((512, 1024), generator=g, device=card) + 0.5
+    k = probes.fma_chain_kernel(x, 64, fused)
+    assert torch.equal(k, probes.fma_chain_plain(x, 64, fused))
+
+
+def test_probes_count_launches_and_refuse_bad_input(card):
+    from fluctus_tpu_torch.ops import probes
+    probes.reset_counts()
+    probes.copy_plus_one(torch.zeros((8, 128), device=card))
+    probes.fma_chain(torch.zeros((8, 128), device=card), 2, fused=True)
+    probes.fma_chain(torch.zeros((8, 128), device=card), 2, fused=False)
+    assert probes.LAUNCHES == {"p1": 1, "p2_fused": 1, "p2_unfused": 1}
+    assert sum(probes.PLAIN_CALLS.values()) == 0
+    with pytest.raises(ValueError, match="P1"):
+        probes.copy_plus_one_kernel(torch.zeros((7, 128), device=card))
+    with pytest.raises(ValueError, match="P2"):
+        probes.fma_chain_kernel(torch.zeros((3, 100), device=card), 2, True)
+
+
+# ---------------------------------------------------------------- stream
+# Without next-event estimation the stream traces the lockstep's paths
+# with the same random numbers: images agree to atol 1e-5 and the spawn
+# count is exact. With it, deferred and immediate agree.
+
+def test_stream_matches_lockstep_through_k1(card):
+    import dataclasses
+    from fluctus_tpu_torch.core.types import RenderConfig
+    from fluctus_tpu_torch.integrators import wavefront
+    from fluctus_tpu_torch.render import driver
+    cfg = RenderConfig(width=64, height=64, max_bounces=8,
+                       use_area_light=True, use_env_map=False,
+                       pool_size=1 << 12)
+    s = driver.create_session("assets/kitchen_proxy.obj", cfg=cfg,
+                              state_dir="data/states", auto_frame=False,
+                              device=card)
+    plain = dataclasses.replace(s, cfg=s.cfg.replace(sample_expl=False))
+    ts.reset_counts()
+    img_s, cnt = wavefront.render_stream(plain.scene, plain.params,
+                                         plain.cfg, 2)
+    img_l = driver.render(plain, 2, integrator="lockstep")
+    assert float((img_s - img_l).abs().max()) <= 1e-5
+    assert int(cnt[0]) == 64 * 64 * 2
+    img_d, cnt_d = wavefront.render_stream(s.scene, s.params, s.cfg, 2,
+                                           deferred=True)
+    img_i, cnt_i = wavefront.render_stream(s.scene, s.params, s.cfg, 2)
+    assert torch.allclose(img_d, img_i, rtol=1e-4, atol=1e-5)
+    assert torch.equal(cnt_d, cnt_i)
+    assert ts.LAUNCHES["closest"] > 0 and ts.LAUNCHES["any"] > 0
+    assert sum(ts.PLAIN_CALLS.values()) == 0

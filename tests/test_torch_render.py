@@ -132,8 +132,12 @@ def test_render_ldr_and_stream_refusal():
     s.params = dataclasses.replace(s.params, area_light=cornell_light_torch())
     ldr = driver.render_ldr(s, 1)
     assert ldr.shape == (8, 8, 3) and bool(torch.isfinite(ldr).all())
+    img = driver.render(s, 1, integrator="stream")
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    # the stream refuses what is not ported: env-map lighting
+    env = dataclasses.replace(s, cfg=s.cfg.replace(use_env_map=True))
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        driver.render(s, 1, integrator="stream")
+        driver.render(env, 1, integrator="stream")
 
 
 def test_cuda_entry_point_refuses_without_card():
