@@ -3,11 +3,13 @@
     python3 chip_smoke.py
 
 Builds kernels K1, K2+K3, K5, K4 and the probes P1+P2 from
-fluctus_tpu_torch/csrc (one nvcc per source, started together). Kitchen:
-holds K1 against its plain PyTorch version on the scene's rays; holds P1
-and P2 against theirs and runs the launch-floor and peak-rate probes
-(P1 at 1 and 64 blocks, K1 at 1k and 64k rays; P2 fused and unfused, the
-bf16 matmul, the HBM bandwidth); renders the kitchen (lockstep, 512x512,
+fluctus_tpu_torch/csrc (one nvcc per source, started together, and the
+fastcall extension every launch goes through). Kitchen: holds K1 against
+its plain PyTorch version on the scene's rays; holds P1 and P2 against
+theirs and runs the launch-floor and peak-rate probes (P1 at 1 and 64
+blocks, in turns with PyTorch's own x + 1.0, and the host steps of one P1
+launch; K1 at 1k and 64k rays; P2 fused and unfused, the bf16 matmul, the
+HBM bandwidth); renders the kitchen (lockstep, 512x512,
 8 bounces, 16 spp) through the port's entry points, checks that the frame
 went through K1, and holds two small renders against the committed
 goldens. The stream: holds it against the lockstep without next-event
@@ -24,7 +26,9 @@ backend="pallas" (512x512, 8 bounces, 4 spp) through K4 only, and holds
 the same two goldens through K4. Conference (232k triangles, above the
 fast-big cutover, so its session holds a brute-chunk forest and no
 hierarchy): holds K2 and K3 against their plain versions through the same
-schedulers, times them beside K1 on a full hierarchy of the same scene,
+schedulers (K2 also on a forest of equal-t copies that pins its ties),
+times them beside K1 on a full hierarchy of the same scene
+(with K2's resident warps per SM and its rate on an all-live slab),
 renders the conference (lockstep, 512x512, 6 bounces, 4 spp) and checks
 that it went through K2 only, holds the conference golden through K2 and,
 under FLUCTUS_BRUTE_SCHED=rounds, through K3, and holds its stream
@@ -369,6 +373,52 @@ def phase_brute_check(bf, rays, sched):
     return t_abs, flag_mis
 
 
+def phase_k2_ties():
+    """K2 against its plain version through the visit-list scheduler on the
+    tie forests of fluctus_tpu_torch/fixtures.py: equal-t copies of one
+    triangle in different team slices, pieces and pair slots of one
+    1,024-triangle group and in a later visit ("group"), and in different
+    128-triangle groups of one visit, over both CTAs and two pieces
+    ("groups"). Both forms bit-equal, and every tie ray returns the lowest
+    slot of the group listed first in the chunk visited first."""
+    import torch
+    from fluctus_tpu_torch.convert import brute_from_numpy
+    from fluctus_tpu_torch.fixtures import LAYOUTS, tie_forest
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+
+    for layout, (_, slots, _, _) in LAYOUTS.items():
+        t0 = time.perf_counter()
+        arrays, o, d, want = tie_forest(layout)
+        bf = brute_from_numpy(arrays, device="cuda")
+        o, d = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+        gr = tb._resolve_gr(int(bf.tile), int(bf.tris.shape[2]))
+        with env(FLUCTUS_BRUTE_SCHED="vlist"):
+            k = tb.traverse_closest(bf, o, d, 3.4e38,
+                                    launch=tb.vlaunch_kernel)
+            p = tb.traverse_closest(bf, o, d, 3.4e38,
+                                    launch=tb.vlaunch_plain)
+            ka = tb.traverse_any(bf, o, d, 9.5, launch=tb.vlaunch_kernel)
+            pa = tb.traverse_any(bf, o, d, 9.5, launch=tb.vlaunch_plain)
+        torch.cuda.synchronize()
+        tie = torch.from_numpy(want >= 0).cuda()
+        winners = bool(torch.equal(k.prim[tie].cpu(),
+                                   torch.from_numpy(want[want >= 0])))
+        same = all(torch.equal(getattr(k, f), getattr(p, f))
+                   for f in ("prim", "t", "u", "v"))
+        err = float((k.t - p.t).abs().max())
+        say("k2-ties", t0,
+            f"K2 vs its plain version on the {layout!r} tie forest (group "
+            f"of {gr} tiles; {len(slots)} triangles copied; "
+            f"{int(tie.sum())} of {o.shape[0]} rays through the copies): "
+            f"closest prim, t, u, v bit-equal {same} (max abs t err "
+            f"{err:.3e}), every tie ray hits the expected copy {winners}; "
+            f"any-hit flags equal {bool(torch.equal(ka, pa))}")
+        check(same and winners, f"K2 breaks a tie otherwise than its plain "
+              f"version ({layout!r} layout)")
+        check(bool(torch.equal(ka, pa)), f"K2 any-hit flags differ from the "
+              f"plain version on the {layout!r} tie forest")
+
+
 class Recorder:
     """A launch function that keeps the arguments of every call."""
 
@@ -454,13 +504,36 @@ def phase_brute_time(bf, rays, sched, wbvh_full):
                          k1_ms=k1_ms)
         r = out[form]
         unit = "passes" if sched == "vlist" else "launches (scout + rounds)"
+        extra = ""
+        if sched == "vlist":
+            tp, tt = bf.tris.shape[2], int(bf.tile)
+            gr = tb._resolve_gr(tt, tp)
+            r["warps_per_sm"], placed = tb.k2_resident_warps(tp, tt, gr,
+                                                             anyh)
+            extra = (f"; {r['warps_per_sm']} resident warps per SM "
+                     f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+                     f"{placed:.1f} per SM as K2's clusters fit the card "
+                     f"(cudaOccupancyMaxActiveClusters); tile {tt}, group "
+                     f"{gr} tiles")
         say(f"{name.lower()}-time", t0,
             f"{form}: {r['ms']:.3f} ms of {name} per {n}-ray call, "
             f"{len(rec.calls)} {unit} per call; whole call with its "
             f"scheduler {call_ms:.3f} ms; plain {r['plain_ms']:.1f} ms; "
             f"bound {b_ms:.4f} ms by {b_by} ({slab / n:.1f} slab and "
             f"{tri / n:.1f} Moller tests per ray); K1 on the same rays over"
-            f" the full hierarchy {k1_ms:.4f} ms")
+            f" the full hierarchy {k1_ms:.4f} ms{extra}")
+    if sched == "vlist":
+        from fluctus_tpu_torch.scripts import measure_mfu
+        t0 = time.perf_counter()
+        visit_s, rate = measure_mfu.brute_visit_rate()
+        out["all_live_gtests"] = rate / 1e9
+        say("k2-time", t0,
+            f"all-live slab (measure_mfu.brute_visit_rate: 8,192 "
+            f"triangles, 16,384 rays, every tile live): {rate / 1e9:.2f} G "
+            f"Moller tests/s, {visit_s * 1e6:.3f} us per 128-lane chunk "
+            f"visit, {rate * OPS_PER_TRI / F32_INSTR_PER_S * 100:.1f}% of "
+            f"the {F32_INSTR_PER_S / 1e12:.1f} T instr/s at {OPS_PER_TRI} "
+            f"a test")
     return out
 
 
@@ -886,24 +959,39 @@ def phase_p1(sess):
     out = {}
     for key, fn in plf.probes(sess.scene.wbvh, lo, hi).items():
         probes.reset_counts()
-        ms = time_launches(fn)
-        out[key] = dict(ms=ms, launches=probes.LAUNCHES["p1"])
+        if key.startswith("p1"):
+            # in turns with its plain version, PyTorch's own x + 1.0
+            x = xs[1 if key == "p1_1_block" else 64]
+            plain = lambda: probes.copy_plus_one_plain(x)
+            p_a, k_a, k_b, p_b = (time_launches(f)
+                                  for f in (plain, fn, fn, plain))
+            out[key] = dict(ms=(k_a + k_b) / 2, plain_ms=(p_a + p_b) / 2,
+                            launches=probes.LAUNCHES["p1"])
+        else:
+            out[key] = dict(ms=time_launches(fn),
+                            launches=probes.LAUNCHES["p1"])
     for key, b in (("p1_1_block", 1), ("p1_64_blocks", 64)):
         x = xs[b]
         r = out[key]
         check(r["launches"] > 0, f"the launch-floor probe did not launch "
               f"P1 at {b} blocks")
-        r["plain_ms"] = time_launches(
-            lambda: probes.copy_plus_one_plain(x))
         r["bound_ms"] = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3
         r["max_abs_err"] = err[b]
     say("p1-time", t1,
         "launch floor, per launch (16 back to back, best of 3): "
         + ", ".join(f"{k} {v['ms'] * 1e3:.2f} us" for k, v in out.items())
-        + f"; P1 plain {out['p1_1_block']['plain_ms'] * 1e3:.2f} / "
-        f"{out['p1_64_blocks']['plain_ms'] * 1e3:.2f} us; P1 launches "
-        f"{out['p1_1_block']['launches']} / "
+        + "; P1 beside x + 1.0 in turns: " + ", ".join(
+            f"{k[3:]} {out[k]['ms'] * 1e3:.2f} / "
+            f"{out[k]['plain_ms'] * 1e3:.2f} us = "
+            f"{out[k]['ms'] / out[k]['plain_ms']:.3f} x"
+            for k in ("p1_1_block", "p1_64_blocks"))
+        + f"; P1 launches {out['p1_1_block']['launches']} / "
         f"{out['p1_64_blocks']['launches']}")
+    t2 = time.perf_counter()
+    st = plf.measure_steps()
+    say("p1-steps", t2, "host steps of one P1 launch at 1 block (see "
+        "probe_launch_floor.py), us per launch: " + ", ".join(
+            f"{k} {v * 1e3:.2f}" for k, v in st.items()))
     return out
 
 
@@ -1232,6 +1320,7 @@ def main() -> int:
     from fluctus_tpu_torch.ops import traverse_forest as tf
     from fluctus_tpu_torch.ops import traverse_pallas as tp
     from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch import launch
     from fluctus_tpu_torch.render import driver
     from fluctus_tpu_torch.timing import card_line
 
@@ -1252,7 +1341,7 @@ def main() -> int:
         regs = [ln.split(":", 1)[-1].strip()
                 for ln in info["log"].splitlines()
                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
-        say("build", t0, f"{name} nvcc {' '.join(ts.NVCC_FLAGS)}: "
+        say("build", t0, f"{name} nvcc {' '.join(launch.NVCC_FLAGS)}: "
             f"{info['seconds']:.1f} s; " + " | ".join(regs))
 
     t0 = time.perf_counter()
@@ -1333,6 +1422,7 @@ def main() -> int:
         f"{tuple(wbvh_full.leaves.shape)}, depth {wbvh_full.depth}")
     rays = brute_rays(big, 1 << 16, seed=11)
     err = {s_: phase_brute_check(bf, rays, s_) for s_ in ("vlist", "rounds")}
+    phase_k2_ties()
     btimes = {s_: phase_brute_time(bf, rays, s_, wbvh_full)
               for s_ in ("vlist", "rounds")}
     t0 = time.perf_counter()

@@ -28,7 +28,8 @@
 // form's plain version takes each step in float64, exact here, and rounds
 // it once).
 //
-// Plain C interface for ctypes; each launcher returns cudaGetLastError().
+// Launchers: the package's one C signature (fluctus_tpu_torch/launch.py);
+// each returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -71,28 +72,32 @@ p2_kernel(const float* __restrict__ x, float* __restrict__ o, int half,
 
 }  // namespace
 
-// x, o: n_tiles * 1,024 floats; one block per (8, 128) tile.
-extern "C" int p1_copy_plus_one(const void* x, void* o, int n_tiles,
-                                void* stream) {
+// a: x, o (n_tiles * 1,024 floats each), n_tiles, stream; one block per
+// (8, 128) tile.
+extern "C" int p1_copy_plus_one(const long long* a, int n) {
+  if (n != 4) return -1;
+  const int n_tiles = (int)a[2];
   if (n_tiles <= 0) return 0;
-  p1_kernel<<<n_tiles, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      (const float*)x, (float*)o);
+  p1_kernel<<<n_tiles, kTile, 0, (cudaStream_t)a[3]>>>((const float*)a[0],
+                                                       (float*)a[1]);
   return (int)cudaGetLastError();
 }
 
-// x, o: n floats, n a multiple of kChains * kP2Threads.
-extern "C" int p2_fma_chain(const void* x, void* o, int n, int iters,
-                            int fused, void* stream) {
+// a: x, o (n floats each, n a multiple of kChains * kP2Threads), n, iters,
+// fused, stream.
+extern "C" int p2_fma_chain(const long long* a, int n_args) {
+  if (n_args != 6) return -1;
+  const int n = (int)a[2], iters = (int)a[3];
   if (n <= 0) return 0;
   const int half = n / kChains;
   const int blocks = (half + kP2Threads - 1) / kP2Threads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fused) {
-    p2_kernel<true><<<blocks, kP2Threads, 0, s>>>((const float*)x,
-                                                  (float*)o, half, iters);
+  cudaStream_t s = (cudaStream_t)a[5];
+  const float* x = (const float*)a[0];
+  float* o = (float*)a[1];
+  if (a[4]) {
+    p2_kernel<true><<<blocks, kP2Threads, 0, s>>>(x, o, half, iters);
   } else {
-    p2_kernel<false><<<blocks, kP2Threads, 0, s>>>((const float*)x,
-                                                   (float*)o, half, iters);
+    p2_kernel<false><<<blocks, kP2Threads, 0, s>>>(x, o, half, iters);
   }
   return (int)cudaGetLastError();
 }

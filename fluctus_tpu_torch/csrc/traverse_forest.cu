@@ -25,7 +25,8 @@
 // per-chunk view, ops/traverse_forest.py::launch_plain); built with
 // -fmad=false, the two agree bit for bit.
 //
-// Plain C interface for ctypes; the launcher returns cudaGetLastError().
+// Launcher: the package's one C signature (fluctus_tpu_torch/launch.py);
+// it returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -79,30 +80,25 @@ forest_kernel(const int* __restrict__ sel, const float* __restrict__ ent,
 
 }  // namespace
 
-extern "C" int k5_forest(const void* sel, const void* ent, const void* nodes,
-                         const void* leaves, const void* orig,
-                         const void* dir, const void* it, const void* ip,
-                         const void* iu, const void* iv, int n_slots, int blk,
-                         int kk, int tp, int lp, int leaf_width, int any_hit,
-                         void* ot, void* op, void* ou, void* ov,
-                         void* stream) {
+// a: sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv, n_slots, blk, kk,
+// tp, lp, leaf_width, any_hit, ot, op, ou, ov, stream.
+extern "C" int k5_forest(const long long* a, int n) {
+  if (n != 22) return -1;
+  const int n_slots = (int)a[10], blk = (int)a[11], kk = (int)a[12];
+  const int tp = (int)a[13], lp = (int)a[14], leaf_width = (int)a[15];
   if (n_slots <= 0) return 0;
   const int blocks = (n_slots + kThreads - 1) / kThreads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
-    forest_kernel<true><<<blocks, kThreads, 0, s>>>(
-        (const int*)sel, (const float*)ent, (const float*)nodes,
-        (const float*)leaves, (const float*)orig, (const float*)dir,
-        (const float*)it, (const int*)ip, (const float*)iu, (const float*)iv,
-        n_slots, blk, kk, tp, lp, leaf_width, (float*)ot, (int*)op,
-        (float*)ou, (float*)ov);
-  } else {
-    forest_kernel<false><<<blocks, kThreads, 0, s>>>(
-        (const int*)sel, (const float*)ent, (const float*)nodes,
-        (const float*)leaves, (const float*)orig, (const float*)dir,
-        (const float*)it, (const int*)ip, (const float*)iu, (const float*)iv,
-        n_slots, blk, kk, tp, lp, leaf_width, (float*)ot, (int*)op,
-        (float*)ou, (float*)ov);
-  }
+  cudaStream_t s = (cudaStream_t)a[21];
+#define K5_ARGS                                                           \
+  (const int*)a[0], (const float*)a[1], (const float*)a[2],               \
+      (const float*)a[3], (const float*)a[4], (const float*)a[5],         \
+      (const float*)a[6], (const int*)a[7], (const float*)a[8],           \
+      (const float*)a[9], n_slots, blk, kk, tp, lp, leaf_width,           \
+      (float*)a[17], (int*)a[18], (float*)a[19], (float*)a[20]
+  if (a[16])
+    forest_kernel<true><<<blocks, kThreads, 0, s>>>(K5_ARGS);
+  else
+    forest_kernel<false><<<blocks, kThreads, 0, s>>>(K5_ARGS);
+#undef K5_ARGS
   return (int)cudaGetLastError();
 }

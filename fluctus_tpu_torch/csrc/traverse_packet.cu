@@ -31,7 +31,8 @@
 // agree bit for bit. The wrapper refuses hierarchies whose worst-case stack
 // (7 * depth + 1) exceeds 192, so the push never clamps.
 //
-// Plain C interface for ctypes; the launcher returns cudaGetLastError().
+// Launcher: the package's one C signature (fluctus_tpu_torch/launch.py);
+// it returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -198,25 +199,23 @@ packet_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
 
 }  // namespace
 
-extern "C" int k4_packet(const void* orig, const void* dir, const void* tmax,
-                         const void* nodes, const void* leaves, int n_rays,
-                         int root_ref, int leaf_width, int any_hit,
-                         void* out_t, void* out_prim, void* out_u,
-                         void* out_v, void* stream) {
+// a: orig, dir, tmax, nodes, leaves, n_rays, root_ref, leaf_width, any_hit,
+// out_t, out_prim, out_u, out_v, stream.
+extern "C" int k4_packet(const long long* a, int n) {
+  if (n != 14) return -1;
+  const int n_rays = (int)a[5], root_ref = (int)a[6], leaf_width = (int)a[7];
   if (n_rays <= 0) return 0;
   if (n_rays % kBlk || leaf_width <= 0 || leaf_width > kMaxW) return -1;
   const int blocks = n_rays / kBlk;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
-    packet_kernel<true><<<blocks, kBlk, 0, s>>>(
-        (const float*)orig, (const float*)dir, (const float*)tmax,
-        (const float*)nodes, (const float*)leaves, root_ref, leaf_width,
-        (float*)out_t, (int*)out_prim, (float*)out_u, (float*)out_v);
-  } else {
-    packet_kernel<false><<<blocks, kBlk, 0, s>>>(
-        (const float*)orig, (const float*)dir, (const float*)tmax,
-        (const float*)nodes, (const float*)leaves, root_ref, leaf_width,
-        (float*)out_t, (int*)out_prim, (float*)out_u, (float*)out_v);
-  }
+  cudaStream_t s = (cudaStream_t)a[13];
+#define K4_ARGS                                                           \
+  (const float*)a[0], (const float*)a[1], (const float*)a[2],             \
+      (const float*)a[3], (const float*)a[4], root_ref, leaf_width,       \
+      (float*)a[9], (int*)a[10], (float*)a[11], (float*)a[12]
+  if (a[8])
+    packet_kernel<true><<<blocks, kBlk, 0, s>>>(K4_ARGS);
+  else
+    packet_kernel<false><<<blocks, kBlk, 0, s>>>(K4_ARGS);
+#undef K4_ARGS
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,8 @@
 // Moller-Trumbore expressions are evaluated in the same order, and the
 // library is built with -fmad=false, so the two agree bit for bit.
 //
-// Plain C interface for ctypes; the launcher returns cudaGetLastError().
+// Launcher: the package's one C signature (fluctus_tpu_torch/launch.py);
+// it returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,28 +67,28 @@ traverse_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
 
 }  // namespace
 
-extern "C" int k1_traverse(const void* orig, const void* dir,
-                           const void* tmax, const void* nodes,
-                           const void* leaves, int n_rays, int root_ref,
-                           int leaf_width, int any_hit, void* out_t,
-                           void* out_prim, void* out_u, void* out_v,
-                           void* out_blocked, void* stream) {
+// a: orig, dir, tmax, nodes, leaves, n_rays, root_ref, leaf_width, any_hit,
+// out_t, out_prim, out_u, out_v, out_blocked, stream.
+extern "C" int k1_traverse(const long long* a, int n) {
+  if (n != 15) return -1;
+  const int n_rays = (int)a[5], root_ref = (int)a[6], leaf_width = (int)a[7];
   if (n_rays <= 0) return 0;
   const int threads = 128;
   const int blocks = (n_rays + threads - 1) / threads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
+  cudaStream_t s = (cudaStream_t)a[14];
+  const float* orig = (const float*)a[0];
+  const float* dir = (const float*)a[1];
+  const float* tmax = (const float*)a[2];
+  const float* nodes = (const float*)a[3];
+  const float* leaves = (const float*)a[4];
+  if (a[8]) {
     traverse_kernel<true><<<blocks, threads, 0, s>>>(
-        (const float*)orig, (const float*)dir, (const float*)tmax,
-        (const float*)nodes, (const float*)leaves, n_rays, root_ref,
-        leaf_width, nullptr, nullptr, nullptr, nullptr,
-        (uint8_t*)out_blocked);
+        orig, dir, tmax, nodes, leaves, n_rays, root_ref, leaf_width,
+        nullptr, nullptr, nullptr, nullptr, (uint8_t*)a[13]);
   } else {
     traverse_kernel<false><<<blocks, threads, 0, s>>>(
-        (const float*)orig, (const float*)dir, (const float*)tmax,
-        (const float*)nodes, (const float*)leaves, n_rays, root_ref,
-        leaf_width, (float*)out_t, (int*)out_prim, (float*)out_u,
-        (float*)out_v, nullptr);
+        orig, dir, tmax, nodes, leaves, n_rays, root_ref, leaf_width,
+        (float*)a[9], (int*)a[10], (float*)a[11], (float*)a[12], nullptr);
   }
   return (int)cudaGetLastError();
 }

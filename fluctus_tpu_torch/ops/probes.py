@@ -18,10 +18,11 @@ for CUDA tensors; there is no fallback between the two.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
+
+from fluctus_tpu_torch.launch import CSRC, launch, load_library
 
 TILE = (8, 128)
 P2_CHAINS = 2            # kChains of the CUDA source
@@ -69,53 +70,38 @@ def fma_chain_plain(x: torch.Tensor, iters: int,
 
 # ---------------------------------------------------------------- kernel
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "probes.cu")
+_SRC = os.path.join(CSRC, "probes.cu")
 _lib = None
 BUILD_INFO: dict = {}
+_F32 = torch.float32
 
 
 def load_kernel():
     """Build (at first use) and load the P1/P2 library."""
     global _lib
     if _lib is None:
-        from fluctus_tpu_torch.build import build_shared
-        from fluctus_tpu_torch.ops.traverse_stack import NVCC_FLAGS, _nvcc
-        path, log, secs = build_shared(_SRC, "probes",
-                                       [_nvcc()] + NVCC_FLAGS)
-        BUILD_INFO.update(path=path, log=log, seconds=secs)
-        lib = ctypes.CDLL(path)
-        lib.p1_copy_plus_one.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                         ctypes.c_int, ctypes.c_void_p]
-        lib.p1_copy_plus_one.restype = ctypes.c_int
-        lib.p2_fma_chain.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [
-            ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.p2_fma_chain.restype = ctypes.c_int
-        _lib = lib
+        _lib = load_library(_SRC, "probes", {"p1_copy_plus_one": "P1",
+                                             "p2_fma_chain": "P2"},
+                            info=BUILD_INFO)
     return _lib
 
 
-def _check(name, x, shape_ok: bool, want: str):
-    if (not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous()
-            or not shape_ok):
-        raise ValueError(
-            f"{name}: x must be a contiguous CUDA float32 tensor {want}, got "
-            f"{x.dtype} {tuple(x.shape)} on {x.device}")
+def _refuse(name, x, want: str):
+    raise ValueError(
+        f"{name}: x must be a contiguous CUDA float32 tensor {want}, got "
+        f"{x.dtype} {tuple(x.shape)} on {x.device}"
+        + ("" if x.is_contiguous() else ", not contiguous"))
 
 
 def copy_plus_one_kernel(x: torch.Tensor) -> torch.Tensor:
     """Launch P1 on the current stream: one block per (8, 128) tile."""
-    _check("P1", x, x.dim() == 2 and x.shape[0] % TILE[0] == 0
-           and x.shape[0] > 0 and x.shape[1] == TILE[1],
-           f"of shape (k * {TILE[0]}, {TILE[1]})")
-    lib = load_kernel()
+    s = x.shape                                    # (k * 8, 128): TILE
+    if not (x.is_cuda and x.dtype is _F32 and len(s) == 2 and s[1] == 128
+            and s[0] % 8 == 0 and s[0] and x.is_contiguous()):
+        _refuse("P1", x, f"of shape (k * {TILE[0]}, {TILE[1]})")
     o = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.p1_copy_plus_one(
-            x.data_ptr(), o.data_ptr(), x.shape[0] // TILE[0],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"P1 launch failed: CUDA error {rc}")
+    launch((_lib or load_kernel()).p1_copy_plus_one, x.get_device(),
+           x.data_ptr(), o.data_ptr(), s[0] >> 3)
     LAUNCHES["p1"] += 1
     return o
 
@@ -124,18 +110,14 @@ def fma_chain_kernel(x: torch.Tensor, iters: int,
                      fused: bool) -> torch.Tensor:
     """Launch P2 on the current stream (fused or unfused form)."""
     q = P2_CHAINS * P2_THREADS
-    _check("P2", x, x.numel() > 0 and x.numel() % q == 0,
-           f"of a multiple of {q} elements")
+    if not (x.is_cuda and x.dtype is _F32 and x.is_contiguous()
+            and x.numel() > 0 and x.numel() % q == 0):
+        _refuse("P2", x, f"of a multiple of {q} elements")
     if not 0 <= iters < 1 << 24:
         raise ValueError(f"P2: iters {iters} out of range")
-    lib = load_kernel()
     o = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = lib.p2_fma_chain(
-            x.data_ptr(), o.data_ptr(), x.numel(), iters, int(fused),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"P2 launch failed: CUDA error {rc}")
+    launch((_lib or load_kernel()).p2_fma_chain, x.get_device(),
+           x.data_ptr(), o.data_ptr(), x.numel(), iters, int(fused))
     LAUNCHES[_p2_key(fused)] += 1
     return o
 

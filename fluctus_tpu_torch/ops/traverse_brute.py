@@ -35,15 +35,15 @@ kernels' "no hit" sentinel), so a miss under t_max 3.4e38 returns 3e38.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 import os
 
 import torch
 
 from fluctus_tpu_torch.core.types import BruteForest
+from fluctus_tpu_torch.launch import CSRC, call, check, launch, load_library
 from fluctus_tpu_torch.ops.traverse_stack import (
-    NVCC_FLAGS, TRI_EPS, Traversal, _inv_dir as _safe_inv, _nvcc)
+    TRI_EPS, Traversal, _inv_dir as _safe_inv)
 
 BLK = 128          # rays per block (threads per CUDA block)
 PLAN = (1, 2, 4)   # visits per ray in the first rounds; the last repeats
@@ -156,9 +156,10 @@ def vlaunch_plain(sel, val, tris, tboxes, rays8, it, ip, iu, iv,
     (t, prim, u, v) or, in the any-hit form, into the blocked flag.
     With `stats`, adds the tile slab tests of live lanes against real
     tiles ("slab_tests"), the Moller tests of live lanes against real
-    triangles ("tri_tests") and marks the chunks visited ("chunks_run",
-    bool (C,)) and the (chunk, group) pairs run ("groups_run", bool
-    (C, ng)): what K2 needs to do for these inputs."""
+    triangles ("tri_tests", and per block "block_tri_tests", int64 (nb,))
+    and marks the chunks visited ("chunks_run", bool (C,)) and the
+    (chunk, group) pairs run ("groups_run", bool (C, ng)): what K2 needs
+    to do for these inputs."""
     PLAIN_CALLS[f"k2_{_form(any_hit)}"] += 1
     cap = rays8.shape[0]
     nb = cap // blk
@@ -182,6 +183,8 @@ def vlaunch_plain(sel, val, tris, tboxes, rays8, it, ip, iu, iv,
             tris.shape[0], dtype=torch.bool, device=tris.device))
         stats.setdefault("groups_run", torch.zeros(
             (tris.shape[0], ng), dtype=torch.bool, device=tris.device))
+        stats.setdefault("block_tri_tests", torch.zeros(
+            nb, dtype=torch.long, device=tris.device))
     for v in range(v_per):
         alive = bp <= 0 if any_hit else torch.ones_like(bp, dtype=torch.bool)
         lane = (bt > 0.0) & alive
@@ -217,8 +220,9 @@ def vlaunch_plain(sel, val, tris, tboxes, rays8, it, ip, iu, iv,
             t, u, vv, ok, tid = _moller(tr, o[bi], d[bi])
             ok = ok & (t < cbt[..., None]) & (tid > 0.0) & live[..., None]
             if stats is not None:
-                stats["tri_tests"] += int(
-                    (live.sum(1) * real_groups[ch[rows], g]).sum())
+                per_block = live.sum(1) * real_groups[ch[rows], g]
+                stats["tri_tests"] += int(per_block.sum())
+                stats["block_tri_tests"].index_add_(0, bi, per_block)
                 stats["groups_run"][ch[rows], g] = True
             if any_hit:
                 bp[bi] = torch.maximum(cbp, ok.any(-1).to(torch.int32))
@@ -320,39 +324,19 @@ def launch_plain(sel, tris, boxes_t, rays8, it, ip, iu, iv, any_hit: bool,
 
 # ---------------------------------------------------------------- kernels
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "traverse_brute.cu")
+_SRC = os.path.join(CSRC, "traverse_brute.cu")
 _lib = None
 BUILD_INFO: dict = {}
-SMEM_LIMIT = 48 * 1024   # dynamic shared memory without an opt-in
+SMEM_LIMIT = 48 * 1024   # K3's dynamic shared memory, without an opt-in
+ENTRIES = {"k2_vlaunch": "K2", "k2_occupancy": "K2", "k3_launch": "K3"}
 
 
 def load_kernel():
     """Build (at first use) and load the K2/K3 library."""
     global _lib
     if _lib is None:
-        from fluctus_tpu_torch.build import build_shared
-        path, log, secs = build_shared(_SRC, "k23_brute",
-                                       [_nvcc()] + NVCC_FLAGS)
-        BUILD_INFO.update(path=path, log=log, seconds=secs)
-        lib = ctypes.CDLL(path)
-        lib.k2_vlaunch.argtypes = [ctypes.c_void_p] * 13 + [
-            ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.k3_launch.argtypes = [ctypes.c_void_p] * 13 + [
-            ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.k2_vlaunch.restype = ctypes.c_int
-        lib.k3_launch.restype = ctypes.c_int
-        _lib = lib
+        _lib = load_library(_SRC, "k23_brute", ENTRIES, info=BUILD_INFO)
     return _lib
-
-
-def _check(kern, name, x, dtype, shape):
-    if not x.is_cuda or x.dtype != dtype or not x.is_contiguous() \
-            or tuple(x.shape) != tuple(shape):
-        raise ValueError(
-            f"{kern}: {name} must be a contiguous CUDA {dtype} tensor of "
-            f"shape {tuple(shape)}, got {x.dtype} {tuple(x.shape)} on "
-            f"{x.device}")
 
 
 def _check_rays(kern, blk, rays8, it, ip, iu, iv):
@@ -360,10 +344,10 @@ def _check_rays(kern, blk, rays8, it, ip, iu, iv):
     if blk % 32 or not 0 < blk <= 1024 or cap % blk:
         raise ValueError(f"{kern}: blk {blk} must be a multiple of 32 up "
                          f"to 1024 that divides the {cap} ray slots")
-    _check(kern, "rays8", rays8, torch.float32, (cap, 8))
+    check(kern, "rays8", rays8, torch.float32, (cap, 8))
     for name, x, dt in (("it", it, torch.float32), ("ip", ip, torch.int32),
                         ("iu", iu, torch.float32), ("iv", iv, torch.float32)):
-        _check(kern, name, x, dt, (cap, 1))
+        check(kern, name, x, dt, (cap, 1))
     return cap
 
 
@@ -374,39 +358,49 @@ def _new_outputs(cap, dev):
             torch.empty((cap, 1), dtype=torch.float32, device=dev))
 
 
-def _ptrs(*xs):
-    return [x.data_ptr() for x in xs]
-
-
 def vlaunch_kernel(sel, val, tris, tboxes, rays8, it, ip, iu, iv,
                    any_hit: bool, blk: int, tt: int, v_per: int, gr: int):
     """Launch K2 on the current stream (signature of vlaunch_plain)."""
+    if blk != BLK:
+        raise ValueError(f"K2: blk {blk} must be {BLK}, the kernel's ray "
+                         f"block")
     cap = _check_rays("K2", blk, rays8, it, ip, iu, iv)
     c, _, tp = tris.shape
     ntp = tboxes.shape[2]
     nt = tp // tt
     nb = cap // blk
-    _check("K2", "tris", tris, torch.float32, (c, 16, tp))
-    _check("K2", "tboxes", tboxes, torch.float32, (c, 8, ntp))
-    _check("K2", "sel", sel, torch.int32, (nb * v_per,))
-    _check("K2", "val", val, torch.int32, (nb * v_per,))
-    smem = (10 * blk + 7 * nt) * 4
-    if tp % tt or nt % gr or nt > ntp or smem > SMEM_LIMIT:
+    check("K2", "tris", tris, torch.float32, (c, 16, tp))
+    check("K2", "tboxes", tboxes, torch.float32, (c, 8, ntp))
+    check("K2", "sel", sel, torch.int32, (nb * v_per,))
+    check("K2", "val", val, torch.int32, (nb * v_per,))
+    if tp % tt or nt % gr or nt > ntp:
         raise ValueError(f"K2: tile {tt} x group {gr} does not fit Tp {tp}"
-                         f" / NTp {ntp}, or {smem} B of shared memory")
-    lib = load_kernel()
-    dev = rays8.device
-    outs = _new_outputs(cap, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.k2_vlaunch(*_ptrs(sel, val, tris, tboxes, rays8, it, ip,
-                                   iu, iv, *outs),
-                            cap, blk, tp, ntp, tt, v_per, gr, int(any_hit),
-                            stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed: CUDA error {rc}")
+                         f" / NTp {ntp}")
+    outs = _new_outputs(cap, rays8.device)
+    launch((_lib or load_kernel()).k2_vlaunch, rays8.get_device(),
+           sel.data_ptr(), val.data_ptr(), tris.data_ptr(),
+           tboxes.data_ptr(), rays8.data_ptr(), it.data_ptr(), ip.data_ptr(),
+           iu.data_ptr(), iv.data_ptr(), *(x.data_ptr() for x in outs),
+           cap, blk, tp, ntp, tt, v_per, gr, int(any_hit))
     LAUNCHES[f"k2_{_form(any_hit)}"] += 1
     return outs
+
+
+def k2_resident_warps(tp: int, tt: int, gr: int,
+                      any_hit: bool) -> tuple[int, float]:
+    """K2's resident warps at this chunk shape, as its launcher computes
+    them: per SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor, and
+    per SM on average over the card from cudaOccupancyMaxActiveClusters,
+    which also counts where K2's clusters fit."""
+    lib = _lib or load_kernel()
+    dev = torch.cuda.current_device()
+    w = [call(lib.k2_occupancy, dev, tp, tt, gr, int(any_hit), c)
+         for c in (0, 1)]
+    if min(w) < 0:
+        raise RuntimeError(f"K2: no occupancy for Tp {tp}, tile {tt}, "
+                           f"group {gr}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return w[0], w[1] / sms
 
 
 def launch_kernel(sel, tris, boxes_t, rays8, it, ip, iu, iv, any_hit: bool,
@@ -415,26 +409,21 @@ def launch_kernel(sel, tris, boxes_t, rays8, it, ip, iu, iv, any_hit: bool,
     cap = _check_rays("K3", blk, rays8, it, ip, iu, iv)
     c, _, tp = tris.shape
     cp = boxes_t.shape[1]
-    _check("K3", "tris", tris, torch.float32, (c, 16, tp))
-    _check("K3", "boxes_t", boxes_t, torch.float32, (8, cp))
-    _check("K3", "sel", sel, torch.int32, (cap // blk,))
+    check("K3", "tris", tris, torch.float32, (c, 16, tp))
+    check("K3", "boxes_t", boxes_t, torch.float32, (8, cp))
+    check("K3", "sel", sel, torch.int32, (cap // blk,))
     smem = (10 * blk + 6 * cp) * 4
     if tp % tt or not 0 < mm <= MAX_MM or c_real > cp or smem > SMEM_LIMIT:
         raise ValueError(f"K3: tile {tt} must divide Tp {tp}, mm {mm} be "
                          f"in 1..{MAX_MM}, c_real {c_real} <= Cp {cp}, "
                          f"shared memory {smem} B <= {SMEM_LIMIT}")
-    lib = load_kernel()
     dev = rays8.device
     outs = _new_outputs(cap, dev)
     onc = torch.empty((cap, mm), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.k3_launch(*_ptrs(sel, tris, boxes_t, rays8, it, ip, iu, iv,
-                                  *outs, onc),
-                           cap, blk, tp, cp, tt, mm, c_real, int(any_hit),
-                           stream)
-    if rc != 0:
-        raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
+    launch((_lib or load_kernel()).k3_launch, rays8.get_device(),
+           *(x.data_ptr() for x in (sel, tris, boxes_t, rays8, it, ip, iu,
+                                    iv, *outs, onc)),
+           cap, blk, tp, cp, tt, mm, c_real, int(any_hit))
     LAUNCHES[f"k3_{_form(any_hit)}"] += 1
     return outs + (onc,)
 

@@ -37,17 +37,17 @@ at (3e37, 3e37, 3e37) that a ray with an exactly diagonal direction
 """
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
 
 from fluctus_tpu_torch.core.types import ForestTables, WideBVH
+from fluctus_tpu_torch.launch import CSRC, check, launch, load_library
 from fluctus_tpu_torch.ops import ray_sort
-from fluctus_tpu_torch.ops.traverse_brute import _check, _octant, _prep, _slab
+from fluctus_tpu_torch.ops.traverse_brute import _octant, _prep, _slab
 from fluctus_tpu_torch.ops.traverse_stack import (
-    CSRC, NVCC_FLAGS, STACK_CAP, WALK_HEADER, Traversal, _inv_dir as _safe_inv,
-    _nvcc, stack_entries, traverse_plain)
+    STACK_CAP, WALK_HEADER, Traversal, _inv_dir as _safe_inv, stack_entries,
+    traverse_plain)
 
 BLK = 1024        # rays per block of the passes' schedule
 K_CHUNKS = 8      # chunk visits per pass
@@ -279,16 +279,8 @@ def load_kernel():
     """Build (at first use) and load the K5 library."""
     global _lib
     if _lib is None:
-        from fluctus_tpu_torch.build import build_shared
-        path, log, secs = build_shared(_SRC, "k5_forest",
-                                       [_nvcc()] + NVCC_FLAGS,
-                                       deps=[WALK_HEADER])
-        BUILD_INFO.update(path=path, log=log, seconds=secs)
-        lib = ctypes.CDLL(path)
-        lib.k5_forest.argtypes = [ctypes.c_void_p] * 10 + [
-            ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
-        lib.k5_forest.restype = ctypes.c_int
-        _lib = lib
+        _lib = load_library(_SRC, "k5_forest", {"k5_forest": "K5"},
+                            deps=[WALK_HEADER], info=BUILD_INFO)
     return _lib
 
 
@@ -302,37 +294,33 @@ def launch_kernel(sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv,
         raise ValueError(f"K5: blk {blk} must be a multiple of {THREADS} "
                          f"that divides the {bb} ray slots")
     nb, kk = bb // blk, sel.shape[-1]
-    _check("K5", "sel", sel, torch.int32, (nb, kk))
-    _check("K5", "ent", ent, torch.float32, (nb, kk))
-    _check("K5", "nodes", nodes, torch.float32, (c, tp, 56))
-    _check("K5", "leaves", leaves, torch.float32, (c, lp, leaf_width, 10))
+    check("K5", "sel", sel, torch.int32, (nb, kk))
+    check("K5", "ent", ent, torch.float32, (nb, kk))
+    check("K5", "nodes", nodes, torch.float32, (c, tp, 56))
+    check("K5", "leaves", leaves, torch.float32, (c, lp, leaf_width, 10))
     for name, x, dt, shape in (("orig", orig, torch.float32, (bb, 3)),
                                ("dir", dir, torch.float32, (bb, 3)),
                                ("it", it, torch.float32, (bb,)),
                                ("ip", ip, torch.int32, (bb,)),
                                ("iu", iu, torch.float32, (bb,)),
                                ("iv", iv, torch.float32, (bb,))):
-        _check("K5", name, x, dt, shape)
+        check("K5", name, x, dt, shape)
     if stack_entries(lvl - 1) > STACK_CAP:
         raise ValueError(f"K5: chunk depth {lvl - 1} needs "
                          f"{stack_entries(lvl - 1)} stack entries, more "
                          f"than {STACK_CAP}")
     if bool(((sel < 0) | (sel >= c)).any()):
         raise ValueError(f"K5: sel holds chunk ids outside 0..{c - 1}")
-    lib = load_kernel()
+    lib = _lib or load_kernel()
     dev = orig.device
     outs = (torch.empty(bb, dtype=torch.float32, device=dev),
             torch.empty(bb, dtype=torch.int32, device=dev),
             torch.empty(bb, dtype=torch.float32, device=dev),
             torch.empty(bb, dtype=torch.float32, device=dev))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.k5_forest(*(x.data_ptr() for x in (
-            sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv)),
-            bb, blk, kk, tp, lp, leaf_width, int(any_hit),
-            *(x.data_ptr() for x in outs), stream)
-    if rc != 0:
-        raise RuntimeError(f"K5 launch failed: CUDA error {rc}")
+    launch(lib.k5_forest, orig.get_device(), *(x.data_ptr() for x in (
+        sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv)),
+        bb, blk, kk, tp, lp, leaf_width, int(any_hit),
+        *(x.data_ptr() for x in outs))
     LAUNCHES[_form(any_hit)] += 1
     return outs
 

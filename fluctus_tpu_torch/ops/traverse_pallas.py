@@ -32,16 +32,14 @@ One CUDA kernel covers both of the JAX kernel's table placements
 """
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
 
 from fluctus_tpu_torch.core.types import WideBVH
-from fluctus_tpu_torch.ops.traverse_brute import _check
+from fluctus_tpu_torch.launch import CSRC, check, launch, load_library
 from fluctus_tpu_torch.ops.traverse_stack import (
-    CSRC, NVCC_FLAGS, TRI_EPS, WALK_HEADER, Traversal, _inv_dir as _safe_inv,
-    _nvcc)
+    TRI_EPS, WALK_HEADER, Traversal, _inv_dir as _safe_inv)
 
 BLK = 512          # rays per packet (threads per CUDA block)
 STACK = 192        # shared stack entries
@@ -263,16 +261,8 @@ def load_kernel():
     """Build (at first use) and load the K4 library."""
     global _lib
     if _lib is None:
-        from fluctus_tpu_torch.build import build_shared
-        path, log, secs = build_shared(_SRC, "k4_packet",
-                                       [_nvcc()] + NVCC_FLAGS,
-                                       deps=[WALK_HEADER])
-        BUILD_INFO.update(path=path, log=log, seconds=secs)
-        lib = ctypes.CDLL(path)
-        lib.k4_packet.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
-        lib.k4_packet.restype = ctypes.c_int
-        _lib = lib
+        _lib = load_library(_SRC, "k4_packet", {"k4_packet": "K4"},
+                            deps=[WALK_HEADER], info=BUILD_INFO)
     return _lib
 
 
@@ -292,21 +282,17 @@ def packet_kernel(orig, dir, t_vec, bvh: WideBVH, any_hit: bool):
                                ("nodes", nodes, torch.float32, (n, 56)),
                                ("leaves", leaves, torch.float32,
                                 (l_, w, 10))):
-        _check("K4", name, x, dt, shape)
-    lib = load_kernel()
+        check("K4", name, x, dt, shape)
+    lib = _lib or load_kernel()
     dev = orig.device
     outs = (torch.empty(b, dtype=torch.float32, device=dev),
             torch.empty(b, dtype=torch.int32, device=dev),
             torch.empty(b, dtype=torch.float32, device=dev),
             torch.empty(b, dtype=torch.float32, device=dev))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.k4_packet(*(x.data_ptr() for x in (
-            orig, dir, t_vec, nodes, leaves)),
-            b, int(bvh.root_ref), w, int(any_hit),
-            *(x.data_ptr() for x in outs), stream)
-    if rc != 0:
-        raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
+    launch(lib.k4_packet, orig.get_device(), *(x.data_ptr() for x in (
+        orig, dir, t_vec, nodes, leaves)),
+        b, int(bvh.root_ref), w, int(any_hit),
+        *(x.data_ptr() for x in outs))
     LAUNCHES[_form(any_hit)] += 1
     return outs
 

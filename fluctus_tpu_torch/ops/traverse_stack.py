@@ -18,13 +18,13 @@ and launch K1 for CUDA tensors; there is no fallback between the two.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 from typing import NamedTuple
 
 import torch
 
 from fluctus_tpu_torch.core.types import WideBVH
+from fluctus_tpu_torch.launch import CSRC, check, launch, load_library
 
 TRI_EPS = 1e-12
 BIG = 3.0e38
@@ -221,46 +221,19 @@ def traverse_plain(bvh: WideBVH, orig, dir, t_max, any_hit: bool,
 
 # ---------------------------------------------------------------- kernel
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
 _SRC = os.path.join(CSRC, "traverse_stack.cu")
 WALK_HEADER = os.path.join(CSRC, "wide_walk.cuh")   # shared with K5
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v"]
 _lib = None
 BUILD_INFO: dict = {}
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
 
 
 def load_kernel():
     """Build (at first use) and load the K1 library."""
     global _lib
     if _lib is None:
-        from fluctus_tpu_torch.build import build_shared
-        path, log, secs = build_shared(_SRC, "k1_traverse",
-                                       [_nvcc()] + NVCC_FLAGS,
-                                       deps=[WALK_HEADER])
-        BUILD_INFO.update(path=path, log=log, seconds=secs)
-        lib = ctypes.CDLL(path)
-        lib.k1_traverse.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
-        lib.k1_traverse.restype = ctypes.c_int
-        _lib = lib
+        _lib = load_library(_SRC, "k1_traverse", {"k1_traverse": "K1"},
+                            deps=[WALK_HEADER], info=BUILD_INFO)
     return _lib
-
-
-def _check(name, x, dtype, shape):
-    if not x.is_cuda or x.dtype != dtype or not x.is_contiguous() \
-            or tuple(x.shape) != tuple(shape):
-        raise ValueError(
-            f"K1: {name} must be a contiguous CUDA {dtype} tensor of shape "
-            f"{tuple(shape)}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def traverse_kernel(bvh: WideBVH, orig, dir, t_max, any_hit: bool):
@@ -271,37 +244,31 @@ def traverse_kernel(bvh: WideBVH, orig, dir, t_max, any_hit: bool):
     t_vec = torch.broadcast_to(
         torch.as_tensor(t_max, dtype=torch.float32, device=dev),
         (b,)).contiguous()
-    n_nodes = bvh.nodes.shape[0]
     w = bvh.leaf_width
-    _check("orig", orig, torch.float32, (b, 3))
-    _check("dir", dir, torch.float32, (b, 3))
-    _check("t_max", t_vec, torch.float32, (b,))
-    _check("nodes", bvh.nodes, torch.float32, (n_nodes, 56))
-    _check("leaves", bvh.leaves, torch.float32,
-           (bvh.leaves.shape[0], w, 10))
+    check("K1", "orig", orig, torch.float32, (b, 3))
+    check("K1", "dir", dir, torch.float32, (b, 3))
+    check("K1", "t_max", t_vec, torch.float32, (b,))
+    check("K1", "nodes", bvh.nodes, torch.float32, (bvh.nodes.shape[0], 56))
+    check("K1", "leaves", bvh.leaves, torch.float32,
+          (bvh.leaves.shape[0], w, 10))
     if stack_entries(bvh.depth) > STACK_CAP:
         raise ValueError(f"K1: hierarchy depth {bvh.depth} needs "
                          f"{stack_entries(bvh.depth)} stack entries, "
                          f"more than {STACK_CAP}")
-    lib = load_kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib or load_kernel()
     if any_hit:
         blocked = torch.empty(b, dtype=torch.uint8, device=dev)
-        outs = [None, None, None, None, blocked.data_ptr()]
+        outs = (0, 0, 0, 0, blocked.data_ptr())
     else:
         t = torch.empty(b, dtype=torch.float32, device=dev)
         prim = torch.empty(b, dtype=torch.int32, device=dev)
         u = torch.empty(b, dtype=torch.float32, device=dev)
         v = torch.empty(b, dtype=torch.float32, device=dev)
-        outs = [t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-                None]
-    with torch.cuda.device(dev):
-        rc = lib.k1_traverse(orig.data_ptr(), dir.data_ptr(),
-                             t_vec.data_ptr(), bvh.nodes.data_ptr(),
-                             bvh.leaves.data_ptr(), b, int(bvh.root_ref), w,
-                             int(any_hit), *outs, stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+        outs = (t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), 0)
+    launch(lib.k1_traverse, orig.get_device(), orig.data_ptr(),
+           dir.data_ptr(), t_vec.data_ptr(), bvh.nodes.data_ptr(),
+           bvh.leaves.data_ptr(), b, int(bvh.root_ref), w, int(any_hit),
+           *outs)
     if any_hit:
         LAUNCHES["any"] += 1
         return blocked.view(torch.bool)

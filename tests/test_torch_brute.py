@@ -29,6 +29,7 @@ from fluctus_tpu_torch.convert import (
     brute_from_numpy, params_from_numpy, scene_from_numpy)
 from fluctus_tpu_torch.core import rng as trng
 from fluctus_tpu_torch.core.types import RenderConfig
+from fluctus_tpu_torch.fixtures import tie_forest
 from fluctus_tpu_torch.integrators import common, lockstep
 from fluctus_tpu_torch.ops import camera
 from fluctus_tpu_torch.ops import traverse_brute as tb
@@ -256,6 +257,42 @@ def test_brute_round_cap_exhaustion(soup600, interp, sched, monkeypatch):
         with pytest.raises(RuntimeError, match="round cap"):
             tb.traverse_closest(pbf, torch.from_numpy(o),
                                 torch.from_numpy(d), 1e30)
+
+
+def _tie_layout_matches_jax(layout, gr):
+    arrays, o, d, want = tie_forest(layout)
+    jbf = JaxBrute(**{f: jnp.asarray(arrays[f]) for f in FIELDS},
+                   tile=arrays["tile"])
+    pbf = brute_from_numpy(arrays, device="cpu")
+    assert tb._resolve_gr(pbf.tile, pbf.tris.shape[2]) == gr
+    rj, rp = closest_both(jbf, pbf, o, d, np.float32(3.4e38))
+    tie = want >= 0
+    np.testing.assert_array_equal(rp.prim.numpy()[tie], want[tie])
+    np.testing.assert_array_equal(np.asarray(rj.prim), rp.prim.numpy())
+    np.testing.assert_allclose(rp.t.numpy(), np.asarray(rj.t), rtol=T_REL)
+    t_max = np.full(len(o), 9.5, np.float32)
+    bj, bp = any_both(jbf, pbf, o, d, t_max)
+    np.testing.assert_array_equal(bp.numpy(), np.asarray(bj))
+    assert bool(bp.numpy()[tie].all())
+
+
+def test_brute_tie_layout_matches_jax(interp, monkeypatch):
+    """Equal-t copies of one triangle in different team slices, pieces and
+    pair slots of one 1,024-triangle group, and in a later visit
+    (fixtures.LAYOUTS["group"]): the port's plain K2 and the JAX kernel
+    both return the lowest slot of the chunk visited first; prims equal, t
+    within the file's 1e-5 relative (XLA contracts the JAX side's FMAs)."""
+    monkeypatch.setenv("FLUCTUS_BRUTE_SCHED", "vlist")
+    _tie_layout_matches_jax("group", 8)
+
+
+def test_brute_tie_groups_layout_matches_jax(interp, monkeypatch):
+    """Equal-t copies in different 128-triangle groups of one visit
+    (fixtures.LAYOUTS["groups"], gr = 1 as on the conference): entries 0,
+    1, 2 and 5, both CTAs, the same and a later piece; the lowest entry
+    wins, as in the JAX kernel."""
+    monkeypatch.setenv("FLUCTUS_BRUTE_SCHED", "vlist")
+    _tie_layout_matches_jax("groups", 1)
 
 
 # ------------------------------------------------------------ brute vs K1

@@ -1,8 +1,8 @@
 """Kernels K1 (fluctus_tpu_torch/csrc/traverse_stack.cu), K2 and K3
 (csrc/traverse_brute.cu), K5 (csrc/traverse_forest.cu), K4
 (csrc/traverse_packet.cu) and the probes P1 and P2 (csrc/probes.cu) against
-their plain versions, and the streaming wavefront against the lockstep
-integrator through K1, on the card. These
+their plain versions, the launch helper (launch.py) and the streaming
+wavefront against the lockstep integrator through K1, on the card. These
 need an NVIDIA card with nvcc, so they carry the `cuda` marker and skip
 elsewhere; the file imports no JAX, so it runs on the card with
 
@@ -167,6 +167,32 @@ def test_k2_k3_count_launches_and_refuse_bad_input(card, brute, monkeypatch):
                           False, 128, bf.tile, 8, 1)
 
 
+def test_k2_tie_layout_equals_plain(card):
+    """Equal-t copies of one triangle across the team slices, pieces and
+    pair slots of one 1,024-triangle group and in a later visit, and across
+    the groups, CTAs and pieces of one visit (fixtures.LAYOUTS): K2 returns
+    the lowest slot of the group listed first in the chunk visited first,
+    bit-equal to its plain version, in both forms."""
+    from fluctus_tpu_torch.convert import brute_from_numpy
+    from fluctus_tpu_torch.fixtures import LAYOUTS, tie_forest
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    for layout in LAYOUTS:
+        arrays, o, d, want = tie_forest(layout)
+        bf = brute_from_numpy(arrays, device=card)
+        o, d = torch.from_numpy(o).to(card), torch.from_numpy(d).to(card)
+        k = tb.traverse_closest(bf, o, d, 3.4e38, launch=tb.vlaunch_kernel)
+        p = tb.traverse_closest(bf, o, d, 3.4e38, launch=tb.vlaunch_plain)
+        torch.cuda.synchronize()
+        tie = torch.from_numpy(want >= 0).to(card)
+        assert torch.equal(k.prim[tie].cpu(),
+                           torch.from_numpy(want[want >= 0])), layout
+        assert torch.equal(k.prim, p.prim) and torch.equal(k.t, p.t), layout
+        assert torch.equal(k.u, p.u) and torch.equal(k.v, p.v), layout
+        ka = tb.traverse_any(bf, o, d, 9.5, launch=tb.vlaunch_kernel)
+        pa = tb.traverse_any(bf, o, d, 9.5, launch=tb.vlaunch_plain)
+        assert torch.equal(ka, pa) and bool(ka[tie].all()), layout
+
+
 # ---------------------------------------------------------------- K5, K4
 # Kernel K5 (csrc/traverse_forest.cu) against its plain version through
 # the same scheduler, and K4 (csrc/traverse_packet.cu) against its plain
@@ -291,6 +317,37 @@ def test_probes_count_launches_and_refuse_bad_input(card):
         probes.copy_plus_one_kernel(torch.zeros((7, 128), device=card))
     with pytest.raises(ValueError, match="P2"):
         probes.fma_chain_kernel(torch.zeros((3, 100), device=card), 2, True)
+
+
+def test_launch_helper_p1_and_k1(card, kitchen):
+    """P1 and K1 through the launch helper: right on the current and on a
+    side stream; a CPU or a non-contiguous tensor raises before the launch,
+    a launcher's non-zero result raises after it."""
+    from fluctus_tpu_torch import launch
+    from fluctus_tpu_torch.ops import probes
+    x = torch.rand((64, 128), device=card)
+    assert torch.equal(probes.copy_plus_one(x), x + 1.0)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        y = probes.copy_plus_one(x)
+    side.synchronize()
+    assert torch.equal(y, x + 1.0)
+    with pytest.raises(ValueError, match="P1"):
+        probes.copy_plus_one_kernel(x.cpu())
+    with pytest.raises(ValueError, match="not contiguous"):
+        probes.copy_plus_one_kernel(torch.rand((128, 64), device=card).t())
+    host, w = kitchen
+    o, d, t = _rays(host, 1024, 12, card)
+    k = ts.traverse_kernel(w, o, d, t, any_hit=False)
+    p, _ = ts.traverse_plain(w, o, d, t, any_hit=False)
+    assert torch.equal(k.prim, p.prim) and torch.equal(k.t, p.t)
+    with pytest.raises(ValueError, match="K1"):
+        ts.traverse_kernel(w, o.cpu(), d.cpu(), t.cpu(), any_hit=False)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ts.traverse_kernel(w, o.t().contiguous().t(), d, t, any_hit=False)
+    with pytest.raises(RuntimeError, match="P1 launch failed"):
+        launch.launch(probes.load_kernel().p1_copy_plus_one,
+                      torch.cuda.current_device(), 0, 0)   # one arg short
 
 
 # ---------------------------------------------------------------- stream
