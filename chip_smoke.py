@@ -26,8 +26,8 @@ backend="pallas" (512x512, 8 bounces, 4 spp) through K4 only, and holds
 the same two goldens through K4. Conference (232k triangles, above the
 fast-big cutover, so its session holds a brute-chunk forest and no
 hierarchy): holds K2 and K3 against their plain versions through the same
-schedulers (K2 also on a forest of equal-t copies that pins its ties),
-times them beside K1 on a full hierarchy of the same scene
+schedulers (both also on the forests of equal-t copies that pin their
+ties), times them beside K1 on a full hierarchy of the same scene
 (with K2's resident warps per SM and its rate on an all-live slab),
 renders the conference (lockstep, 512x512, 6 bounces, 4 spp) and checks
 that it went through K2 only, holds the conference golden through K2 and,
@@ -36,10 +36,14 @@ through the fused K2 call against the same stream through K1 over the
 full hierarchy, with one of its fused calls held through K2 against the
 plain version. Then the treelet path: a FLUCTUS_FOREST=treelet session
 of the conference (SBVH hierarchy and treelet forest), K5 against its
-plain version under both schedulers and against K1 on the session's
-hierarchy, K5's times, the same frame through K5 only, and the conference
-golden through K5. Each phase prints one line with its wall time; the
-last three lines are the kernels record, the card and the device record.
+plain version (the work queue in one launch against the round loop over
+the plain version; the per-launch kernel under the round loop and the
+passes) and against K1 on the session's hierarchy, K5's times (the queue
+beside the per-round design it replaced, the rays as given and sorted),
+the same frame through K5 only, one K5 launch per traversal call, and the
+conference golden through K5. Each phase prints one line with its wall
+time; the last three lines are the kernels record, the card and the
+device record.
 Any failed check raises, so the script exits non-zero. It needs a CUDA
 device and the repository around it.
 """
@@ -373,32 +377,36 @@ def phase_brute_check(bf, rays, sched):
     return t_abs, flag_mis
 
 
-def phase_k2_ties():
-    """K2 against its plain version through the visit-list scheduler on the
-    tie forests of fluctus_tpu_torch/fixtures.py: equal-t copies of one
-    triangle in different team slices, pieces and pair slots of one
-    1,024-triangle group and in a later visit ("group"), and in different
-    128-triangle groups of one visit, over both CTAs and two pieces
-    ("groups"). Both forms bit-equal, and every tie ray returns the lowest
-    slot of the group listed first in the chunk visited first."""
+def phase_ties(sched):
+    """K2 (sched "vlist") or K3 ("rounds") against its plain version
+    through the same scheduler on the tie forests of
+    fluctus_tpu_torch/fixtures.py: equal-t copies of one triangle in
+    different team slices, pieces and pair slots of one 1,024-triangle
+    group and in a later visit ("group"), and in different 128-triangle
+    groups of one visit, over both CTAs and two pieces ("groups"). Both
+    forms bit-equal, and every tie ray returns the lowest slot of the group
+    listed first in the chunk visited first."""
     import torch
     from fluctus_tpu_torch.convert import brute_from_numpy
     from fluctus_tpu_torch.fixtures import LAYOUTS, tie_forest
     from fluctus_tpu_torch.ops import traverse_brute as tb
 
+    name = KERNEL_OF[sched]
+    kern, plain = brute_launchers(sched)
     for layout, (_, slots, _, _) in LAYOUTS.items():
         t0 = time.perf_counter()
         arrays, o, d, want = tie_forest(layout)
         bf = brute_from_numpy(arrays, device="cuda")
         o, d = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
-        gr = tb._resolve_gr(int(bf.tile), int(bf.tris.shape[2]))
-        with env(FLUCTUS_BRUTE_SCHED="vlist"):
-            k = tb.traverse_closest(bf, o, d, 3.4e38,
-                                    launch=tb.vlaunch_kernel)
-            p = tb.traverse_closest(bf, o, d, 3.4e38,
-                                    launch=tb.vlaunch_plain)
-            ka = tb.traverse_any(bf, o, d, 9.5, launch=tb.vlaunch_kernel)
-            pa = tb.traverse_any(bf, o, d, 9.5, launch=tb.vlaunch_plain)
+        tp = int(bf.tris.shape[2])
+        groups = (f"group of {tb._resolve_gr(int(bf.tile), tp)} tiles"
+                  if sched == "vlist"
+                  else f"tile {tb._fit_tile(tb.TT, tp)}")
+        with env(FLUCTUS_BRUTE_SCHED=sched):
+            k = tb.traverse_closest(bf, o, d, 3.4e38, launch=kern)
+            p = tb.traverse_closest(bf, o, d, 3.4e38, launch=plain)
+            ka = tb.traverse_any(bf, o, d, 9.5, launch=kern)
+            pa = tb.traverse_any(bf, o, d, 9.5, launch=plain)
         torch.cuda.synchronize()
         tie = torch.from_numpy(want >= 0).cuda()
         winners = bool(torch.equal(k.prim[tie].cpu(),
@@ -406,17 +414,17 @@ def phase_k2_ties():
         same = all(torch.equal(getattr(k, f), getattr(p, f))
                    for f in ("prim", "t", "u", "v"))
         err = float((k.t - p.t).abs().max())
-        say("k2-ties", t0,
-            f"K2 vs its plain version on the {layout!r} tie forest (group "
-            f"of {gr} tiles; {len(slots)} triangles copied; "
+        say(f"{name.lower()}-ties", t0,
+            f"{name} vs its plain version on the {layout!r} tie forest "
+            f"({groups}; {len(slots)} triangles copied; "
             f"{int(tie.sum())} of {o.shape[0]} rays through the copies): "
             f"closest prim, t, u, v bit-equal {same} (max abs t err "
             f"{err:.3e}), every tie ray hits the expected copy {winners}; "
             f"any-hit flags equal {bool(torch.equal(ka, pa))}")
-        check(same and winners, f"K2 breaks a tie otherwise than its plain "
-              f"version ({layout!r} layout)")
-        check(bool(torch.equal(ka, pa)), f"K2 any-hit flags differ from the "
-              f"plain version on the {layout!r} tie forest")
+        check(same and winners, f"{name} breaks a tie otherwise than its "
+              f"plain version ({layout!r} layout)")
+        check(bool(torch.equal(ka, pa)), f"{name} any-hit flags differ from "
+              f"the plain version on the {layout!r} tie forest")
 
 
 class Recorder:
@@ -713,49 +721,94 @@ def forest_bound(ft, n_rays, any_hit, stats_list):
     return byts / HBM_BYTES_PER_S * 1e3, ops / F32_INSTR_PER_S * 1e3
 
 
+def queue_rays(ro, rd, rt):
+    """Rays as the work queue's entry point hands them to queue_kernel and
+    queue_plain: padded to the round loop's block, t_max a vector."""
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    return tb._prep(ro, rd, rt, tf.WQ_BLK)[:3]
+
+
+def queue_sorted(ft, ro, rd, rt, any_hit):
+    """The work queue's kernel on the rays sorted by octant and Morton code
+    over the forest bounds (ray_sort.sorted_apply, as the passes sort
+    them), the results back in the rays' order."""
+    from fluctus_tpu_torch.ops import ray_sort
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    o, d, t = queue_rays(ro, rd, rt)
+    return ray_sort.sorted_apply(
+        o, d, ft.boxes[:, 0:3].amin(0), ft.boxes[:, 3:6].amax(0),
+        lambda o_, d_, t_: ts.Traversal(*tf.queue_kernel(
+            ft, o_.contiguous(), d_.contiguous(), t_.contiguous(), any_hit)),
+        t)
+
+
 def phase_forest_check(ft, wbvh, rays):
-    """K5 against its plain version through the same scheduler, both
-    schedulers and forms, on the conference's 65,536-ray subsets; and K5
-    against K1 over the session's own full hierarchy."""
+    """K5 against its plain version, both forms, on the conference's
+    65,536-ray subsets: the work queue's kernel (queue_kernel, through
+    the entry point, and on the rays sorted by octant and Morton code)
+    against queue_plain, and the per-launch kernel (launch_kernel) against
+    launch_plain through the same scheduler, the round loop and the
+    passes; and K5 against K1 over the session's own full hierarchy."""
     import torch
     from fluctus_tpu_torch.ops import traverse_forest as tf
     from fluctus_tpu_torch.ops import traverse_stack as ts
 
     o, d, t_c, o_s, d_s, t_s = rays
+    k1c = ts.traverse_kernel(wbvh, o, d, t_c, any_hit=False)
+    k1a = ts.traverse_kernel(wbvh, o_s, d_s, t_s, any_hit=True)
     err = {}
-    for mode in tf.MODES:
+    for mode in ("queue",) + tf.MODES:
         t0 = time.perf_counter()
-        kc = tf.traverse_closest(ft, o, d, t_c, mode=mode,
+        if mode == "queue":
+            kc2 = queue_sorted(ft, o, d, t_c, False)
+            ka2 = queue_sorted(ft, o_s, d_s, t_s, True).prim > 0
+            kc = tf.traverse_closest(ft, o, d, t_c)
+            ka = tf.traverse_any(ft, o_s, d_s, t_s)
+            pc = ts.Traversal(*tf.queue_plain(ft, *queue_rays(o, d, t_c),
+                                           False))
+            pa = tf.queue_plain(ft, *queue_rays(o_s, d_s, t_s), True)[1] > 0
+            other = bool(all(torch.equal(getattr(kc, f), getattr(kc2, f))
+                             for f in ("prim", "t", "u", "v"))
+                         and torch.equal(ka, ka2))
+            what = ("the queue kernel (one launch a call) vs queue_plain "
+                    "(the round loop over the plain version)")
+        else:
+            kc = tf.traverse_closest(ft, o, d, t_c, mode=mode,
+                                     launch=tf.launch_kernel)
+            pc = tf.traverse_closest(ft, o, d, t_c, mode=mode,
+                                     launch=tf.launch_plain)
+            ka = tf.traverse_any(ft, o_s, d_s, t_s, mode=mode,
                                  launch=tf.launch_kernel)
-        pc = tf.traverse_closest(ft, o, d, t_c, mode=mode,
+            pa = tf.traverse_any(ft, o_s, d_s, t_s, mode=mode,
                                  launch=tf.launch_plain)
-        ka = tf.traverse_any(ft, o_s, d_s, t_s, mode=mode,
-                             launch=tf.launch_kernel)
-        pa = tf.traverse_any(ft, o_s, d_s, t_s, mode=mode,
-                             launch=tf.launch_plain)
+            other = True
+            what = (f"the per-launch kernel ({mode}) vs its plain version "
+                    f"through the same scheduler")
         torch.cuda.synchronize()
         n_mis, n_ties, t_rel, t_abs = compare_closest(kc, pc)
         t_equal = bool(torch.equal(kc.t, pc.t))
         uv_equal = bool(torch.equal(kc.u, pc.u) and torch.equal(kc.v, pc.v))
         flag_mis = int((ka != pa).sum())
-        k1c = ts.traverse_kernel(wbvh, o, d, t_c, any_hit=False)
-        k1a = ts.traverse_kernel(wbvh, o_s, d_s, t_s, any_hit=True)
         k1_mis, k1_ties, k1_rel, _ = compare_closest(kc, k1c)
         k1_flag = int((ka != k1a).sum())
+        order = (f"; with the rays sorted by octant and Morton code: "
+                 f"bit-equal {other}" if mode == "queue" else "")
         say("k5-check", t0,
-            f"K5 ({mode}) vs its plain version through the same scheduler, "
-            f"{o.shape[0]} closest rays ({o.shape[0] // 2} primary, the rest"
-            f" bounce) and {o_s.shape[0]} shadow rays: closest "
-            f"{int((kc.prim >= 0).sum())} hits, prim mismatches {n_mis} "
-            f"(+{n_ties} equal-t ties), t bit-equal {t_equal}, u/v bit-equal"
-            f" {uv_equal}; any-hit {int(ka.sum())} blocked, flag mismatches "
-            f"{flag_mis}. Against K1 over the session's hierarchy: prim "
-            f"mismatches {k1_mis} (+{k1_ties} ties), max rel t err "
-            f"{k1_rel:.3e}, flag mismatches {k1_flag}")
+            f"K5, {what}, {o.shape[0]} closest rays ({o.shape[0] // 2} "
+            f"primary, the rest bounce) and {o_s.shape[0]} shadow rays: "
+            f"closest {int((kc.prim >= 0).sum())} hits, prim mismatches "
+            f"{n_mis} (+{n_ties} equal-t ties), t bit-equal {t_equal}, u/v "
+            f"bit-equal {uv_equal}; any-hit {int(ka.sum())} blocked, flag "
+            f"mismatches {flag_mis}{order}. Against K1 over the session's "
+            f"hierarchy: prim mismatches {k1_mis} (+{k1_ties} ties), max rel"
+            f" t err {k1_rel:.3e}, flag mismatches {k1_flag}")
         check(n_mis == 0 and n_ties == 0 and t_equal and uv_equal,
               f"K5 ({mode}) closest results differ from the plain version")
         check(flag_mis == 0, f"K5 ({mode}) any-hit flags differ from the "
               "plain version")
+        check(other, "K5's queue kernel gives other bits on sorted rays")
         check(k1_mis == 0 and k1_rel <= T_REL_TOL and k1_flag == 0,
               f"K5 ({mode}) and K1 disagree on the conference")
         err[mode] = (t_abs, flag_mis)
@@ -763,27 +816,39 @@ def phase_forest_check(ft, wbvh, rays):
 
 
 def phase_forest_time(ft, wbvh, rays):
-    """Per 65,536-ray call under each scheduler: K5's time summed over the
-    call's launches (replayed on the recorded inputs), launches (rounds or
-    passes) per call, the whole call with the scheduler's PyTorch work,
-    the plain version's time on the same inputs, the bound, and K1 on the
-    same rays over the session's hierarchy."""
+    """Per 65,536-ray call, both forms: the work queue's kernel
+    (queue_kernel: its one launch on the rays as given and sorted by
+    octant and Morton code, the whole call through the entry point and
+    with that sort, queue_plain's time), and the
+    per-launch kernel under the round loop (the per-round design) and the
+    passes (K5's time summed over the call's launches, replayed on the
+    recorded inputs, launches per call, the whole call with the
+    scheduler's PyTorch work, the plain version's time on the same
+    inputs); the bound (the same walks, so one per form) and K1 on the
+    same rays over the session's hierarchy. One call of each form runs
+    under sync-debug mode "error": the queue's call reads nothing back."""
+    import torch
+    from fluctus_tpu_torch.ops import ray_sort
     from fluctus_tpu_torch.ops import traverse_forest as tf
     from fluctus_tpu_torch.ops import traverse_stack as ts
     from fluctus_tpu_torch.timing import time_launches
 
     o, d, t_c, o_s, d_s, t_s = rays
     out = {}
-    for mode in tf.MODES:
-        for form, (ro, rd, rt) in (("closest", (o, d, t_c)),
-                                   ("any", (o_s, d_s, t_s))):
+    for form, (ro, rd, rt) in (("closest", (o, d, t_c)),
+                               ("any", (o_s, d_s, t_s))):
+        anyh = form == "any"
+        trav = tf.traverse_any if anyh else tf.traverse_closest
+        n = ro.shape[0]
+        k1_ms = time_launches(
+            lambda: ts.traverse_kernel(wbvh, ro, rd, rt, anyh), 10, 1)
+        for mode in tf.MODES:
             t0 = time.perf_counter()
-            anyh = form == "any"
-            trav = tf.traverse_any if anyh else tf.traverse_closest
             rec = Recorder(tf.launch_kernel)
             trav(ft, ro, rd, rt, mode=mode, launch=rec)
             call_ms = time_launches(
-                lambda: trav(ft, ro, rd, rt, mode=mode), 3, 1)
+                lambda: trav(ft, ro, rd, rt, mode=mode,
+                             launch=tf.launch_kernel), 3, 1)
             stats_list = []
             for args in rec.calls:
                 st: dict = {}
@@ -797,11 +862,8 @@ def phase_forest_time(ft, wbvh, rays):
                      for a in rec.calls)
             p2 = sum(time_launches(lambda: tf.launch_plain(*a), 1, 1)
                      for a in rec.calls)
-            t_bytes, t_ops = forest_bound(ft, ro.shape[0], anyh, stats_list)
+            t_bytes, t_ops = forest_bound(ft, n, anyh, stats_list)
             b_ms, b_by = larger(t_bytes, t_ops)
-            k1_ms = time_launches(
-                lambda: ts.traverse_kernel(wbvh, ro, rd, rt, anyh), 10, 1)
-            n = ro.shape[0]
             child = sum(s["child_tests"] for s in stats_list)
             tri = sum(s["tri_tests"] for s in stats_list)
             out[(mode, form)] = dict(
@@ -809,16 +871,86 @@ def phase_forest_time(ft, wbvh, rays):
                 bound_by=b_by, launches_per_call=len(rec.calls),
                 call_ms=call_ms, k1_ms=k1_ms)
             r = out[(mode, form)]
-            unit = "rounds" if mode == "workqueue" else "passes"
+            unit = ("rounds (the per-round design)" if mode == "workqueue"
+                    else "passes")
             say("k5-time", t0,
-                f"{mode} {form}: {r['ms']:.3f} ms of K5 per {n}-ray call, "
-                f"{len(rec.calls)} {unit} per call; whole call with its "
-                f"scheduler {call_ms:.3f} ms; plain {r['plain_ms']:.1f} ms; "
-                f"bound {b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, "
-                f"operations {t_ops:.4f} ms; {child / n:.1f} child slab "
-                f"and {tri / n:.1f} Moller tests per ray); K1 on the same "
-                f"rays over the session's hierarchy {k1_ms:.4f} ms")
+                f"{mode} {form}, per-launch kernel: {r['ms']:.3f} ms of K5 "
+                f"per {n}-ray call, {len(rec.calls)} {unit} per call; whole "
+                f"call with its scheduler {call_ms:.3f} ms; plain "
+                f"{r['plain_ms']:.1f} ms; bound {b_ms:.4f} ms by {b_by} "
+                f"(bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms; "
+                f"{child / n:.1f} child slab and {tri / n:.1f} Moller tests "
+                f"per ray); K1 on the same rays over the session's "
+                f"hierarchy {k1_ms:.4f} ms")
+
+        # the work queue in one launch: the same walks as the round loop,
+        # so the round loop's bound
+        t0 = time.perf_counter()
+        qo, qd, qt = queue_rays(ro, rd, rt)
+        k1 = time_launches(lambda: tf.queue_kernel(ft, qo, qd, qt, anyh),
+                           10, 1)
+        k2 = time_launches(lambda: tf.queue_kernel(ft, qo, qd, qt, anyh),
+                           10, 1)
+        so, sd, st = (x[ray_sort.sort_order(
+            qo, qd, ft.boxes[:, 0:3].amin(0), ft.boxes[:, 3:6].amax(0))[0]]
+            .contiguous() for x in (qo, qd, qt))
+        k_sorted = time_launches(
+            lambda: tf.queue_kernel(ft, so, sd, st, anyh), 10, 1)
+        calls = {}
+        for srt in (False, True, True, False):
+            fn = ((lambda: queue_sorted(ft, ro, rd, rt, anyh)) if srt
+                  else (lambda: trav(ft, ro, rd, rt)))
+            ms = time_launches(fn, 10, 1)
+            calls[srt] = min(calls.get(srt, ms), ms)
+        tf.reset_counts()
+        torch.cuda.set_sync_debug_mode("error")   # raises on a host sync
+        try:
+            trav(ft, ro, rd, rt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launches = tf.LAUNCHES[form]
+        p1 = time_launches(lambda: tf.queue_plain(ft, qo, qd, qt, anyh), 1, 1)
+        wq = out[("workqueue", form)]
+        out[("queue", form)] = dict(
+            ms=(k1 + k2) / 2, plain_ms=p1, bound_ms=wq["bound_ms"],
+            bound_by=wq["bound_by"], launches_per_call=launches,
+            call_ms=calls[False], k1_ms=k1_ms)
+        r = out[("queue", form)]
+        say("k5-time", t0,
+            f"queue {form}: {r['ms']:.3f} ms of K5 per {n}-ray call "
+            f"(queue_kernel, the rays as given; {k_sorted:.3f} ms on the "
+            f"rays sorted by octant and Morton code), {launches} launch and"
+            f" no host sync per call; whole call through the entry point "
+            f"{calls[False]:.3f} ms with the rays as given, "
+            f"{calls[True]:.3f} ms with them sorted there; plain "
+            f"(queue_plain) {p1:.1f} ms; bound {wq['bound_ms']:.4f} ms by "
+            f"{wq['bound_by']}; beside the per-round design: "
+            f"{wq['ms']:.3f} ms of K5 in {wq['launches_per_call']} rounds, "
+            f"whole call {wq['call_ms']:.3f} ms")
+        check(launches == 1, f"a K5 work-queue call made {launches} "
+              "launches")
     return out
+
+
+@contextlib.contextmanager
+def counted_calls(module, names):
+    """{name: calls} of the functions `names` of `module` inside the block
+    (the module's attributes wrapped for its duration)."""
+    counts = dict.fromkeys(names, 0)
+    old = {n: getattr(module, n) for n in names}
+
+    def counted(n):
+        def fn(*args, **kw):
+            counts[n] += 1
+            return old[n](*args, **kw)
+        return fn
+    for n in names:
+        setattr(module, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n, f in old.items():
+            setattr(module, n, f)
 
 
 def launch_counts(field: str = "LAUNCHES") -> dict:
@@ -1422,7 +1554,8 @@ def main() -> int:
         f"{tuple(wbvh_full.leaves.shape)}, depth {wbvh_full.depth}")
     rays = brute_rays(big, 1 << 16, seed=11)
     err = {s_: phase_brute_check(bf, rays, s_) for s_ in ("vlist", "rounds")}
-    phase_k2_ties()
+    phase_ties("vlist")
+    phase_ties("rounds")
     btimes = {s_: phase_brute_time(bf, rays, s_, wbvh_full)
               for s_ in ("vlist", "rounds")}
     t0 = time.perf_counter()
@@ -1440,8 +1573,19 @@ def main() -> int:
         width=64, height=64)), 1, integrator="lockstep")
     torch.cuda.synchronize()
     say("warm-up", t0, "conference 64x64 1 spp")
-    secs_big, launches_big = phase_frame_only(big, 4, card, "frame-big",
-                                              "K2", "conference")
+    t0 = time.perf_counter()
+    with counted_calls(tb, ("traverse_closest", "traverse_any")) as calls:
+        secs_big, launches_big = phase_frame_only(big, 4, card, "frame-big",
+                                                  "K2", "conference")
+    k3 = btimes["rounds"]
+    say("frame-big", t0,
+        f"brute traversal calls: {calls['traverse_closest']} closest, "
+        f"{calls['traverse_any']} any-hit; K3 (the round loop) at its "
+        f"launches per k3-time call would make "
+        f"{calls['traverse_closest'] * k3['closest']['launches_per_call']}"
+        f" closest and "
+        f"{calls['traverse_any'] * k3['any']['launches_per_call']} any-hit "
+        f"launches here")
     launches_k3, gbig = phase_golden_big()
     t0 = time.perf_counter()
     k1_scene = dataclasses.replace(gbig.scene, wbvh=wbvh_full, bforest=None)
@@ -1486,9 +1630,17 @@ def main() -> int:
         width=64, height=64)), 1, integrator="lockstep")
     torch.cuda.synchronize()
     say("warm-up", t0, "conference 64x64 1 spp, treelet forest")
-    secs_t, launches_t = phase_frame_only(
-        tsess, 4, card, "frame-treelet", "K5",
-        "conference, FLUCTUS_FOREST=treelet,")
+    t0 = time.perf_counter()
+    with counted_calls(tf, ("traverse_closest", "traverse_any")) as calls:
+        secs_t, launches_t = phase_frame_only(
+            tsess, 4, card, "frame-treelet", "K5",
+            "conference, FLUCTUS_FOREST=treelet,")
+    per_call = {"closest": calls["traverse_closest"],
+                "any": calls["traverse_any"]}
+    say("frame-treelet", t0, f"K5 traversal calls {per_call}, launches "
+        f"{launches_t}: one launch per call")
+    check(launches_t == per_call, "the treelet frame made other than one K5 "
+          "launch per traversal call")
     phase_golden_only(dataclasses.replace(tsess, cfg=tsess.cfg.replace(
         width=64, height=64)), "conference", 4, "K5")
 
@@ -1522,8 +1674,8 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None})
     for form, label in (("closest", "closest"), ("any", "any-hit")):
-        r = ftimes[("workqueue", form)]
-        t_abs, flag_mis = k5_err["workqueue"]
+        r = ftimes[("queue", form)]
+        t_abs, flag_mis = k5_err["queue"]
         kernels.append({
             "name": f"K5 traverse_forest {label}", "route": "cuda",
             "source": "fluctus_tpu_torch/csrc/traverse_forest.cu",

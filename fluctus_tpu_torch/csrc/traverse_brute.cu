@@ -6,48 +6,48 @@
 //
 // On the TPU a grid step held one (ray block, chunk) visit as (128, tile)
 // vector planes and kept the block's best hit resident in VMEM across the
-// visit steps of one block. Here one CUDA block is one ray block of 128
-// rays: K2 walks the block's v_per visit slots in a loop inside the kernel
-// and keeps the best hit in registers; K3 makes its one visit. Pallas's
-// pl.when guards become block-uniform branches decided with
-// __syncthreads_or.
+// visit steps of one block. Here a ray block of 128 rays runs on one
+// cluster of CTAs: K2 walks the block's v_per visit slots in a loop inside
+// the kernel and keeps the best hit in registers; K3 makes the block's one
+// visit of the round loop, every tile of the chunk, then lists each lane's
+// next chunks. Pallas's pl.when guards become block-uniform branches
+// decided with __syncthreads_or.
 //
 // What bounds them on the H100: the Moller tests of the groups a block
 // runs, ~55 FP32 instructions per triangle and live lane (chip_smoke.py's
-// OPS_PER_TRI; a tile slab test is OPS_PER_CHILD = 26), so operations,
-// with the triangle rows read from L2 (the conference's tables, 15 MB, fit
-// in its 50 MB). The arithmetic stays simple and exact rather than fast:
-// no FMAs (-fmad=false), IEEE division.
+// OPS_PER_TRI; a tile or chunk slab test is OPS_PER_CHILD = 26), so
+// operations, with the triangle rows read from L2 (the conference's tables,
+// 15 MB, fit in its 50 MB). The arithmetic stays simple and exact rather
+// than fast: no FMAs (-fmad=false), IEEE division.
 //
-// K3 keeps the first design: one thread per ray (128 threads), each piece
-// of 128 triangles (10 floats each) copied through registers into shared
-// memory between two __syncthreads, then every thread tests the piece in
-// order. K2 started from that design and lost time three ways: 4 warps per
-// block and ~4 blocks per SM left each scheduler ~4 warps to hide a
-// dependent Moller chain and its shared loads (15 % of the instruction
-// rate on an all-live slab); every group (on the conference one tile of
-// 128 triangles) cost two block barriers and a merge, and no copy
-// overlapped a test; and each test issued 10 scalar shared loads, as many
-// shared-memory issue slots as FP32 ones.
-//
-// K2 now (k2_kernel):
+// The first design (one thread per ray, 128 threads, each piece of 128
+// triangles copied through registers into shared memory between two
+// __syncthreads, every thread testing the piece in order with 10 scalar
+// shared loads a test) lost time three ways: 4 warps per block and ~4
+// blocks per SM left each scheduler ~4 warps to hide a dependent Moller
+// chain and its shared loads; every group cost two block barriers and a
+// merge, and no copy overlapped a test; and a test issued as many
+// shared-memory issue slots as FP32 ones. K2 and K3 now share one visit
+// (`visit`):
 // - A ray block is a cluster of kCluster CTAs of kTeams warp-teams (128
-//   threads each). Every CTA holds the block's rays and carried best; the
-//   tile slab tests are dealt out over all the cluster's teams, a visit's
-//   live groups over its CTAs (entry e of the list to CTA e % kCluster),
-//   and each group's slots over a CTA's teams, in contiguous slices. The
-//   largest block of a launch, which sets the launch's time once the
-//   small blocks are done, so runs on kCluster SMs at once.
+//   threads each). Every CTA holds the block's rays and carried best; a
+//   visit's groups (K2: the live groups its tile slab tests list, those
+//   tests dealt out over all the cluster's teams; K3: every tile of the
+//   chunk, in order) are dealt out over the CTAs (entry e of the list to
+//   CTA e % kCluster), and each group's slots over a CTA's teams, in
+//   contiguous slices. The largest block of a launch, which sets the
+//   launch's time once the small blocks are done, so runs on kCluster SMs
+//   at once.
 // - Each CTA stages its groups, team slice by team slice, with cp.async
-//   into a ring of two buffers of kPiece triangles: several small
-//   groups share a piece, a large group takes several. The next piece's
-//   copy is in flight while the current one is tested; a piece costs one
-//   wait and one CTA barrier, a visit three cluster barriers.
+//   into a ring of two buffers of kPiece triangles: several small groups
+//   share a piece, a large group takes several. The next piece's copy is
+//   in flight while the current one is tested; a piece costs one wait and
+//   one CTA barrier, a visit one cluster barrier and the merge.
 // - Each trip tests two triangles, read as float2 pairs (5 shared loads a
 //   test), whose chains are independent. The registers this needs (one
 //   CTA of 16 warps an SM) buy more than more resident warps would: capped
-//   at 64 or 40 registers the pairs spill and the kernel is slower
-//   (scripts/probe_k2_design.py).
+//   at 64 or 40 registers the pairs spill and K2 is slower
+//   (scripts/probe_k2_design.py). K3 runs two CTAs an SM (kK3MinBlocks).
 // - Each team keeps its least (t, group, slot) of the visit exactly as the
 //   sequential loop keeps a group's (start at (3e38, -1), take t < lt or
 //   (no hit yet and t == lt)), and the teams' results meet once per visit
@@ -55,7 +55,10 @@
 //   their hits. The any-hit form stops a ray's other teams through the
 //   CTAs' shared flags at their next piece. Why one merge per visit is the
 //   per-group merge bit for bit is written above k2_kernel.
-// The Moller expressions and their order are test_piece's.
+// - K3's next-chunk lists (the mm least (entry, id) chunks after the
+//   cursor) are made after the merge by the first team of the first CTA.
+// The Moller expressions and their order are the plain version's
+// (ops/traverse_brute.py::_moller).
 //
 // Semantics equal the plain versions in ops/traverse_brute.py bit for bit
 // (the same expressions in the same order): a tile group's result is its
@@ -112,94 +115,17 @@ __device__ __forceinline__ void slab(const float* b, int s, const Ray& r,
   tmx = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
 }
 
-// Running result of one tile group for one lane.
-struct Group {
-  float lt;      // least valid t so far, starting at kBig
-  int lid;       // its triangle id, -1 while none
-  float lu, lv;
-  bool any;      // any-hit form: some valid triangle
-};
-
-// Moller-Trumbore of `n` staged triangles (rows of s_tri at stride `st`)
-// against one lane, valid below `bt0` (the carried best at group start).
-template <bool ANY_HIT>
-__device__ __forceinline__ void test_piece(const float* s_tri, int st, int n,
-                                           const Ray& r, float bt0,
-                                           Group& g) {
-  for (int q = 0; q < n; ++q) {
-    const float ax = s_tri[q], ay = s_tri[st + q], az = s_tri[2 * st + q];
-    const float e1x = s_tri[3 * st + q], e1y = s_tri[4 * st + q];
-    const float e1z = s_tri[5 * st + q];
-    const float e2x = s_tri[6 * st + q], e2y = s_tri[7 * st + q];
-    const float e2z = s_tri[8 * st + q];
-    const float tid = s_tri[9 * st + q];
-    const float px = r.dy * e2z - r.dz * e2y;
-    const float py = r.dz * e2x - r.dx * e2z;
-    const float pz = r.dx * e2y - r.dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    bool ok = fabsf(det) >= kTriEps;
-    const float idet = 1.0f / (ok ? det : 1.0f);
-    const float tvx = r.ox - ax, tvy = r.oy - ay, tvz = r.oz - az;
-    const float u = (tvx * px + tvy * py + tvz * pz) * idet;
-    const float qx = tvy * e1z - tvz * e1y;
-    const float qy = tvz * e1x - tvx * e1z;
-    const float qz = tvx * e1y - tvy * e1x;
-    const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * idet;
-    const float t = (e2x * qx + e2y * qy + e2z * qz) * idet;
-    ok = ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-         t >= 0.0f && t < bt0 && tid > 0.0f;
-    if (ANY_HIT) {
-      if (ok) {
-        g.any = true;
-        return;
-      }
-    } else if (ok && (t < g.lt || (g.lid < 0 && t == g.lt))) {
-      g.lt = t; g.lid = (int)tid - 1; g.lu = u; g.lv = v;
-    }
-  }
-}
-
-// Moller tests of triangles [lo, hi) of one chunk's table `tc` (rows at
-// stride tp) for the block, staged in pieces of blockDim.x; every thread
-// of the block must call this. `live` lanes test, the others only stage.
-template <bool ANY_HIT>
-__device__ __forceinline__ void run_group(const float* __restrict__ tc,
-                                          int tp, int lo, int hi,
-                                          float* s_tri, const Ray& r,
-                                          bool live, float& bt, int& bp,
-                                          float& bu, float& bv) {
-  const int blk = blockDim.x;
-  const float bt0 = bt;
-  Group g{kBig, -1, 0.0f, 0.0f, false};
-  for (int base = lo; base < hi; base += blk) {
-    const int n = min(blk, hi - base);
-    __syncthreads();    // the previous piece is consumed
-    if ((int)threadIdx.x < n) {
-#pragma unroll
-      for (int k = 0; k < 10; ++k)
-        s_tri[k * blk + threadIdx.x] = tc[(size_t)k * tp + base + threadIdx.x];
-    }
-    __syncthreads();
-    if (live && !(ANY_HIT && g.any))
-      test_piece<ANY_HIT>(s_tri, blk, n, r, bt0, g);
-  }
-  if (ANY_HIT) {
-    if (g.any) bp = max(bp, 1);
-  } else if (g.lt < bt0) {
-    bt = g.lt;
-    bp = g.lid;
-    bu = g.lid >= 0 ? g.lu : 0.0f;
-    bv = g.lid >= 0 ? g.lv : 0.0f;
-  }
-}
-
-// ---------------------------------------------------------------- K2
+// ---------------------------------------------------- the visit of K2 and K3
 
 constexpr int kRays = 128;       // rays per block (BLK)
 constexpr int kTeams = 4;        // warp-teams per CTA
 constexpr int kCluster = 2;      // CTAs (one cluster) per ray block
 constexpr int kPiece = 512;      // triangles per staged piece, over all teams
-constexpr int kMinBlocks = 1;    // CTAs per SM the register budget is cut for
+constexpr int kMinBlocks = 1;    // K2's CTAs per SM, for the register cut
+// K3's: at 64 registers its pairs spill a few bytes, yet two CTAs an SM run
+// its blocks, which all test every tile of their chunk, faster than one
+// (scripts/probe_k2_design.py --kernel k3); K2's uneven blocks do not gain.
+constexpr int kK3MinBlocks = 2;
 constexpr int kK2Threads = kRays * kTeams;
 constexpr int kTeamPiece = kPiece / kTeams;     // a team's slots per piece
 static_assert(kTeamPiece % 2 == 0, "a team's piece holds float2 pairs");
@@ -236,8 +162,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// One Moller-Trumbore test with test_piece's expressions in its order;
-// true where the triangle is hit validly below bt0.
+// One Moller-Trumbore test with the plain version's expressions in its
+// order; true where the triangle is hit validly below bt0.
 __device__ __forceinline__ bool moller(const Ray& r, float ax, float ay,
                                        float az, float e1x, float e1y,
                                        float e1z, float e2x, float e2y,
@@ -395,6 +321,91 @@ __device__ __forceinline__ bool blocked(cg::cluster_group& cl, int* s_hit,
   return hit != 0;
 }
 
+// Shared memory of a visit, the same layout in every CTA of a cluster.
+struct VisitSmem {
+  float4* red;     // kTeams x kRays: each team's least (t, u, v, id)
+  float* tri;      // 2 x 10 x st: the ring of staged pieces
+  int* key;        // kTeams x kRays: the group of each team's least
+  int* hit;        // kRays: any-hit flags
+};
+
+// The visit's floats of shared memory before the caller's own, at
+// component stride st.
+__host__ __device__ __forceinline__ size_t visit_smem_floats(int st) {
+  return (size_t)kTeams * kRays * 4 + (size_t)2 * 10 * st +
+         kTeams * kRays + kRays;
+}
+
+__device__ __forceinline__ VisitSmem visit_smem(float* base, int st) {
+  VisitSmem sm;
+  sm.red = reinterpret_cast<float4*>(base);
+  sm.tri = base + kTeams * kRays * 4;
+  sm.key = reinterpret_cast<int*>(sm.tri + 2 * 10 * st);
+  sm.hit = sm.key + kTeams * kRays;
+  return sm;
+}
+
+// One chunk visit of the ray block, on every thread of every CTA of its
+// cluster: the Moller tests of the ngl groups listed in gl (gw slots
+// each, rows of the chunk at stride tp; tc is the calling team slice's
+// first slot of component 0), this CTA taking entries rank, rank +
+// kCluster, ..., its teams a slice of each, then the merge into the
+// carried best (t, prim or blocked, u, v). `lane`: whether this ray
+// tests; the first group is tested below the best t at the visit's start,
+// the others below min(that, 3e38). Any-hit flags must be 0, and visible
+// to the whole cluster, for a ray that tests. Ends with every team's
+// record read; the caller passes one more cluster barrier before a CTA
+// writes its shared memory again or leaves.
+template <bool ANY_HIT>
+__device__ __forceinline__ void visit(cg::cluster_group& cl,
+                                      const VisitSmem& sm, const float* tc,
+                                      int tp, int gw, const int* gl, int ngl,
+                                      Pieces pz, int gs, int len, int st,
+                                      int rank, int ray, int team,
+                                      const Ray& r, bool lane, float& bt,
+                                      int& bp, float& bu, float& bv) {
+  const int nme = (ngl - rank + kCluster - 1) / kCluster;   // my entries
+  const int n_pieces = pz.ppg == 1 ? (nme + pz.m - 1) / pz.m
+                                   : nme * pz.ppg;
+  const float bt0 = bt, bt0c = fminf(bt, kBig);
+  Best h{kBig, -1, 0.0f, 0.0f, 0};
+  if (n_pieces > 0)
+    stage(sm.tri, tc, tp, gw, gl, nme, 0, pz, gs, len, st, rank, ray, team);
+  for (int p = 0; p < n_pieces; ++p) {
+    cp_async_wait_all();
+    __syncthreads();      // piece p visible; the other buffer is free
+    if (p + 1 < n_pieces)
+      stage(sm.tri + ((p + 1) & 1) * 10 * st, tc, tp, gw, gl, nme, p + 1,
+            pz, gs, len, st, rank, ray, team);
+    if (!lane || (ANY_HIT && blocked(cl, sm.hit, ray))) continue;
+    const float* part = sm.tri + (p & 1) * 10 * st + team * pz.pc;
+    bool hit = false;
+    if (pz.ppg == 1) {
+      const int first = p * pz.m, cnt = min(pz.m, nme - first);
+      for (int j = 0; j < cnt && !hit; ++j) {
+        const int e = rank + kCluster * (first + j);
+        hit = test_slice<ANY_HIT>(part + j * gs, st, len, r,
+                                  e == 0 ? bt0 : bt0c, h, e);
+      }
+    } else {
+      const int e = rank + kCluster * (p / pz.ppg);
+      const int q0 = (p % pz.ppg) * pz.pc;
+      hit = test_slice<ANY_HIT>(part, st, min(pz.pc, len - q0), r,
+                                e == 0 ? bt0 : bt0c, h, e);
+    }
+    if (ANY_HIT && hit) sm.hit[ray] = 1;
+  }
+  if (!ANY_HIT) {
+    sm.red[team * kRays + ray] =
+        make_float4(h.t, h.u, h.v, __int_as_float(h.id));
+    sm.key[team * kRays + ray] = h.key;
+  }
+  cl.sync();                  // every team's record is written
+  merge<ANY_HIT>(cl, sm.red, sm.key, sm.hit, ray, bt, bp, bu, bv);
+}
+
+// ---------------------------------------------------------------- K2
+
 // K2: visit-list chunk visits. Ray block b is one cluster of kCluster
 // CTAs; it walks visit slots b*v_per .. +v_per-1. Every CTA holds the
 // block's 128 rays and the same carried best; in a CTA, thread (team, ray)
@@ -411,6 +422,8 @@ __device__ __forceinline__ bool blocked(cg::cluster_group& cl, int* s_hit,
 // the sequential strict-< merges keep, and any candidate at or above the
 // sequential threshold loses the final comparison with the carried best.
 // Which groups a visit runs is decided from the exact best at its start.
+// The same holds for a K3 visit, whose list is every tile of the chunk in
+// order: K3's per-tile loop is this per-group merge with gr = 1.
 template <bool ANY_HIT>
 __global__ void __cluster_dims__(kCluster, 1, 1)
 __launch_bounds__(kK2Threads, kMinBlocks)
@@ -431,11 +444,8 @@ k2_kernel(const int* __restrict__ sel, const int* __restrict__ val,
   const int gs = k2_team_slots(gw);
   const Pieces pz = k2_pieces(gw);
   const int st = kTeams * pz.pc;                 // component stride
-  float4* s_red = reinterpret_cast<float4*>(k2_smem);   // kTeams x kRays
-  float* s_tri = k2_smem + kTeams * kRays * 4;          // 2 x 10 x st
-  int* s_key = reinterpret_cast<int*>(s_tri + 2 * 10 * st);  // kTeams x kRays
-  int* s_hit = s_key + kTeams * kRays;                  // kRays
-  int* s_glive = s_hit + kRays;                         // ng group flags
+  const VisitSmem sm = visit_smem(k2_smem, st);
+  int* s_glive = sm.hit + kRays;                        // ng group flags
   int* s_gl = s_glive + ng;                             // ng + 1: live list
   float* s_tb = reinterpret_cast<float*>(s_gl + ng + 1);  // 6 x nt boxes
   const int ray = threadIdx.x % kRays;
@@ -446,7 +456,7 @@ k2_kernel(const int* __restrict__ sel, const int* __restrict__ val,
   const Ray r = load_ray(rays8, i);
   float bt = it[i], bu = iu[i], bv = iv[i];
   int bp = ip[i];
-  if (ANY_HIT && team == 0) s_hit[ray] = 0;
+  if (ANY_HIT && team == 0) sm.hit[ray] = 0;
   cl.sync();                  // every CTA's flags are set before any read
 
   for (int v = 0; v < v_per; ++v) {
@@ -493,46 +503,9 @@ k2_kernel(const int* __restrict__ sel, const int* __restrict__ val,
       cl.sync();              // reset only after every CTA has read them
       continue;
     }
-    const int nme = (ngl - rank + kCluster - 1) / kCluster;   // my entries
-    const int n_pieces = pz.ppg == 1 ? (nme + pz.m - 1) / pz.m
-                                     : nme * pz.ppg;
-    const float* tc = tris + (size_t)c * 16 * tp + team * gs;
-    const float bt0 = bt, bt0c = fminf(bt, kBig);
-    Best h{kBig, -1, 0.0f, 0.0f, 0};
-    if (n_pieces > 0)
-      stage(s_tri, tc, tp, gw, s_gl, nme, 0, pz, gs, len, st, rank, ray,
-            team);
-    for (int p = 0; p < n_pieces; ++p) {
-      cp_async_wait_all();
-      __syncthreads();      // piece p visible; the other buffer is free
-      if (p + 1 < n_pieces)
-        stage(s_tri + ((p + 1) & 1) * 10 * st, tc, tp, gw, s_gl, nme, p + 1,
-              pz, gs, len, st, rank, ray, team);
-      if (!lane || (ANY_HIT && blocked(cl, s_hit, ray))) continue;
-      const float* part = s_tri + (p & 1) * 10 * st + team * pz.pc;
-      bool hit = false;
-      if (pz.ppg == 1) {
-        const int first = p * pz.m, cnt = min(pz.m, nme - first);
-        for (int j = 0; j < cnt && !hit; ++j) {
-          const int e = rank + kCluster * (first + j);
-          hit = test_slice<ANY_HIT>(part + j * gs, st, len, r,
-                                    e == 0 ? bt0 : bt0c, h, e);
-        }
-      } else {
-        const int e = rank + kCluster * (p / pz.ppg);
-        const int q0 = (p % pz.ppg) * pz.pc;
-        hit = test_slice<ANY_HIT>(part, st, min(pz.pc, len - q0), r,
-                                  e == 0 ? bt0 : bt0c, h, e);
-      }
-      if (ANY_HIT && hit) s_hit[ray] = 1;
-    }
-    if (!ANY_HIT) {
-      s_red[team * kRays + ray] =
-          make_float4(h.t, h.u, h.v, __int_as_float(h.id));
-      s_key[team * kRays + ray] = h.key;
-    }
-    cl.sync();                // every team's record is written
-    merge<ANY_HIT>(cl, s_red, s_key, s_hit, ray, bt, bp, bu, bv);
+    visit<ANY_HIT>(cl, sm, tris + (size_t)c * 16 * tp + team * gs, tp, gw,
+                   s_gl, ngl, pz, gs, len, st, rank, ray, team, r, lane,
+                   bt, bp, bu, bv);
   }
   if (rank == 0 && team == 0) {
     ot[i] = bt; op[i] = bp; ou[i] = bu; ov[i] = bv;
@@ -542,13 +515,27 @@ k2_kernel(const int* __restrict__ sel, const int* __restrict__ val,
 
 // dynamic shared memory of a K2 launch, in floats
 __host__ __forceinline__ size_t k2_smem_floats(int nt, int ng, int pc) {
-  return (size_t)kTeams * kRays * 4 + (size_t)2 * 10 * kTeams * pc +
-         kTeams * kRays + kRays + 2 * ng + 1 + 6 * nt;
+  return visit_smem_floats(kTeams * pc) + 2 * ng + 1 + 6 * nt;
 }
 
-// K3: one round-loop chunk visit per block, then each lane's next chunks.
+// ---------------------------------------------------------------- K3
+
+// K3: one round-loop chunk visit per ray block, then each lane's next
+// chunks. Ray block b (a cluster, laid out as K2's) visits chunk sel[b],
+// or none for a scout launch (sel -1). A block with no lane alive (t > 0
+// and, any-hit, not blocked) keeps its seeds and gets no next chunks.
+// Otherwise each lane's entry into the chunk comes from its slab; when
+// some lane enters the chunk below its best t, the visit tests every tile
+// of tt triangles, in order, for those lanes and merges into every lane of
+// the block (a lane that does not test takes the visit's (3e38, -1) where
+// its best t is larger, as the sequential per-tile merge gives it). Then
+// the first team of the first CTA lists each lane's mm least (entry, id)
+// chunks after the cursor (the visited chunk's entry and id, or (-inf,
+// -1) for a scout or a lane that missed it) with entry below its best t
+// (any-hit: its t at entry, or 0 once blocked).
 template <bool ANY_HIT>
-__global__ void __launch_bounds__(1024)
+__global__ void __cluster_dims__(kCluster, 1, 1)
+__launch_bounds__(kK2Threads, kK3MinBlocks)
 k3_kernel(const int* __restrict__ sel, const float* __restrict__ tris,
           const float* __restrict__ boxes_t, const float* __restrict__ rays8,
           const float* __restrict__ it, const int* __restrict__ ip,
@@ -557,12 +544,22 @@ k3_kernel(const int* __restrict__ sel, const float* __restrict__ tris,
           float* __restrict__ ou, float* __restrict__ ov,
           int* __restrict__ onc, int tp, int cp, int tt, int mm,
           int c_real) {
-  extern __shared__ float smem[];
-  const int blk = blockDim.x;
-  float* s_tri = smem;                  // 10 x blk
-  float* s_bx = smem + 10 * blk;        // 6 x cp chunk boxes
-  const int b = blockIdx.x;
-  const int i = b * blk + threadIdx.x;
+  extern __shared__ __align__(16) float k3_smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int nt = tp / tt;
+  const int gs = k2_team_slots(tt);
+  const Pieces pz = k2_pieces(tt);
+  const int st = kTeams * pz.pc;                 // component stride
+  const VisitSmem sm = visit_smem(k3_smem, st);
+  int* s_gl = sm.hit + kRays;                           // nt: every tile
+  float* s_bx = reinterpret_cast<float*>(s_gl + nt);    // 6 x cp boxes
+  const int ray = threadIdx.x % kRays;
+  const int team = threadIdx.x / kRays;
+  const int len = max(0, min(gs, tt - team * gs));   // the team's slice
+  const int b = blockIdx.x / kCluster;
+  const int i = b * kRays + ray;
+  const bool writer = rank == 0 && team == 0;        // writes ray i
   const Ray r = load_ray(rays8, i);
   const float t_in = it[i];
   float bt = t_in, bu = iu[i], bv = iv[i];
@@ -570,15 +567,19 @@ k3_kernel(const int* __restrict__ sel, const float* __restrict__ tris,
   int* out_nc = onc + (size_t)i * mm;
 
   const bool alive_in = ANY_HIT ? bp <= 0 : true;
-  if (!__syncthreads_or(bt > 0.0f && alive_in)) {
-    ot[i] = bt; op[i] = bp; ou[i] = bu; ov[i] = bv;
-    for (int j = 0; j < mm; ++j) out_nc[j] = -1;
-    return;                             // the whole block leaves
+  if (!__syncthreads_or(bt > 0.0f && alive_in)) {   // the same in every CTA
+    if (writer) {
+      ot[i] = bt; op[i] = bp; ou[i] = bu; ov[i] = bv;
+      for (int j = 0; j < mm; ++j) out_nc[j] = -1;
+    }
+    return;                             // the whole cluster leaves
   }
-  for (int j = threadIdx.x; j < cp; j += blk) {
+  for (int j = threadIdx.x; j < cp; j += kK2Threads) {
 #pragma unroll
     for (int k = 0; k < 6; ++k) s_bx[k * cp + j] = boxes_t[(size_t)k * cp + j];
   }
+  for (int j = threadIdx.x; j < nt; j += kK2Threads) s_gl[j] = j;
+  if (ANY_HIT && team == 0) sm.hit[ray] = 0;
   __syncthreads();
 
   const int c_id = sel[b];
@@ -591,46 +592,54 @@ k3_kernel(const int* __restrict__ sel, const float* __restrict__ tris,
   }
   bool live = !scout && my_e < bt && bt > 0.0f;
   if (ANY_HIT) live = live && bp <= 0;
-  if (__syncthreads_or(live)) {
-    const float* tc = tris + (size_t)c_id * 16 * tp;
-    const int nt = tp / tt;
-    for (int k = 0; k < nt; ++k)
-      run_group<ANY_HIT>(tc, tp, k * tt, (k + 1) * tt, s_tri, r,
-                         live && !(ANY_HIT && bp > 0), bt, bp, bu, bv);
+  const bool run = __syncthreads_or(live);   // the same in every CTA
+  if (run) {
+    cl.sync();                // every CTA's flags are reset before any read
+    visit<ANY_HIT>(cl, sm, tris + (size_t)c_id * 16 * tp + team * gs, tp,
+                   tt, s_gl, nt, pz, gs, len, st, rank, ray, team, r, live,
+                   bt, bp, bu, bv);
   }
 
-  // next chunks after the cursor (entry, id) of this visit
-  const float eff_t = ANY_HIT ? (bp > 0 ? 0.0f : t_in) : bt;
-  const float cur_e = (scout || my_e == INFINITY) ? -INFINITY : my_e;
-  const int cur_c = scout ? -1 : c_id;
-  float le[kMaxMM];
-  int lc[kMaxMM];
-  int n = 0;
-  if (eff_t > 0.0f) {                   // entries are >= 0
-    for (int c = 0; c < c_real; ++c) {
-      float tmn, tmx;
-      slab(s_bx + c, cp, r, tmn, tmx);
-      if (!(tmx >= 0.0f && tmn <= tmx)) continue;
-      const float e = fmaxf(tmn, 0.0f);
-      if (!(e < eff_t)) continue;
-      if (!(e > cur_e || (e == cur_e && c > cur_c))) continue;
-      // insert by (e, id); ids arrive ascending, so equal e keep order
-      int k = n < mm ? n++ : mm;
-      while (k > 0 && le[k - 1] > e) {
-        if (k < mm) {
-          le[k] = le[k - 1];
-          lc[k] = lc[k - 1];
+  if (writer) {
+    // next chunks after the cursor (entry, id) of this visit
+    const float eff_t = ANY_HIT ? (bp > 0 ? 0.0f : t_in) : bt;
+    const float cur_e = (scout || my_e == INFINITY) ? -INFINITY : my_e;
+    const int cur_c = scout ? -1 : c_id;
+    float le[kMaxMM];
+    int lc[kMaxMM];
+    int n = 0;
+    if (eff_t > 0.0f) {                 // entries are >= 0
+      for (int c = 0; c < c_real; ++c) {
+        float tmn, tmx;
+        slab(s_bx + c, cp, r, tmn, tmx);
+        if (!(tmx >= 0.0f && tmn <= tmx)) continue;
+        const float e = fmaxf(tmn, 0.0f);
+        if (!(e < eff_t)) continue;
+        if (!(e > cur_e || (e == cur_e && c > cur_c))) continue;
+        // insert by (e, id); ids arrive ascending, so equal e keep order
+        int k = n < mm ? n++ : mm;
+        while (k > 0 && le[k - 1] > e) {
+          if (k < mm) {
+            le[k] = le[k - 1];
+            lc[k] = lc[k - 1];
+          }
+          --k;
         }
-        --k;
-      }
-      if (k < mm) {
-        le[k] = e;
-        lc[k] = c;
+        if (k < mm) {
+          le[k] = e;
+          lc[k] = c;
+        }
       }
     }
+    for (int j = 0; j < mm; ++j) out_nc[j] = j < n ? lc[j] : -1;
+    ot[i] = bt; op[i] = bp; ou[i] = bu; ov[i] = bv;
   }
-  for (int j = 0; j < mm; ++j) out_nc[j] = j < n ? lc[j] : -1;
-  ot[i] = bt; op[i] = bp; ou[i] = bu; ov[i] = bv;
+  if (run) cl.sync();         // no CTA leaves while another reads it
+}
+
+// dynamic shared memory of a K3 launch, in floats
+__host__ __forceinline__ size_t k3_smem_floats(int nt, int pc, int cp) {
+  return visit_smem_floats(kTeams * pc) + nt + 6 * (size_t)cp;
 }
 
 }  // namespace
@@ -645,11 +654,18 @@ static size_t k2_smem(int tp, int tt, int gr) {
   return smem > kMaxSmem ? 0 : smem;
 }
 
-// Allows k2_kernel<ANY_HIT> `smem` bytes of dynamic shared memory on the
-// current device; the attribute is set only when a launch needs more than
-// that device was allowed before.
-template <bool ANY_HIT>
-static cudaError_t k2_allow(size_t smem) {
+// The K3 launch's dynamic shared memory in bytes (0 if it does not fit).
+static size_t k3_smem(int tp, int tt, int cp) {
+  const size_t smem =
+      k3_smem_floats(tp / tt, k2_pieces(tt).pc, cp) * sizeof(float);
+  return smem > kMaxSmem ? 0 : smem;
+}
+
+// Allows K2's (or, with K3, K3's) kernel `smem` bytes of dynamic shared
+// memory on the current device; the attribute is set only when a launch
+// needs more than that device was allowed before.
+template <bool ANY_HIT, bool K3>
+static cudaError_t allow(size_t smem) {
   constexpr int kMaxDevices = 64;
   static size_t allowed[kMaxDevices];
   int dev = 0;
@@ -657,9 +673,14 @@ static cudaError_t k2_allow(size_t smem) {
   if (e != cudaSuccess) return e;
   if (smem <= 48 * 1024 || (dev < kMaxDevices && smem <= allowed[dev]))
     return cudaSuccess;
-  e = cudaFuncSetAttribute(k2_kernel<ANY_HIT>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  if constexpr (K3)
+    e = cudaFuncSetAttribute(k3_kernel<ANY_HIT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  else
+    e = cudaFuncSetAttribute(k2_kernel<ANY_HIT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (e == cudaSuccess && dev < kMaxDevices) allowed[dev] = smem;
   return e;
 }
@@ -680,7 +701,8 @@ extern "C" int k2_vlaunch(const long long* a, int n) {
   cudaStream_t s = (cudaStream_t)a[21];
   const int blocks = cap / kRays;
   const bool any_hit = a[20] != 0;
-  const cudaError_t e = any_hit ? k2_allow<true>(smem) : k2_allow<false>(smem);
+  const cudaError_t e = any_hit ? allow<true, false>(smem)
+                                : allow<false, false>(smem);
   if (e != cudaSuccess) return (int)e;
 #define K2_ARGS                                                           \
   (const int*)a[0], (const int*)a[1], (const float*)a[2],                 \
@@ -702,7 +724,7 @@ extern "C" int k2_vlaunch(const long long* a, int n) {
 // the clusters fit (cluster = 1); -1 on an error.
 template <bool ANY_HIT>
 static int k2_warps(size_t smem, bool cluster) {
-  if (k2_allow<ANY_HIT>(smem) != cudaSuccess) return -1;
+  if (allow<ANY_HIT, false>(smem) != cudaSuccess) return -1;
   int n = 0;
   if (!cluster) {
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -740,18 +762,26 @@ extern "C" int k3_launch(const long long* a, int n) {
   const int cp = (int)a[16], tt = (int)a[17], mm = (int)a[18];
   const int c_real = (int)a[19];
   if (cap <= 0) return 0;
-  const size_t smem = (size_t)(10 * blk + 6 * cp) * sizeof(float);
+  if (blk != kRays || cap % kRays || tt <= 0 || tp % tt || mm <= 0 ||
+      mm > kMaxMM || c_real > cp)
+    return -1;
+  const size_t smem = k3_smem(tp, tt, cp);
+  if (smem == 0) return -1;
   cudaStream_t s = (cudaStream_t)a[21];
-  const int blocks = cap / blk;
+  const int blocks = cap / kRays;
+  const bool any_hit = a[20] != 0;
+  const cudaError_t e = any_hit ? allow<true, true>(smem)
+                                : allow<false, true>(smem);
+  if (e != cudaSuccess) return (int)e;
 #define K3_ARGS                                                           \
   (const int*)a[0], (const float*)a[1], (const float*)a[2],               \
       (const float*)a[3], (const float*)a[4], (const int*)a[5],           \
       (const float*)a[6], (const float*)a[7], (float*)a[8], (int*)a[9],   \
       (float*)a[10], (float*)a[11], (int*)a[12], tp, cp, tt, mm, c_real
-  if (a[20])
-    k3_kernel<true><<<blocks, blk, smem, s>>>(K3_ARGS);
+  if (any_hit)
+    k3_kernel<true><<<blocks * kCluster, kK2Threads, smem, s>>>(K3_ARGS);
   else
-    k3_kernel<false><<<blocks, blk, smem, s>>>(K3_ARGS);
+    k3_kernel<false><<<blocks * kCluster, kK2Threads, smem, s>>>(K3_ARGS);
 #undef K3_ARGS
   return (int)cudaGetLastError();
 }

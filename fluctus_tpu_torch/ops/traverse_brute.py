@@ -327,7 +327,6 @@ def launch_plain(sel, tris, boxes_t, rays8, it, ip, iu, iv, any_hit: bool,
 _SRC = os.path.join(CSRC, "traverse_brute.cu")
 _lib = None
 BUILD_INFO: dict = {}
-SMEM_LIMIT = 48 * 1024   # K3's dynamic shared memory, without an opt-in
 ENTRIES = {"k2_vlaunch": "K2", "k2_occupancy": "K2", "k3_launch": "K3"}
 
 
@@ -406,17 +405,18 @@ def k2_resident_warps(tp: int, tt: int, gr: int,
 def launch_kernel(sel, tris, boxes_t, rays8, it, ip, iu, iv, any_hit: bool,
                   blk: int, tt: int, mm: int, c_real: int):
     """Launch K3 on the current stream (signature of launch_plain)."""
+    if blk != BLK:
+        raise ValueError(f"K3: blk {blk} must be {BLK}, the kernel's ray "
+                         f"block")
     cap = _check_rays("K3", blk, rays8, it, ip, iu, iv)
     c, _, tp = tris.shape
     cp = boxes_t.shape[1]
     check("K3", "tris", tris, torch.float32, (c, 16, tp))
     check("K3", "boxes_t", boxes_t, torch.float32, (8, cp))
     check("K3", "sel", sel, torch.int32, (cap // blk,))
-    smem = (10 * blk + 6 * cp) * 4
-    if tp % tt or not 0 < mm <= MAX_MM or c_real > cp or smem > SMEM_LIMIT:
+    if tp % tt or not 0 < mm <= MAX_MM or c_real > cp:
         raise ValueError(f"K3: tile {tt} must divide Tp {tp}, mm {mm} be "
-                         f"in 1..{MAX_MM}, c_real {c_real} <= Cp {cp}, "
-                         f"shared memory {smem} B <= {SMEM_LIMIT}")
+                         f"in 1..{MAX_MM}, c_real {c_real} <= Cp {cp}")
     dev = rays8.device
     outs = _new_outputs(cap, dev)
     onc = torch.empty((cap, mm), dtype=torch.int32, device=dev)
@@ -747,16 +747,22 @@ def _vlist_tile(bf: BruteForest) -> int:
 
 def _prep(orig, dir, t_max, blk):
     """Pad the rays to a block multiple with rays that miss everything
-    (origin 3e37, t_max 0)."""
+    (origin 3e37, t_max 0). A number t_max and the pad rays are filled on
+    the device: no copy from the host, so no host sync."""
     b = orig.shape[0]
     dev = orig.device
     pad = (-b) % blk
-    t_vec = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                               device=dev), (b,))
+    if torch.is_tensor(t_max) or hasattr(t_max, "__len__"):
+        t_vec = torch.broadcast_to(torch.as_tensor(
+            t_max, dtype=torch.float32, device=dev), (b,))
+    else:
+        t_vec = torch.full((b,), float(t_max), dtype=torch.float32,
+                           device=dev)
     if pad:
+        d_pad = torch.zeros((pad, 3), device=dev)
+        d_pad[:, 2] = 1.0
         orig = torch.cat([orig, torch.full((pad, 3), 3.0e37, device=dev)])
-        dir = torch.cat([dir, torch.tensor(
-            [0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
+        dir = torch.cat([dir, d_pad])
         t_vec = torch.cat([t_vec, torch.zeros(pad, device=dev)])
     return (orig.contiguous(), dir.contiguous(), t_vec.contiguous(), b)
 

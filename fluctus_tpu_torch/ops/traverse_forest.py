@@ -4,30 +4,41 @@ the two schedulers that feed it (counterpart of
 
 The scene is a `ForestTables` (accel/forest.py `build_host_forest`): one
 8-wide BVH per spatial chunk, all rooted at node 0, with global triangle
-ids. A launch takes a schedule `sel`/`ent` of shape (nb, K): ray block b
-visits chunks sel[b, 0..K-1] in order, and a lane skips a visit whose
-entry distance ent[b, k] does not beat its best t (or, in any-hit form,
-once it is blocked). Inside a visit the lane walks the chunk with K1's
-near-first stack walk under its best t as t_max, and keeps the carried
-(t, prim, u, v) unless the chunk holds a nearer hit. Two schedulers:
+ids. Inside a chunk visit a lane walks the chunk with K1's near-first
+stack walk under its best t as t_max, and keeps the carried (t, prim, u,
+v) unless the chunk holds a nearer hit. Two schedulers decide which chunks
+a ray visits:
 
-- the work queue (`_run_workqueue`, the default and the integrator's
-  path): rounds; in each, every live ray visits its next chunk, the
-  nearest one after its (entry, id) cursor whose entry beats its best t.
-  Rays sort by (chunk, octant), each chunk's segment pads to a block of
-  WQ_BLK rays, so a block holds one chunk, and one launch runs the round.
-  The loop ends when no ray has a next chunk (a host read per round).
+- the work queue (mode "workqueue", the default and the integrator's
+  path): every ray walks its chunks in (entry, id) order from the cursor
+  (-1, -1), the next being the nearest after its cursor whose entry beats
+  its best t (any-hit: none once blocked). On the card `queue_kernel` runs
+  the whole queue in one launch, one thread per ray, with no host read
+  and the rays as given. Its plain version `queue_plain` is the round
+  loop (`_run_workqueue`) over `launch_plain`: in each round every live
+  ray visits its next chunk; rays sort by (chunk, octant), each chunk's
+  segment pads to a block of WQ_BLK rays, so a block holds one chunk, and
+  one launch runs the round; the loop ends when no ray has a next chunk (a
+  host read per round). A ray's result depends only on its own visits, so
+  the two agree bit for bit (csrc/traverse_forest.cu says why).
 - the passes (`_run_passes`, mode "blocksched"): rays sort by octant and
   Morton code; every block of BLK rays gets the chunks its lanes hit,
   ordered by the block's least entry, and each pass visits the next
-  K_CHUNKS of them in one launch, until no block has a chunk nearer than
-  its worst live lane.
+  K_CHUNKS of them in one launch of K5's `forest_kernel`
+  (`launch_kernel`), a schedule `sel`/`ent` of shape (nb, K): ray block b
+  visits chunks sel[b, 0..K-1] in order, and a lane skips a visit whose
+  entry distance ent[b, k] does not beat its best t (or, in any-hit form,
+  once it is blocked); until no block has a chunk nearer than its worst
+  live lane.
 
-`launch_plain` and `launch_kernel` share one signature; the schedulers
-take the plain version for CPU tensors and launch K5 for CUDA tensors,
-with no fallback between the two. K5 reuses K1's walk (csrc/
-wide_walk.cuh) and the plain version K1's plain walk over a per-chunk
-view, both built alike, so the two agree bit for bit.
+`launch_plain` and `launch_kernel` share one signature, and so do
+`queue_plain` and `queue_kernel`; the entry points take the plain
+versions for CPU tensors and the kernels for CUDA tensors, with no
+fallback between the two. A `launch` passed to the entry points runs the
+work queue as the round loop over that per-launch wrapper (the
+per-round design on the card). K5 reuses K1's walk (csrc/wide_walk.cuh)
+and the plain version K1's plain walk over a per-chunk view, both built
+alike, so the two agree bit for bit.
 
 Deliberate difference from the JAX package: `_next_chunk` considers real
 chunks only. The JAX scheduler pads the chunk list with degenerate boxes
@@ -51,7 +62,7 @@ from fluctus_tpu_torch.ops.traverse_stack import (
 
 BLK = 1024        # rays per block of the passes' schedule
 K_CHUNKS = 8      # chunk visits per pass
-WQ_BLK = 128      # rays per block of the work queue
+WQ_BLK = 128      # rays per block of the round loop
 THREADS = 128     # threads per CUDA block (kThreads of the CUDA source)
 INF = float("inf")
 INT_MAX = 0x7FFFFFFF
@@ -279,44 +290,56 @@ def load_kernel():
     """Build (at first use) and load the K5 library."""
     global _lib
     if _lib is None:
-        _lib = load_library(_SRC, "k5_forest", {"k5_forest": "K5"},
+        _lib = load_library(_SRC, "k5_forest",
+                            {"k5_forest": "K5", "k5_queue": "K5"},
                             deps=[WALK_HEADER], info=BUILD_INFO)
     return _lib
+
+
+def _check_forest(kern, nodes, leaves, lvl, leaf_width):
+    c, tp = nodes.shape[0], nodes.shape[1]
+    lp = leaves.shape[1]
+    check(kern, "nodes", nodes, torch.float32, (c, tp, 56))
+    check(kern, "leaves", leaves, torch.float32, (c, lp, leaf_width, 10))
+    if stack_entries(lvl - 1) > STACK_CAP:
+        raise ValueError(f"{kern}: chunk depth {lvl - 1} needs "
+                         f"{stack_entries(lvl - 1)} stack entries, more "
+                         f"than {STACK_CAP}")
+    return c, tp, lp
+
+
+def _check_rays(kern, bb, orig, dir, *per_ray):
+    check(kern, "orig", orig, torch.float32, (bb, 3))
+    check(kern, "dir", dir, torch.float32, (bb, 3))
+    for name, x, dt in per_ray:
+        check(kern, name, x, dt, (bb,))
+
+
+def _new_outputs(bb, dev):
+    return (torch.empty(bb, dtype=torch.float32, device=dev),
+            torch.empty(bb, dtype=torch.int32, device=dev),
+            torch.empty(bb, dtype=torch.float32, device=dev),
+            torch.empty(bb, dtype=torch.float32, device=dev))
 
 
 def launch_kernel(sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv,
                   any_hit: bool, blk: int, lvl: int, leaf_width: int):
     """Launch K5 on the current stream (signature of launch_plain)."""
     bb = orig.shape[0]
-    c, tp = nodes.shape[0], nodes.shape[1]
-    lp = leaves.shape[1]
     if blk <= 0 or blk % THREADS or bb % blk:
         raise ValueError(f"K5: blk {blk} must be a multiple of {THREADS} "
                          f"that divides the {bb} ray slots")
     nb, kk = bb // blk, sel.shape[-1]
     check("K5", "sel", sel, torch.int32, (nb, kk))
     check("K5", "ent", ent, torch.float32, (nb, kk))
-    check("K5", "nodes", nodes, torch.float32, (c, tp, 56))
-    check("K5", "leaves", leaves, torch.float32, (c, lp, leaf_width, 10))
-    for name, x, dt, shape in (("orig", orig, torch.float32, (bb, 3)),
-                               ("dir", dir, torch.float32, (bb, 3)),
-                               ("it", it, torch.float32, (bb,)),
-                               ("ip", ip, torch.int32, (bb,)),
-                               ("iu", iu, torch.float32, (bb,)),
-                               ("iv", iv, torch.float32, (bb,))):
-        check("K5", name, x, dt, shape)
-    if stack_entries(lvl - 1) > STACK_CAP:
-        raise ValueError(f"K5: chunk depth {lvl - 1} needs "
-                         f"{stack_entries(lvl - 1)} stack entries, more "
-                         f"than {STACK_CAP}")
+    c, tp, lp = _check_forest("K5", nodes, leaves, lvl, leaf_width)
+    _check_rays("K5", bb, orig, dir, ("it", it, torch.float32),
+                ("ip", ip, torch.int32), ("iu", iu, torch.float32),
+                ("iv", iv, torch.float32))
     if bool(((sel < 0) | (sel >= c)).any()):
         raise ValueError(f"K5: sel holds chunk ids outside 0..{c - 1}")
     lib = _lib or load_kernel()
-    dev = orig.device
-    outs = (torch.empty(bb, dtype=torch.float32, device=dev),
-            torch.empty(bb, dtype=torch.int32, device=dev),
-            torch.empty(bb, dtype=torch.float32, device=dev),
-            torch.empty(bb, dtype=torch.float32, device=dev))
+    outs = _new_outputs(bb, orig.device)
     launch(lib.k5_forest, orig.get_device(), *(x.data_ptr() for x in (
         sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv)),
         bb, blk, kk, tp, lp, leaf_width, int(any_hit),
@@ -325,8 +348,36 @@ def launch_kernel(sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv,
     return outs
 
 
+def queue_plain(ft: ForestTables, orig, dir, t_vec, any_hit: bool,
+                rounds: list | None = None):
+    """The work queue's plain version: the round loop over launch_plain.
+    Returns (t, prim or blocked, u, v) per ray; the rays are a multiple of
+    WQ_BLK. `rounds`, a list, receives the round count."""
+    return _run_workqueue(ft, orig, dir, t_vec, any_hit, WQ_BLK,
+                          launch_plain, rounds)
+
+
+def queue_kernel(ft: ForestTables, orig, dir, t_vec, any_hit: bool):
+    """Launch K5's work queue on the current stream (signature of
+    queue_plain, without `rounds`): one launch, no host read."""
+    bb = orig.shape[0]
+    c, tp, lp = _check_forest("K5", ft.nodes, ft.leaves, ft.lvl,
+                              ft.leaf_width)
+    check("K5", "boxes", ft.boxes, torch.float32, (c, 8))
+    _check_rays("K5", bb, orig, dir, ("t_vec", t_vec, torch.float32))
+    lib = _lib or load_kernel()
+    outs = _new_outputs(bb, orig.device)
+    launch(lib.k5_queue, orig.get_device(), *(x.data_ptr() for x in (
+        ft.boxes, ft.nodes, ft.leaves, orig, dir, t_vec)),
+        bb, c, tp, lp, ft.leaf_width, int(any_hit),
+        *(x.data_ptr() for x in outs))
+    LAUNCHES[_form(any_hit)] += 1
+    return outs
+
+
 def _launcher(dev: torch.device):
-    """The wrapper for `dev`: K5 for CUDA, the plain version for the CPU."""
+    """The per-launch wrapper for `dev`: K5 for CUDA, the plain version
+    for the CPU."""
     return launch_kernel if dev.type == "cuda" else launch_plain
 
 
@@ -339,11 +390,22 @@ def _traverse(ft, orig, dir, t_max, any_hit, mode, launch, rounds, blk,
     if mode not in MODES:
         raise ValueError(f"forest traversal mode {mode!r}: use one of "
                          f"{MODES}")
-    launch = launch or _launcher(orig.device)
     if mode == "workqueue":
         o, d, tv, b = _prep(orig, dir, t_max, WQ_BLK)
-        res = _run_workqueue(ft, o, d, tv, any_hit, WQ_BLK, launch, rounds)
+        if launch is not None:
+            res = _run_workqueue(ft, o, d, tv, any_hit, WQ_BLK, launch,
+                                 rounds)
+        elif o.device.type == "cuda":
+            if rounds is not None:
+                raise ValueError("the queue kernel makes one launch and "
+                                 "counts no rounds")
+            # the rays as given: sorting them by octant and Morton code
+            # costs more host time than the coherence saves (PERF.md)
+            res = queue_kernel(ft, o, d, tv, any_hit)
+        else:
+            res = queue_plain(ft, o, d, tv, any_hit, rounds)
         return Traversal(*(x[:b] for x in res))
+    launch = launch or _launcher(orig.device)
 
     def passes(o, d, t):
         o, d, t, b = _prep(o, d, t, blk)
@@ -363,9 +425,11 @@ def traverse_closest(ft: ForestTables, orig, dir, t_max,
                      kk: int = K_CHUNKS) -> Traversal:
     """Closest hit under a scalar or per-lane t_max. `mode` picks the
     scheduler ("workqueue" or "blocksched", whose block and visits per
-    pass are `blk` and `kk`); `launch` overrides the wrapper chosen by
-    device (launch_plain or launch_kernel); `rounds`, a list, receives the
-    call's round or pass count."""
+    pass are `blk` and `kk`); `launch`, a per-launch wrapper
+    (launch_plain or launch_kernel), overrides the one chosen by device
+    and runs the work queue as the round loop; `rounds`, a list, receives
+    the call's round or pass count (a round loop's or the passes'; the
+    queue kernel has none)."""
     return _traverse(ft, orig, dir, t_max, False, mode, launch, rounds, blk,
                      kk)
 

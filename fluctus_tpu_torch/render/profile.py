@@ -28,7 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 
 TRAVERSAL_KERNELS = ("traverse_kernel", "k2_kernel", "k3_kernel",
-                     "forest_kernel", "packet_kernel")
+                     "forest_kernel", "queue_kernel", "packet_kernel")
 
 
 def _session(scene: str, bounces: int, backend: str):

@@ -295,6 +295,28 @@ def test_brute_tie_groups_layout_matches_jax(interp, monkeypatch):
     _tie_layout_matches_jax("groups", 1)
 
 
+@pytest.mark.parametrize("layout,gr", [("group", 8), ("groups", 1)])
+def test_brute_tie_layouts_rounds_match_jax(interp, monkeypatch, layout,
+                                            gr):
+    """The same tie forests through the round loop (FLUCTUS_BRUTE_SCHED=
+    rounds): the port's plain K3 and the JAX `_launch` return the same
+    prims, the lowest slot of the chunk visited first; K3 tests every tile
+    of a visit in order, so a tie goes to the lowest tile and slot."""
+    monkeypatch.setenv("FLUCTUS_BRUTE_SCHED", "rounds")
+    tb.reset_counts()
+    _tie_layout_matches_jax(layout, gr)
+    assert tb.PLAIN_CALLS["k3_closest"] > 0 and tb.PLAIN_CALLS["k3_any"] > 0
+    assert tb.PLAIN_CALLS["k2_closest"] == 0
+
+
+def test_k3_wrapper_refuses_other_blocks():
+    """K3 runs a ray block of 128 rays on a cluster: its wrapper refuses
+    another block before it looks at the tensors."""
+    with pytest.raises(ValueError, match="K3: blk"):
+        tb.launch_kernel(None, None, None, None, None, None, None, None,
+                         False, 256, 128, 4, 1)
+
+
 # ------------------------------------------------------------ brute vs K1
 
 @pytest.fixture(scope="module")

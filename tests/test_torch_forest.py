@@ -193,6 +193,66 @@ def test_forest_schedulers_agree_exactly(soup600):
         tf.traverse_closest(pft, o, d, t_max, mode="rounds")
 
 
+@pytest.mark.parametrize("form", ["closest", "any"])
+def test_queue_plain_matches_jax_workqueue(soup600, interp, form):
+    """The work queue's plain version (queue_plain: the round loop over
+    launch_plain) against the JAX package's _run_workqueue in interpret
+    mode, on the same rays with per-lane t_max."""
+    tris, (jft, pft), o, d = soup600
+    any_hit = form == "any"
+    t_max = tmax_of("per_lane", len(o), 16)
+    if any_hit:
+        t_max = np.minimum(t_max, np.float32(3.0))
+    jo, jd, jt, b = jtf._prep(jnp.asarray(o), jnp.asarray(d),
+                              jnp.asarray(t_max), jtf.WQ_BLK)
+    assert b == len(o) == jo.shape[1]
+    rj = jtf._run_workqueue(jft, jo, jd, jt, any_hit)
+    tf.reset_counts()
+    n: list = []
+    rp = tf.queue_plain(pft, torch.from_numpy(o), torch.from_numpy(d),
+                        torch.from_numpy(t_max), any_hit, rounds=n)
+    assert tf.PLAIN_CALLS[tf._form(any_hit)] == n[0] > 1
+    assert sum(tf.LAUNCHES.values()) == 0
+    if any_hit:
+        np.testing.assert_array_equal(rp[1].numpy() > 0,
+                                      np.asarray(rj[1][0]) > 0)
+        np.testing.assert_array_equal(
+            rp[1].numpy() > 0, cpu_ref.intersect_any(*tris, o, d, t_max))
+        assert 0 < int((rp[1] > 0).sum()) < len(o)
+    else:
+        assert_hits_match(ts.Traversal(*rp),
+                          ts.Traversal(*(x[0] for x in rj)))
+
+
+def test_queue_results_are_per_ray(soup600):
+    """The work queue's result for a ray depends on that ray alone, which
+    lets K5's queue kernel walk each ray's chunks in its own thread: the
+    plain queue on the rays reversed, and on one ray among pad rays,
+    returns the same bits. On the CPU the entry point takes the plain
+    queue; the queue kernel refuses CPU tensors."""
+    _, (_, pft), o, d = soup600
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    t_max = t_torch(tmax_of("per_lane", len(o), 17))
+    bases = {}
+    for any_hit in (False, True):
+        base = bases[any_hit] = tf.queue_plain(pft, o, d, t_max, any_hit)
+        rev = torch.arange(len(o) - 1, -1, -1)
+        flip = tf.queue_plain(pft, o[rev], d[rev], t_max[rev], any_hit)
+        for a, b in zip(base, flip):
+            assert torch.equal(a, b[rev])
+        for i in (0, 37, 200):
+            oi, di, ti, _ = tf._prep(o[i:i + 1], d[i:i + 1], t_max[i:i + 1],
+                                     tf.WQ_BLK)
+            one = tf.queue_plain(pft, oi, di, ti, any_hit)
+            assert all(torch.equal(a[i], b[0]) for a, b in zip(base, one))
+    tf.reset_counts()
+    r = tf.traverse_closest(pft, o, d, t_max)
+    assert all(torch.equal(a, b) for a, b in zip(r, bases[False]))
+    assert tf.PLAIN_CALLS["closest"] > 0 and tf.LAUNCHES["closest"] == 0
+    with pytest.raises(ValueError, match="K5"):
+        tf.queue_kernel(pft, o, d, t_max, False)
+
+
 def test_forest_agrees_with_k1_plain():
     """K5's plain version against K1's plain version over the full
     hierarchy of the same scene, on rays from inside the kitchen: catches

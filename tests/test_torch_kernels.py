@@ -1,5 +1,6 @@
 """Kernels K1 (fluctus_tpu_torch/csrc/traverse_stack.cu), K2 and K3
-(csrc/traverse_brute.cu), K5 (csrc/traverse_forest.cu), K4
+(csrc/traverse_brute.cu), K5 (csrc/traverse_forest.cu: the work queue in
+one launch and the per-launch kernel), K4
 (csrc/traverse_packet.cu) and the probes P1 and P2 (csrc/probes.cu) against
 their plain versions, the launch helper (launch.py) and the streaming
 wavefront against the lockstep integrator through K1, on the card. These
@@ -193,6 +194,59 @@ def test_k2_tie_layout_equals_plain(card):
         assert torch.equal(ka, pa) and bool(ka[tie].all()), layout
 
 
+@pytest.mark.parametrize("form", ["closest", "any"])
+def test_k3_tie_layouts_and_random_forest_equal_plain(card, form,
+                                                      monkeypatch):
+    """K3 against its plain version through the round loop, on both tie
+    layouts of fixtures.LAYOUTS (every tie ray hits the expected copy) and
+    on a forest of seeded random triangles whose chunk width is no
+    multiple of the 512-triangle tile: bit-equal."""
+    from fluctus_tpu_torch.accel.forest import build_brute_forest
+    from fluctus_tpu_torch.convert import brute_from_numpy
+    from fluctus_tpu_torch.fixtures import LAYOUTS, tie_forest
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    monkeypatch.setenv("FLUCTUS_BRUTE_SCHED", "rounds")
+    any_hit = form == "any"
+    g = np.random.default_rng(31)
+    v0 = g.uniform(-2, 2, (3000, 3)).astype(np.float32)
+    v1 = v0 + g.uniform(-0.3, 0.3, (3000, 3)).astype(np.float32)
+    v2 = v0 + g.uniform(-0.3, 0.3, (3000, 3)).astype(np.float32)
+    hb = build_brute_forest(v0, v1, v2, target_tris=320, tile=128)
+    rnd = brute_from_numpy({f: getattr(hb, f) for f in
+                            ("tris", "boxes", "boxes_t", "tboxes", "tile")},
+                           device=card)
+    assert rnd.tris.shape[2] % 512 and rnd.tris.shape[0] >= 4
+    o = g.uniform(-3, 3, (4096, 3)).astype(np.float32)
+    d = g.normal(size=(4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = np.where(g.random(4096) < 0.5, np.float32(3.4e38),
+                 g.uniform(0.5, 4.0, 4096)).astype(np.float32)
+    cases = [(brute_from_numpy(a, device=card), o_, d_, t_, w)
+             for layout in LAYOUTS
+             for a, o_, d_, w in [tie_forest(layout)]
+             for t_ in [np.full(len(o_), 9.5 if any_hit else 3.4e38,
+                                np.float32)]]
+    cases.append((rnd, o, d, t, None))
+    trav = tb.traverse_any if any_hit else tb.traverse_closest
+    for bf, o_, d_, t_, want in cases:
+        o_, d_, t_ = (torch.from_numpy(x).to(card) for x in (o_, d_, t_))
+        k = trav(bf, o_, d_, t_, launch=tb.launch_kernel)
+        p = trav(bf, o_, d_, t_, launch=tb.launch_plain)
+        torch.cuda.synchronize()
+        if any_hit:
+            assert torch.equal(k, p) and bool(k.any())
+            if want is not None:
+                assert bool(k[torch.from_numpy(want >= 0).to(card)].all())
+            continue
+        assert all(torch.equal(getattr(k, f), getattr(p, f))
+                   for f in ("prim", "t", "u", "v"))
+        assert int((k.prim >= 0).sum()) > 100
+        if want is not None:
+            tie = torch.from_numpy(want >= 0).to(card)
+            assert torch.equal(k.prim[tie].cpu(),
+                               torch.from_numpy(want[want >= 0]))
+
+
 # ---------------------------------------------------------------- K5, K4
 # Kernel K5 (csrc/traverse_forest.cu) against its plain version through
 # the same scheduler, and K4 (csrc/traverse_packet.cu) against its plain
@@ -233,6 +287,44 @@ def test_k5_any_equals_plain(card, treelet, mode):
     k = tf.traverse_any(ft, o, d, t, mode=mode, launch=tf.launch_kernel)
     p = tf.traverse_any(ft, o, d, t, mode=mode, launch=tf.launch_plain)
     assert torch.equal(k, p) and 0 < int(k.sum()) < 4096
+
+
+@pytest.mark.parametrize("form", ["closest", "any"])
+def test_k5_queue_equals_plain(card, treelet, form):
+    """K5's work queue in one launch (queue_kernel) against its plain
+    version, the round loop over launch_plain: t, prim, u and v
+    bit-equal."""
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    host, ft = treelet
+    o, d, t = _rays(host, 4096, 13, card)
+    any_hit = form == "any"
+    k = tf.queue_kernel(ft, o, d, t, any_hit)
+    p = tf.queue_plain(ft, o, d, t, any_hit)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert int((k[1] > 0).sum() if any_hit else (k[1] >= 0).sum()) > 100
+
+
+def test_k5_queue_call_makes_one_launch_and_no_sync(card, treelet):
+    """A work-queue traversal call launches K5 once and reads nothing back
+    from the card: it runs under sync-debug mode "error", with a scalar
+    and with a per-lane t_max."""
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    host, ft = treelet
+    o, d, t = _rays(host, 4096, 14, card)
+    want = tf.traverse_closest(ft, o, d, t)
+    tf.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tf.traverse_closest(ft, o, d, t)
+        blocked = tf.traverse_any(ft, o, d, t)
+        tf.traverse_closest(ft, o, d, 3.4e38)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tf.LAUNCHES == {"closest": 2, "any": 1}
+    assert sum(tf.PLAIN_CALLS.values()) == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert 0 < int(blocked.sum()) < 4096
 
 
 def test_k4_closest_equals_plain(card, kitchen):
