@@ -5,7 +5,11 @@
 Builds kernels K1, K2+K3, K5, K4 and the probes P1+P2 from
 fluctus_tpu_torch/csrc (one nvcc per source, started together, and the
 fastcall extension every launch goes through). Kitchen: holds K1 against
-its plain PyTorch version on the scene's rays; holds P1 and P2 against
+its plain PyTorch version on the scene's rays and on the wide tie
+hierarchy of fluctus_tpu_torch/fixtures.py, times it and its design
+steps (scripts/probe_walk_design.py's builds; with FLUCTUS_PARENT_TREE
+set to another checkout's root, that checkout's K1 and K4 too, in the
+same call); holds P1 and P2 against
 theirs and runs the launch-floor and peak-rate probes (P1 at 1 and 64
 blocks, in turns with PyTorch's own x + 1.0, and the host steps of one P1
 launch; K1 at 1k and 64k rays; P2 fused and unfused, the bf16 matmul, the
@@ -21,7 +25,8 @@ stream renders against the same stream on the host's CPU, holds one
 fused call of each stream render ([extension ; shadow] rays with per-lane
 t_max) through its kernel against the plain version, and runs both
 benchmark harnesses for about 8 s each. Then the packet path: holds K4
-against its plain version, times it beside K1, renders the kitchen under
+against its plain version (on the tie hierarchy too), times it and its
+design steps beside K1 with the packets' visit counts, renders the kitchen under
 backend="pallas" (512x512, 8 bounces, 4 spp) through K4 only, and holds
 the same two goldens through K4. Conference (232k triangles, above the
 fast-big cutover, so its session holds a brute-chunk forest and no
@@ -256,6 +261,72 @@ def phase_kernel(sess, n_extra=1 << 17, tile=1 << 16):
             f"{row_bytes / 1e6:.1f} MB of row fetches per launch "
             f"({row_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at HBM rate)")
     return out
+
+
+def phase_wide_ties(kernel: str):
+    """K1 ("k1") or K4 ("k4") against its plain version on the tie
+    hierarchy of fluctus_tpu_torch/fixtures.py (equal-t copies of one
+    triangle in slots a K1 team deals to different lanes, in two leaves
+    entered in a known order, and in two leaves with equal entry
+    distances; tie rays in every warp and every CTA of a K4 packet): both
+    forms bit-equal, and every tie ray hits the copy the kernel's
+    sequential rule picks."""
+    import torch
+    from fluctus_tpu_torch.convert import wide_from_numpy
+    from fluctus_tpu_torch.fixtures import WIDE_TIES, wide_tie_bvh
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+
+    t0 = time.perf_counter()
+    arrays, o, d, want = wide_tie_bvh()
+    w = wide_from_numpy(arrays, device="cuda")
+    o, d = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    want = want[kernel]
+    tie = torch.from_numpy(want >= 0).cuda()
+    for t_max in (3.4e38, 9.5):
+        t = torch.full((o.shape[0],), t_max, device="cuda")
+        if kernel == "k1":
+            k = ts.traverse_kernel(w, o, d, t, any_hit=False)
+            p, _ = ts.traverse_plain(w, o, d, t, any_hit=False)
+            ka = ts.traverse_kernel(w, o, d, t, any_hit=True)
+            pa = ts.traverse_plain(w, o, d, t, any_hit=True)[1]
+        else:
+            k = tp.traverse_closest(w, o, d, t, launch=tp.packet_kernel)
+            p = tp.traverse_closest(w, o, d, t, launch=tp.packet_plain)
+            ka = tp.traverse_any(w, o, d, t, launch=tp.packet_kernel)
+            pa = tp.traverse_any(w, o, d, t, launch=tp.packet_plain)
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(k, f), getattr(p, f))
+                   for f in ("prim", "t", "u", "v"))
+        winners = bool(torch.equal(k.prim[tie].cpu(),
+                                   torch.from_numpy(want[want >= 0])))
+        flags = bool(torch.equal(ka, pa))
+        say(f"{kernel}-ties", t0,
+            f"{kernel.upper()} vs its plain version on the wide tie "
+            f"hierarchy ({', '.join(WIDE_TIES)}; {int(tie.sum())} of "
+            f"{o.shape[0]} rays through the copies; t_max {t_max:g}): "
+            f"closest prim, t, u, v bit-equal {same}, every tie ray hits "
+            f"the expected copy {winners}; any-hit flags equal {flags} "
+            f"({int(ka.sum())} blocked)")
+        check(same and winners, f"{kernel.upper()} breaks a tie otherwise "
+              "than its plain version")
+        check(flags and bool(ka[tie].all()), f"{kernel.upper()} any-hit "
+              "flags differ from the plain version on the tie hierarchy")
+
+
+def design_steps(kernel: str, sess, phase: str) -> None:
+    """The design probe's builds of `kernel` (and, with FLUCTUS_PARENT_TREE
+    set to another checkout's root, that checkout's kernel) timed on the
+    k1-time / k4-time tiles, one line each, every one bit-equal to the
+    plain version."""
+    from fluctus_tpu_torch.scripts import probe_walk_design as probe
+    t0 = time.perf_counter()
+    out = probe.design_steps(kernel, sess,
+                             parent=os.environ.get("FLUCTUS_PARENT_TREE"),
+                             say=lambda m: say(phase, t0, m))
+    bad = [n for n, r in out.items() if not r["equal"]]
+    check(not bad, f"{kernel.upper()} builds {bad} differ from the plain "
+          "version")
 
 
 def golden_sessions(dev, backend="auto"):
@@ -641,6 +712,7 @@ def phase_packet_time(sess, tile=1 << 16):
     visits."""
     from fluctus_tpu_torch.ops import traverse_pallas as tp
     from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.scripts.probe_walk_design import spread
     from fluctus_tpu_torch.timing import time_launches
 
     bvh = sess.scene.wbvh
@@ -673,6 +745,12 @@ def phase_packet_time(sess, tile=1 << 16):
             k1_ms += time_launches(
                 lambda: ts.traverse_kernel(bvh, ro, rd, rt, anyh), 10, 1)
         n = len(rays)
+        say("k4-time", t1,
+            f"{form}: per packet (max / median / mean) "
+            f"{spread(stats['packet_node_visits'])} node and "
+            f"{spread(stats['packet_leaf_visits'])} leaf visits over "
+            f"{stats['packet_node_visits'].numel()} packets (the plain "
+            f"version's counts)")
         b_ms, b_by = bound_ms(bvh, tile * n, ray_stats, anyh)
         b_ms /= n
         pk_bytes, pk_ops = (x / n for x in packet_bound(bvh, tile * n, stats))
@@ -1486,6 +1564,8 @@ def main() -> int:
         f"depth {w.depth}, state {sess.host_scene.hash}")
 
     ktimes = phase_kernel(sess)
+    phase_wide_ties("k1")
+    design_steps("k1", sess, "k1-time")
     p1 = phase_p1(sess)
     p2 = phase_p2()
 
@@ -1519,7 +1599,9 @@ def main() -> int:
 
     # the packet path (K4): backend="pallas" on the same kitchen session
     k4_err = phase_packet_check(sess)
+    phase_wide_ties("k4")
     ptimes = phase_packet_time(sess)
+    design_steps("k4", sess, "k4-time")
     psess = dataclasses.replace(sess, cfg=sess.cfg.replace(backend="pallas"))
     t0 = time.perf_counter()
     driver.render(dataclasses.replace(psess, cfg=psess.cfg.replace(

@@ -35,6 +35,16 @@ def _t(a, device):
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
+def wide_from_numpy(arrays: dict, device="cuda") -> WideBVH:
+    """WideBVH from accel/wide.py's rows as NumPy arrays (keys nodes,
+    leaves, root_ref, depth, leaf_width)."""
+    return WideBVH(
+        nodes=_t(np.asarray(arrays["nodes"], np.float32), device),
+        leaves=_t(np.asarray(arrays["leaves"], np.float32), device),
+        root_ref=int(arrays["root_ref"]), depth=int(arrays["depth"]),
+        leaf_width=int(arrays["leaf_width"]))
+
+
 def brute_from_numpy(arrays: dict, device="cuda") -> BruteForest:
     """BruteForest from the JAX BruteForest's fields as NumPy arrays."""
     def f32(key):
@@ -73,13 +83,7 @@ def scene_from_numpy(arrays: dict, device="cuda") -> DeviceScene:
 
     wbvh = bforest = ftables = None
     if "wbvh.nodes" in arrays:
-        wbvh = WideBVH(
-            nodes=_t(np.asarray(arrays["wbvh.nodes"], np.float32), device),
-            leaves=_t(np.asarray(arrays["wbvh.leaves"], np.float32),
-                      device),
-            root_ref=int(arrays["wbvh.root_ref"]),
-            depth=int(arrays["wbvh.depth"]),
-            leaf_width=int(arrays["wbvh.leaf_width"]))
+        wbvh = wide_from_numpy(_prefixed(arrays, "wbvh."), device)
     if "bforest.tris" in arrays:
         bforest = brute_from_numpy(_prefixed(arrays, "bforest."), device)
     if "ftables.nodes" in arrays:

@@ -1,5 +1,6 @@
-// The per-ray near-first walk of the 8-wide fat-leaf BVH, shared by K1
-// (traverse_stack.cu) and K5 (traverse_forest.cu).
+// The per-ray near-first walk of the 8-wide fat-leaf BVH that K5
+// (traverse_forest.cu) runs in each chunk, and the constants K1
+// (traverse_stack.cu, which walks with a team of lanes a ray) and K4 share.
 //
 // One thread walks one ray: the 8 children of an inner node are slab-tested
 // against the f32 node row (56 floats: 8 x [lo(3) hi(3)] + 8 refs as int
@@ -29,6 +30,39 @@ __device__ __forceinline__ float safe_inv(float d) {
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
 };
+
+// Moller-Trumbore of one leaf slot s = [v0 e1 e2 id] against the ray, in
+// the expression order of the plain versions, for K1 and K4; the result
+// leaves out t < best. v and t are computed only where u passes, which
+// changes no result, and __frcp_rn is the correctly rounded 1 / det that
+// the plain versions compute.
+__device__ __forceinline__ bool moller(const float (&s)[10], const Ray& r,
+                                       float& t, float& u, float& v,
+                                       int& id) {
+  id = __float_as_int(s[9]);
+  const float ax = s[0], ay = s[1], az = s[2];
+  const float e1x = s[3], e1y = s[4], e1z = s[5];
+  const float e2x = s[6], e2y = s[7], e2z = s[8];
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  bool ok = fabsf(det) >= kTriEps;
+  const float idet = __frcp_rn(ok ? det : 1.0f);
+  const float tvx = r.ox - ax, tvy = r.oy - ay, tvz = r.oz - az;
+  u = (tvx * px + tvy * py + tvz * pz) * idet;
+  ok = ok && u >= 0.0f && u <= 1.0f && id >= 0;
+  t = v = 0.0f;
+  if (ok) {
+    const float qx = tvy * e1z - tvz * e1y;
+    const float qy = tvz * e1x - tvx * e1z;
+    const float qz = tvx * e1y - tvy * e1x;
+    v = (r.dx * qx + r.dy * qy + r.dz * qz) * idet;
+    t = (e2x * qx + e2y * qy + e2z * qz) * idet;
+    ok = v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
+  }
+  return ok;
+}
 
 // Moller-Trumbore over the W slots of one leaf row. Closest form: keep the
 // first slot achieving the least t below best_t. Any-hit form: return true

@@ -1,12 +1,19 @@
-"""Synthetic inputs that pin K2's tie rules: brute forests holding copies
-of one triangle at several (chunk, slot) places, and the place whose id
-the visit-list walk must return for a ray through them: the lowest slot of
-the group listed first in the chunk visited first.
+"""Synthetic inputs that pin the traversal kernels' tie rules.
 
-The tests (tests/test_torch_brute.py, tests/test_torch_kernels.py) and
-chip_smoke.py's k2-ties phase read them. Tile 128 throughout; K2 (at
-csrc/traverse_brute.cu) deals a group's slots over four teams and a
-visit's live groups over a cluster's two CTAs, entry e to CTA e % 2.
+K2 and K3: brute forests holding copies of one triangle at several
+(chunk, slot) places, and the place whose id the visit-list walk must
+return for a ray through them: the lowest slot of the group listed first
+in the chunk visited first (`tie_forest`). K1 and K4: an 8-wide hierarchy
+with copies in slots that K1's teams deal to different lanes, in two
+leaves entered in a known order, and in two leaves with equal entry
+distances (`wide_tie_bvh`), where K1 and K4 pick different copies.
+
+The tests (tests/test_torch_{brute,traverse,packet,kernels}.py) and
+chip_smoke.py's k1-, k2-, k3- and k4-ties phases read them.
+
+The brute forests: tile 128 throughout; K2 (at csrc/traverse_brute.cu)
+deals a group's slots over four teams and a visit's live groups over a
+cluster's two CTAs, entry e to CTA e % 2.
 
 - "group": Tp 1,024, one 1,024-slot group per chunk (gr = 8). A and B
   span three team slices each (256 slots a team), C's lower copy is
@@ -125,3 +132,127 @@ def tie_forest(layout: str = "group", seed: int = 0, n_rays: int = 256):
                         -np.ones((n_rays, 1))], 1).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return arrays, orig.astype(np.float32), d, want
+
+
+# ---------------------------------------------------------------- K1, K4
+
+# Tie triangle copies of the 8-wide tie hierarchy, per case: [(leaf, slot)].
+# Leaves: 0 "lanes"; 1 "A" and 2 "B" (root children 1 and 2, A's box
+# entered first); 3 "C" and 4 "D" (children 2 and 5 of node 1, identical
+# boxes, so equal entry distances).
+WIDE_TIES = {
+    "lanes": [(0, 12), (0, 7), (0, 6), (0, 1)],
+    "leaves": [(2, 2), (1, 9)],
+    "equal keys": [(3, 4), (4, 11)],
+}
+# the copy each kernel's sequential rule returns, per case: K1 visits
+# children in ascending (tmin, slot) order, K4 pushes equal keys lowest
+# slot first, so it pops the higher slot first; within a leaf both keep
+# the first slot of the least t
+WIDE_WINNERS = {
+    "k1": {"lanes": (0, 1), "leaves": (1, 9), "equal keys": (3, 4)},
+    "k4": {"lanes": (0, 1), "leaves": (1, 9), "equal keys": (4, 11)},
+}
+WIDE_W = 16
+
+
+def wide_tie_id(leaf: int, slot: int) -> int:
+    """The triangle id of slot `slot` of leaf `leaf` in wide_tie_bvh."""
+    return 1000 + WIDE_W * leaf + slot
+
+
+def wide_tie_bvh(seed: int = 0, n_rays: int = 1024):
+    """A two-level 8-wide hierarchy (accel/wide.py rows, leaf width 16)
+    holding equal-t copies of one triangle per WIDE_TIES case, and rays
+    through them. The "lanes" copies sit in slots that a team of 8 lanes
+    (2 slots a lane) or of 4 lanes deals to different lanes, and two of
+    them to one lane; "leaves" puts a copy in leaf A and in leaf B, whose
+    box a ray enters later; "equal keys" in leaves C and D, whose boxes
+    are identical. Every other slot of a used leaf holds a seeded filler
+    triangle below the copies (z 0.2) or, in A, a lid at z 3 away from the
+    rays. Rays start at z 10 and go down within 0.002; ray i goes through
+    case i % 8's copies for i % 8 < 3 (so tie rays lie in every warp and
+    every CTA of a K4 cluster), the others hit fillers or nothing.
+
+    Returns (arrays: nodes (2, 56), leaves (5, 16, 10), root_ref, depth,
+    leaf_width; orig, dir; want {"k1": ids, "k4": ids}, -2 where ray i is
+    no tie ray)."""
+    g = np.random.default_rng(seed)
+    w = WIDE_W
+    cases = list(WIDE_TIES)
+    leaves = np.zeros((5, w, 10), np.float32)
+    leaves[..., 9] = np.int32(-1).view(np.float32)
+    centre = {c: np.float32([1.0 + 3.0 * k, 1.0]) for k, c in
+              enumerate(cases)}
+    leaf_case = {0: "lanes", 1: "leaves", 2: "leaves", 3: "equal keys",
+                 4: "equal keys"}
+
+    def put(leaf, slot, v0, v1, v2):
+        leaves[leaf, slot, 0:3] = v0
+        leaves[leaf, slot, 3:6] = v1 - v0
+        leaves[leaf, slot, 6:9] = v2 - v0
+        leaves[leaf, slot, 9] = np.int32(wide_tie_id(leaf, slot)).view(
+            np.float32)
+
+    for leaf, case in leaf_case.items():
+        cx, cy = centre[case]
+        copies = {s for lf, s in WIDE_TIES[case] if lf == leaf}
+        for slot in range(w):
+            if slot in copies:
+                put(leaf, slot, np.float32([cx - 0.3, cy - 0.3, 1.0]),
+                    np.float32([cx + 0.35, cy - 0.2, 1.0]),
+                    np.float32([cx - 0.1, cy + 0.4, 1.0]))
+            else:
+                b = np.float32([cx + g.uniform(-0.9, 0.9),
+                                cy + g.uniform(-0.9, 0.9), 0.2])
+                put(leaf, slot, b, b + [0.3, 0.05, 0.0], b + [0.05, 0.3, 0.0])
+    # leaf A's lid: its box top at z 3, away from the rays' xy
+    cx, cy = centre["leaves"]
+    put(1, 15, np.float32([cx + 0.9, cy - 0.95, 3.0]),
+        np.float32([cx + 0.95, cy - 0.95, 3.0]),
+        np.float32([cx + 0.9, cy - 0.9, 3.0]))
+    # leaf D is C's box: the same extremes (copies of C's fillers 0 and 3)
+    leaves[4, 0] = leaves[3, 0]
+    leaves[4, 3] = leaves[3, 3]
+    leaves[4, 0, 9] = np.int32(wide_tie_id(4, 0)).view(np.float32)
+    leaves[4, 3, 9] = np.int32(wide_tie_id(4, 3)).view(np.float32)
+
+    def box(leaf):
+        ids = leaves[leaf, :, 9].view(np.int32)
+        r = leaves[leaf][ids >= 0]
+        v = np.concatenate([r[:, 0:3], r[:, 0:3] + r[:, 3:6],
+                            r[:, 0:3] + r[:, 6:9]])
+        return np.concatenate([v.min(0), v.max(0)])
+
+    cd = np.concatenate([np.minimum(box(3)[:3], box(4)[:3]),
+                         np.maximum(box(3)[3:], box(4)[3:])])
+
+    def node_row(children):
+        row = np.zeros(56, np.float32)
+        row[0:48:6] = np.inf
+        refs = np.zeros(8, np.int32)
+        for slot, (b, ref) in children.items():
+            row[6 * slot:6 * slot + 6] = b
+            refs[slot] = ref
+        row[48:56] = refs.view(np.float32)
+        return row
+
+    node1 = node_row({2: (cd, ~3), 5: (cd, ~4)})
+    root = node_row({0: (box(0), ~0), 1: (box(1), ~1), 2: (box(2), ~2),
+                     3: (cd, 1)})
+    arrays = {"nodes": np.stack([root, node1]), "leaves": leaves,
+              "root_ref": 0, "depth": 2, "leaf_width": w}
+
+    xy = np.stack([g.uniform(0.0, 9.0, n_rays),
+                   g.uniform(0.0, 2.0, n_rays)], 1).astype(np.float32)
+    want = {k: np.full(n_rays, -2, np.int32) for k in WIDE_WINNERS}
+    for k, case in enumerate(cases):
+        sel = np.arange(n_rays) % 8 == k
+        xy[sel] = centre[case] + g.uniform(-0.02, 0.02, (int(sel.sum()), 2))
+        for kern, win in WIDE_WINNERS.items():
+            want[kern][sel] = wide_tie_id(*win[case])
+    orig = np.concatenate([xy, np.full((n_rays, 1), 10.0, np.float32)], 1)
+    d = np.concatenate([g.uniform(-0.002, 0.002, (n_rays, 2)),
+                        -np.ones((n_rays, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return arrays, orig.astype(np.float32), d.astype(np.float32), want

@@ -135,3 +135,11 @@ def check(kern: str, name: str, x: torch.Tensor, dtype: torch.dtype,
             f"{kern}: {name} must be a contiguous CUDA {dtype} tensor of "
             f"shape {tuple(shape)}, got {x.dtype} {tuple(x.shape)} on "
             f"{x.device}" + ("" if x.is_contiguous() else ", not contiguous"))
+
+
+def check_aligned(kern: str, name: str, x: torch.Tensor, n: int) -> None:
+    """Raise unless x's data starts on an n-byte boundary (a kernel reads
+    its rows with n-byte loads)."""
+    if x.data_ptr() % n:
+        raise ValueError(f"{kern}: {name} must start on a {n}-byte "
+                         f"boundary for the kernel's vector loads")

@@ -12,10 +12,12 @@ any-hit form stops when every lane is blocked. Nothing is pruned on pop:
 a packet visits the union of the nodes its lanes touch, so rays are
 sorted by octant and Morton code before the walk (ops/ray_sort.py).
 
-K4 (`csrc/traverse_packet.cu`) runs one 512-thread CUDA block per packet
-with the stack in shared memory and reads K1's packed node and leaf rows
-(the JAX kernel's split tables are kept only as `split_tables`, which the
-tests hold against the JAX package); the plain version walks every packet's
+K4 (`csrc/traverse_packet.cu`) runs a packet on a cluster of CTAs, each
+warp with its own copy of the stack and its own staged rows in shared
+memory, the packet's per-child partials exchanged once an inner visit,
+and reads K1's packed node and leaf rows (the JAX kernel's split tables
+are kept only as `split_tables`, which the tests hold against the JAX
+package); the plain version walks every packet's
 stack at once with PyTorch ops (state: stack (P, 192), sp (P,), lanes
 (P, 512)). Both evaluate the same expressions in the same order, and the
 kernel is built with -fmad=false, so they agree bit for bit. The wrapper
@@ -37,7 +39,8 @@ import os
 import torch
 
 from fluctus_tpu_torch.core.types import WideBVH
-from fluctus_tpu_torch.launch import CSRC, check, launch, load_library
+from fluctus_tpu_torch.launch import (CSRC, check, check_aligned, launch,
+                                      load_library)
 from fluctus_tpu_torch.ops.traverse_stack import (
     TRI_EPS, WALK_HEADER, Traversal, _inv_dir as _safe_inv)
 
@@ -116,7 +119,9 @@ def packet_plain(orig, dir, t_vec, bvh: WideBVH, any_hit: bool,
     (t, prim or blocked, u, v), each (B,). With `stats`, adds per visit the
     occupied child slots ("child_tests") and real triangles ("tri_tests")
     times the packet's real lanes (the first `n_real` rays are real), and
-    the node and leaf visits ("node_visits", "leaf_visits")."""
+    the node and leaf visits ("node_visits", "leaf_visits"); and appends
+    this call's visits of each packet ("packet_node_visits",
+    "packet_leaf_visits", int64 (P,) tensors, one more row per call)."""
     PLAIN_CALLS[_form(any_hit)] += 1
     nodes, leaves = bvh.nodes, bvh.leaves
     dev = orig.device
@@ -145,6 +150,8 @@ def packet_plain(orig, dir, t_vec, bvh: WideBVH, any_hit: bool,
         n_kids = (~torch.isinf(nodes[:, 0:48:6])).sum(1)
         n_tris = (leaves[:, :, 9].contiguous().view(torch.int32)
                   >= 0).sum(1)
+        pk_nodes = torch.zeros(npk, dtype=torch.int64, device=dev)
+        pk_leaves = torch.zeros(npk, dtype=torch.int64, device=dev)
     pk_all = torch.arange(npk, device=dev)
     slots = torch.arange(8, device=dev)
 
@@ -198,6 +205,7 @@ def packet_plain(orig, dir, t_vec, bvh: WideBVH, any_hit: bool,
             sp[pi] = spi
             if stats is not None:
                 stats["node_visits"] += int(pi.numel())
+                pk_nodes[pi] += 1
                 stats["child_tests"] += int((n_kids[node] * lanes[pi]).sum())
 
         if not bool(inner.all()):
@@ -243,8 +251,13 @@ def packet_plain(orig, dir, t_vec, bvh: WideBVH, any_hit: bool,
                 best_u[pl_], best_v[pl_] = bu, bv
             if stats is not None:
                 stats["leaf_visits"] += int(pl_.numel())
+                pk_leaves[pl_] += 1
                 stats["tri_tests"] += int((n_tris[leaf] * lanes[pl_]).sum())
 
+    if stats is not None:
+        for k, x in (("packet_node_visits", pk_nodes),
+                     ("packet_leaf_visits", pk_leaves)):
+            stats[k] = torch.cat([stats[k], x]) if k in stats else x
     prim = blocked.to(torch.int32) if any_hit else best_prim
     return (best_t.reshape(-1), prim.reshape(-1), best_u.reshape(-1),
             best_v.reshape(-1))
@@ -283,6 +296,8 @@ def packet_kernel(orig, dir, t_vec, bvh: WideBVH, any_hit: bool):
                                ("leaves", leaves, torch.float32,
                                 (l_, w, 10))):
         check("K4", name, x, dt, shape)
+    for name, x in (("nodes", nodes), ("leaves", leaves)):
+        check_aligned("K4", name, x, 8)
     lib = _lib or load_kernel()
     dev = orig.device
     outs = (torch.empty(b, dtype=torch.float32, device=dev),

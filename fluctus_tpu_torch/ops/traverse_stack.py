@@ -2,9 +2,11 @@
 plain version.
 
 K1 (`csrc/traverse_stack.cu`) is the Hopper counterpart of the TPU kernel
-`fluctus_tpu/ops/traverse_mxu.py::_kernel`: one CUDA thread per ray, a
-near-first stack walk over the f32 node and leaf rows, per-lane t_max, and
-an any-hit form that stops at the first hit.
+`fluctus_tpu/ops/traverse_mxu.py::_kernel`: a team of lanes per ray walks
+a near-first stack over the f32 node and leaf rows (the team reads a row
+together and splits its children or triangle slots), with the ray's stack
+in shared memory, per-lane t_max, and an any-hit form that stops at the
+first hit.
 
 The plain version is the restart-trail walk of
 `fluctus_tpu/ops/traverse_wide.py` in PyTorch ops: each step a lane visits
@@ -24,11 +26,12 @@ from typing import NamedTuple
 import torch
 
 from fluctus_tpu_torch.core.types import WideBVH
-from fluctus_tpu_torch.launch import CSRC, check, launch, load_library
+from fluctus_tpu_torch.launch import (CSRC, check, check_aligned, launch,
+                                      load_library)
 
 TRI_EPS = 1e-12
 BIG = 3.0e38
-STACK_CAP = 128          # kStackCap of the CUDA source
+STACK_CAP = 128          # kStackCap of csrc/wide_walk.cuh
 
 # launches of K1 per form, and calls of the plain version; chip_smoke.py
 # zeroes these before the frame and reads them after it
@@ -251,10 +254,12 @@ def traverse_kernel(bvh: WideBVH, orig, dir, t_max, any_hit: bool):
     check("K1", "nodes", bvh.nodes, torch.float32, (bvh.nodes.shape[0], 56))
     check("K1", "leaves", bvh.leaves, torch.float32,
           (bvh.leaves.shape[0], w, 10))
-    if stack_entries(bvh.depth) > STACK_CAP:
-        raise ValueError(f"K1: hierarchy depth {bvh.depth} needs "
-                         f"{stack_entries(bvh.depth)} stack entries, "
-                         f"more than {STACK_CAP}")
+    cap = stack_entries(bvh.depth)
+    if cap > STACK_CAP:
+        raise ValueError(f"K1: hierarchy depth {bvh.depth} needs {cap} "
+                         f"stack entries, more than {STACK_CAP}")
+    check_aligned("K1", "nodes", bvh.nodes, 16)
+    check_aligned("K1", "leaves", bvh.leaves, 8)
     lib = _lib or load_kernel()
     if any_hit:
         blocked = torch.empty(b, dtype=torch.uint8, device=dev)
@@ -268,7 +273,7 @@ def traverse_kernel(bvh: WideBVH, orig, dir, t_max, any_hit: bool):
     launch(lib.k1_traverse, orig.get_device(), orig.data_ptr(),
            dir.data_ptr(), t_vec.data_ptr(), bvh.nodes.data_ptr(),
            bvh.leaves.data_ptr(), b, int(bvh.root_ref), w, int(any_hit),
-           *outs)
+           *outs, cap)
     if any_hit:
         LAUNCHES["any"] += 1
         return blocked.view(torch.bool)

@@ -348,6 +348,40 @@ def test_k4_any_equals_plain(card, kitchen):
     assert torch.equal(k, p) and 0 < int(k.sum()) < 3000
 
 
+@pytest.mark.parametrize("t_max", [3.4e38, 9.5])
+def test_k1_k4_wide_tie_bvh_equal_plain(card, t_max):
+    """The tie hierarchy of fluctus_tpu_torch/fixtures.py (equal-t copies
+    in slots a K1 team deals to different lanes, in two leaves entered in a
+    known order, in two leaves with equal entry distances; tie rays in
+    every warp and every CTA of a K4 packet): K1 and K4 bit-equal to their
+    plain versions, and every tie ray hits the copy each kernel's
+    sequential rule picks."""
+    from fluctus_tpu_torch.convert import wide_from_numpy
+    from fluctus_tpu_torch.fixtures import wide_tie_bvh
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    arrays, o, d, want = wide_tie_bvh()
+    w = wide_from_numpy(arrays, device=card)
+    o, d = torch.from_numpy(o).to(card), torch.from_numpy(d).to(card)
+    t = torch.full((o.shape[0],), t_max, device=card)
+    k1 = ts.traverse_kernel(w, o, d, t, any_hit=False)
+    p1, _ = ts.traverse_plain(w, o, d, t, any_hit=False)
+    k4 = tp.traverse_closest(w, o, d, t, launch=tp.packet_kernel)
+    p4 = tp.traverse_closest(w, o, d, t, launch=tp.packet_plain)
+    torch.cuda.synchronize()
+    for k, p, kern in ((k1, p1, "k1"), (k4, p4, "k4")):
+        assert all(torch.equal(getattr(k, f), getattr(p, f))
+                   for f in ("prim", "t", "u", "v")), kern
+        tie = torch.from_numpy(want[kern] >= 0).to(card)
+        assert torch.equal(k.prim[tie].cpu(),
+                           torch.from_numpy(want[kern][want[kern] >= 0]))
+    a1 = ts.traverse_kernel(w, o, d, t, any_hit=True)
+    _, b1 = ts.traverse_plain(w, o, d, t, any_hit=True)
+    a4 = tp.traverse_any(w, o, d, t, launch=tp.packet_kernel)
+    b4 = tp.traverse_any(w, o, d, t, launch=tp.packet_plain)
+    assert torch.equal(a1, b1) and torch.equal(a4, b4)
+    assert torch.equal(a1, a4) and bool(a1.any())
+
+
 def test_k4_k5_count_launches_and_refuse_bad_input(card, kitchen, treelet):
     from fluctus_tpu_torch.ops import traverse_forest as tf
     from fluctus_tpu_torch.ops import traverse_pallas as tp

@@ -191,6 +191,80 @@ def test_packet_stats_count_visits(soup500):
     assert few["tri_tests"] == st["tri_tests"] // 512 * 100
 
 
+def test_packet_stats_per_packet_visits(soup500):
+    """The per-packet visit counts, which chip_smoke.py's k4-time turns
+    into a distribution, sum to the call's totals, and a second call
+    appends its packets."""
+    (_, pw), _, o, d = soup500
+    orig, dir_, tv, _ = tp._prep(torch.from_numpy(o), torch.from_numpy(d),
+                                 1e30)
+    st: dict = {}
+    tp.packet_plain(orig, dir_, tv, pw, False, stats=st)
+    nodes, leaves = st["packet_node_visits"], st["packet_leaf_visits"]
+    assert nodes.shape == leaves.shape == (orig.shape[0] // 512,)
+    assert int(nodes.sum()) == st["node_visits"]
+    assert int(leaves.sum()) == st["leaf_visits"]
+    assert bool((nodes >= 1).all()) and bool((leaves >= 1).all())
+    tp.packet_plain(orig, dir_, tv, pw, True, stats=st)
+    assert st["packet_node_visits"].shape == (2 * nodes.shape[0],)
+    assert int(st["packet_node_visits"].sum()) == st["node_visits"]
+    assert int(st["packet_leaf_visits"].sum()) == st["leaf_visits"]
+
+
+@pytest.mark.parametrize("t_max", [3.4e38, 9.5])
+def test_packet_wide_ties_match_winners_and_jax(interp, t_max):
+    """The tie hierarchy of fluctus_tpu_torch/fixtures.py over two
+    packets, its tie rays in every warp and every CTA of a packet: the
+    plain version returns the copy K4's push order picks (in the leaves
+    with equal entry distances, the higher child slot's, unlike K1), and
+    agrees with JAX's packet kernel in interpret mode, any-hit flags
+    too."""
+    from fluctus_tpu_torch.convert import wide_from_numpy
+    from fluctus_tpu_torch.fixtures import wide_tie_bvh
+    arrays, o, d, want = wide_tie_bvh()
+    pw = wide_from_numpy(arrays, device="cpu")
+    jw = JaxWide(nodes=jnp.asarray(arrays["nodes"]),
+                 leaves=jnp.asarray(arrays["leaves"]),
+                 root_ref=arrays["root_ref"], depth=arrays["depth"],
+                 leaf_width=arrays["leaf_width"])
+    t = np.full(len(o), t_max, np.float32)
+    rp = tp.traverse_closest(pw, torch.from_numpy(o), torch.from_numpy(d),
+                             torch.from_numpy(t))
+    tie = want["k4"] >= 0
+    np.testing.assert_array_equal(rp.prim.numpy()[tie], want["k4"][tie])
+    assert not np.array_equal(want["k4"], want["k1"])
+    assert_hits_match(rp, jtp.traverse_closest(
+        jw, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t)))
+    bp = tp.traverse_any(pw, torch.from_numpy(o), torch.from_numpy(d),
+                         torch.from_numpy(t)).numpy()
+    np.testing.assert_array_equal(bp, np.asarray(jtp.traverse_any(
+        jw, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t))))
+    assert bp[tie].all()
+
+
+def test_design_probe_sources():
+    """The design probe's builds (scripts/probe_walk_design.py): every
+    variant of K1 and K4 names constants that the sources hold once, and
+    the clock64 build of K4 finds each of its anchors once in the shipped
+    source."""
+    from fluctus_tpu_torch.scripts import probe_walk_design as probe
+    for kernel, variants in probe.VARIANTS.items():
+        plain_src = probe.source_text(kernel, None, {}, False)
+        assert '#include "/' in plain_src
+        for consts in variants.values():
+            src = probe.source_text(kernel, None, consts, False)
+            for name, value in consts.items():
+                v = str(value).lower() if isinstance(value, bool) else value
+                assert f" {name} = {v};" in src
+    import re
+    shipped = probe.source_text("k4", None, {}, False)
+    for pat, _, _ in probe.INSTRUMENT:      # the optional ones too
+        assert len(re.findall(pat, shipped)) == 1, pat
+    src = probe.source_text("k4", None, {}, True)
+    assert src.count("clock64()") == 8 and "k4_prof_copy" in src
+    assert probe.cluster_size(None) >= 1
+
+
 # ------------------------------------------------------------ backend rules
 
 def test_backend_rules(monkeypatch):

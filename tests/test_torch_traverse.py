@@ -168,3 +168,39 @@ def test_visit_stats_count_rows():
         < 8 * stats["node_visits"]
     assert stats["leaf_visits"] <= stats["tri_tests"] \
         < w.leaf_width * stats["leaf_visits"]
+
+
+@pytest.mark.parametrize("t_max", [3.4e38, 9.5])
+def test_wide_tie_bvh_plain_matches_winners_and_jax(interp, t_max):
+    """The tie hierarchy of fluctus_tpu_torch/fixtures.py (equal-t copies
+    of one triangle in slots a team deals to different lanes, in two
+    leaves entered in a known order, and in two leaves with equal entry
+    distances): the plain walk returns the copy K1's sequential rule
+    picks on every tie ray, and agrees with JAX's traverse_wide and K1 in
+    interpret mode; the any-hit flags agree too (at t_max 9.5 every tie
+    ray is blocked)."""
+    from fluctus_tpu_torch.convert import wide_from_numpy
+    from fluctus_tpu_torch.fixtures import wide_tie_bvh
+    from torch_common import assert_hits_match
+    arrays, o, d, want = wide_tie_bvh()
+    w = wide_from_numpy(arrays, device="cpu")
+    jw = JaxWide(nodes=jnp.asarray(arrays["nodes"]),
+                 leaves=jnp.asarray(arrays["leaves"]),
+                 root_ref=arrays["root_ref"], depth=arrays["depth"],
+                 leaf_width=arrays["leaf_width"])
+    t = np.full(len(o), t_max, np.float32)
+    got = ts.traverse_closest(w, torch.from_numpy(o), torch.from_numpy(d),
+                              torch.from_numpy(t))
+    tie = want["k1"] >= 0
+    np.testing.assert_array_equal(got.prim.numpy()[tie], want["k1"][tie])
+    assert int((got.prim >= 0).sum()) > int(tie.sum())   # fillers hit too
+    for ref in (tw.traverse_closest(jw, jnp.asarray(o), jnp.asarray(d),
+                                    jnp.asarray(t)),
+                tm.traverse_closest(jw, jnp.asarray(o), jnp.asarray(d),
+                                    jnp.asarray(t), blk=128)):
+        assert_hits_match(got, ref)
+    blocked = ts.traverse_any(w, torch.from_numpy(o), torch.from_numpy(d),
+                              torch.from_numpy(t)).numpy()
+    np.testing.assert_array_equal(blocked, np.asarray(tm.traverse_any(
+        jw, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t), blk=128)))
+    assert blocked[tie].all()
