@@ -28,7 +28,14 @@ benchmark harnesses for about 8 s each. Then the packet path: holds K4
 against its plain version (on the tie hierarchy too), times it and its
 design steps beside K1 with the packets' visit counts, renders the kitchen under
 backend="pallas" (512x512, 8 bounces, 4 spp) through K4 only, and holds
-the same two goldens through K4. Conference (232k triangles, above the
+the same two goldens through K4. The env map: writes a seeded 1024x512
+sky with the port's write_hdr and opens the luxball (BASELINE config 2:
+MIS env map, thin-lens DoF) with it through create_session, renders it
+(512x512, 4 bounces, 8 spp) through the lockstep (K1 in both forms) and
+the stream (K1's fused closest call), and holds 64x64 env-lit renders of
+the luxball and of the cornell with env and area light, through K1 (the
+lockstep and the stream) and K4, against the same renders on the host's
+CPU. Conference (232k triangles, above the
 fast-big cutover, so its session holds a brute-chunk forest and no
 hierarchy): holds K2 and K3 against their plain versions through the same
 schedulers (both also on the forests of equal-t copies that pin their
@@ -46,7 +53,9 @@ the plain version; the per-launch kernel under the round loop and the
 passes) and against K1 on the session's hierarchy, K5's times (the queue
 beside the per-round design it replaced, the rays as given and sorted),
 the same frame through K5 only, one K5 launch per traversal call, and the
-conference golden through K5. Each phase prints one line with its wall
+conference golden through K5. Last, deep-stack: K1, K4 and K5 on
+hierarchies of wide depth 40 (fluctus_tpu_torch/fixtures.py's chains),
+bit-equal to their plain versions. Each phase prints one line with its wall
 time; the last three lines are the kernels record, the card and the
 device record.
 Any failed check raises, so the script exits non-zero. It needs a CUDA
@@ -60,6 +69,7 @@ import functools
 import json
 import os
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -67,6 +77,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 KITCHEN = os.path.join(REPO, "assets", "kitchen_proxy.obj")
 CORNELL = os.path.join(REPO, "assets", "cornell_proxy.obj")
 CONFERENCE = os.path.join(REPO, "assets", "conference_proxy.obj")
+LUXBALL = os.path.join(REPO, "assets", "luxball_proxy.obj")
+ENV_SEED = 11          # the seeded 1024x512 sky of the env-lit phases
+DEEP_DEPTH = 40        # wide depth of the deep-stack hierarchies
 STATES = os.path.join(REPO, "data", "states")
 GOLDENS = os.path.join(REPO, "tests", "goldens")
 
@@ -89,7 +102,8 @@ NODE_ROW_BYTES = 56 * 4
 # pixels where op order flips a path.
 RTOL, ATOL = 1e-3, 1e-4
 GOLDEN_LIMITS = {"cornell_area": (1.0, 1e-4), "kitchen_cfg3": (0.995, 1e-4),
-                 "conference": (0.995, 1e-4)}
+                 "conference": (0.995, 1e-4), "luxball_env": (0.995, 1e-4),
+                 "cornell_env": (0.995, 1e-4)}
 T_REL_TOL = 1e-5
 
 _T0 = time.perf_counter()
@@ -347,6 +361,187 @@ def golden_sessions(dev, backend="auto"):
         KITCHEN, cfg=kitchen_cfg(64, 64).replace(backend=backend),
         state_dir=STATES, auto_frame=False, device=dev)
     return {"cornell_area": (cornell, 8), "kitchen_cfg3": (kitchen, 4)}
+
+
+# ------------------------------------------------------------ env map
+
+def env_cfg(width, height, area: bool = False):
+    """BASELINE config 2's frame (4 bounces, MIS env map; the cornell
+    variant adds its area light)."""
+    from fluctus_tpu_torch.core.types import RenderConfig
+    return RenderConfig(width=width, height=height, max_bounces=4,
+                        use_area_light=area, use_env_map=True)
+
+
+def env_sessions(path, dev, backend="auto", size=64):
+    """The env-lit sessions: the luxball (thin-lens DoF, aperture 0.06,
+    as tests/golden_common.py's luxball_cfg2) and the cornell with the env
+    map and its area light. {name: session}."""
+    import torch
+    from fluctus_tpu_torch.core.types import AreaLight
+    from fluctus_tpu_torch.render import driver
+
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    lux = driver.create_session(
+        LUXBALL, path, env_cfg(size, size).replace(backend=backend),
+        state_dir=None, device=dev)
+    lux.params = dataclasses.replace(lux.params, camera=dataclasses.replace(
+        lux.params.camera, aperture_size=f(0.06)))
+    cor = driver.create_session(
+        CORNELL, path, env_cfg(size, size, area=True).replace(
+            backend=backend), state_dir=None, device=dev)
+    cor.params = dataclasses.replace(cor.params, area_light=AreaLight(
+        pos=f([0.0, 3.95, 0.0]), right=f([1.0, 0.0, 0.0]),
+        up=f([0.0, 0.0, -1.0]), normal=f([0.0, -1.0, 0.0]),
+        emission=f([15.0, 15.0, 15.0]), size=f([1.0, 1.0])))
+    return {"luxball_env": lux, "cornell_env": cor}
+
+
+def phase_session_env(tmp_dir: str):
+    """Write the seeded 1024x512 sky with the port's write_hdr and open the
+    luxball with it through create_session (so the HDR reader and the
+    alias-table build are on the path). Returns (session, env path)."""
+    import numpy as np
+    from fluctus_tpu_torch.fixtures import sky_env
+    from fluctus_tpu_torch.io.hdr import write_hdr
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.scene import envmap as env_host
+
+    t0 = time.perf_counter()
+    img = sky_env(1024, 512, seed=ENV_SEED)
+    path = os.path.join(tmp_dir, "sky.hdr")
+    write_hdr(path, img)
+    t_write = time.perf_counter() - t0
+    secs = {}
+    load = env_host.load
+
+    def timed_load(p):
+        t = time.perf_counter()
+        out = load(p)
+        secs["tables"] = time.perf_counter() - t
+        return out
+    t1 = time.perf_counter()
+    env_host.load = timed_load
+    try:
+        sess = env_sessions(path, "cuda", size=512)["luxball_env"]
+    finally:
+        env_host.load = load
+    t_sess = time.perf_counter() - t1
+    e = sess.scene.envmap
+    check(sess.cfg.use_env_map and tuple(e.image.shape) == (512, 1024, 3),
+          "the luxball session has no 1024x512 env map")
+    pdf = e.pdf_table.cpu().numpy()
+    say("session-env", t0,
+        f"sky 1024x512 (seed {ENV_SEED}, max radiance "
+        f"{float(img.max()):.1f}) written in {t_write:.2f} s; luxball "
+        f"{sess.host_scene.n_tris} tris + env map: read + alias tables "
+        f"{secs['tables']:.2f} s, session {t_sess:.2f} s; pdf mean "
+        f"{float(np.mean(pdf.astype(np.float64))):.6f}, max {pdf.max():.1f}"
+        f", wide depth {sess.scene.wbvh.depth}")
+    return sess, path
+
+
+def phase_golden_env(path, card: str):
+    """64x64 env-lit renders on the card (the luxball and the cornell with
+    env and area light; 8 spp) held at GOLDEN_LIMITS against the same
+    renders on this host's CPU through the plain versions: the lockstep
+    through K1 (both forms) and through K4 (backend "pallas"; the CPU
+    reference traces through plain K1, whose hits the plain K4 equals on
+    these scenes, tests/test_torch_env_render.py), and the stream through
+    K1's fused closest call. Returns {name: {route: launches}}."""
+    import torch
+    from fluctus_tpu_torch.render import driver
+
+    spp = 8
+    cpu = env_sessions(path, "cpu")
+    out = {}
+    for name, cs in cpu.items():
+        t0 = time.perf_counter()
+        ref_l = driver.render(cs, spp, integrator="lockstep").numpy()
+        ref_s = driver.render(cs, spp, integrator="stream").numpy()
+        say("golden-env", t0, f"{name}: lockstep and stream on this host's "
+            f"CPU (plain versions), the references")
+        out[name] = {}
+        for backend, kernel in (("auto", "K1"), ("pallas", "K4")):
+            gs = env_sessions(path, "cuda", backend)[name]
+            t0 = time.perf_counter()
+            reset_counts()
+            img = driver.render(gs, spp, integrator="lockstep").cpu().numpy()
+            torch.cuda.synchronize()
+            mine = traced_only(kernel, f"golden-env {name}")
+            golden_check(name, img, ref_l, t0,
+                         f"the lockstep, {kernel} only ({mine}), against "
+                         "the CPU lockstep")
+            out[name][f"lockstep {kernel}"] = mine
+            if backend == "auto":
+                t0 = time.perf_counter()
+                reset_counts()
+                img = driver.render(gs, spp, integrator="stream")
+                img = img.cpu().numpy()
+                torch.cuda.synchronize()
+                mine = traced_closest_only("K1", f"golden-env {name} stream")
+                golden_check(name, img, ref_s, t0,
+                             f"the stream, K1 closest only ({mine}), "
+                             "against the CPU stream")
+                out[name]["stream K1"] = mine
+    return out
+
+
+def phase_deep_stack():
+    """K1, K4 and K5 on the chains of fluctus_tpu_torch/fixtures.py at
+    wide depth DEEP_DEPTH (beyond the 128-entry walks: K1 and K5 need
+    stack_entries(40) = 296 entries, K4 281; beyond the parent's 192-entry
+    K4 stack too), closest and any-hit, each
+    bit-equal to its plain version; the chain whose inner child is
+    entered first fills the stacks to their worst case."""
+    import torch
+    from fluctus_tpu_torch.convert import forest_from_numpy, wide_from_numpy
+    from fluctus_tpu_torch.fixtures import deep_chain_bvh, deep_chain_forest
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+
+    t0 = time.perf_counter()
+    arrays, o, d, _ = deep_chain_bvh(DEEP_DEPTH, "near", n_rays=4096)
+    w = wide_from_numpy(arrays, device="cuda")
+    o, d = torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+    t = torch.full((o.shape[0],), 3.4e38, device="cuda")
+    t2 = torch.where(torch.arange(o.shape[0], device="cuda") % 2 == 0, t,
+                     6.0)
+    res = {}
+    k = ts.traverse_kernel(w, o, d, t, any_hit=False)
+    p, _ = ts.traverse_plain(w, o, d, t, any_hit=False)
+    res["K1 closest"] = all(torch.equal(getattr(k, f), getattr(p, f))
+                            for f in ("prim", "t", "u", "v"))
+    res["K1 any"] = torch.equal(ts.traverse_kernel(w, o, d, t2, any_hit=True),
+                                ts.traverse_plain(w, o, d, t2, True)[1])
+    hits = int((k.prim >= 0).sum())
+    k = tp.traverse_closest(w, o, d, t, launch=tp.packet_kernel)
+    p = tp.traverse_closest(w, o, d, t, launch=tp.packet_plain)
+    res["K4 closest"] = all(torch.equal(getattr(k, f), getattr(p, f))
+                            for f in ("prim", "t", "u", "v"))
+    res["K4 any"] = torch.equal(
+        tp.traverse_any(w, o, d, t2, launch=tp.packet_kernel),
+        tp.traverse_any(w, o, d, t2, launch=tp.packet_plain))
+    fa, fo, fd, _ = deep_chain_forest(DEEP_DEPTH, n_rays=4096)
+    ft = forest_from_numpy(fa, device="cuda")
+    fo, fd = torch.from_numpy(fo).cuda(), torch.from_numpy(fd).cuda()
+    ob, db, tv, _ = tf._prep(fo, fd, torch.full((fo.shape[0],), 3.4e38,
+                                                device="cuda"), tf.WQ_BLK)
+    for any_hit in (False, True):
+        kq = tf.queue_kernel(ft, ob, db, tv, any_hit)
+        pq = tf.queue_plain(ft, ob, db, tv, any_hit)
+        res[f"K5 {'any' if any_hit else 'closest'}"] = all(
+            torch.equal(x, y) for x, y in zip(kq, pq))
+    torch.cuda.synchronize()
+    say("deep-stack", t0,
+        f"chains of wide depth {DEEP_DEPTH} ({o.shape[0]} rays, {hits} "
+        f"hits; K1/K5 stack {ts.stack_entries(DEEP_DEPTH)} entries a ray, "
+        f"K4 {tp.stack_entries(DEEP_DEPTH)} of its {tp.MAX_STACK} a warp): "
+        f"bit-equal to the "
+        f"plain versions {res}")
+    check(all(res.values()), "a kernel differs from its plain version on "
+          "the deep chain")
 
 
 # ------------------------------------------------------------ big scene
@@ -1412,8 +1607,9 @@ def phase_stream_check(sess):
           "differ")
 
 
-def phase_frame_stream(sess, spp: int, card: str):
-    """The kitchen frame through driver.render(integrator="stream"): K1
+def phase_frame_stream(sess, spp: int, card: str, phase="frame-stream",
+                       what="kitchen"):
+    """The `what` frame through driver.render(integrator="stream"): K1
     in closest form only (every shadow ray fused), no plain version;
     spawns n_pix * spp; analytic and actual-queue MRays/s, Msamples/s."""
     import torch
@@ -1427,8 +1623,8 @@ def phase_frame_stream(sess, spp: int, card: str):
         img = driver.render(sess, spp, integrator="stream")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    mine = traced_closest_only("K1", "the kitchen stream frame")
-    fused_check(sess, fused, "K1", "the kitchen stream frame")
+    mine = traced_closest_only("K1", f"the {what} stream frame")
+    fused_check(sess, fused, "K1", f"the {what} stream frame")
     cfg = sess.cfg
     n = cfg.width * cfg.height * spp
     counters = got[0][1].tolist()
@@ -1437,8 +1633,8 @@ def phase_frame_stream(sess, spp: int, card: str):
     check(bool(torch.isfinite(img).all()) and bool((img >= 0).all()),
           "stream image has non-finite or negative values")
     check(counters[0] == n, f"spawns {counters[0]} != {n}")
-    say("frame-stream", t0,
-        f"kitchen stream {cfg.width}x{cfg.height} {spp} spp, "
+    say(phase, t0,
+        f"{what} stream {cfg.width}x{cfg.height} {spp} spp, "
         f"{cfg.max_bounces} bounces, pool {driver.stream_pool(cfg)}: "
         f"{secs:.3f} s, {(prim + ext + shadow) / secs / 1e6:.3f} MRays/s "
         f"analytic, {sum(counters) / secs / 1e6:.3f} MRays/s actual queue "
@@ -1615,6 +1811,22 @@ def main() -> int:
     del sess, small, psess
     torch.cuda.empty_cache()
 
+    # env-map lighting: the luxball (BASELINE config 2) under a seeded sky
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        esess, env_path = phase_session_env(tmp_dir)
+        t0 = time.perf_counter()
+        driver.render(dataclasses.replace(esess, cfg=esess.cfg.replace(
+            width=64, height=64)), 1, integrator="lockstep")
+        torch.cuda.synchronize()
+        say("warm-up", t0, "luxball 64x64 1 spp, env map")
+        secs_e, _ = phase_frame_only(
+            esess, 8, card, "frame-env", "K1", "luxball, env-lit,")
+        secs_es, _ = phase_frame_stream(
+            esess, 8, card, "frame-env-stream", "luxball, env-lit,")
+        del esess
+        phase_golden_env(env_path, card)
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     big = driver.create_session(CONFERENCE, cfg=conference_cfg(512, 512),
                                 state_dir=STATES, auto_frame=False,
@@ -1725,6 +1937,9 @@ def main() -> int:
           "launch per traversal call")
     phase_golden_only(dataclasses.replace(tsess, cfg=tsess.cfg.replace(
         width=64, height=64)), "conference", 4, "K5")
+    del tsess, ft, tw
+    torch.cuda.empty_cache()
+    phase_deep_stack()
 
     kernels = []
     for form, name in (("closest", "K1 traverse_stack closest"),
@@ -1809,8 +2024,9 @@ def main() -> int:
           f"lockstep {bench['lockstep']['total_mrays_s']:.3f}, stream "
           f"{bench['stream']['total_mrays_s']:.3f} MRays/s), kitchen "
           f"packet frame {secs_p:.3f} s, conference "
-          f"frame {secs_big:.3f} s (brute), {secs_t:.3f} s (treelet) on "
-          f"{card}", flush=True)
+          f"frame {secs_big:.3f} s (brute), {secs_t:.3f} s (treelet), "
+          f"luxball env-lit frame {secs_e:.3f} s lockstep, {secs_es:.3f} s "
+          f"stream on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 The JAX package's `DeviceScene` and `RenderParams` are handed over as a flat
 dict of NumPy arrays keyed by dotted field path ("geom.v0", "wbvh.nodes",
-"camera.pos", ...), which the caller builds with `np.asarray` on each leaf;
+"camera.pos", "envmap.image", ...), which the caller builds with
+`np.asarray` on each leaf;
 a `BruteForest` as a dict keyed by its field names ("tris", "boxes",
 "boxes_t", "tboxes", "tile"); a treelet forest as the JAX `HostForest`'s
 fields ("nodes", "leaves", "boxes", "lvl", "leaf_width").
@@ -15,8 +16,8 @@ import numpy as np
 import torch
 
 from fluctus_tpu_torch.core.types import (
-    AreaLight, BruteForest, Camera, DeviceScene, ForestTables, Geometry,
-    Materials, RenderParams, TextureAtlas, WideBVH)
+    AreaLight, BruteForest, Camera, DeviceScene, EnvMap, ForestTables,
+    Geometry, Materials, RenderParams, TextureAtlas, WideBVH)
 
 GEOM_KEYS = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
              "mat_id")
@@ -26,6 +27,7 @@ ATLAS_KEYS = ("data", "offset", "width", "height")
 CAMERA_KEYS = ("pos", "dir", "up", "right", "fov", "aperture_size",
                "focal_dist")
 LIGHT_KEYS = ("pos", "right", "up", "normal", "emission", "size")
+ENV_KEYS = ("image", "pdf_table", "prob_table", "alias_table")
 
 
 def _t(a, device):
@@ -68,6 +70,21 @@ def forest_from_numpy(arrays: dict, device="cuda") -> ForestTables:
                         leaf_width=int(arrays["leaf_width"]))
 
 
+def envmap_from_numpy(arrays: dict, device="cuda") -> EnvMap:
+    """EnvMap from the JAX EnvMap's (or a HostEnvMap's) fields as NumPy
+    arrays: image f32, pdf_table and prob_table f32, alias_table int32."""
+    return EnvMap(
+        image=torch.as_tensor(np.ascontiguousarray(arrays["image"],
+                                                   np.float32),
+                              device=device),
+        pdf_table=torch.as_tensor(np.asarray(arrays["pdf_table"],
+                                             np.float32), device=device),
+        prob_table=torch.as_tensor(np.asarray(arrays["prob_table"],
+                                              np.float32), device=device),
+        alias_table=torch.as_tensor(np.asarray(arrays["alias_table"],
+                                               np.int32), device=device))
+
+
 def _prefixed(arrays: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in arrays.items()
             if k.startswith(prefix)}
@@ -76,8 +93,9 @@ def _prefixed(arrays: dict, prefix: str) -> dict:
 def scene_from_numpy(arrays: dict, device="cuda") -> DeviceScene:
     """DeviceScene from the JAX scene's leaves (see module docstring). The
     "wbvh.*" keys may be absent (a fast-big scene); "bforest.*" keys, where
-    present, carry a brute forest, and "ftables.*" keys a treelet
-    forest."""
+    present, carry a brute forest, and "ftables.*" keys a treelet forest.
+    The "envmap.*" keys (ENV_KEYS) are required: a JAX scene always
+    carries an env map, the 1x1 black one when none is loaded."""
     def group(prefix, keys):
         return {k: _t(arrays[f"{prefix}.{k}"], device) for k in keys}
 
@@ -93,6 +111,8 @@ def scene_from_numpy(arrays: dict, device="cuda") -> DeviceScene:
                        materials=Materials(**group("materials",
                                                    MATERIAL_KEYS)),
                        atlas=TextureAtlas(**group("atlas", ATLAS_KEYS)),
+                       envmap=envmap_from_numpy(_prefixed(arrays, "envmap."),
+                                                device),
                        bforest=bforest, ftables=ftables)
 
 

@@ -137,16 +137,29 @@ class Camera:
 
 
 @dataclass
+class EnvMap:
+    """Lat-long HDR environment with alias-method importance tables
+    (reference: src/envmap.{hpp,cpp}, src/env_map.cl)."""
+    image: torch.Tensor        # (H, W, 3) f32 linear radiance
+    pdf_table: torch.Tensor    # (H*W,) f32 flat image-space pdf (mean 1)
+    prob_table: torch.Tensor   # (H*W,) f32 alias acceptance probability
+    alias_table: torch.Tensor  # (H*W,) int32 alias index
+
+
+@dataclass
 class DeviceScene:
     """Scene tensors on one device. A scene above the fast-big cutover
     carries `bforest` and no hierarchy (`wbvh` None); a scene uploaded
     under FLUCTUS_FOREST=treelet with wide tables above 8 MB carries
-    `ftables` beside `wbvh`. The env map is not part of this port yet:
-    scenes render with `use_env_map=False`."""
+    `ftables` beside `wbvh`. `envmap` is always present: the loaded env
+    map, or a 1x1 black one when none is loaded (the JAX package's
+    `envmap.dummy()`), which `RenderConfig.use_env_map` then leaves
+    unread."""
     geom: Geometry
     wbvh: WideBVH | None
     materials: Materials
     atlas: TextureAtlas
+    envmap: EnvMap
     bforest: BruteForest | None = None
     ftables: ForestTables | None = None
 

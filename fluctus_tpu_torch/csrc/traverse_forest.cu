@@ -49,8 +49,8 @@ constexpr int kThreads = 128;
 // lane skips the chunk when the chunk's entry distance does not beat its
 // best t, or when it is already blocked (any-hit form); otherwise it walks
 // the chunk from node 0 under its best t. Pad slots enter with t 0 and
-// take no step.
-template <bool ANY_HIT>
+// take no step. CAP is the walk's stack (wide_walk.cuh).
+template <bool ANY_HIT, int CAP>
 __global__ void __launch_bounds__(kThreads)
 forest_kernel(const int* __restrict__ sel, const float* __restrict__ ent,
               const float* __restrict__ nodes,
@@ -78,8 +78,9 @@ forest_kernel(const int* __restrict__ sel, const float* __restrict__ ent,
   for (int k = 0; k < kk; ++k) {
     if (blocked || !(ent[row * kk + k] < best_t)) continue;
     const size_t c = (size_t)sel[row * kk + k];
-    if (walk<ANY_HIT>(nodes + c * node_rows, leaves + c * leaf_rows, 0,
-                      leaf_width, r, best_t, best_prim, best_u, best_v)) {
+    if (walk<ANY_HIT, CAP>(nodes + c * node_rows, leaves + c * leaf_rows,
+                           0, leaf_width, r, best_t, best_prim, best_u,
+                           best_v)) {
       blocked = true;
     }
   }
@@ -121,7 +122,7 @@ __device__ __forceinline__ void chunk_slab(const float* b, int c,
 // its best t. So the chunks a ray walks, their order, the t each walk
 // starts from and every expression are the same here, and so are the
 // bits. The sort into chunk segments bought coherence only.
-template <bool ANY_HIT>
+template <bool ANY_HIT, int CAP>
 __global__ void __launch_bounds__(kThreads)
 queue_kernel(const float* __restrict__ boxes,
              const float* __restrict__ nodes,
@@ -167,9 +168,9 @@ queue_kernel(const float* __restrict__ boxes,
       }
     }
     if (nc < 0) break;
-    blocked = walk<ANY_HIT>(nodes + nc * node_rows, leaves + nc * leaf_rows,
-                            0, leaf_width, r, best_t, best_prim, best_u,
-                            best_v);
+    blocked = walk<ANY_HIT, CAP>(nodes + nc * node_rows,
+                                 leaves + nc * leaf_rows, 0, leaf_width, r,
+                                 best_t, best_prim, best_u, best_v);
     cur_e = ne;
     cur_c = nc;
   }
@@ -183,10 +184,10 @@ queue_kernel(const float* __restrict__ boxes,
 
 constexpr size_t kMaxSmem = 232448;    // a block's shared memory on Hopper
 
-// Allows queue_kernel<ANY_HIT> `smem` bytes of dynamic shared memory on
-// the current device; the attribute is set only when a launch needs more
-// than that device was allowed before.
-template <bool ANY_HIT>
+// Allows queue_kernel<ANY_HIT, CAP> `smem` bytes of dynamic shared memory
+// on the current device; the attribute is set only when a launch needs
+// more than that device was allowed before.
+template <bool ANY_HIT, int CAP>
 static cudaError_t queue_allow(size_t smem) {
   constexpr int kMaxDevices = 64;
   static size_t allowed[kMaxDevices];
@@ -195,60 +196,90 @@ static cudaError_t queue_allow(size_t smem) {
   if (e != cudaSuccess) return e;
   if (smem <= 48 * 1024 || (dev < kMaxDevices && smem <= allowed[dev]))
     return cudaSuccess;
-  e = cudaFuncSetAttribute(queue_kernel<ANY_HIT>,
+  e = cudaFuncSetAttribute(queue_kernel<ANY_HIT, CAP>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e == cudaSuccess && dev < kMaxDevices) allowed[dev] = smem;
   return e;
 }
 
+// Launches kernel<ANY_HIT, CAP> with `smem` bytes of dynamic shared memory
+// for the stack cap `cap` a launcher was given: the kStackCap instance
+// where it suffices (every hierarchy of wide depth <= 16), the
+// kDeepStackCap one above it.
+#define K5_DISPATCH(kernel, allow, any_hit, cap, grid, smem, s, ARGS)       \
+  do {                                                                     \
+    cudaError_t e_ = cudaSuccess;                                          \
+    if (any_hit && cap <= kStackCap) {                                     \
+      e_ = allow<true, kStackCap>(smem);                                   \
+      if (e_ == cudaSuccess)                                               \
+        kernel<true, kStackCap><<<grid, kThreads, smem, s>>>(ARGS);        \
+    } else if (any_hit) {                                                  \
+      e_ = allow<true, kDeepStackCap>(smem);                               \
+      if (e_ == cudaSuccess)                                               \
+        kernel<true, kDeepStackCap><<<grid, kThreads, smem, s>>>(ARGS);    \
+    } else if (cap <= kStackCap) {                                         \
+      e_ = allow<false, kStackCap>(smem);                                  \
+      if (e_ == cudaSuccess)                                               \
+        kernel<false, kStackCap><<<grid, kThreads, smem, s>>>(ARGS);       \
+    } else {                                                               \
+      e_ = allow<false, kDeepStackCap>(smem);                              \
+      if (e_ == cudaSuccess)                                               \
+        kernel<false, kDeepStackCap><<<grid, kThreads, smem, s>>>(ARGS);   \
+    }                                                                      \
+    if (e_ != cudaSuccess) return (int)e_;                                 \
+  } while (0)
+
+// forest_kernel takes no dynamic shared memory.
+template <bool ANY_HIT, int CAP>
+static cudaError_t no_allow(size_t) {
+  return cudaSuccess;
+}
+
 // a: boxes, nodes, leaves, orig, dir, tv, n, c, tp, lp, leaf_width,
-// any_hit, ot, op, ou, ov, stream.
+// any_hit, ot, op, ou, ov, stack entries a ray needs (cap), stream.
 extern "C" int k5_queue(const long long* a, int n) {
-  if (n != 17) return -1;
+  if (n != 18) return -1;
   const int rays = (int)a[6], c = (int)a[7], tp = (int)a[8];
-  const int lp = (int)a[9], leaf_width = (int)a[10];
+  const int lp = (int)a[9], leaf_width = (int)a[10], cap = (int)a[16];
   if (rays <= 0) return 0;
   const size_t smem = (size_t)6 * c * sizeof(float);
-  if (c <= 0 || smem > kMaxSmem) return -1;
+  if (c <= 0 || smem > kMaxSmem || cap <= 0 || cap > kDeepStackCap)
+    return -1;
   const bool any_hit = a[11] != 0;
-  const cudaError_t e = any_hit ? queue_allow<true>(smem)
-                                : queue_allow<false>(smem);
-  if (e != cudaSuccess) return (int)e;
   const int blocks = (rays + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)a[16];
+  cudaStream_t s = (cudaStream_t)a[17];
 #define K5Q_ARGS                                                          \
   (const float*)a[0], (const float*)a[1], (const float*)a[2],             \
       (const float*)a[3], (const float*)a[4], (const float*)a[5], rays,   \
       c, tp, lp, leaf_width, (float*)a[12], (int*)a[13], (float*)a[14],   \
       (float*)a[15]
-  if (any_hit)
-    queue_kernel<true><<<blocks, kThreads, smem, s>>>(K5Q_ARGS);
-  else
-    queue_kernel<false><<<blocks, kThreads, smem, s>>>(K5Q_ARGS);
+  K5_DISPATCH(queue_kernel, queue_allow, any_hit, cap, blocks, smem, s,
+              K5Q_ARGS);
 #undef K5Q_ARGS
   return (int)cudaGetLastError();
 }
 
 // a: sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv, n_slots, blk, kk,
-// tp, lp, leaf_width, any_hit, ot, op, ou, ov, stream.
+// tp, lp, leaf_width, any_hit, ot, op, ou, ov, stack entries a ray needs
+// (cap), stream.
 extern "C" int k5_forest(const long long* a, int n) {
-  if (n != 22) return -1;
+  if (n != 23) return -1;
   const int n_slots = (int)a[10], blk = (int)a[11], kk = (int)a[12];
   const int tp = (int)a[13], lp = (int)a[14], leaf_width = (int)a[15];
+  const int cap = (int)a[21];
   if (n_slots <= 0) return 0;
+  if (cap <= 0 || cap > kDeepStackCap) return -1;
   const int blocks = (n_slots + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)a[21];
+  cudaStream_t s = (cudaStream_t)a[22];
 #define K5_ARGS                                                           \
   (const int*)a[0], (const float*)a[1], (const float*)a[2],               \
       (const float*)a[3], (const float*)a[4], (const float*)a[5],         \
       (const float*)a[6], (const int*)a[7], (const float*)a[8],           \
       (const float*)a[9], n_slots, blk, kk, tp, lp, leaf_width,           \
       (float*)a[17], (int*)a[18], (float*)a[19], (float*)a[20]
-  if (a[16])
-    forest_kernel<true><<<blocks, kThreads, 0, s>>>(K5_ARGS);
-  else
-    forest_kernel<false><<<blocks, kThreads, 0, s>>>(K5_ARGS);
+  K5_DISPATCH(forest_kernel, no_allow, a[16] != 0, cap, blocks, (size_t)0,
+              s, K5_ARGS);
 #undef K5_ARGS
   return (int)cudaGetLastError();
 }

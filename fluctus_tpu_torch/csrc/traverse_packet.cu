@@ -56,9 +56,11 @@
 // then 8 refs as int bits), a leaf W x [v0 e1 e2 id] with the id as int
 // bits. The constants and safe_inv come from wide_walk.cuh. Arithmetic and
 // visit order equal the plain version (ops/traverse_pallas.py::
-// packet_plain); built with -fmad=false, the two agree bit for bit. The
-// wrapper refuses hierarchies whose worst-case stack (7 * depth + 1)
-// exceeds 192, so the push never clamps.
+// packet_plain); built with -fmad=false, the two agree bit for bit. Each
+// warp's stack holds kMaxStack = 7 * 64 + 1 entries, the worst case of the
+// deepest hierarchy the builder makes (wide depth 64), so the push never
+// clamps; the wrapper refuses a deeper one. 8 warps x 449 x 4 bytes is
+// 14 KB of a CTA's shared memory, which leaves the 4 CTAs an SM in place.
 //
 // Launcher: the package's one C signature (fluctus_tpu_torch/launch.py);
 // it returns cudaGetLastError(), or -1 for arguments out of range.
@@ -90,8 +92,8 @@ constexpr int kThreads = kBlk * kSplit / kCluster;
 constexpr int kWarps = kThreads / 32;          // warps of one CTA
 constexpr int kPacketWarps = kWarps * kCluster;
 constexpr int kKids = 8 / kSplit;              // children per thread
-constexpr int kStack = 192;
 constexpr int kMaxW = 32;
+constexpr int kMaxStack = 449;     // 7 * 64 + 1: wide depth 64
 constexpr unsigned kAll = 0xffffffffu;
 
 static_assert((kSplit == 1 || kSplit == 2 || kSplit == 4) &&
@@ -144,7 +146,7 @@ packet_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
   // ord ints) and a mask of the hit children | (all lanes blocked) << 8
   __shared__ int s_key[2][kPacketWarps][8];
   __shared__ int s_mask[2][kPacketWarps];
-  __shared__ int s_stack[kWarps][kStack];
+  __shared__ int s_stack[kWarps][kMaxStack];
   extern __shared__ __align__(16) float s_rows[];   // kWarps x 2 x row_floats
 
   cg::cluster_group cl = cg::this_cluster();

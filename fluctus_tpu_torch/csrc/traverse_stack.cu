@@ -48,6 +48,7 @@
 namespace {
 
 using wide_walk::kBig;
+using wide_walk::kDeepStackCap;
 using wide_walk::kStackCap;
 using wide_walk::moller;
 using wide_walk::Ray;
@@ -331,7 +332,12 @@ extern "C" int k1_traverse(const long long* a, int n) {
   const int n_rays = (int)a[5], root_ref = (int)a[6], leaf_width = (int)a[7];
   const int cap = (int)a[14];
   if (n_rays <= 0) return 0;
-  if (leaf_width <= 0 || cap <= 0 || cap > kStackCap) return -1;
+  // the shared stack takes any depth up to the builder's (the wrapper's
+  // cap, 16 x cap x 8 bytes a CTA: 59,392 at wide depth 64); the local
+  // variant has kStackCap entries a ray
+  if (leaf_width <= 0 || cap <= 0 ||
+      cap > (kSharedStack ? kDeepStackCap : kStackCap))
+    return -1;
   const int blocks = (n_rays + kRays - 1) / kRays;
   const size_t smem = kSharedStack ? (size_t)kRays * cap * sizeof(Entry) : 0;
   cudaStream_t s = (cudaStream_t)a[15];

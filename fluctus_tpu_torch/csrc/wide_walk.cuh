@@ -18,7 +18,13 @@
 
 namespace wide_walk {
 
-constexpr int kStackCap = 128;     // wrappers check 7*(depth+1)+9 <= this
+// Stack entries a walk holds: 7 * (depth + 1) + 9 for a hierarchy of
+// wide depth `depth` (ops/traverse_stack.py::stack_entries). kStackCap
+// covers wide depth 16; kDeepStackCap covers 64, the depth of the binary
+// builder's deepest tree (accel/bvh.py MAX_DEPTH), so no walk refuses a
+// hierarchy the builder can make.
+constexpr int kStackCap = 128;
+constexpr int kDeepStackCap = 464;
 constexpr float kBig = 3.0e38f;    // "no child" sentinel of the plain version
 constexpr float kTriEps = 1e-12f;
 
@@ -109,9 +115,10 @@ __device__ __forceinline__ bool leaf_test(const float* __restrict__ row,
 }
 
 // Walk the hierarchy rooted at `root_ref` (>= 0 an inner node, < 0 the
-// leaf ~root_ref) for one ray, updating the best hit in place. Returns
-// true in the any-hit form when a triangle is hit before best_t.
-template <bool ANY_HIT>
+// leaf ~root_ref) for one ray, updating the best hit in place, with a
+// thread-local stack of CAP entries. Returns true in the any-hit form when
+// a triangle is hit before best_t.
+template <bool ANY_HIT, int CAP = kStackCap>
 __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
                                      const float* __restrict__ leaves,
                                      int root_ref, int leaf_width,
@@ -120,8 +127,8 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
                                      float& best_v) {
   const int row_len = leaf_width * 10;
   bool blocked = false;
-  float skey[kStackCap];
-  int sref[kStackCap];
+  float skey[CAP];
+  int sref[CAP];
   int sp = 0;
 
   if (root_ref < 0) {
@@ -162,7 +169,7 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
           cr[k] = ref;
         }
       }
-      for (int k = nc - 1; k >= 0 && sp < kStackCap; --k) {   // far first
+      for (int k = nc - 1; k >= 0 && sp < CAP; --k) {   // far first
         skey[sp] = ck[k];
         sref[sp] = cr[k];
         ++sp;

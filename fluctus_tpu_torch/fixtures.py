@@ -256,3 +256,184 @@ def wide_tie_bvh(seed: int = 0, n_rays: int = 1024):
                         -np.ones((n_rays, 1))], 1)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return arrays, orig.astype(np.float32), d.astype(np.float32), want
+
+
+DEEP_W = 16
+
+
+def deep_chain_bvh(wide_depth: int, order: str = "near", seed: int = 0,
+                   n_rays: int = 1024):
+    """An 8-wide hierarchy of `wide_depth` levels that is a chain: each
+    inner node has 7 leaf children and one inner child, the deepest 8
+    leaves (accel/wide.py rows, leaf width 16, two triangles a leaf).
+    Rays start above everything and go down (-z, jittered within 0.01).
+
+    order "near": each level's leaves lie below everything deeper, so the
+    inner child's box is entered first and a near-first walk (K1) or a
+    packet (K4) descends before it pops a leaf; the packet's stack then
+    holds 7 * depth + 1 entries at the bottom, K1's 7 * depth + 8. order
+    "far": each level's leaves lie above everything deeper, so the inner
+    child is entered last and the stacks stay shallow. Triangles span x
+    in [0, 0.85] above the deepest level, and the square [0, 1]^2 there;
+    one ray in four has x in [0.85, 1] and reaches the bottom.
+
+    Returns (arrays for convert.wide_from_numpy, orig, dir, tris (n, 3, 3)
+    with triangle i of id i)."""
+    if order not in ("near", "far"):
+        raise ValueError(f"order {order!r}: use near or far")
+    g = np.random.default_rng(seed)
+    d, w = wide_depth, DEEP_W
+    n_leaves = 7 * d + 1
+    leaves = np.zeros((n_leaves, w, 10), np.float32)
+    leaves[..., 9] = np.int32(-1).view(np.float32)
+    tris = []
+    leaf_of = []        # (level, leaf index) for each leaf, in level order
+    for lv in range(d):
+        kids = 8 if lv == d - 1 else 7
+        base = lv if order == "near" else d - lv
+        span = 1.0 if lv == d - 1 else 0.85
+        for j in range(kids):
+            leaf = len(leaf_of)
+            leaf_of.append(lv)
+            for slot in range(2):
+                s = g.uniform(0.3, 0.6)
+                x0, y0 = g.uniform(0.0, span - s), g.uniform(0.0, 1.0 - s)
+                z = 1.0 + base + 0.1 * j + 0.05 * slot
+                v0 = np.float32([x0, y0, z])
+                v1 = np.float32([x0 + s, y0, z])
+                v2 = np.float32([x0, y0 + s, z])
+                leaves[leaf, slot, 0:3] = v0
+                leaves[leaf, slot, 3:6] = v1 - v0
+                leaves[leaf, slot, 6:9] = v2 - v0
+                leaves[leaf, slot, 9] = np.int32(len(tris)).view(np.float32)
+                tris.append(np.stack([v0, v1, v2]))
+    tris = np.asarray(tris, np.float32)
+
+    def leaf_box(leaf):
+        r = leaves[leaf, :2]
+        v = np.concatenate([r[:, 0:3], r[:, 0:3] + r[:, 3:6],
+                            r[:, 0:3] + r[:, 6:9]])
+        return np.concatenate([v.min(0), v.max(0)])
+
+    nodes = np.zeros((d, 56), np.float32)
+    boxes = [None] * d
+    for lv in range(d - 1, -1, -1):        # bottom-up: children boxes first
+        first = 7 * lv
+        kids = [(leaf_box(first + j), ~(first + j))
+                for j in range(8 if lv == d - 1 else 7)]
+        if lv < d - 1:
+            # the inner child sits in a seeded slot among the leaves
+            kids.insert(int(g.integers(0, 8)), (boxes[lv + 1], lv + 1))
+        row = np.zeros(56, np.float32)
+        refs = np.zeros(8, np.int32)
+        for slot, (b, ref) in enumerate(kids):
+            row[6 * slot:6 * slot + 6] = b
+            refs[slot] = ref
+        row[48:56] = refs.view(np.float32)
+        nodes[lv] = row
+        bs = np.stack([b for b, _ in kids])
+        boxes[lv] = np.concatenate([bs[:, :3].min(0), bs[:, 3:].max(0)])
+    arrays = {"nodes": nodes, "leaves": leaves, "root_ref": 0, "depth": d,
+              "leaf_width": w}
+
+    x = np.where(np.arange(n_rays) % 4 == 3, g.uniform(0.85, 1.0, n_rays),
+                 g.uniform(0.0, 1.0, n_rays))
+    orig = np.stack([x, g.uniform(0.0, 1.0, n_rays),
+                     np.full(n_rays, d + 5.0)], 1).astype(np.float32)
+    dir_ = np.concatenate([g.uniform(-0.01, 0.01, (n_rays, 2)),
+                           -np.ones((n_rays, 1))], 1)
+    dir_ /= np.linalg.norm(dir_, axis=1, keepdims=True)
+    return arrays, orig, dir_.astype(np.float32), tris
+
+
+def brute_closest(tris, orig, dir_, t_max):
+    """Closest hit of each ray over all triangles by float64
+    Moller-Trumbore: (t, prim), prim -1 on a miss. The reference for
+    hierarchies no traversal walks faithfully."""
+    o = orig.astype(np.float64)[:, None, :]
+    d = dir_.astype(np.float64)[:, None, :]
+    v0 = tris[:, 0].astype(np.float64)[None]
+    e1 = tris[:, 1].astype(np.float64)[None] - v0
+    e2 = tris[:, 2].astype(np.float64)[None] - v0
+    p = np.cross(d, e2)
+    det = (e1 * p).sum(-1)
+    ok = np.abs(det) > 1e-12
+    idet = 1.0 / np.where(ok, det, 1.0)
+    tv = o - v0
+    u = (tv * p).sum(-1) * idet
+    q = np.cross(tv, e1)
+    v = (d * q).sum(-1) * idet
+    t = (e2 * q).sum(-1) * idet
+    ok &= (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & (t >= 0) \
+        & (t < np.asarray(t_max, np.float64).reshape(-1, 1))
+    t = np.where(ok, t, np.inf)
+    prim = np.argmin(t, 1)
+    best = t[np.arange(len(t)), prim]
+    return best, np.where(np.isfinite(best), prim, -1).astype(np.int32)
+
+
+def deep_chain_forest(wide_depth: int, seed: int = 0, n_rays: int = 1024):
+    """A two-chunk treelet forest (accel/forest.py layout: per-chunk
+    8-wide rows rooted at node 0, global ids) whose chunks are
+    deep_chain_bvh chains of `wide_depth` levels in order "near", the
+    second moved by +1.2 in x with its ids after the first's. Rays as in
+    deep_chain_bvh over x in [0, 2.2].
+
+    Returns (arrays for convert.forest_from_numpy, orig, dir, tris)."""
+    a0, _, _, t0 = deep_chain_bvh(wide_depth, "near", seed, n_rays)
+    a1, _, _, t1 = deep_chain_bvh(wide_depth, "near", seed + 1, n_rays)
+    shift = np.float32(1.2)
+    nodes1 = a1["nodes"].copy()
+    nodes1[:, 0:48:6] += shift          # lo.x
+    nodes1[:, 3:48:6] += shift          # hi.x
+    leaves1 = a1["leaves"].copy()
+    leaves1[..., 0] += shift            # v0.x (edges are unchanged)
+    ids = leaves1[..., 9].view(np.int32)
+    leaves1[..., 9] = np.where(ids >= 0, ids + len(t0), ids).astype(
+        np.int32).view(np.float32)
+    t1 = t1.copy()
+    t1[..., 0] += shift
+
+    def chunk_box(nodes):
+        b = nodes[0, 0:48].reshape(8, 6)
+        b = b[np.isfinite(b[:, 0])]
+        return np.concatenate([b[:, :3].min(0), b[:, 3:].max(0),
+                               np.zeros(2, np.float32)])
+
+    arrays = {"nodes": np.stack([a0["nodes"], nodes1]),
+              "leaves": np.stack([a0["leaves"], leaves1]),
+              "boxes": np.stack([chunk_box(a0["nodes"]),
+                                 chunk_box(nodes1)]).astype(np.float32),
+              "lvl": wide_depth + 1, "leaf_width": DEEP_W}
+    g = np.random.default_rng(seed + 2)
+    orig = np.stack([g.uniform(0.0, 2.2, n_rays), g.uniform(0.0, 1.0, n_rays),
+                     np.full(n_rays, wide_depth + 5.0)], 1).astype(np.float32)
+    dir_ = np.concatenate([g.uniform(-0.01, 0.01, (n_rays, 2)),
+                           -np.ones((n_rays, 1))], 1)
+    dir_ /= np.linalg.norm(dir_, axis=1, keepdims=True)
+    return arrays, orig, dir_.astype(np.float32), np.concatenate([t0, t1])
+
+
+def sky_env(width: int = 1024, height: int = 512, seed: int = 0,
+            sun=(0.3, 0.3), sun_radiance: float = 1000.0,
+            sun_texels: float = 3.0) -> np.ndarray:
+    """A lat-long HDR sky, (height, width, 3) float32: a blue gradient above
+    the horizon, a darker ground below it, a sun disc `sun_texels` texels
+    in radius at uv `sun` with radiance ~`sun_radiance`, and seeded
+    multiplicative noise (10 %). The env map of the env-lit checks; write
+    it with io/hdr.py's write_hdr to load it as a file."""
+    g = np.random.default_rng(seed)
+    v = ((np.arange(height) + 0.5) / height)[:, None, None]
+    u = ((np.arange(width) + 0.5) / width)[None, :, None]
+    zenith = np.float32([0.25, 0.45, 1.0])
+    horizon = np.float32([0.9, 0.85, 0.8])
+    ground = np.float32([0.18, 0.15, 0.12])
+    t = np.clip(v / 0.5, 0.0, 1.0)
+    sky = zenith * (1.0 - t) + horizon * t
+    img = np.where(v < 0.5, sky, ground * (1.2 - 0.4 * v))
+    du = (u - sun[0]) * width
+    dv = (v - sun[1]) * height
+    disc = (du * du + dv * dv) <= sun_texels * sun_texels
+    img = np.where(disc, np.float32([1.0, 0.95, 0.85]) * sun_radiance, img)
+    img = img * (1.0 + 0.1 * g.standard_normal((height, width, 1)))
+    return np.clip(img, 0.0, None).astype(np.float32)

@@ -18,6 +18,7 @@ from fluctus_tpu_torch.core import rng, samplers, vecmath as vm
 from fluctus_tpu_torch.core.types import (
     DeviceScene, Hit, RenderConfig, RenderParams)
 from fluctus_tpu_torch.ops import bsdf as bsdf_mod
+from fluctus_tpu_torch.ops import envmap as env_ops
 from fluctus_tpu_torch.ops import texture as tex_ops
 from fluctus_tpu_torch.ops import (
     ray_sort, traverse_brute, traverse_forest, traverse_pallas,
@@ -237,6 +238,40 @@ def neutralize_rays(orig, dir, active):
     return vm.where3(active, orig, far), vm.where3(active, dir, up)
 
 
+def nee_env(scene, params, cfg, ctx, sh_orig, wi, types_mask, pix, samp,
+            bounce, light_pick_prob, active=None):
+    """Next-event estimation against the env map by alias sampling
+    (reference: mk_sample_bsdf.cl:71-117). The shadow ray is 2 x
+    world_radius long and the area-light quad blocks it."""
+    u = rng.uniform(pix, samp, bounce, rng.Streams.LIGHT_U)
+    L, direct_pdf_w, rad = env_ops.sample_alias_radiance(scene.envmap, u)
+    L = vm.normalize(L)
+    len_l = 2.0 * params.world_radius * torch.ones(
+        wi.shape[0], dtype=torch.float32, device=wi.device)
+
+    f = bsdf_mod.bsdf_eval(ctx, wi, L, types_mask)
+    cos_th = torch.clamp(vm.dot(L, ctx.n), min=0.0)
+    bsdf_pdf_w = torch.clamp(bsdf_mod.bsdf_pdf(ctx, wi, L, types_mask),
+                             min=0.0)
+    # trace only lanes whose contribution can be nonzero: about half the
+    # draws of a full-sphere map land below a diffuse surface's hemisphere
+    live = (cos_th > 0.0) & ~vm.is_zero(f) & (direct_pdf_w != 0.0)
+    if active is not None:
+        live = live & active
+    sh_o, L_t = neutralize_rays(sh_orig, L, live)
+    blocked = _shadow_blocked(scene, params, cfg, sh_o, L_t, len_l,
+                              check_area_quad=True)
+    weight = 1.0
+    if cfg.sample_impl:
+        weight = (direct_pdf_w * light_pick_prob) / torch.clamp(
+            direct_pdf_w * light_pick_prob + bsdf_pdf_w, min=1e-20)
+    li = rad * params.env_strength
+    denom = torch.clamp(light_pick_prob * direct_pdf_w, min=1e-20)
+    contrib = f * li * (weight * cos_th / denom)[..., None]
+    ok = ~blocked & (direct_pdf_w != 0.0)
+    return vm.where3(ok, contrib, torch.zeros_like(contrib))
+
+
 def nee_area(scene, params, cfg, ctx, sh_orig, wi, types_mask, pix, samp,
              bounce, light_pick_prob, shorten=1.0, active=None):
     """Next-event estimation against the rectangular area light
@@ -272,6 +307,19 @@ def nee_area(scene, params, cfg, ctx, sh_orig, wi, types_mask, pix, samp,
     contrib = al.emission * (f * (weight * cos_th / denom)[..., None])
     ok = ~blocked & (cos_light > 0.0)
     return vm.where3(ok, contrib, torch.zeros_like(contrib))
+
+
+def implicit_env_weight(scene, params, cfg, dir, last_pdf_w, last_specular,
+                        path_len, light_pick_prob):
+    """MIS weight of an implicit env-map hit
+    (reference: wf_logic.cl:84-107, mk_next_vertex.cl:74-96)."""
+    if not (cfg.sample_impl and cfg.sample_expl and cfg.use_env_map):
+        return torch.ones(dir.shape[0], dtype=torch.float32,
+                          device=dir.device)
+    direct_pdf_w = env_ops.pdf_dir(scene.envmap, dir)
+    actual = last_pdf_w * light_pick_prob
+    w = actual / torch.clamp(actual + direct_pdf_w, min=1e-20)
+    return torch.where((path_len > 1) & ~last_specular, w, 1.0)
 
 
 def implicit_area_weight(params, cfg, hit: Hit, orig, dir, last_pdf_w,

@@ -16,6 +16,7 @@ from fluctus_tpu_torch.core.types import (
 from fluctus_tpu_torch.integrators import common
 from fluctus_tpu_torch.ops import bsdf as bsdf_mod
 from fluctus_tpu_torch.ops import camera as cam_ops
+from fluctus_tpu_torch.ops import envmap as env_ops
 
 LIGHT_PICK_PROB = 1.0   # every light sampled (reference: mk_sample_bsdf.cl:73)
 # samples are summed in groups of this size: the order of the JAX
@@ -29,9 +30,6 @@ def sample_radiance(scene: DeviceScene, params: RenderParams,
     """One complete path per pixel index; returns (B, 3) radiance. The
     bounce loop ends after max_bounces + 1 vertices or as soon as no lane
     is alive (the JAX package's early_exit=True)."""
-    if cfg.use_env_map:
-        raise NotImplementedError(
-            "env-map lighting is not ported yet (ROADMAP Queue 1, env maps)")
     types = cfg.bsdf_types_mask
     dev = pixel_idx.device
     pix = pixel_idx
@@ -60,6 +58,18 @@ def sample_radiance(scene: DeviceScene, params: RenderParams,
         hit = common.trace_scene(scene, params, cfg, t_orig, t_dir)
         miss = hit.prim < 0
 
+        # implicit env hit (mk_next_vertex.cl:72-96); without implicit
+        # sampling only the camera ray sees the env map
+        if cfg.use_env_map:
+            bg = env_ops.eval_dir(scene.envmap, dir) * params.env_strength
+            if not cfg.sample_impl:
+                bg = (1.0 if path_len == 1 else 0.0) * bg
+            w_env = common.implicit_env_weight(
+                scene, params, cfg, dir, last_pdf_w, last_specular,
+                path_len, LIGHT_PICK_PROB)
+            ei = ei + vm.where3(miss & alive,
+                                w_env[..., None] * throughput * bg, zero3)
+
         # implicit area-light hit (mk_next_vertex.cl:98-117)
         if cfg.use_area_light and cfg.sample_impl:
             w_area = common.implicit_area_weight(
@@ -75,8 +85,13 @@ def sample_radiance(scene: DeviceScene, params: RenderParams,
         ctx = common.make_shading_ctx(scene, hit, dir)
         sh_orig = hit.p - common.OFFSET_SHADOW * dir
         singular = bsdf_mod.is_singular(ctx.bsdf_id)
+        nee_mask = alive & ~singular
+        if cfg.sample_expl and cfg.use_env_map:
+            c = common.nee_env(scene, params, cfg, ctx, sh_orig, dir, types,
+                               pix, samp, bounce, LIGHT_PICK_PROB,
+                               active=nee_mask)
+            ei = ei + vm.where3(nee_mask, throughput * c, zero3)
         if cfg.sample_expl and cfg.use_area_light:
-            nee_mask = alive & ~singular
             c = common.nee_area(scene, params, cfg, ctx, sh_orig, dir, types,
                                 pix, samp, bounce, LIGHT_PICK_PROB,
                                 active=nee_mask)

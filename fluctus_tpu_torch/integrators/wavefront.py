@@ -14,6 +14,10 @@ src/wf_extrays.cl, src/wf_shadowrays.cl, src/wf_mat_*.cl).
   (`_nee_single_light`: the light distance shortened by 0.995,
   wf_logic.cl:272), so with next-event estimation on its estimate of a
   pixel differs slightly from the lockstep integrator's.
+- Lights: the env map, the area light or both. Next-event estimation
+  picks one light per vertex, the env map with probability 0.5 when both
+  are on (`_nee_single_light`), and the implicit hits weigh by the same
+  pick probabilities.
 - The stream emits each completed sample as a row (r, g, b, pixel) and
   bins the rows at the end: a stable sort by pixel puts exactly `spp`
   rows per pixel side by side, and a reshape-sum averages them.
@@ -26,8 +30,7 @@ a launch is a Python loop over segments that carries the same state, all
 on the device. The only host reads are the drain checks of `render_stream`
 and the final sample count. The loss half of the JAX module
 (`stream_loss*`, `stream_radiance`, `plan_stream_segments`) is not ported:
-it belongs to the gradients (ROADMAP Queue 1). Env-map lighting is not
-ported either, and raises.
+it belongs to the gradients (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -41,16 +44,11 @@ from fluctus_tpu_torch.core.types import (
 from fluctus_tpu_torch.integrators import common
 from fluctus_tpu_torch.ops import bsdf as bsdf_mod
 from fluctus_tpu_torch.ops import camera as cam_ops
+from fluctus_tpu_torch.ops import envmap as env_ops
 
 # sort key of an empty sample row (the JAX package's pix = -1 as uint32)
 EMPTY_KEY = (1 << 32) - 1
 NEE_SHORTEN = 0.995   # reference: wf_logic.cl:272
-
-
-def _no_env(cfg: RenderConfig) -> None:
-    if cfg.use_env_map:
-        raise NotImplementedError(
-            "env-map lighting is not ported yet (ROADMAP Queue 1, env maps)")
 
 
 def _nee_on(cfg: RenderConfig) -> bool:
@@ -94,27 +92,73 @@ def init_state(params: RenderParams, cfg: RenderConfig) -> PathState:
     return _fresh_state(params, cfg, lane % n_pix, lane // n_pix)
 
 
+def _env_prob(cfg: RenderConfig) -> float:
+    """Probability that a wavefront NEE draw picks the env map: 0, 0.5 or
+    1 (the reference's envMapProb)."""
+    use_env = 1 if cfg.use_env_map else 0
+    use_area = 1 if cfg.use_area_light else 0
+    return use_env / max(1, use_env + use_area)
+
+
 def _nee_single_light(scene, params, cfg, ctx, sh_orig, wi, types, pix, samp,
                       bounce, defer: bool = False):
     """Wavefront next-event estimation: one light, one shadow ray
-    (reference: wf_logic.cl:215-303, wf_shadowrays.cl). Only the area
-    light is ported, and it is picked with probability 1. Returns the
-    unoccluded candidate and either the light pick probability or, with
-    `defer`, the shadow ray (orig, dir, length) for the caller to trace."""
-    _no_env(cfg)
-    pick_prob = 1.0
-    al = params.area_light
-    u1 = rng.uniform(pix, samp, bounce, rng.Streams.LIGHT_AREA_U)
-    u2 = rng.uniform(pix, samp, bounce, rng.Streams.LIGHT_AREA_V)
-    pos_l, pdf_a = samplers.sample_area_light(al.pos, al.right, al.up,
-                                              al.size, u1, u2)
-    delta = pos_l - sh_orig
-    dist = vm.length(delta)
-    ldir = vm.normalize(delta)
-    cos_light = torch.clamp(vm.dot(al.normal, -ldir), min=0.0)
-    llen = dist * NEE_SHORTEN
-    direct_pdf_w = samplers.pdf_area_to_solid_angle(pdf_a, llen, cos_light)
-    valid = cos_light > 0.0
+    (reference: wf_logic.cl:215-303, wf_shadowrays.cl). The env map is
+    picked with probability `_env_prob` (a LIGHT_PICK draw when both
+    lights are on), else the area light; an env ray is 2 x world_radius
+    long, an area ray ends at 0.995 of the light distance. Returns the
+    unoccluded candidate and either the per-lane pick probability or,
+    with `defer`, the shadow ray (orig, dir, length) for the caller to
+    trace."""
+    dev = wi.device
+    env_prob = _env_prob(cfg)
+    if cfg.use_area_light:
+        u_pick = rng.uniform(pix, samp, bounce, rng.Streams.LIGHT_PICK)
+        pick_env = u_pick < env_prob
+    else:
+        pick_env = torch.full(pix.shape, bool(cfg.use_env_map),
+                              dtype=torch.bool, device=dev)
+
+    b = wi.shape[0]
+    ldir = torch.zeros((b, 3), dtype=torch.float32, device=dev)
+    llen = torch.zeros(b, dtype=torch.float32, device=dev)
+    emission = torch.zeros((b, 3), dtype=torch.float32, device=dev)
+    direct_pdf_w = torch.zeros(b, dtype=torch.float32, device=dev)
+    pick_prob = torch.ones(b, dtype=torch.float32, device=dev)
+    valid = torch.zeros(b, dtype=torch.bool, device=dev)
+
+    if cfg.use_env_map:
+        u = rng.uniform(pix, samp, bounce, rng.Streams.LIGHT_U)
+        L, pdf_env, rad = env_ops.sample_alias_radiance(scene.envmap, u)
+        L = vm.normalize(L)
+        li = rad * params.env_strength
+        ldir = vm.where3(pick_env, L, ldir)
+        llen = torch.where(pick_env, 2.0 * params.world_radius, llen)
+        emission = vm.where3(pick_env, li, emission)
+        direct_pdf_w = torch.where(pick_env, pdf_env, direct_pdf_w)
+        pick_prob = torch.where(pick_env, env_prob, pick_prob)
+        valid = valid | (pick_env & (pdf_env != 0.0))
+
+    if cfg.use_area_light:
+        al = params.area_light
+        u1 = rng.uniform(pix, samp, bounce, rng.Streams.LIGHT_AREA_U)
+        u2 = rng.uniform(pix, samp, bounce, rng.Streams.LIGHT_AREA_V)
+        pos_l, pdf_a = samplers.sample_area_light(al.pos, al.right, al.up,
+                                                  al.size, u1, u2)
+        delta = pos_l - sh_orig
+        dist = vm.length(delta)
+        L = vm.normalize(delta)
+        cos_light = torch.clamp(vm.dot(al.normal, -L), min=0.0)
+        pdf_w = samplers.pdf_area_to_solid_angle(pdf_a, dist * NEE_SHORTEN,
+                                                 cos_light)
+        pick_area = ~pick_env
+        ldir = vm.where3(pick_area, L, ldir)
+        llen = torch.where(pick_area, dist * NEE_SHORTEN, llen)
+        emission = vm.where3(pick_area, al.emission.expand_as(emission),
+                             emission)
+        direct_pdf_w = torch.where(pick_area, pdf_w, direct_pdf_w)
+        pick_prob = torch.where(pick_area, 1.0 - env_prob, pick_prob)
+        valid = valid | (pick_area & (cos_light > 0.0))
 
     f = bsdf_mod.bsdf_eval(ctx, wi, ldir, types)
     cos_th = torch.clamp(vm.dot(ldir, ctx.n), min=0.0)
@@ -122,7 +166,7 @@ def _nee_single_light(scene, params, cfg, ctx, sh_orig, wi, types, pix, samp,
                              min=0.0)
     # only lanes whose contribution can be nonzero trace (the reference
     # checks the light quad on every shadow ray; the 0.995 shortening
-    # keeps the ray off its own emitter)
+    # keeps an area ray off its own emitter)
     live = valid & (cos_th > 0.0) & ~vm.is_zero(f)
     sh_o, ldir_t = common.neutralize_rays(sh_orig, ldir, live)
     weight = 1.0
@@ -130,7 +174,7 @@ def _nee_single_light(scene, params, cfg, ctx, sh_orig, wi, types, pix, samp,
         weight = (direct_pdf_w * pick_prob) / torch.clamp(
             direct_pdf_w * pick_prob + bsdf_pdf_w, min=1e-20)
     denom = torch.clamp(pick_prob * direct_pdf_w, min=1e-20)
-    contrib = f * al.emission * (weight * cos_th / denom)[..., None]
+    contrib = f * emission * (weight * cos_th / denom)[..., None]
     cand = vm.where3(valid & (direct_pdf_w > 0.0), contrib,
                      torch.zeros_like(contrib))
     lens = torch.clamp(llen, min=1e-6)
@@ -164,7 +208,6 @@ def _segment_core(scene: DeviceScene, params: RenderParams,
     this segment's extension rays. Returns, besides the vertex results,
     `resolved` (the previous candidates where unblocked) and `pend2`
     (this segment's)."""
-    _no_env(cfg)
     types = cfg.bsdf_types_mask
     pix = state.pixel_index
     samp = state.sample_index
@@ -185,6 +228,8 @@ def _segment_core(scene: DeviceScene, params: RenderParams,
 
     t = state.throughput
     ei = state.radiance
+    # the pick probability of the previous NEE draw, for the MIS weights
+    env_prob = _env_prob(cfg)
 
     # bounce cap and Russian roulette (wf_logic.cl:60-69): the last traced
     # vertex is still shaded, as in the lockstep integrator; roulette only
@@ -199,12 +244,22 @@ def _segment_core(scene: DeviceScene, params: RenderParams,
         t_cont = vm.where3(cut & survive, t / cont_prob[..., None], t)
         rr_term = cut & ~survive
 
-    # implicit area-light hit (mk_next_vertex.cl:98-117)
+    # implicit env hit (mk_next_vertex.cl:72-96)
     miss = hit.prim < 0
+    if cfg.use_env_map:
+        bg = env_ops.eval_dir(scene.envmap, state.dir) * params.env_strength
+        if not cfg.sample_impl:
+            bg = torch.where(path_len == 1, 1.0, 0.0)[..., None] * bg
+        w_env = common.implicit_env_weight(
+            scene, params, cfg, state.dir, state.last_pdf_w,
+            state.last_specular, path_len, env_prob)
+        ei = ei + vm.where3(miss, w_env[..., None] * t * bg, zero3)
+
+    # implicit area-light hit (mk_next_vertex.cl:98-117)
     if cfg.use_area_light and cfg.sample_impl:
         w_area = common.implicit_area_weight(
             params, cfg, hit, state.orig, state.dir, state.last_pdf_w,
-            state.last_specular, path_len, 1.0)
+            state.last_specular, path_len, 1.0 - env_prob)
         add = w_area[..., None] * t * params.area_light.emission
         ei = ei + vm.where3(hit.area_light, add, zero3)
 
@@ -316,7 +371,6 @@ def render_scatter_reference(scene: DeviceScene, params: RenderParams,
     per-segment splat until the image holds spp samples per pixel on
     average (the reference's interactive accumulation). Returns the
     (H, W, 3) framebuffer divided by its sample counts."""
-    _no_env(cfg)
     n_pix = cfg.width * cfg.height
     target = n_pix * spp
     state = init_state(params, cfg)
@@ -467,7 +521,6 @@ def render_stream(scene: DeviceScene, params: RenderParams,
     launch late while launches take under 0.25 s, as in the JAX package:
     so whole launches run past the drain, and the rows come in multiples
     of pool * segments_per_launch, which `bucket_rows` pads to."""
-    _no_env(cfg)
     # without next-event estimation there are no shadow rays to defer
     if deferred and not _nee_on(cfg):
         deferred = False

@@ -57,7 +57,7 @@ from fluctus_tpu_torch.launch import CSRC, check, launch, load_library
 from fluctus_tpu_torch.ops import ray_sort
 from fluctus_tpu_torch.ops.traverse_brute import _octant, _prep, _slab
 from fluctus_tpu_torch.ops.traverse_stack import (
-    STACK_CAP, WALK_HEADER, Traversal, _inv_dir as _safe_inv, stack_entries,
+    MAX_STACK, WALK_HEADER, Traversal, _inv_dir as _safe_inv, stack_entries,
     traverse_plain)
 
 BLK = 1024        # rays per block of the passes' schedule
@@ -297,15 +297,18 @@ def load_kernel():
 
 
 def _check_forest(kern, nodes, leaves, lvl, leaf_width):
+    """Checks the chunk tables; returns (c, tp, lp, cap), cap the stack
+    entries a chunk walk needs (the launcher runs the 128-entry walk up to
+    wide depth 16, the 464-entry one above)."""
     c, tp = nodes.shape[0], nodes.shape[1]
     lp = leaves.shape[1]
     check(kern, "nodes", nodes, torch.float32, (c, tp, 56))
     check(kern, "leaves", leaves, torch.float32, (c, lp, leaf_width, 10))
-    if stack_entries(lvl - 1) > STACK_CAP:
-        raise ValueError(f"{kern}: chunk depth {lvl - 1} needs "
-                         f"{stack_entries(lvl - 1)} stack entries, more "
-                         f"than {STACK_CAP}")
-    return c, tp, lp
+    cap = stack_entries(lvl - 1)
+    if cap > MAX_STACK:
+        raise ValueError(f"{kern}: chunk depth {lvl - 1} needs {cap} stack "
+                         f"entries, more than {MAX_STACK}")
+    return c, tp, lp, cap
 
 
 def _check_rays(kern, bb, orig, dir, *per_ray):
@@ -332,7 +335,7 @@ def launch_kernel(sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv,
     nb, kk = bb // blk, sel.shape[-1]
     check("K5", "sel", sel, torch.int32, (nb, kk))
     check("K5", "ent", ent, torch.float32, (nb, kk))
-    c, tp, lp = _check_forest("K5", nodes, leaves, lvl, leaf_width)
+    c, tp, lp, cap = _check_forest("K5", nodes, leaves, lvl, leaf_width)
     _check_rays("K5", bb, orig, dir, ("it", it, torch.float32),
                 ("ip", ip, torch.int32), ("iu", iu, torch.float32),
                 ("iv", iv, torch.float32))
@@ -343,7 +346,7 @@ def launch_kernel(sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv,
     launch(lib.k5_forest, orig.get_device(), *(x.data_ptr() for x in (
         sel, ent, nodes, leaves, orig, dir, it, ip, iu, iv)),
         bb, blk, kk, tp, lp, leaf_width, int(any_hit),
-        *(x.data_ptr() for x in outs))
+        *(x.data_ptr() for x in outs), cap)
     LAUNCHES[_form(any_hit)] += 1
     return outs
 
@@ -361,8 +364,8 @@ def queue_kernel(ft: ForestTables, orig, dir, t_vec, any_hit: bool):
     """Launch K5's work queue on the current stream (signature of
     queue_plain, without `rounds`): one launch, no host read."""
     bb = orig.shape[0]
-    c, tp, lp = _check_forest("K5", ft.nodes, ft.leaves, ft.lvl,
-                              ft.leaf_width)
+    c, tp, lp, cap = _check_forest("K5", ft.nodes, ft.leaves, ft.lvl,
+                                   ft.leaf_width)
     check("K5", "boxes", ft.boxes, torch.float32, (c, 8))
     _check_rays("K5", bb, orig, dir, ("t_vec", t_vec, torch.float32))
     lib = _lib or load_kernel()
@@ -370,7 +373,7 @@ def queue_kernel(ft: ForestTables, orig, dir, t_vec, any_hit: bool):
     launch(lib.k5_queue, orig.get_device(), *(x.data_ptr() for x in (
         ft.boxes, ft.nodes, ft.leaves, orig, dir, t_vec)),
         bb, c, tp, lp, ft.leaf_width, int(any_hit),
-        *(x.data_ptr() for x in outs))
+        *(x.data_ptr() for x in outs), cap)
     LAUNCHES[_form(any_hit)] += 1
     return outs
 

@@ -2,7 +2,10 @@
 (counterpart of `fluctus_tpu/ops/traverse_pallas.py`, the `backend="pallas"`
 path).
 
-A packet of BLK = 512 rays walks one shared stack of STACK = 192 entries.
+A packet of BLK = 512 rays walks one shared stack, which holds the worst
+case of the hierarchy's wide depth (`stack_entries`): K4's holds
+MAX_STACK = 449 entries, enough for wide depth 64, the deepest the builder
+makes; the plain version's is sized from the depth.
 At an inner node every lane slab-tests the 8 children; a child is pushed
 if any lane hits it, far-to-near by the least entry distance over the
 hitting lanes (the lowest slot first among equal keys, so the highest of
@@ -18,7 +21,7 @@ memory, the packet's per-child partials exchanged once an inner visit,
 and reads K1's packed node and leaf rows (the JAX kernel's split tables
 are kept only as `split_tables`, which the tests hold against the JAX
 package); the plain version walks every packet's
-stack at once with PyTorch ops (state: stack (P, 192), sp (P,), lanes
+stack at once with PyTorch ops (state: stack (P, cap), sp (P,), lanes
 (P, 512)). Both evaluate the same expressions in the same order, and the
 kernel is built with -fmad=false, so they agree bit for bit. The wrapper
 takes the plain version for CPU tensors and launches K4 for CUDA tensors,
@@ -27,8 +30,11 @@ with no fallback between the two.
 Deliberate differences from the JAX kernel: empty child slots (lo.x =
 +inf) are skipped, as K1 skips them. The JAX kernel slab-tests their
 degenerate boxes, which a ray through the line y = z = 0 with equal y and
-z slab distances can "hit", pushing node 0 again. And a hierarchy deeper
-than the stack holds is refused instead of clamping the push position.
+z slab distances can "hit", pushing node 0 again. And the stack holds the
+worst case of every hierarchy the builder makes: the JAX kernel's holds
+192 entries and, on a deeper hierarchy, clamps the push position and
+overwrites its top entry, which can lose a subtree (ROADMAP Queue 3,
+faults of the JAX reference).
 One CUDA kernel covers both of the JAX kernel's table placements
 (`hbm`): rows come from device memory either way.
 """
@@ -45,8 +51,8 @@ from fluctus_tpu_torch.ops.traverse_stack import (
     TRI_EPS, WALK_HEADER, Traversal, _inv_dir as _safe_inv)
 
 BLK = 512          # rays per packet (threads per CUDA block)
-STACK = 192        # shared stack entries
 MAX_LEAF_WIDTH = 32   # kMaxW of the CUDA source
+MAX_STACK = 449       # kMaxStack of the CUDA source: stack_entries(64)
 BIG = 3.0e38
 NEG_INF = float("-inf")
 
@@ -139,7 +145,8 @@ def packet_plain(orig, dir, t_vec, bvh: WideBVH, any_hit: bool,
     best_u = torch.zeros((npk, BLK), device=dev)
     best_v = torch.zeros((npk, BLK), device=dev)
     blocked = torch.zeros((npk, BLK), dtype=torch.bool, device=dev)
-    stack = torch.zeros((npk, STACK), dtype=torch.int64, device=dev)
+    cap = stack_entries(bvh.depth)
+    stack = torch.zeros((npk, cap), dtype=torch.int64, device=dev)
     stack[:, 0] = bvh.root_ref
     sp = torch.ones(npk, dtype=torch.int64, device=dev)
     if stats is not None:
@@ -198,7 +205,7 @@ def packet_plain(orig, dir, t_vec, bvh: WideBVH, any_hit: bool,
                 fk = ks.gather(1, far[:, None])[:, 0]
                 valid = fk > NEG_INF
                 ref = refs.gather(1, far[:, None])[:, 0]
-                pos = spi.clamp(max=STACK - 1)
+                pos = spi.clamp(max=cap - 1)
                 stack[pi, pos] = torch.where(valid, ref, stack[pi, pos])
                 spi = spi + valid.long()
                 ks = torch.where(slots == far[:, None], NEG_INF, ks)
@@ -320,10 +327,9 @@ def _launcher(dev: torch.device):
 # ---------------------------------------------------------------- entry
 
 def _run(bvh: WideBVH, orig, dir, t_max, any_hit: bool, launch=None):
-    if stack_entries(bvh.depth) > STACK:
-        raise ValueError(f"K4: hierarchy depth {bvh.depth} needs "
-                         f"{stack_entries(bvh.depth)} stack entries, more "
-                         f"than {STACK}")
+    if stack_entries(bvh.depth) > MAX_STACK:
+        raise ValueError(f"K4: hierarchy depth {bvh.depth} is deeper than "
+                         "the builder makes (wide depth 64)")
     o, d, tv, b = _prep(orig, dir, t_max)
     launch = launch or _launcher(o.device)
     res = launch(o, d, tv, bvh, any_hit)

@@ -31,7 +31,10 @@ from fluctus_tpu_torch.launch import (CSRC, check, check_aligned, launch,
 
 TRI_EPS = 1e-12
 BIG = 3.0e38
-STACK_CAP = 128          # kStackCap of csrc/wide_walk.cuh
+# stack entries of the deepest hierarchy the binary builder makes (depth
+# 64, accel/bvh.py, so wide depth <= 64): stack_entries(64), kDeepStackCap
+# of csrc/wide_walk.cuh
+MAX_STACK = 464
 
 # launches of K1 per form, and calls of the plain version; chip_smoke.py
 # zeroes these before the frame and reads them after it
@@ -254,10 +257,10 @@ def traverse_kernel(bvh: WideBVH, orig, dir, t_max, any_hit: bool):
     check("K1", "nodes", bvh.nodes, torch.float32, (bvh.nodes.shape[0], 56))
     check("K1", "leaves", bvh.leaves, torch.float32,
           (bvh.leaves.shape[0], w, 10))
-    cap = stack_entries(bvh.depth)
-    if cap > STACK_CAP:
+    cap = stack_entries(bvh.depth)    # the launch's shared memory
+    if cap > MAX_STACK:
         raise ValueError(f"K1: hierarchy depth {bvh.depth} needs {cap} "
-                         f"stack entries, more than {STACK_CAP}")
+                         f"stack entries, more than {MAX_STACK}")
     check_aligned("K1", "nodes", bvh.nodes, 16)
     check_aligned("K1", "leaves", bvh.leaves, 8)
     lib = _lib or load_kernel()

@@ -66,27 +66,32 @@ def auto_frame_camera(params: RenderParams, host: HostScene) -> RenderParams:
     return dataclasses.replace(params, camera=cam)
 
 
-def create_session(scene_path: str, cfg: RenderConfig | None = None,
-                   use_sbvh: bool = True, auto_frame: bool = True,
+def create_session(scene_path: str, env_map: str | None = None,
+                   cfg: RenderConfig | None = None, use_sbvh: bool = True,
+                   auto_frame: bool = True,
                    state_dir: str | None = "data/states",
                    device="cuda") -> RenderSession:
-    """Load the scene, build the hierarchy (none above the fast-big
-    cutover: the upload builds the brute-chunk forest instead), upload it,
-    derive parameters and restore the scene's saved state (reference:
+    """Load the scene and, with `env_map`, a Radiance .hdr env map and its
+    sampling tables; build the hierarchy (none above the fast-big cutover:
+    the upload builds the brute-chunk forest instead), upload it, derive
+    parameters and restore the scene's saved state (reference:
     Tracer::init, src/tracer.cpp:55-80, loadState :634-687). The
-    traversal backend resolves as `common.resolve_backend` says: "auto"
-    to the per-lane kernels, "pallas" to the packet kernel K4."""
+    parameters come in the JAX package's order, so
+    `create_session(path, env_path)` means the same in both. The env map
+    lights the scene when `cfg.use_env_map` is set and a map was loaded.
+    The traversal backend resolves as `common.resolve_backend` says:
+    "auto" to the per-lane kernels, "pallas" to the packet kernel K4."""
     dev = resolve_device(device)
     cfg = cfg or RenderConfig()
     backend = common.resolve_backend(cfg.backend)
-    host = load_scene(scene_path)
+    host = load_scene(scene_path, env_map=env_map)
     if not fast_big_eligible(host, dev):
         host.build_bvh(use_sbvh=use_sbvh)
     scene = host.to_device(dev)
-    # no env map on this path: lighting comes from the area light
     cfg = cfg.replace(backend=backend,
                       bsdf_types_mask=host.material_types_mask,
-                      use_env_map=False)
+                      use_env_map=cfg.use_env_map
+                      and host.envmap is not None)
     params = default_params(world_radius=host.world_radius(), device=dev)
     if auto_frame:
         params = auto_frame_camera(params, host)

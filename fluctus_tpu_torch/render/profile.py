@@ -2,10 +2,13 @@
 
     python3 -m fluctus_tpu_torch.render.profile [--scene PATH]
         [--bounces N] [--spp N] [--frames N] [--backend auto|pallas]
-        [--integrator lockstep|stream]
+        [--integrator lockstep|stream] [--env-sky SEED]
 
 Traces, with torch.profiler, one piece of a 512x512 frame (area light, the
-scene's saved state; the kitchen at 8 bounces by default): under the
+scene's saved state; the kitchen at 8 bounces by default; with --env-sky,
+the env-lit luxball frame of chip_smoke.py instead: the seeded 1024x512
+sky of fluctus_tpu_torch/fixtures.py, no area light, the framing of
+create_session, thin-lens aperture 0.06): under the
 lockstep integrator one 65,536-ray tile at 1 spp, under the stream one
 deferred segment of the driver's pool (2^14 lanes) after 8 warm segments,
 with a spawn budget of 64 spp so the pool stays full. It prints the
@@ -31,15 +34,32 @@ TRAVERSAL_KERNELS = ("traverse_kernel", "k2_kernel", "k3_kernel",
                      "forest_kernel", "queue_kernel", "packet_kernel")
 
 
-def _session(scene: str, bounces: int, backend: str):
+def _session(scene: str, bounces: int, backend: str, env_sky=None):
+    import dataclasses
+    import tempfile
+
     from fluctus_tpu_torch.core.types import RenderConfig
     from fluctus_tpu_torch.render import driver
+    if env_sky is None:
+        cfg = RenderConfig(width=512, height=512, max_bounces=bounces,
+                           use_area_light=True, use_env_map=False,
+                           backend=backend)
+        return driver.create_session(
+            scene, cfg=cfg, state_dir=os.path.join(REPO, "data", "states"),
+            auto_frame=False, device="cuda")
+    from fluctus_tpu_torch.fixtures import sky_env
+    from fluctus_tpu_torch.io.hdr import write_hdr
     cfg = RenderConfig(width=512, height=512, max_bounces=bounces,
-                       use_area_light=True, use_env_map=False,
-                       backend=backend)
-    return driver.create_session(
-        scene, cfg=cfg, state_dir=os.path.join(REPO, "data", "states"),
-        auto_frame=False, device="cuda")
+                       use_area_light=False, backend=backend)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "sky.hdr")
+        write_hdr(path, sky_env(1024, 512, seed=env_sky))
+        sess = driver.create_session(scene, path, cfg, state_dir=None,
+                                     device="cuda")
+    cam = dataclasses.replace(sess.params.camera, aperture_size=torch.tensor(
+        0.06, device="cuda"))
+    return dataclasses.replace(sess, params=dataclasses.replace(
+        sess.params, camera=cam))
 
 
 def _modules():
@@ -146,18 +166,23 @@ def main() -> None:
     ap.add_argument("--backend", default="auto", choices=("auto", "pallas"))
     ap.add_argument("--integrator", default="lockstep",
                     choices=("lockstep", "stream"))
+    ap.add_argument("--env-sky", type=int, default=None, metavar="SEED",
+                    help="env-lit luxball frame under the seeded sky "
+                    "(the scene defaults to assets/luxball_proxy.obj)")
     args = ap.parse_args()
+    if args.env_sky is not None and args.scene == ap.get_default("scene"):
+        args.scene = os.path.join(REPO, "assets", "luxball_proxy.obj")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     from fluctus_tpu_torch.timing import card_line
     print(f"card: {card_line()} | torch {torch.__version__}")
-    sess = _session(args.scene, args.bounces, args.backend)
+    sess = _session(args.scene, args.bounces, args.backend, args.env_sky)
     sc = sess.scene
     tables = ("brute forest" if sc.bforest is not None else
               "BVH8 + treelet forest" if sc.ftables is not None else "BVH8")
     print(f"scene {os.path.basename(args.scene)}: "
           f"{sess.host_scene.n_tris} tris, {tables}, backend "
-          f"{sess.cfg.backend}")
+          f"{sess.cfg.backend}, env map {sess.cfg.use_env_map}")
     profile_step(sess, args.integrator)
     time_frames(sess, args.frames, args.spp, args.integrator)
 

@@ -2,7 +2,7 @@
 (counterpart of `fluctus_tpu/scene/scene.py`; reference: src/scene.cpp,
 src/tracer.cpp:574-590).
 
-OBJ/MTL input, then one of two uploads: the SBVH build, 8-wide collapse
+OBJ/MTL input and an optional Radiance HDR env map, then one of two uploads: the SBVH build, 8-wide collapse
 and upload of its f32 rows (with a treelet forest beside them under
 FLUCTUS_FOREST=treelet, see `HostScene.to_device`); or, for a scene above
 the fast-big cutover on a CUDA device, the brute-chunk forest alone
@@ -21,8 +21,10 @@ from fluctus_tpu_torch.accel.forest import (
     TARGET_TRIS, build_brute_forest, build_host_forest)
 from fluctus_tpu_torch.accel.wide import LEAF_WIDTH, build_wide
 from fluctus_tpu_torch.core.types import (
-    BSDF_ID, BXDF_DIFFUSE, BruteForest, DeviceScene, ForestTables, Geometry,
-    Materials, TextureAtlas, WideBVH)
+    BSDF_ID, BXDF_DIFFUSE, BruteForest, DeviceScene, EnvMap, ForestTables,
+    Geometry, Materials, TextureAtlas, WideBVH)
+from fluctus_tpu_torch.scene import envmap as envmap_mod
+from fluctus_tpu_torch.scene.envmap import HostEnvMap
 from fluctus_tpu_torch.scene.loaders.obj import MtlMaterial, load_obj
 from fluctus_tpu_torch.scene.textures import TexturePool
 from fluctus_tpu_torch.scene.xxh64 import file_hash
@@ -62,6 +64,7 @@ class HostScene:
     map_kd: np.ndarray | None = None
     map_ks: np.ndarray | None = None
     map_n: np.ndarray | None = None
+    envmap: HostEnvMap | None = None
 
     @property
     def n_tris(self) -> int:
@@ -86,6 +89,10 @@ class HostScene:
         """Half the scene diagonal (reference: src/tracer.cpp:66-67)."""
         lo, hi = self.bounds()
         return float(np.linalg.norm(hi - lo) * 0.5)
+
+    def load_env_map(self, path: str) -> None:
+        """Read a Radiance .hdr and build its sampling tables."""
+        self.envmap = envmap_mod.load(path)
 
     def build_bvh(self, use_sbvh: bool = True) -> None:
         """SAH or SBVH build with the native builder
@@ -112,9 +119,10 @@ class HostScene:
                                np.int64))
 
     def to_device(self, device="cuda") -> DeviceScene:
-        """Upload geometry, the traversal tables, materials and the
-        texture atlas (reference: CLContext::uploadSceneData,
-        src/clcontext.cpp:522-611).
+        """Upload geometry, the traversal tables, materials, the texture
+        atlas and the env map with its tables, or the 1x1 black map when
+        none is loaded (reference: CLContext::uploadSceneData,
+        src/clcontext.cpp:522-611, createEnvMap :467-519).
 
         Tables: above the fast-big cutover, the brute-chunk forest alone
         (no hierarchy). Otherwise the 8-wide BVH; when its tables pass
@@ -181,8 +189,12 @@ class HostScene:
         data, offs, ws, hs = self.textures.pack()
         atlas = TextureAtlas(data=t(data), offset=t(offs), width=t(ws),
                              height=t(hs))
+        env = self.envmap if self.envmap is not None else envmap_mod.dummy()
+        envd = EnvMap(image=t(env.image), pdf_table=t(env.pdf_table),
+                      prob_table=t(env.prob_table),
+                      alias_table=t(env.alias_table))
         return DeviceScene(geom=geom, wbvh=wbvh, materials=mats, atlas=atlas,
-                           bforest=bforest, ftables=ftables)
+                           envmap=envd, bforest=bforest, ftables=ftables)
 
 
 def _brute_auto_target(n_tris: int) -> int:
@@ -221,8 +233,9 @@ def fast_big_eligible(host, device) -> bool:
             and os.environ.get("FLUCTUS_FAST_BIG", "1") != "0")
 
 
-def load_scene(path: str) -> HostScene:
-    """Load an OBJ/MTL scene (reference: src/scene.cpp:53-103)."""
+def load_scene(path: str, env_map: str | None = None) -> HostScene:
+    """Load an OBJ/MTL scene and, with `env_map`, a Radiance .hdr env map
+    (reference: src/scene.cpp:53-103)."""
     ext = os.path.splitext(path)[1].lower()
     if ext != ".obj":
         raise NotImplementedError(
@@ -238,10 +251,13 @@ def load_scene(path: str) -> HostScene:
             name = getattr(mat, k)
             if name:
                 maps[k][i] = pool.try_import(os.path.join(folder, name), name)
-    return HostScene(
+    scene = HostScene(
         v0=mesh.v0, v1=mesh.v1, v2=mesh.v2, n0=mesh.n0, n1=mesh.n1,
         n2=mesh.n2, uv0=mesh.uv0, uv1=mesh.uv1, uv2=mesh.uv2,
         mat_id=np.asarray(mesh.mat_id, np.int32), materials=mats,
         textures=pool, hash=file_hash(path), name=os.path.basename(path),
         map_kd=maps["map_kd"], map_ks=maps["map_ks"],
         map_n=maps["map_bump"])
+    if env_map:
+        scene.load_env_map(env_map)
+    return scene

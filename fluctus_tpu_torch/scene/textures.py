@@ -2,18 +2,23 @@
 `fluctus_tpu/scene/textures.py`; reference: src/texture.cpp:16-41,
 src/scene.cpp:304-320, src/clcontext.cpp:570-611).
 
-Images are decoded by the port's own PNG reader. A missing file leaves the
-slot at -1, as in the reference; a file that exists but cannot be decoded
-raises instead of silently dropping the texture.
+Images are decoded by the port's own readers (scene/imageformat.py: PNG,
+JPEG, BMP and TGA, chosen by the file's signature), which give what the
+JAX package's PIL `convert("RGBA")` gives. As there, a missing file, or
+one whose data is damaged, leaves the slot at -1. A well-formed file in a
+format the port does not decode raises, so no map the JAX package would
+load is dropped without notice.
 """
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from fluctus_tpu_torch.scene.png import read_png
+from fluctus_tpu_torch.scene import imageformat
 
 
 @dataclass
@@ -28,19 +33,34 @@ class TexturePool:
     _by_name: dict = field(default_factory=dict)
 
     def try_import(self, path: str, name: str) -> int:
-        """Load-or-reuse by name; -1 when the file is missing
-        (reference: src/scene.cpp:304-320 tryImportTexture)."""
+        """Load-or-reuse by name; -1 when the file is missing or damaged
+        (reference: src/scene.cpp:304-320 tryImportTexture). Raises
+        UnsupportedImage (a ValueError) for a format the port does not
+        decode, and ValueError for bytes no decoder recognises."""
         if not name:
             return -1
         if name in self._by_name:
             return self._by_name[name]
         if not os.path.exists(path):
             return -1
-        if not path.lower().endswith(".png"):
-            raise ValueError(f"texture format not supported: {path}")
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            kind = imageformat.sniff(data)
+        except imageformat.UnsupportedImage as e:
+            raise imageformat.UnsupportedImage(f"{path}: {e}") from None
+        if kind == "jpeg":
+            from fluctus_tpu_torch.scene import jpeg
+            jpeg.load_library()       # a failed build raises, never -1
+        try:
+            rgba = imageformat.decode(data, kind)
+        except imageformat.UnsupportedImage as e:
+            raise imageformat.UnsupportedImage(f"{path}: {e}") from None
+        except (ValueError, IndexError, struct.error, zlib.error):
+            return -1                 # damaged or truncated, as PIL fails
         # uv (0, 0) is the bottom-left texel (the reference loads with
-        # IL_ORIGIN_LOWER_LEFT), so flip the top-first PNG rows
-        rgba = np.ascontiguousarray(read_png(path)[::-1])
+        # IL_ORIGIN_LOWER_LEFT), so flip the top-first rows
+        rgba = np.ascontiguousarray(rgba[::-1])
         idx = len(self.textures)
         self.textures.append(HostTexture(name=name, rgba=rgba))
         self._by_name[name] = idx

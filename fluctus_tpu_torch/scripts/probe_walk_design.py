@@ -221,27 +221,7 @@ def using(module, lib):
         module._lib = old
 
 
-def k1_parent(lib, bvh, o, d, t, any_hit):
-    """K1 through another checkout's launcher, which takes no stack cap
-    (15 arguments, the stack in local memory)."""
-    from fluctus_tpu_torch.launch import launch
-    from fluctus_tpu_torch.ops.traverse_stack import Traversal
-    b, dev = o.shape[0], o.device
-    if any_hit:
-        blocked = torch.empty(b, dtype=torch.uint8, device=dev)
-        outs = (0, 0, 0, 0, blocked.data_ptr())
-    else:
-        res = (torch.empty(b, device=dev),
-               torch.empty(b, dtype=torch.int32, device=dev),
-               torch.empty(b, device=dev), torch.empty(b, device=dev))
-        outs = tuple(x.data_ptr() for x in res) + (0,)
-    launch(lib.k1_traverse, o.get_device(), o.data_ptr(), d.data_ptr(),
-           t.data_ptr(), bvh.nodes.data_ptr(), bvh.leaves.data_ptr(), b,
-           int(bvh.root_ref), bvh.leaf_width, int(any_hit), *outs)
-    return blocked.view(torch.bool) if any_hit else Traversal(*res)
-
-
-def runner(kernel: str, lib, parent: bool, bvh, rays, any_hit: bool):
+def runner(kernel: str, lib, bvh, rays, any_hit: bool):
     """A no-argument call of `lib`'s kernel on one tile."""
     from fluctus_tpu_torch.ops import traverse_pallas as tp
     from fluctus_tpu_torch.ops import traverse_stack as ts
@@ -249,9 +229,6 @@ def runner(kernel: str, lib, parent: bool, bvh, rays, any_hit: bool):
         def run():
             with using(tp, lib):
                 return tp.packet_kernel(*rays, bvh, any_hit)
-    elif parent:
-        def run():
-            return k1_parent(lib, bvh, *rays, any_hit)
     else:
         def run():
             with using(ts, lib):
@@ -326,8 +303,8 @@ def design_steps(kernel: str, sess, sets=None, parent: str | None = None,
         same = True
         for form, rays in sets.items():
             for r, w in zip(rays, want[form]):
-                got = outputs(kernel, runner(kernel, lib, n == "parent",
-                                             bvh, r, form == "any")(),
+                got = outputs(kernel, runner(kernel, lib, bvh, r,
+                                             form == "any")(),
                               form == "any")
                 same &= all(torch.equal(a, b) for a, b in zip(got, w))
         out[n] = {"equal": same, "registers": regs}
@@ -337,8 +314,8 @@ def design_steps(kernel: str, sess, sets=None, parent: str | None = None,
         for n, (lib, _) in libs.items():
             for form, rays in sets.items():
                 ms[(n, form)].append(sum(time_launches(
-                    runner(kernel, lib, n == "parent", bvh, r,
-                           form == "any"), reps, 1) for r in rays)
+                    runner(kernel, lib, bvh, r, form == "any"), reps, 1)
+                    for r in rays)
                     / len(rays))
     for n in libs:
         r = out[n]
@@ -402,7 +379,7 @@ def packet_profile(sess, sets=None, parent: str | None = None,
         for name, (lib, _) in libs.items():
             cyc, nv, lv, parts, ms = [], [], [], [], 0.0
             for r in rays:
-                run = runner("k4", lib, False, bvh, r, anyh)
+                run = runner("k4", lib, bvh, r, anyh)
                 ms += time_launches(run, 5, 1) / len(rays)
                 run()
                 n_cta = r[0].shape[0] // tp.BLK

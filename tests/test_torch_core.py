@@ -103,5 +103,20 @@ def test_png_matches_pil_on_all_filters(mode, ch):
 
 @pytest.mark.parametrize("mode,ch", [("L", 1), ("LA", 2)])
 def test_png_refuses_other_colour_types(mode, ch):
-    with pytest.raises(ValueError, match="unsupported"):
-        decode_png(_png_bytes(mode, ch))
+    """Grey and grey+alpha PNGs decode as PIL converts them (every PNG
+    colour type does since the decoder took them all,
+    tests/test_torch_textures.py); what is refused is a colour type or
+    depth the PNG standard does not define."""
+    import struct
+    import zlib
+    from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
+    data = _png_bytes(mode, ch)
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+    np.testing.assert_array_equal(decode_png(data), want)
+    ihdr = bytearray(data[16:29])
+    ihdr[8:10] = bytes([8, 5])               # colour type 5: undefined
+    bad = (data[:16] + bytes(ihdr)
+           + struct.pack(">I", zlib.crc32(b"IHDR" + bytes(ihdr)))
+           + data[33:])
+    with pytest.raises(UnsupportedImage, match="colour type 5"):
+        decode_png(bad)

@@ -2,7 +2,7 @@
 unimportable, fluctus_tpu_torch (the stream, the benchmark harness, the
 bench, the probes and their scripts included) and chip_smoke.py import,
 the kitchen renders on the CPU with its textures through the lockstep and
-the stream, a brute-chunk forest and a treelet forest build and traverse
+the stream, the luxball renders env-lit from an HDR the port writes, a brute-chunk forest and a treelet forest build and traverse
 under both of their schedulers, and a packet call (backend "pallas")
 runs. The machine with the card has none of those packages."""
 import os
@@ -91,6 +91,20 @@ r = traverse_pallas.traverse_closest(s.scene.wbvh, o, d, 3.4e38)
 assert torch.equal(r.t, ref.t)
 assert torch.equal(traverse_pallas.traverse_any(s.scene.wbvh, o, d, 0.5),
                    blocked)
+import tempfile
+from fluctus_tpu_torch.fixtures import sky_env
+from fluctus_tpu_torch.io.hdr import read_hdr, write_hdr
+from fluctus_tpu_torch.ops import envmap as env_ops
+env_path = os.path.join(tempfile.mkdtemp(), "sky.hdr")
+write_hdr(env_path, sky_env(32, 16, seed=1, sun_texels=1.0))
+assert read_hdr(env_path).shape == (16, 32, 3)
+cfg = RenderConfig(width=8, height=8, max_bounces=2)
+e = driver.create_session("assets/luxball_proxy.obj", env_path, cfg,
+                          state_dir=None, device="cpu")
+assert e.cfg.use_env_map and tuple(e.scene.envmap.image.shape) == (16, 32, 3)
+for integ in ("lockstep", "stream"):
+    img = driver.render(e, 1, integrator=integ)
+    assert bool(torch.isfinite(img).all()) and float(img.sum()) > 0.0, integ
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
@@ -123,3 +137,55 @@ def test_sources_name_no_jax_stack_import():
         if hits:
             bad[os.path.relpath(path, REPO)] = hits
     assert not bad, bad
+
+
+_TEX_CHILD = r'''
+import sys
+BLOCKED = %r
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"{name} is blocked in this test")
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, %r)
+import numpy as np
+from fluctus_tpu_torch.scene.textures import TexturePool
+for name in %r:
+    pool = TexturePool()
+    i = pool.try_import(%r + "/" + name, name)
+    want = np.load(%r + "/" + name + ".npy")
+    assert i == 0 and np.array_equal(pool.textures[0].rgba, want), name
+leaked = [m for m in sys.modules
+          if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not leaked, leaked
+print("DECODED-OK")
+'''
+
+
+def test_port_decodes_textures_without_pil(tmp_path):
+    """The image decoders (PNG, JPEG with its g++ build, BMP, TGA) run
+    with PIL unimportable and give the rows PIL gives."""
+    import numpy as np
+    from PIL import Image
+    g = np.random.default_rng(0)
+    img = Image.fromarray(g.integers(0, 256, (9, 13, 3), dtype=np.uint8))
+    names = []
+    for name, im, kw in (("a.png", img.convert("LA"), {}),
+                         ("b.jpg", img, dict(quality=80,
+                                             subsampling="4:2:0")),
+                         ("c.bmp", img.quantize(9), {}),
+                         ("d.tga", img.convert("RGBA"),
+                          dict(compression="tga_rle"))):
+        im.save(tmp_path / name, **kw)
+        rgba = np.asarray(Image.open(tmp_path / name).convert("RGBA"))
+        np.save(tmp_path / f"{name}.npy", np.ascontiguousarray(rgba[::-1]))
+        names.append(name)
+    d = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, "-c", _TEX_CHILD % (BLOCKED, REPO, names, d, d)],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "DECODED-OK" in proc.stdout

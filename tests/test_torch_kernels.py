@@ -506,3 +506,133 @@ def test_stream_matches_lockstep_through_k1(card):
     assert torch.equal(cnt_d, cnt_i)
     assert ts.LAUNCHES["closest"] > 0 and ts.LAUNCHES["any"] > 0
     assert sum(ts.PLAIN_CALLS.values()) == 0
+
+
+# ---------------------------------------------------------------- deep
+# Hierarchies deeper than the 128-entry walks hold: the chains of
+# fluctus_tpu_torch/fixtures.py at wide depth 40 (K1 and K5 need
+# 7 * 41 + 9 = 296 stack entries, K4 7 * 40 + 1 = 281 of its 449).
+
+@pytest.mark.parametrize("order", ["near", "far"])
+def test_k1_k4_deep_chain_equal_plain(card, order):
+    from fluctus_tpu_torch.convert import wide_from_numpy
+    from fluctus_tpu_torch.fixtures import deep_chain_bvh
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    arrays, o, d, _ = deep_chain_bvh(40, order)
+    w = wide_from_numpy(arrays, device=card)
+    o, d = torch.from_numpy(o).to(card), torch.from_numpy(d).to(card)
+    t = torch.full((o.shape[0],), 3.4e38, device=card)
+    t2 = torch.where(torch.arange(o.shape[0], device=card) % 2 == 0, t, 6.0)
+    k1 = ts.traverse_kernel(w, o, d, t, any_hit=False)
+    p1, _ = ts.traverse_plain(w, o, d, t, any_hit=False)
+    k4 = tp.traverse_closest(w, o, d, t, launch=tp.packet_kernel)
+    p4 = tp.traverse_closest(w, o, d, t, launch=tp.packet_plain)
+    torch.cuda.synchronize()
+    for k, p in ((k1, p1), (k4, p4)):
+        assert all(torch.equal(getattr(k, f), getattr(p, f))
+                   for f in ("prim", "t", "u", "v"))
+    assert int((k1.prim >= 0).sum()) > o.shape[0] // 2
+    assert torch.equal(ts.traverse_kernel(w, o, d, t2, any_hit=True),
+                       ts.traverse_plain(w, o, d, t2, any_hit=True)[1])
+    assert torch.equal(tp.traverse_any(w, o, d, t2, launch=tp.packet_kernel),
+                       tp.traverse_any(w, o, d, t2, launch=tp.packet_plain))
+
+
+@pytest.mark.parametrize("form", ["closest", "any"])
+def test_k5_deep_chain_forest_equals_plain(card, form):
+    """Chunks of wide depth 40 take the 464-entry walk, in the work queue
+    and in the passes."""
+    from fluctus_tpu_torch.convert import forest_from_numpy
+    from fluctus_tpu_torch.fixtures import deep_chain_forest
+    from fluctus_tpu_torch.ops import traverse_forest as tf
+    tf.load_kernel()
+    arrays, o, d, _ = deep_chain_forest(40)
+    ft = forest_from_numpy(arrays, device=card)
+    o, d = torch.from_numpy(o).to(card), torch.from_numpy(d).to(card)
+    t = torch.full((o.shape[0],), 3.4e38, device=card)
+    ob, db, tv, b = tf._prep(o, d, t, tf.WQ_BLK)
+    any_hit = form == "any"
+    k = tf.queue_kernel(ft, ob, db, tv, any_hit)
+    p = tf.queue_plain(ft, ob, db, tv, any_hit)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(k, p))
+    fn = tf.traverse_any if any_hit else tf.traverse_closest
+    kb = fn(ft, o, d, t, mode="blocksched")
+    pb = fn(ft, o, d, t, mode="blocksched", launch=tf.launch_plain)
+    if any_hit:
+        assert torch.equal(kb, pb) and bool(kb.any())
+    else:
+        assert torch.equal(kb.prim, pb.prim) and torch.equal(kb.t, pb.t)
+
+
+# ---------------------------------------------------------------- env map
+# Env-map lighting on the card: its ops are PyTorch's (no kernel of its
+# own); the frames trace through K1 and K4.
+
+def _sky_session(tmp_path, device, backend="auto"):
+    import dataclasses
+    from fluctus_tpu_torch.core.types import RenderConfig
+    from fluctus_tpu_torch.fixtures import sky_env
+    from fluctus_tpu_torch.io.hdr import write_hdr
+    from fluctus_tpu_torch.render import driver
+    path = str(tmp_path / "sky.hdr")
+    if not (tmp_path / "sky.hdr").exists():
+        write_hdr(path, sky_env(64, 32, seed=3, sun_texels=1.5))
+    cfg = RenderConfig(width=32, height=32, max_bounces=4, backend=backend)
+    s = driver.create_session("assets/luxball_proxy.obj", path, cfg,
+                              state_dir=None, device=device)
+    cam = dataclasses.replace(s.params.camera, aperture_size=torch.tensor(
+        0.06, device=s.device))
+    return dataclasses.replace(s, params=dataclasses.replace(s.params,
+                                                             camera=cam))
+
+
+def test_env_ops_on_the_card_equal_cpu(card, tmp_path):
+    """Alias draws pick the same texels on the card as on the CPU, and
+    directions, radiance and pdfs agree within the tolerances the CPU
+    tests hold against the JAX package (CUDA's atan2, acos, sin and cos
+    are not the CPU's)."""
+    from fluctus_tpu_torch.ops import envmap as env_ops
+    s = _sky_session(tmp_path, card)
+    env_g = s.scene.envmap
+    env_c = _sky_session(tmp_path, "cpu").scene.envmap
+    for f in ("image", "pdf_table", "prob_table", "alias_table"):
+        assert torch.equal(getattr(env_g, f).cpu(), getattr(env_c, f))
+    g = np.random.default_rng(5)
+    u = torch.from_numpy(g.uniform(size=1 << 16).astype(np.float32))
+    d = torch.from_numpy(g.normal(size=(1 << 16, 3)).astype(np.float32))
+    ig, Lg, pg = env_ops._alias_draw(env_g, u.to(card))
+    ic, Lc, pc = env_ops._alias_draw(env_c, u)
+    assert torch.equal(ig.cpu(), ic)
+    torch.testing.assert_close(Lg.cpu(), Lc, rtol=0, atol=2e-6)
+    torch.testing.assert_close(pg.cpu(), pc, rtol=2e-4, atol=1e-6)
+    torch.testing.assert_close(env_ops.direction_to_uv(d.to(card)).cpu(),
+                               env_ops.direction_to_uv(d), rtol=0, atol=2e-6)
+    torch.testing.assert_close(env_ops.eval_dir(env_g, d.to(card)).cpu(),
+                               env_ops.eval_dir(env_c, d), rtol=1e-3,
+                               atol=1e-6)
+    torch.testing.assert_close(env_ops.pdf_dir(env_g, d.to(card)).cpu(),
+                               env_ops.pdf_dir(env_c, d), rtol=2e-4,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_env_lit_frame_on_the_card_equals_cpu(card, tmp_path, backend):
+    """A 32x32 env-lit luxball frame (4 bounces, 2 spp, the lockstep)
+    through K1 (backend auto) or K4 (pallas) equals the same frame on the
+    CPU through the plain versions at the goldens' RTOL 1e-3 / ATOL 1e-4
+    on 99.5 % of its pixels, mean relative error 1e-4."""
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    from fluctus_tpu_torch.render import driver
+    s_g = _sky_session(tmp_path, card, backend)
+    s_c = _sky_session(tmp_path, "cpu", backend)
+    ts.reset_counts()
+    tp.reset_counts()
+    img_g = driver.render(s_g, 2, integrator="lockstep").cpu().numpy()
+    kern = tp if backend == "pallas" else ts
+    assert kern.LAUNCHES["closest"] > 0 and kern.LAUNCHES["any"] > 0
+    img_c = driver.render(s_c, 2, integrator="lockstep").numpy()
+    within = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1)
+    mean_rel = np.abs(img_g - img_c).mean() / np.abs(img_c).mean()
+    assert within.mean() >= 0.995 and mean_rel <= 1e-4, (within.mean(),
+                                                          mean_rel)

@@ -134,10 +134,13 @@ def test_render_ldr_and_stream_refusal():
     assert ldr.shape == (8, 8, 3) and bool(torch.isfinite(ldr).all())
     img = driver.render(s, 1, integrator="stream")
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
-    # the stream refuses what is not ported: env-map lighting
+    # env-map lighting is ported: with the 1x1 black map a session holds
+    # when none is loaded, the stream renders, picking the env map for
+    # half its NEE draws (they add nothing)
     env = dataclasses.replace(s, cfg=s.cfg.replace(use_env_map=True))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        driver.render(env, 1, integrator="stream")
+    img = driver.render(env, 1, integrator="stream")
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    assert tuple(s.scene.envmap.image.shape) == (1, 1, 3)
 
 
 def test_cuda_entry_point_refuses_without_card():

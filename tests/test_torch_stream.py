@@ -3,8 +3,8 @@ call, the integrator choice, the benchmark harness and the probes P1 and
 P2, against the JAX package on the same inputs.
 
 Scenes are the in-repository cornell and kitchen proxies, area-lit (the
-JAX `plane_session` helper is env-lit, and env maps are not ported),
-carried across with convert.scene_from_numpy. The stream's counters
+env-lit plane of the JAX `plane_session` helper is held in
+tests/test_torch_envmap.py), carried across with convert.scene_from_numpy. The stream's counters
 (spawns, extension rays, shadow rays) must equal JAX's exactly; images
 agree within rtol 1e-4 / atol 1e-5 (the sample sums run in another
 order, and XLA contracts multiply-adds into FMAs).
@@ -160,10 +160,20 @@ def test_stream_roulette_keeps_exact_spp():
 
 
 def test_stream_refuses_env_map():
-    _, scene, params, cfg = _pair("cornell")
-    with pytest.raises(NotImplementedError, match="env maps"):
-        wavefront.render_stream(scene, params, cfg.replace(use_env_map=True),
-                                1)
+    """Env maps are ported, so the stream no longer refuses one: with the
+    env map on beside the area light (the scene's 1x1 black map) it
+    matches the JAX stream, counters exactly, the env map picked for half
+    the NEE draws."""
+    js, scene, params, cfg = _pair("cornell")
+    want, cnt_j = jwf.render_stream(js.scene, js.params,
+                                    js.cfg.replace(use_env_map=True), 1,
+                                    segments_per_launch=SEG)
+    got, cnt = wavefront.render_stream(scene, params,
+                                       cfg.replace(use_env_map=True), 1,
+                                       segments_per_launch=SEG)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_bucket_rows_quantum_padding():

@@ -13,7 +13,7 @@ def scene_arrays(scene) -> dict:
     """JAX DeviceScene -> the dotted-key dict of NumPy arrays that
     fluctus_tpu_torch.convert.scene_from_numpy takes."""
     out = {}
-    for group in ("geom", "materials", "atlas"):
+    for group in ("geom", "materials", "atlas", "envmap"):
         rec = getattr(scene, group)
         for f in dataclasses.fields(rec):
             out[f"{group}.{f.name}"] = np.asarray(getattr(rec, f.name))
