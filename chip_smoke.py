@@ -55,8 +55,24 @@ beside the per-round design it replaced, the rays as given and sorted),
 the same frame through K5 only, one K5 launch per traversal call, and the
 conference golden through K5. Last, deep-stack: K1, K4 and K5 on
 hierarchies of wide depth 40 (fluctus_tpu_torch/fixtures.py's chains),
-bit-equal to their plain versions. Each phase prints one line with its wall
-time; the last three lines are the kernels record, the card and the
+bit-equal to their plain versions. Then the scene formats, in a temporary
+working directory: BASELINE config 4's stand-in written as a 6.3M-triangle
+binary PLY (fixtures.sphere_grid_ply, grid 17) and opened with the sky
+through create_session (session-ply: load, hash and brute-forest seconds),
+K2 bit-equal to its plain version on 4,096 of its primary rays, its
+env-lit frame (lockstep, 512x512, 2 bounces, 4 spp) through K2 only, and
+the grid-3 PLY at 64x64 through K1 against the CPU (golden-ply); the
+kitchen written as PBRT with the saved state's ceiling light as its
+AreaLightSource quad (session-pbrt, with its parse cache), its frame
+(lockstep, 512x512, 8 bounces, 4 spp) through K1 only, K1 bit-equal on
+its rays, its PBF conversion with host arrays equal to the PBRT route's,
+and 64x64 stream renders of both through K1 and K4 against the CPU (pbf);
+the PBRT frame written as PNG and HDR and read back (save-image); the
+conference under FLUCTUS_FAST_BIG=0 cold and warm through the hierarchy
+cache (session-cache); and the kitchen's NumPy-built SAH hierarchy
+(FLUCTUS_NATIVE=0) through K1 bit-equal to plain (native-off). Every
+other session passes cache_dir=None. Each phase prints one line with its
+wall time; the last three lines are the kernels record, the card and the
 device record.
 Any failed check raises, so the script exits non-zero. It needs a CUDA
 device and the repository around it.
@@ -103,7 +119,8 @@ NODE_ROW_BYTES = 56 * 4
 RTOL, ATOL = 1e-3, 1e-4
 GOLDEN_LIMITS = {"cornell_area": (1.0, 1e-4), "kitchen_cfg3": (0.995, 1e-4),
                  "conference": (0.995, 1e-4), "luxball_env": (0.995, 1e-4),
-                 "cornell_env": (0.995, 1e-4)}
+                 "cornell_env": (0.995, 1e-4), "ply_grid3": (0.995, 1e-4),
+                 "kitchen_pbrt": (0.995, 1e-4)}
 T_REL_TOL = 1e-5
 
 _T0 = time.perf_counter()
@@ -351,7 +368,7 @@ def golden_sessions(dev, backend="auto"):
 
     cornell = driver.create_session(
         CORNELL, cfg=kitchen_cfg(64, 64, max_bounces=4).replace(
-            backend=backend), state_dir=None, device=dev)
+            backend=backend), cache_dir=None, state_dir=None, device=dev)
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
     cornell.params = dataclasses.replace(cornell.params, area_light=AreaLight(
         pos=f([0.0, 3.95, 0.0]), right=f([1.0, 0.0, 0.0]),
@@ -359,7 +376,7 @@ def golden_sessions(dev, backend="auto"):
         emission=f([15.0, 15.0, 15.0]), size=f([1.0, 1.0])))
     kitchen = driver.create_session(
         KITCHEN, cfg=kitchen_cfg(64, 64).replace(backend=backend),
-        state_dir=STATES, auto_frame=False, device=dev)
+        cache_dir=None, state_dir=STATES, auto_frame=False, device=dev)
     return {"cornell_area": (cornell, 8), "kitchen_cfg3": (kitchen, 4)}
 
 
@@ -384,12 +401,12 @@ def env_sessions(path, dev, backend="auto", size=64):
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
     lux = driver.create_session(
         LUXBALL, path, env_cfg(size, size).replace(backend=backend),
-        state_dir=None, device=dev)
+        cache_dir=None, state_dir=None, device=dev)
     lux.params = dataclasses.replace(lux.params, camera=dataclasses.replace(
         lux.params.camera, aperture_size=f(0.06)))
     cor = driver.create_session(
         CORNELL, path, env_cfg(size, size, area=True).replace(
-            backend=backend), state_dir=None, device=dev)
+            backend=backend), cache_dir=None, state_dir=None, device=dev)
     cor.params = dataclasses.replace(cor.params, area_light=AreaLight(
         pos=f([0.0, 3.95, 0.0]), right=f([1.0, 0.0, 0.0]),
         up=f([0.0, 0.0, -1.0]), normal=f([0.0, -1.0, 0.0]),
@@ -824,7 +841,7 @@ def phase_golden_big():
 
     sess = driver.create_session(CONFERENCE, cfg=conference_cfg(64, 64),
                                  state_dir=STATES, auto_frame=False,
-                                 device="cuda")
+                                 cache_dir=None, device="cuda")
     check(sess.scene.bforest is not None and sess.scene.wbvh is None,
           "conference golden session is not a brute-forest session")
     phase_golden_only(sess, "conference", 4, "K2")
@@ -1127,20 +1144,21 @@ def phase_forest_time(ft, wbvh, rays):
                 st: dict = {}
                 tf.launch_plain(*args, stats=st)
                 stats_list.append(st)
+            # the plain per-launch version once (it takes tens of seconds
+            # a call; these designs' plain times are not in the kernels
+            # line), the kernel twice
             p1 = sum(time_launches(lambda: tf.launch_plain(*a), 1, 1)
                      for a in rec.calls)
             k1 = sum(time_launches(lambda: tf.launch_kernel(*a), 10, 1)
                      for a in rec.calls)
             k2 = sum(time_launches(lambda: tf.launch_kernel(*a), 10, 1)
                      for a in rec.calls)
-            p2 = sum(time_launches(lambda: tf.launch_plain(*a), 1, 1)
-                     for a in rec.calls)
             t_bytes, t_ops = forest_bound(ft, n, anyh, stats_list)
             b_ms, b_by = larger(t_bytes, t_ops)
             child = sum(s["child_tests"] for s in stats_list)
             tri = sum(s["tri_tests"] for s in stats_list)
             out[(mode, form)] = dict(
-                ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                ms=(k1 + k2) / 2, plain_ms=p1, bound_ms=b_ms,
                 bound_by=b_by, launches_per_call=len(rec.calls),
                 call_ms=call_ms, k1_ms=k1_ms)
             r = out[(mode, form)]
@@ -1264,10 +1282,11 @@ def traced_only(kernel: str, what: str) -> dict:
 
 
 def phase_frame_only(sess, spp: int, card: str, phase: str, kernel: str,
-                     what: str):
+                     what: str, keep: dict | None = None):
     """One lockstep frame through the entry points that must trace through
     `kernel` (a key of launch_counts) only, in both forms; counts read
-    around exactly this call."""
+    around exactly this call. With `keep`, the frame goes into
+    keep["img"]."""
     import torch
     from fluctus_tpu_torch.render import driver
     from fluctus_tpu_torch.render.benchmark import ray_counts_per_sample
@@ -1284,6 +1303,8 @@ def phase_frame_only(sess, spp: int, card: str, phase: str, kernel: str,
     check(tuple(img.shape) == (cfg.height, cfg.width, 3), "image shape")
     check(bool(torch.isfinite(img).all()), "image has non-finite values")
     check(bool((img >= 0).all()), "image has negative values")
+    if keep is not None:
+        keep["img"] = img
     say(phase, t0,
         f"{what} {cfg.width}x{cfg.height} {spp} spp, {cfg.max_bounces} "
         f"bounces: {secs:.3f} s, {(prim + ext + shadow) / secs / 1e6:.3f} "
@@ -1713,6 +1734,458 @@ def phase_bench(sess):
     return results
 
 
+# ------------------------------------------------------------ scene formats
+
+PLY_GRID = 17          # BASELINE config 4's stand-in: 17^3 icospheres
+PLY_SPP = 4
+
+
+def timed_calls(module, names, secs: dict):
+    """Wrap the functions `names` of `module` so their seconds add up in
+    `secs` (a context manager; the originals come back after)."""
+    old = {n: getattr(module, n) for n in names}
+
+    def timed(n):
+        def fn(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return old[n](*args, **kw)
+            finally:
+                secs[n] = secs.get(n, 0.0) + time.perf_counter() - t
+        return fn
+
+    @contextlib.contextmanager
+    def block():
+        for n in names:
+            setattr(module, n, timed(n))
+        try:
+            yield secs
+        finally:
+            for n, f in old.items():
+                setattr(module, n, f)
+    return block()
+
+
+def ply_cfg(width, height):
+    """BASELINE config 1's setup (Lambert-only, env-lit, short paths) at
+    config 4's size: lockstep, 2 bounces, the env map, no area light."""
+    from fluctus_tpu_torch.core.types import RenderConfig
+    return RenderConfig(width=width, height=height, max_bounces=2,
+                        use_area_light=False, use_env_map=True)
+
+
+def phase_session_ply(tmp_dir: str, sky: str):
+    """Write the 6.3M-triangle sphere grid as binary PLY and open it with
+    the sky through create_session: above the fast-big cutover, so the
+    upload builds the brute forest (K2's tables) and no hierarchy."""
+    from fluctus_tpu_torch.fixtures import sphere_grid_ply
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.scene import scene as scene_mod
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp_dir, f"grid{PLY_GRID}.ply")
+    n_tris, n_verts = sphere_grid_ply(path, PLY_GRID, 3, seed=0)
+    t_write = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    secs: dict = {}
+    with timed_calls(scene_mod, ("load_ply", "file_hash",
+                                 "build_brute_forest"), secs):
+        sess = driver.create_session(path, sky, ply_cfg(512, 512),
+                                     cache_dir=None, state_dir=None,
+                                     device="cuda")
+    t_sess = time.perf_counter() - t1
+    bf = sess.scene.bforest
+    geom = sess.scene.geom
+    geom_bytes = sum(getattr(geom, f.name).numel() * 4
+                     for f in dataclasses.fields(geom))
+    check(sess.host_scene.n_tris == n_tris == 6_288_640,
+          f"the PLY session holds {sess.host_scene.n_tris} triangles")
+    check(bf is not None and sess.scene.wbvh is None,
+          "the PLY session is not a brute-forest session")
+    say("session-ply", t0,
+        f"sphere grid {PLY_GRID}^3 x 1280: {n_tris} tris, {n_verts} "
+        f"vertices, {os.path.getsize(path) / 1e6:.1f} MB of binary PLY "
+        f"written in {t_write:.2f} s; session {t_sess:.2f} s: PLY load "
+        f"{secs['load_ply']:.2f} s, hash {secs['file_hash']:.2f} s, brute "
+        f"forest build {secs['build_brute_forest']:.2f} s, the rest (env "
+        f"map, upload) {t_sess - sum(secs.values()):.2f} s; forest "
+        f"C={bf.tris.shape[0]}, Tp={bf.tris.shape[2]}, "
+        f"{(bf.tris.numel() + bf.tboxes.numel()) * 4 / 1e9:.2f} GB; "
+        f"geometry {geom_bytes / 1e9:.2f} GB")
+    secs.update(write=t_write, session=t_sess)
+    return sess, secs
+
+
+def primary_rays(sess, n: int):
+    """n of the frame's primary rays (every (pixels / n)-th pixel), t_max
+    3.4e38."""
+    import torch
+    from fluctus_tpu_torch.core import rng
+    from fluctus_tpu_torch.integrators import common
+    from fluctus_tpu_torch.ops import camera
+
+    cfg, p = sess.cfg, sess.params
+    pix = torch.arange(0, cfg.width * cfg.height,
+                       cfg.width * cfg.height // n, device=sess.device,
+                       dtype=torch.int32)[:n]
+    u = [rng.uniform(pix, 0, 0, k) for k in range(4)]
+    o, d = camera.generate_rays(p.camera, pix, cfg.width, cfg.height, *u,
+                                p.world_radius)
+    t = torch.full((n,), common.T_MAX, dtype=torch.float32,
+                   device=sess.device)
+    return o.contiguous(), d.contiguous(), t
+
+
+def phase_ply_k2_check(sess):
+    """K2 against its plain version on 4,096 of the PLY frame's primary
+    rays: closest (prim, t, u, v) and any-hit, bit for bit."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+
+    t0 = time.perf_counter()
+    bf = sess.scene.bforest
+    o, d, t = primary_rays(sess, 4096)
+    kc = tb.traverse_closest(bf, o, d, t, launch=tb.vlaunch_kernel)
+    pc = tb.traverse_closest(bf, o, d, t, launch=tb.vlaunch_plain)
+    ka = tb.traverse_any(bf, o, d, t, launch=tb.vlaunch_kernel)
+    pa = tb.traverse_any(bf, o, d, t, launch=tb.vlaunch_plain)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(getattr(kc, f), getattr(pc, f))
+                for f in ("prim", "t", "u", "v")) and torch.equal(ka, pa)
+    say("k2-ply", t0, f"K2 vs its plain version on {o.shape[0]} primary "
+        f"rays of the PLY frame: {int((kc.prim >= 0).sum())} hits, "
+        f"{int(ka.sum())} blocked; closest prim/t/u/v and any-hit flags "
+        f"bit-equal: {equal}")
+    check(equal, "K2 differs from its plain version on the PLY scene")
+
+
+def phase_k1_equal(sess, phase: str, what: str, n: int = 1 << 14):
+    """K1 against its plain version on the session's rays (primary,
+    seeded bounce rays, shadow rays toward its area light), bit for bit."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+
+    t0 = time.perf_counter()
+    bvh = sess.scene.wbvh
+    o, d, t_c, o_s, d_s, t_s = kernel_rays(sess, n, seed=5)
+    kc = ts.traverse_kernel(bvh, o, d, t_c, any_hit=False)
+    pc, _ = ts.traverse_plain(bvh, o, d, t_c, any_hit=False)
+    ka = ts.traverse_kernel(bvh, o_s, d_s, t_s, any_hit=True)
+    _, pa = ts.traverse_plain(bvh, o_s, d_s, t_s, any_hit=True)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(getattr(kc, f), getattr(pc, f))
+                for f in ("prim", "t", "u", "v")) and torch.equal(ka, pa)
+    say(phase, t0, f"K1 vs its plain version on {what}: {o.shape[0]} "
+        f"closest rays ({int((kc.prim >= 0).sum())} hits), {o_s.shape[0]} "
+        f"shadow rays ({int(ka.sum())} blocked); bit-equal: {equal}")
+    check(equal, f"K1 differs from its plain version on {what}")
+
+
+def phase_golden_ply(tmp_dir: str, sky: str):
+    """The grid-3 sphere grid (34,560 tris, under the cutover: K1 over its
+    hierarchy) at 64x64 on the card against the same render on this
+    host's CPU, at GOLDEN_LIMITS."""
+    import torch
+    from fluctus_tpu_torch.fixtures import sphere_grid_ply
+    from fluctus_tpu_torch.render import driver
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp_dir, "grid3.ply")
+    sphere_grid_ply(path, 3, 3, seed=0)
+    ref = driver.render(driver.create_session(
+        path, sky, ply_cfg(64, 64), cache_dir=None, state_dir=None,
+        device="cpu"), PLY_SPP, integrator="lockstep").numpy()
+    gs = driver.create_session(path, sky, ply_cfg(64, 64), cache_dir=None,
+                               state_dir=None, device="cuda")
+    reset_counts()
+    img = driver.render(gs, PLY_SPP, integrator="lockstep").cpu().numpy()
+    torch.cuda.synchronize()
+    mine = traced_only("K1", "golden-ply")
+    golden_check("ply_grid3", img, ref, t0,
+                 f"K1 only ({mine}), against the CPU render")
+
+
+def pbrt_cfg(width, height):
+    """The PBRT kitchen's frame: lockstep, 8 bounces; the area light comes
+    from the file."""
+    from fluctus_tpu_torch.core.types import RenderConfig
+    return RenderConfig(width=width, height=height, max_bounces=8,
+                        use_area_light=False, use_env_map=False)
+
+
+def state_camera(sess, state: dict):
+    """`sess` with the camera of a saved state (PBRT's LookAt is ignored
+    by the loaders)."""
+    import torch
+    from fluctus_tpu_torch.core.types import Camera
+    dev = sess.device
+    c = state["camera"]
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    cam = Camera(pos=f(c["pos"]), dir=f(c["dir"]), up=f(c["up"]),
+                 right=f(c["right"]), fov=f(c["fov"]),
+                 aperture_size=f(c["aperture_size"]),
+                 focal_dist=f(c["focal_dist"]))
+    return dataclasses.replace(sess, params=dataclasses.replace(
+        sess.params, camera=cam))
+
+
+def pbrt_session(path, state, width, height, device, backend="auto"):
+    from fluctus_tpu_torch.render import driver
+    s = driver.create_session(path, cfg=pbrt_cfg(width, height).replace(
+        backend=backend), cache_dir=None, state_dir=None, device=device)
+    return state_camera(s, state)
+
+
+def phase_session_pbrt(tmp_dir: str):
+    """The kitchen written as PBRT (fixtures.scene_pbrt) with the saved
+    state's ceiling light as its AreaLightSource quad, opened through
+    create_session (the working directory is `tmp_dir`, so the parse
+    cache lands there). Returns (session, pbrt path, state)."""
+    from fluctus_tpu_torch.fixtures import scene_pbrt
+
+    t0 = time.perf_counter()
+    with open(os.path.join(STATES, "state_c68e332cfae81cc6.json")) as f:
+        state = json.load(f)
+    path = scene_pbrt(KITCHEN, tmp_dir, state["area_light"])
+    t_write = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sess = pbrt_session(path, state, 512, 512, "cuda")
+    t_sess = time.perf_counter() - t1
+    check(sess.cfg.use_area_light, "the PBRT session has no area light")
+    al = sess.params.area_light
+    check(bool(torch_close(al.pos, state["area_light"]["pos"])),
+          "the PBRT area light is not the file's quad")
+    check(sess.scene.wbvh is not None, "the PBRT kitchen has no hierarchy")
+    t2 = time.perf_counter()
+    pbrt_session(path, state, 64, 64, "cuda")
+    t_warm = time.perf_counter() - t2
+    say("session-pbrt", t0,
+        f"kitchen as PBRT: {os.path.getsize(path) / 1e6:.1f} MB written in "
+        f"{t_write:.2f} s; session (parse + parse cache + SBVH + upload) "
+        f"{t_sess:.2f} s, again from the parse cache {t_warm:.2f} s; "
+        f"{sess.host_scene.n_tris} tris, {len(sess.host_scene.materials)} "
+        f"materials, {len(sess.host_scene.textures.textures)} textures, "
+        f"area light from the file's quad at "
+        f"{[round(float(x), 4) for x in al.pos.cpu()]}")
+    return sess, path, state, {"parse_session": t_sess, "warm": t_warm}
+
+
+def torch_close(t, ref):
+    import numpy as np
+    return np.allclose(t.cpu().numpy(), np.asarray(ref, np.float32))
+
+
+def phase_pbf(path, state, pbrt_sess):
+    """convert_pbrt_to_pbf, then the .pbf through create_session: its host
+    arrays equal the PBRT route's. Then 64x64 renders of each route
+    through K1 and K4 against the same route's render on this host's CPU,
+    at GOLDEN_LIMITS (the PBF's area-light frame is rebuilt from its two
+    triangles, with right and up in another order, and its materials pass
+    through float32, so the two routes sample the light differently).
+    These renders are the stream's (K1's or K4's fused closest call) with
+    implicit light hits off: the file's emitter quad lies in the area
+    light's own plane, so a camera or bounce ray that reaches the light,
+    and a lockstep shadow ray (which ends on the plane), ties with the
+    emitter's triangles and an ulp decides it; the stream's shadow rays
+    stop short of the light (0.995), so no ray ties (ROADMAP Queue 3).
+    Returns (the PBF session, the renders' launches)."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.scene.loaders.pbf import convert_pbrt_to_pbf
+
+    t0 = time.perf_counter()
+    pbf = os.path.splitext(path)[0] + ".pbf"
+    convert_pbrt_to_pbf(path, pbf)
+    t_conv = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    fsess = pbrt_session(pbf, state, 512, 512, "cuda")
+    t_sess = time.perf_counter() - t1
+    a, b = pbrt_sess.host_scene, fsess.host_scene
+    fields = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
+              "mat_id")
+    same = [f for f in fields if np.array_equal(getattr(a, f),
+                                                getattr(b, f))]
+    check(len(same) == len(fields), f"PBF arrays differ from PBRT's: only "
+          f"{same} equal")
+    check(fsess.cfg.use_area_light, "the PBF session has no area light")
+    say("pbf", t0, f"kitchen .pbrt -> .pbf in {t_conv:.2f} s "
+        f"({os.path.getsize(pbf) / 1e6:.1f} MB); PBF session {t_sess:.2f} "
+        f"s; host arrays {', '.join(fields)} equal to the PBRT route's; "
+        f"materials {len(b.materials)} (PBRT {len(a.materials)})")
+
+    def golden(src, device, backend="auto"):
+        s = pbrt_session(src, state, 64, 64, device, backend)
+        return dataclasses.replace(s, cfg=s.cfg.replace(sample_impl=False))
+
+    launches = {}
+    for src in (path, pbf):
+        name = os.path.basename(src)
+        t0 = time.perf_counter()
+        ref = driver.render(golden(src, "cpu"), 4,
+                            integrator="stream").numpy()
+        say("golden-pbrt", t0, f"{name} at 64x64, 8 bounces, 4 spp, the "
+            "stream without implicit light hits on this host's CPU (plain "
+            "versions), the reference")
+        for backend, kernel in (("auto", "K1"), ("pallas", "K4")):
+            gs = golden(src, "cuda", backend)
+            t0 = time.perf_counter()
+            reset_counts()
+            img = driver.render(gs, 4, integrator="stream").cpu().numpy()
+            torch.cuda.synchronize()
+            mine = traced_closest_only(kernel, f"golden {name}")
+            golden_check("kitchen_pbrt", img, ref, t0,
+                         f"{name}, the stream, {kernel}'s fused closest call"
+                         f" only ({mine}), against its CPU render")
+            launches[(os.path.splitext(src)[1], kernel)] = mine
+    return fsess, launches
+
+
+def phase_save_image(img, exposure, tonemap_op, tmp_dir: str):
+    """The PBRT frame written as PNG and HDR with io/image.py and read
+    back by the port's own decoders."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.io.hdr import float_to_rgbe, read_hdr, \
+        rgbe_to_float
+    from fluctus_tpu_torch.io.image import save_image
+    from fluctus_tpu_torch.ops import tonemap
+    from fluctus_tpu_torch.scene.png import read_png
+
+    t0 = time.perf_counter()
+    lin = img.cpu().numpy()
+    w = torch.ones(img.shape[:2], dtype=torch.float32, device=img.device)
+    ldr = tonemap.postprocess(img, w, exposure, tonemap_op).cpu().numpy()
+    png, hdr = (os.path.join(tmp_dir, f"kitchen.{e}") for e in ("png", "hdr"))
+    save_image(png, ldr)
+    save_image(hdr, lin)
+    u8 = np.clip(ldr * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    back = read_png(png)
+    ok_png = np.array_equal(back[..., :3], u8) and (back[..., 3] == 255).all()
+    ok_hdr = np.array_equal(read_hdr(hdr),
+                            rgbe_to_float(float_to_rgbe(lin)))
+    say("save-image", t0, f"{lin.shape[1]}x{lin.shape[0]} frame: PNG "
+        f"{os.path.getsize(png)} bytes read back equal to its 8-bit pixels:"
+        f" {ok_png}; HDR {os.path.getsize(hdr)} bytes read back equal to "
+        f"its RGBE values: {ok_hdr}")
+    check(ok_png and ok_hdr, "a written image does not read back")
+
+
+def phase_session_cache(tmp_dir: str):
+    """The conference under FLUCTUS_FAST_BIG=0 (SBVH hierarchy) with the
+    hierarchy cache in `tmp_dir`: cold (build and write) then warm (read);
+    the two hierarchies equal."""
+    import numpy as np
+    from fluctus_tpu_torch.render import driver
+
+    cache = os.path.join(tmp_dir, "hierarchies")
+    out = {}
+    bvhs = []
+    for run in ("cold", "warm"):
+        t0 = time.perf_counter()
+        with env(FLUCTUS_FAST_BIG="0"):
+            s = driver.create_session(CONFERENCE, cfg=conference_cfg(64, 64),
+                                      cache_dir=cache, state_dir=STATES,
+                                      auto_frame=False, device="cuda")
+        out[run] = time.perf_counter() - t0
+        bvhs.append(s.host_scene.bvh)
+        del s
+    files = os.listdir(cache)
+    a, b = bvhs
+    same = all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+        "node_lo", "node_hi", "node_right", "node_count", "node_parent",
+        "prim_idx")) and a.depth == b.depth
+    say("session-cache", t0,
+        f"conference (FLUCTUS_FAST_BIG=0, SBVH): cold session (build + "
+        f"cache write) {out['cold']:.2f} s, warm (cache read) "
+        f"{out['warm']:.2f} s; {files}, {a.n_nodes} nodes; hierarchies "
+        f"equal: {same}")
+    check(len(files) == 1 and same, "the cached hierarchy differs")
+    return out
+
+
+def phase_native_off():
+    """The kitchen's SAH hierarchy built by NumPy under FLUCTUS_NATIVE=0,
+    traced by K1 bit-equal to the plain version."""
+    from fluctus_tpu_torch.render import driver
+
+    t0 = time.perf_counter()
+    with env(FLUCTUS_NATIVE="0"):
+        s = driver.create_session(KITCHEN, cfg=kitchen_cfg(512, 512),
+                                  use_sbvh=False, cache_dir=None,
+                                  state_dir=STATES, auto_frame=False,
+                                  device="cuda")
+    t_sess = time.perf_counter() - t0
+    say("native-off", t0, f"kitchen, FLUCTUS_NATIVE=0: NumPy SAH session "
+        f"{t_sess:.2f} s, {s.host_scene.bvh.n_nodes} binary nodes, wide "
+        f"depth {s.scene.wbvh.depth}")
+    phase_k1_equal(s, "native-off", "the NumPy-built kitchen hierarchy")
+    return t_sess
+
+@contextlib.contextmanager
+def working_dir(path: str):
+    """Run a block with `path` as the working directory."""
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def phase_formats(card: str) -> dict:
+    """The scene formats, the hierarchy cache and the NumPy builders, run
+    in a temporary working directory (so the PBRT parse cache lands
+    there): the 6.3M-triangle PLY through K2 (session-ply, k2-ply,
+    frame-ply), the grid-3 PLY golden through K1, the PBRT kitchen with
+    its file's area light through K1 (session-pbrt, frame-pbrt, k1-pbrt),
+    its PBF conversion and the 64x64 renders of both through K1 and K4
+    (pbf), the frame written as PNG and HDR (save-image), the
+    conference's cold and warm cached sessions (session-cache) and the
+    NumPy-built kitchen through K1 (native-off)."""
+    import torch
+    from fluctus_tpu_torch.fixtures import sky_env
+    from fluctus_tpu_torch.io.hdr import write_hdr
+    from fluctus_tpu_torch.render import driver
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp_dir, working_dir(tmp_dir):
+        sky = os.path.join(tmp_dir, "sky.hdr")
+        write_hdr(sky, sky_env(1024, 512, seed=ENV_SEED))
+        psess, out["ply_secs"] = phase_session_ply(tmp_dir, sky)
+        phase_ply_k2_check(psess)
+        t0 = time.perf_counter()
+        driver.render(dataclasses.replace(psess, cfg=psess.cfg.replace(
+            width=64, height=64)), 1, integrator="lockstep")
+        torch.cuda.synchronize()
+        say("warm-up", t0, "sphere grid PLY 64x64 1 spp")
+        out["frame_ply"] = phase_frame_only(
+            psess, PLY_SPP, card, "frame-ply", "K2",
+            "sphere grid PLY (6.3M tris), env-lit,")
+        del psess
+        torch.cuda.empty_cache()
+        phase_golden_ply(tmp_dir, sky)
+
+        ksess, kpath, state, out["pbrt_secs"] = phase_session_pbrt(tmp_dir)
+        t0 = time.perf_counter()
+        driver.render(dataclasses.replace(ksess, cfg=ksess.cfg.replace(
+            width=64, height=64)), 1, integrator="lockstep")
+        torch.cuda.synchronize()
+        say("warm-up", t0, "PBRT kitchen 64x64 1 spp")
+        kept = {}
+        out["frame_pbrt"] = phase_frame_only(
+            ksess, 4, card, "frame-pbrt", "K1", "kitchen from PBRT,", kept)
+        phase_k1_equal(ksess, "k1-pbrt", "the PBRT kitchen's rays")
+        _, out["golden_pbf"] = phase_pbf(kpath, state, ksess)
+        phase_save_image(kept["img"], ksess.params.exposure,
+                         ksess.cfg.tonemap_op, tmp_dir)
+        del ksess, kept
+        torch.cuda.empty_cache()
+        out["cache_secs"] = phase_session_cache(tmp_dir)
+        out["native_off_secs"] = phase_native_off()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1753,7 +2226,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sess = driver.create_session(KITCHEN, cfg=kitchen_cfg(512, 512),
                                  state_dir=STATES, auto_frame=False,
-                                 device="cuda")
+                                 cache_dir=None, device="cuda")
     w = sess.scene.wbvh
     say("session", t0, f"kitchen: {sess.host_scene.n_tris} tris, wide "
         f"nodes {tuple(w.nodes.shape)}, leaves {tuple(w.leaves.shape)}, "
@@ -1829,7 +2302,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     big = driver.create_session(CONFERENCE, cfg=conference_cfg(512, 512),
-                                state_dir=STATES, auto_frame=False,
+                                cache_dir=None, state_dir=STATES,
+                                auto_frame=False,
                                 device="cuda")
     bf = big.scene.bforest
     check(bf is not None and big.scene.wbvh is None,
@@ -1901,7 +2375,8 @@ def main() -> int:
     with env(FLUCTUS_FOREST="treelet"):
         tsess = driver.create_session(CONFERENCE,
                                       cfg=conference_cfg(512, 512),
-                                      state_dir=STATES, auto_frame=False,
+                                      cache_dir=None, state_dir=STATES,
+                                auto_frame=False,
                                       device="cuda")
     ft, tw = tsess.scene.ftables, tsess.scene.wbvh
     check(ft is not None and tw is not None and tsess.scene.bforest is None,
@@ -1940,6 +2415,7 @@ def main() -> int:
     del tsess, ft, tw
     torch.cuda.empty_cache()
     phase_deep_stack()
+    fmt = phase_formats(card)
 
     kernels = []
     for form, name in (("closest", "K1 traverse_stack closest"),
@@ -2026,7 +2502,16 @@ def main() -> int:
           f"packet frame {secs_p:.3f} s, conference "
           f"frame {secs_big:.3f} s (brute), {secs_t:.3f} s (treelet), "
           f"luxball env-lit frame {secs_e:.3f} s lockstep, {secs_es:.3f} s "
-          f"stream on {card}", flush=True)
+          f"stream; PLY session {fmt['ply_secs']['session']:.2f} s (load "
+          f"{fmt['ply_secs']['load_ply']:.2f}, hash "
+          f"{fmt['ply_secs']['file_hash']:.2f}, brute forest "
+          f"{fmt['ply_secs']['build_brute_forest']:.2f}), PLY frame "
+          f"{fmt['frame_ply'][0]:.3f} s (K2 {fmt['frame_ply'][1]}), PBRT "
+          f"session {fmt['pbrt_secs']['parse_session']:.2f} s, PBRT frame "
+          f"{fmt['frame_pbrt'][0]:.3f} s (K1 {fmt['frame_pbrt'][1]}), "
+          f"conference cold / warm {fmt['cache_secs']['cold']:.2f} / "
+          f"{fmt['cache_secs']['warm']:.2f} s, NumPy SAH kitchen session "
+          f"{fmt['native_off_secs']:.2f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

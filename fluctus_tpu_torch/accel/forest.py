@@ -11,12 +11,14 @@ Both cut the triangle set by spatial median splits into chunks of at most
   `tile`, so every run of `tile` consecutive triangles is spatially tight
   and gets its own AABB (`tboxes`), which lets the traversal skip tiles
   that no ray of a block can hit (ops/traverse_brute.py).
-- The treelet forest gives every chunk its own 8-wide BVH (SBVH build,
-  8-wide collapse) with global triangle ids in the leaf rows, rooted at
-  node 0, padded to one table shape (ops/traverse_forest.py).
+- The treelet forest gives every chunk its own 8-wide BVH
+  (`build_binary`, 8-wide collapse) with global triangle ids in the leaf
+  rows, rooted at node 0, padded to one table shape
+  (ops/traverse_forest.py).
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -156,23 +158,32 @@ def _wrap_leaf_root(h):
     return h
 
 
-def build_sbvh(v0, v1, v2):
-    """The per-chunk binary build: the native builder with spatial splits,
-    as the JAX package builds its chunks."""
+def build_binary(v0, v1, v2):
+    """The per-chunk binary build, as the JAX package builds its chunks:
+    the native builder with spatial splits, or the NumPy SAH builder under
+    FLUCTUS_NATIVE=0."""
+    if not native_enabled():
+        return bvh_mod.build_bvh(v0, v1, v2)
     from fluctus_tpu_torch.accel import native
     return native.build_native(v0, v1, v2, bvh_mod.MAX_LEAF,
                                bvh_mod.MAX_DEPTH, 1e-5, True)
 
 
+def native_enabled() -> bool:
+    """FLUCTUS_NATIVE=0 selects the NumPy builders (the JAX package's
+    knob)."""
+    return os.environ.get("FLUCTUS_NATIVE", "1") != "0"
+
+
 def build_host_forest(v0, v1, v2, leaf_width: int = LEAF_WIDTH,
                       target_tris: int = TARGET_TRIS) -> HostForest:
-    """Build and stack one wide BVH per spatial chunk (`build_sbvh`, then
+    """Build and stack one wide BVH per spatial chunk (`build_binary`, then
     the 8-wide collapse), with the chunk's triangle ids remapped to global
     ids and tables padded to a common shape (a multiple of 128 rows)."""
     chunk_ids = _split_chunks(v0, v1, v2, target_tris)
     hosts = []
     for ids in chunk_ids:
-        built = build_sbvh(v0[ids], v1[ids], v2[ids])
+        built = build_binary(v0[ids], v1[ids], v2[ids])
         h = build_wide(built, v0[ids], v1[ids], v2[ids],
                        leaf_width=leaf_width)
         h = _wrap_leaf_root(h)

@@ -1,4 +1,6 @@
-"""Synthetic inputs that pin the traversal kernels' tie rules.
+"""Synthetic inputs: scenes written to disk in the formats the loaders
+read (`sphere_grid_ply`, `scene_pbrt`), an HDR sky (`sky_env`), and inputs
+that pin the traversal kernels' tie rules.
 
 K2 and K3: brute forests holding copies of one triangle at several
 (chunk, slot) places, and the place whose id the visit-list walk must
@@ -437,3 +439,162 @@ def sky_env(width: int = 1024, height: int = 512, seed: int = 0,
     img = np.where(disc, np.float32([1.0, 0.95, 0.85]) * sun_radiance, img)
     img = img * (1.0 + 0.1 * g.standard_normal((height, width, 1)))
     return np.clip(img, 0.0, None).astype(np.float32)
+
+
+def icosphere(subdiv: int = 3, radius: float = 1.0):
+    """An icosahedron subdivided `subdiv` times onto the sphere, as
+    scripts/make_test_scenes.py builds it: (V, 3) float64 vertices and
+    (F, 3) int64 faces (642 and 1,280 at subdiv 3)."""
+    t = (1.0 + 5 ** 0.5) / 2.0
+    verts = np.array([
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+        [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+        [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], np.float64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    verts = verts.tolist()
+    cache = {}
+
+    def midpoint(a, b):
+        key = (min(a, b), max(a, b))
+        if key not in cache:
+            m = np.asarray(verts[a]) + np.asarray(verts[b])
+            verts.append((m / np.linalg.norm(m)).tolist())
+            cache[key] = len(verts) - 1
+        return cache[key]
+
+    for _ in range(subdiv):
+        new = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = new
+    return np.asarray(verts) * radius, np.asarray(faces, np.int64)
+
+
+def sphere_grid_ply(path: str, grid: int = 17, subdiv: int = 3,
+                    seed: int = 0) -> tuple[int, int]:
+    """BASELINE config 4's stand-in (scripts/bench_config4.py): radius-0.35
+    icospheres on a grid^3 lattice of unit spacing, each centre moved by a
+    seeded offset of at most 0.05 per axis, written as binary
+    little-endian PLY with shared vertices (float x, y, z; uchar/int
+    faces) and no normals, so the loader makes face normals. grid 17,
+    subdiv 3: 6,288,640 triangles, 3,154,146 vertices, ~120 MB. Returns
+    (triangles, vertices)."""
+    v, f = icosphere(subdiv, 0.35)
+    offs = np.stack(np.meshgrid(*([np.arange(grid)] * 3), indexing="ij"),
+                    axis=-1).reshape(-1, 3).astype(np.float64)
+    offs += np.random.default_rng(seed).uniform(-0.05, 0.05, offs.shape)
+    verts = (v[None] + offs[:, None]).reshape(-1, 3).astype("<f4")
+    faces = (f[None] + (np.arange(len(offs)) * len(v))[:, None, None])
+    rec = np.zeros(len(offs) * len(f),
+                   np.dtype([("k", "u1"), ("i", "<i4", (3,))]))
+    rec["k"] = 3
+    rec["i"] = faces.reshape(-1, 3)
+    head = ("ply\nformat binary_little_endian 1.0\n"
+            f"element vertex {len(verts)}\nproperty float x\n"
+            "property float y\nproperty float z\n"
+            f"element face {len(rec)}\n"
+            "property list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as fh:
+        fh.write(head.encode("ascii"))
+        fh.write(verts.tobytes())
+        fh.write(rec.tobytes())
+    return len(rec), len(verts)
+
+
+def _pbrt_floats(a) -> str:
+    return " ".join(repr(float(x)) for x in np.ravel(a))
+
+
+def scene_pbrt(obj_path: str, out_dir: str, light: dict | None = None,
+               name: str | None = None) -> str:
+    """Write the OBJ scene at `obj_path` as PBRT text in `out_dir` and
+    return the file's path. `light` (pos/right/up/size/emission and
+    optionally normal, as a saved state's area light) becomes an
+    `AreaLightSource "diffuse"` quad facing `normal` (right x up without
+    it), written first, so both the PBRT parse and a PBF made from it take
+    it as the scene's area-light hint.
+
+    Then one `trianglemesh` per material in material order (soup vertices
+    with their normals and uv), under the PBRT material whose taxonomy
+    gives back the OBJ material's BSDF type: matte, plastic (roughness
+    1 - Ns / 5000), glass, mirror, metal. Two have no PBRT name: a rough
+    dielectric becomes glass, and an emissive material matte under an
+    `AreaLightSource` of its Ke. `map_Kd` files are copied beside the
+    file and named by `imagemap` textures; the material names the texture
+    in `"texture Kd"` and gives its constant Kd after it, because the
+    loaders read a material's Kd as numbers. Bump maps have no PBRT
+    counterpart in the loaders and are left out."""
+    import os
+    import shutil
+
+    from fluctus_tpu_torch.core.types import (
+        BXDF_EMISSIVE, BXDF_GGX_ROUGH_DIELECTRIC)
+    from fluctus_tpu_torch.scene.loaders.obj import load_obj
+    from fluctus_tpu_torch.scene.loaders.pbf import _mtl_to_pbf
+    from fluctus_tpu_torch.scene.scene import default_material
+
+    mesh = load_obj(obj_path)
+    mats = [default_material()] + mesh.materials
+    folder = os.path.dirname(obj_path)
+    os.makedirs(out_dir, exist_ok=True)
+    out = ["WorldBegin"]
+    if light is not None:
+        p = np.asarray(light["pos"], np.float64)
+        r = np.asarray(light["right"], np.float64) * light["size"][0]
+        u = np.asarray(light["up"], np.float64) * light["size"][1]
+        if np.dot(np.cross(r, u), light.get("normal", np.cross(r, u))) < 0:
+            r, u = u, r          # wind the quad so it faces `normal`
+        quad = np.stack([p - r - u, p + r - u, p + r + u, p - r + u])
+        out += ["AttributeBegin",
+                f'  AreaLightSource "diffuse" "rgb L" '
+                f'[{_pbrt_floats(light["emission"])}]',
+                f'  Shape "trianglemesh" "point3 P" [{_pbrt_floats(quad)}]',
+                '    "integer indices" [0 1 2 0 2 3]', "AttributeEnd"]
+    textures = {}
+    for mi in np.unique(mesh.mat_id):
+        m = mats[mi]
+        if m.map_kd and m.map_kd not in textures:
+            textures[m.map_kd] = f"tex{len(textures)}"
+            shutil.copy(os.path.join(folder, m.map_kd),
+                        os.path.join(out_dir, os.path.basename(m.map_kd)))
+            out.append(f'Texture "{textures[m.map_kd]}" "spectrum" '
+                       f'"imagemap" "string filename" '
+                       f'"{os.path.basename(m.map_kd)}"')
+    for mi in np.unique(mesh.mat_id):
+        m = mats[mi]
+        sel = mesh.mat_id == mi
+        if m.bsdf_type == BXDF_GGX_ROUGH_DIELECTRIC:
+            kind, params = "glass", {"Kt": list(m.ks), "index": [m.ni]}
+        else:
+            kind, params = _mtl_to_pbf(m)
+        decl = {"Kd": "rgb", "Ks": "rgb", "Kt": "rgb", "Kr": "rgb",
+                "k": "rgb", "eta": "rgb", "roughness": "float",
+                "index": "float"}
+        words = [f'"{decl[k]} {k}" [{_pbrt_floats(v)}]'
+                 for k, v in params.items() if k in decl]
+        if m.map_kd:
+            words.insert(0, f'"texture Kd" "{textures[m.map_kd]}"')
+        out.append("AttributeBegin")
+        out.append(f'  Material "{kind}" ' + " ".join(words))
+        if m.bsdf_type == BXDF_EMISSIVE:
+            out.append(f'  AreaLightSource "diffuse" "rgb L" '
+                       f'[{_pbrt_floats(m.ke)}]')
+        pts = np.stack([mesh.v0[sel], mesh.v1[sel], mesh.v2[sel]], 1)
+        nrm = np.stack([mesh.n0[sel], mesh.n1[sel], mesh.n2[sel]], 1)
+        uv = np.stack([mesh.uv0[sel], mesh.uv1[sel], mesh.uv2[sel]], 1)
+        idx = np.arange(pts.shape[0] * 3)
+        out += [f'  Shape "trianglemesh" "point3 P" [{_pbrt_floats(pts)}]',
+                f'    "integer indices" [{" ".join(map(str, idx))}]',
+                f'    "normal N" [{_pbrt_floats(nrm)}]',
+                f'    "float uv" [{_pbrt_floats(uv)}]', "AttributeEnd"]
+    out.append("WorldEnd")
+    path = os.path.join(out_dir, (name or os.path.splitext(
+        os.path.basename(obj_path))[0]) + ".pbrt")
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return path

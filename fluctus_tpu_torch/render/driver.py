@@ -16,12 +16,12 @@ import torch
 
 from fluctus_tpu_torch.core import samplers
 from fluctus_tpu_torch.core.types import (
-    DeviceScene, RenderConfig, RenderParams, default_params)
+    AreaLight, DeviceScene, RenderConfig, RenderParams, default_params)
 from fluctus_tpu_torch.integrators import common, lockstep, wavefront
 from fluctus_tpu_torch.ops import camera as cam_ops
 from fluctus_tpu_torch.ops import tonemap as tm
 from fluctus_tpu_torch.scene.scene import (
-    HostScene, fast_big_eligible, load_scene)
+    DEFAULT_CACHE_DIR, HostScene, fast_big_eligible, load_scene)
 
 
 def resolve_device(device) -> torch.device:
@@ -68,31 +68,42 @@ def auto_frame_camera(params: RenderParams, host: HostScene) -> RenderParams:
 
 def create_session(scene_path: str, env_map: str | None = None,
                    cfg: RenderConfig | None = None, use_sbvh: bool = True,
+                   cache_dir: str | None = DEFAULT_CACHE_DIR,
                    auto_frame: bool = True,
                    state_dir: str | None = "data/states",
                    device="cuda") -> RenderSession:
-    """Load the scene and, with `env_map`, a Radiance .hdr env map and its
-    sampling tables; build the hierarchy (none above the fast-big cutover:
-    the upload builds the brute-chunk forest instead), upload it, derive
-    parameters and restore the scene's saved state (reference:
-    Tracer::init, src/tracer.cpp:55-80, loadState :634-687). The
-    parameters come in the JAX package's order, so
-    `create_session(path, env_path)` means the same in both. The env map
-    lights the scene when `cfg.use_env_map` is set and a map was loaded.
-    The traversal backend resolves as `common.resolve_backend` says:
-    "auto" to the per-lane kernels, "pallas" to the packet kernel K4."""
+    """Load the scene (.obj, .ply, .pbrt or .pbf) and, with `env_map`, a
+    Radiance .hdr env map and its sampling tables; load or build the
+    hierarchy through the cache in `cache_dir` (None: no cache; none at
+    all above the fast-big cutover, where the upload builds the
+    brute-chunk forest instead), upload it, derive parameters and restore
+    the scene's saved state (reference: Tracer::init, src/tracer.cpp:55-80,
+    loadState :634-687). The parameters come in the JAX package's order,
+    `device` last, so `create_session(path, env_path)` means the same in
+    both. The env map lights the scene when `cfg.use_env_map` is set and a
+    map was loaded; a PBRT or PBF quad emitter becomes the area light and
+    turns `cfg.use_area_light` on, before framing and the saved state, as
+    in the JAX package. The traversal backend resolves as
+    `common.resolve_backend` says: "auto" to the per-lane kernels,
+    "pallas" to the packet kernel K4."""
     dev = resolve_device(device)
     cfg = cfg or RenderConfig()
     backend = common.resolve_backend(cfg.backend)
     host = load_scene(scene_path, env_map=env_map)
     if not fast_big_eligible(host, dev):
-        host.build_bvh(use_sbvh=use_sbvh)
+        host.build_bvh(cache_dir=cache_dir, use_sbvh=use_sbvh)
     scene = host.to_device(dev)
     cfg = cfg.replace(backend=backend,
                       bsdf_types_mask=host.material_types_mask,
                       use_env_map=cfg.use_env_map
                       and host.envmap is not None)
     params = default_params(world_radius=host.world_radius(), device=dev)
+    if host.area_light_hint is not None:
+        # the reference skips PBRT area lights (src/scene.cpp:620-621)
+        al = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+              for k, v in host.area_light_hint.items()}
+        params = dataclasses.replace(params, area_light=AreaLight(**al))
+        cfg = cfg.replace(use_area_light=True)
     if auto_frame:
         params = auto_frame_camera(params, host)
     if state_dir:

@@ -1,6 +1,12 @@
-// Sequential Huffman JPEG decoder (SOF0 baseline, SOF1 extended sequential,
-// 8-bit samples) that reproduces libjpeg-turbo's default decompression, the
-// one PIL's Image.open(...).convert("RGBA") runs:
+// Huffman JPEG decoder (SOF0 baseline, SOF1 extended sequential, SOF2
+// progressive; 8-bit samples) that reproduces libjpeg-turbo's default
+// decompression, the one PIL's Image.open(...).convert("RGBA") runs:
+// - every scan decodes into a per-component coefficient buffer (jdhuff.c
+//   for sequential scans; jdphuff.c for progressive ones: DC first and
+//   refining scans, AC spectral selection with end-of-band runs, and AC
+//   successive approximation), with each component's quantization table
+//   latched at its first scan (jdinput.c), and the IDCT runs once all
+//   scans are read;
 // - the JDCT_ISLOW integer IDCT of jidctint.c (CONST_BITS 13, PASS1_BITS 2)
 //   with the post-IDCT range limit of jdmaster.c;
 // - the upsampling jdsample.c picks with do_fancy_upsampling on: the
@@ -17,9 +23,11 @@
 //   jpeg_info(data, n, &w, &h, &nc): parses the headers.
 //   jpeg_decode(data, n, out): out is h * w * nc bytes (nc 1 or 3).
 // Both return 0, 1 for a corrupt or truncated file, 2 for a variant this
-// decoder does not handle (progressive, arithmetic, lossless or
-// hierarchical coding, 12-bit samples, other than 1 or 3 components,
-// fractional sampling ratios); jpeg_last_error() names the reason.
+// decoder does not handle (arithmetic, lossless or hierarchical coding,
+// 12-bit samples, other than 1 or 3 components, fractional sampling
+// ratios, and a progressive file whose scans leave a low-frequency
+// coefficient unrefined, which libjpeg block-smooths); jpeg_last_error()
+// names the reason.
 
 #include <stdint.h>
 #include <string.h>
@@ -76,7 +84,10 @@ struct Comp {
   int td = 0, ta = 0;
   int bw, bh;           // blocks across and down in the plane
   int dw, dh;           // downsampled width and height (real samples)
+  std::vector<int16_t> coef;    // bw x bh blocks of 64, natural order
   std::vector<uint8_t> plane;   // bw*8 x bh*8 samples
+  uint16_t qlatch[64] = {0};    // the quantization table at its first scan
+  int coef_bits[64] = {0};      // jdinput.c's coef_bits: -1 until seen
   int dc_pred = 0;
 };
 
@@ -281,6 +292,9 @@ struct Decoder {
   size_t pos = 2;
   int width = 0, height = 0, ncomp = 0;
   bool have_frame = false, jfif = false, adobe = false;
+  bool progressive = false;
+  int ss = 0, se = 63, ah = 0, al = 0;   // the current scan's parameters
+  int eobrun = 0;
   int adobe_transform = -1;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart = 0;
@@ -297,8 +311,8 @@ struct Decoder {
   int u16(size_t p) const { return (u8(p) << 8) | u8(p + 1); }
 
   void frame(size_t p, int len, int sof) {
-    if (sof == 2 || sof == 6 || sof == 10 || sof == 14)
-      throw Fail{2, "progressive JPEG is not decoded by the port"};
+    if (sof == 6 || sof == 14)
+      throw Fail{2, "hierarchical JPEG is not decoded by the port"};
     if (sof == 3 || sof == 7 || sof == 11 || sof == 15)
       throw Fail{2, "lossless JPEG is not decoded by the port"};
     if (sof >= 9) throw Fail{2, "arithmetic-coded JPEG is not decoded by "
@@ -306,6 +320,7 @@ struct Decoder {
     if (sof == 5) throw Fail{2, "hierarchical JPEG is not decoded by the "
                                 "port"};
     if (have_frame) throw Fail{1, "two frames"};
+    progressive = sof == 2;
     if (u8(p) != 8) throw Fail{2, "12-bit JPEG is not decoded by the port"};
     height = u16(p + 1);
     width = u16(p + 3);
@@ -336,6 +351,7 @@ struct Decoder {
       c.bh = mcuy * c.v;
       c.dw = (width * c.h + hmax - 1) / hmax;
       c.dh = (height * c.v + vmax - 1) / vmax;
+      for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
     }
     have_frame = true;
   }
@@ -374,6 +390,12 @@ struct Decoder {
     }
   }
 
+  int16_t* coefs(Comp& c, int bx, int by) {
+    if (bx >= c.bw || by >= c.bh) return nullptr;   // outside the plane
+    return c.coef.data() + ((size_t)by * c.bw + bx) * 64;
+  }
+
+  // jdhuff.c decode_mcu: one block of a sequential scan
   void block(Reader& r, Comp& c, int bx, int by) {
     int32_t coef[64];
     memset(coef, 0, sizeof(coef));
@@ -395,10 +417,131 @@ struct Decoder {
       coef[kZigzag[k]] = extend(r.bits(s), s);
       ++k;
     }
-    if (bx >= c.bw || by >= c.bh) return;   // outside the plane: skipped
-    const int stride = c.bw * 8;
-    idct_islow(coef, q[c.tq], c.plane.data() + (size_t)by * 8 * stride +
-                                  (size_t)bx * 8, stride);
+    int16_t* out = coefs(c, bx, by);
+    if (out)
+      for (int k = 0; k < 64; ++k) out[k] = (int16_t)coef[k];
+  }
+
+  // jdphuff.c decode_mcu_DC_first / decode_mcu_DC_refine
+  void dc_block(Reader& r, Comp& c, int bx, int by) {
+    int16_t* out = coefs(c, bx, by);
+    int16_t scratch[64];
+    if (!out) out = scratch;
+    if (ah == 0) {
+      const int t = r.decode(dc[c.td]);
+      if (t > 11) throw Fail{1, "bad DC magnitude"};
+      const int diff = t ? extend(r.bits(t), t) : 0;
+      c.dc_pred += diff;
+      out[0] = (int16_t)((unsigned)c.dc_pred << al);
+    } else if (r.bit()) {
+      out[0] = (int16_t)(out[0] | (1 << al));
+    }
+  }
+
+  // jdphuff.c decode_mcu_AC_first
+  void ac_first(Reader& r, Comp& c, int bx, int by) {
+    int16_t* out = coefs(c, bx, by);
+    int16_t scratch[64];
+    if (!out) out = scratch;
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      const int rs = r.decode(ac[c.ta]);
+      int run = rs >> 4;
+      const int s = rs & 15;
+      if (s) {
+        k += run;
+        if (k > 63) throw Fail{1, "bad AC run"};
+        out[kZigzag[k]] = (int16_t)((unsigned)extend(r.bits(s), s) << al);
+      } else if (run == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << run;
+        if (run) eobrun += r.bits(run);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c decode_mcu_AC_refine
+  void ac_refine(Reader& r, Comp& c, int bx, int by) {
+    int16_t* out = coefs(c, bx, by);
+    int16_t scratch[64] = {0};
+    if (!out) out = scratch;
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int k = ss;
+    auto correct = [&](int16_t& coef) {
+      if (r.bit() && (coef & p1) == 0)
+        coef = (int16_t)(coef >= 0 ? coef + p1 : coef + m1);
+    };
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        const int rs = r.decode(ac[c.ta]);
+        int run = rs >> 4, s = rs & 15;
+        if (s) {
+          s = r.bit() ? p1 : m1;   // s != 1 is only a warning in libjpeg
+        } else if (run != 15) {
+          eobrun = 1 << run;
+          if (run) eobrun += r.bits(run);
+          break;
+        }
+        do {
+          int16_t& coef = out[kZigzag[k]];
+          if (coef != 0) {
+            correct(coef);
+          } else if (--run < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s && k <= 63) out[kZigzag[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& coef = out[kZigzag[k]];
+        if (coef != 0) correct(coef);
+      }
+      --eobrun;
+    }
+  }
+
+  void unit(Reader& r, Comp& c, int bx, int by) {
+    if (!progressive) block(r, c, bx, by);
+    else if (ss == 0) dc_block(r, c, bx, by);
+    else if (ah == 0) ac_first(r, c, bx, by);
+    else ac_refine(r, c, bx, by);
+  }
+
+  // jdphuff.c start_pass_phuff_decoder's checks and jdinput.c's latches
+  void start_scan(const std::vector<Comp*>& sc) {
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        throw Fail{1, "bad spectral selection for a sequential scan"};
+    } else {
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || sc.size() != 1);
+      if (ah != 0 && al != ah - 1) bad = true;
+      if (al > 13) bad = true;
+      if (bad) throw Fail{1, "bad progressive scan parameters"};
+    }
+    for (auto* c : sc) {
+      const bool first_dc = !progressive || (ss == 0 && ah == 0);
+      const bool need_ac = !progressive || ss > 0;
+      if (c->td > 3 || c->ta > 3 || (first_dc && !dc[c->td].present) ||
+          (need_ac && !ac[c->ta].present))
+        throw Fail{1, "SOS names a missing Huffman table"};
+      if (c->coef.empty()) {
+        if (!q_present[c->tq]) throw Fail{1, "missing quantization table"};
+        memcpy(c->qlatch, q[c->tq], sizeof(c->qlatch));
+        c->coef.assign((size_t)c->bw * c->bh * 64, 0);
+      }
+      for (int k = ss; k <= se; ++k) c->coef_bits[k] = progressive ? al : 0;
+      c->dc_pred = 0;
+    }
+    eobrun = 0;
   }
 
   // Returns the position after the scan's entropy-coded data.
@@ -414,19 +557,14 @@ struct Decoder {
       if (!found) throw Fail{1, "SOS names an unknown component"};
       found->td = tt >> 4;
       found->ta = tt & 15;
-      if (found->td > 3 || found->ta > 3 || !dc[found->td].present ||
-          !ac[found->ta].present)
-        throw Fail{1, "SOS names a missing Huffman table"};
-      if (!q_present[found->tq]) throw Fail{1, "missing quantization table"};
       sc.push_back(found);
     }
     const size_t s0 = p + 1 + 2 * ns;
-    if (u8(s0) != 0 || u8(s0 + 1) != 63 || u8(s0 + 2) != 0)
-      throw Fail{1, "bad spectral selection for a sequential scan"};
-    for (auto* c : sc) {
-      c->dc_pred = 0;
-      if (c->plane.empty()) c->plane.assign((size_t)c->bw * c->bh * 64, 0);
-    }
+    ss = u8(s0);
+    se = u8(s0 + 1);
+    ah = u8(s0 + 2) >> 4;
+    al = u8(s0 + 2) & 15;
+    start_scan(sc);
     Reader r{d, n, p + len - 2};
     int units_x, units_y;
     if (ns == 1) {   // non-interleaved: one block per unit
@@ -451,15 +589,16 @@ struct Decoder {
         r.reset();
         r.marker_hit = false;
         for (auto* c : sc) c->dc_pred = 0;
+        eobrun = 0;
       }
       const int ux = (int)(u % units_x), uy = (int)(u / units_x);
       if (ns == 1) {
-        block(r, *sc[0], ux, uy);
+        unit(r, *sc[0], ux, uy);
       } else {
         for (auto* c : sc)
           for (int by = 0; by < c->v; ++by)
             for (int bx = 0; bx < c->h; ++bx)
-              block(r, *c, ux * c->h + bx, uy * c->v + by);
+              unit(r, *c, ux * c->h + bx, uy * c->v + by);
       }
     }
     // the data ends at the next marker that is not a stuffed 0xFF00 or RST
@@ -514,8 +653,29 @@ struct Decoder {
       pos += len;
     }
     if (!have_frame || !scanned) throw Fail{1, "no image data"};
-    for (auto& c : comps)
-      if (c.plane.empty()) throw Fail{1, "a component has no scan"};
+    for (auto& c : comps) {
+      if (c.coef.empty() || c.coef_bits[0] < 0)
+        throw Fail{1, "a component has no scan"};
+      // jdcoefct.c smoothing_ok: libjpeg-turbo smooths the blocks of a
+      // progressive image while coefficient 0-9 is not fully refined
+      for (int k = 0; k < 10; ++k)
+        if (progressive && c.coef_bits[k] != 0)
+          throw Fail{2, "a progressive JPEG with unrefined coefficients "
+                        "(block smoothing) is not decoded by the port"};
+    }
+    if (headers_only) return;
+    for (auto& c : comps) {   // the IDCT of every block, once
+      const int stride = c.bw * 8;
+      c.plane.assign((size_t)c.bw * c.bh * 64, 0);
+      int32_t blk[64];
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx) {
+          const int16_t* in = c.coef.data() + ((size_t)by * c.bw + bx) * 64;
+          for (int k = 0; k < 64; ++k) blk[k] = in[k];
+          idct_islow(blk, c.qlatch, c.plane.data() + (size_t)by * 8 * stride +
+                                        (size_t)bx * 8, stride);
+        }
+    }
   }
 
   bool rgb_space() const {

@@ -2,15 +2,20 @@
 (counterpart of `fluctus_tpu/scene/scene.py`; reference: src/scene.cpp,
 src/tracer.cpp:574-590).
 
-OBJ/MTL input and an optional Radiance HDR env map, then one of two uploads: the SBVH build, 8-wide collapse
-and upload of its f32 rows (with a treelet forest beside them under
-FLUCTUS_FOREST=treelet, see `HostScene.to_device`); or, for a scene above
-the fast-big cutover on a CUDA device, the brute-chunk forest alone
+Input by extension: OBJ/MTL, PLY, PBRT text (with its parse cache) and the
+PBF binary container, plus an optional Radiance HDR env map. The hierarchy
+comes from the native SAH/SBVH builder, or the NumPy builders under
+FLUCTUS_NATIVE=0, through an npz cache keyed by builder version and scene
+hash that the two packages share. Then one of two uploads: the 8-wide
+collapse and upload of its f32 rows (with a treelet forest beside them
+under FLUCTUS_FOREST=treelet, see `HostScene.to_device`); or, for a scene
+above the fast-big cutover on a CUDA device, the brute-chunk forest alone
 (`fast_big_eligible`).
 """
 from __future__ import annotations
 
 import os
+import zipfile
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -18,7 +23,7 @@ import torch
 
 from fluctus_tpu_torch.accel import bvh as bvh_mod
 from fluctus_tpu_torch.accel.forest import (
-    TARGET_TRIS, build_brute_forest, build_host_forest)
+    TARGET_TRIS, build_brute_forest, build_host_forest, native_enabled)
 from fluctus_tpu_torch.accel.wide import LEAF_WIDTH, build_wide
 from fluctus_tpu_torch.core.types import (
     BSDF_ID, BXDF_DIFFUSE, BruteForest, DeviceScene, EnvMap, ForestTables,
@@ -26,11 +31,14 @@ from fluctus_tpu_torch.core.types import (
 from fluctus_tpu_torch.scene import envmap as envmap_mod
 from fluctus_tpu_torch.scene.envmap import HostEnvMap
 from fluctus_tpu_torch.scene.loaders.obj import MtlMaterial, load_obj
+from fluctus_tpu_torch.scene.loaders.ply import load_ply
 from fluctus_tpu_torch.scene.textures import TexturePool
 from fluctus_tpu_torch.scene.xxh64 import file_hash
 
 __all__ = ["HostScene", "load_scene", "file_hash", "default_material",
-           "fast_big_eligible"]
+           "fast_big_eligible", "DEFAULT_CACHE_DIR"]
+
+DEFAULT_CACHE_DIR = "data/hierarchies"
 
 # wide tables above this many bytes take a forest in the JAX package
 # (its TPU kernels keep the tables in VMEM); the port follows its rule
@@ -65,6 +73,9 @@ class HostScene:
     map_ks: np.ndarray | None = None
     map_n: np.ndarray | None = None
     envmap: HostEnvMap | None = None
+    # quad-emitter frame from a PBRT AreaLightSource (loaders/pbrt.py) or a
+    # PBF emissive quad: pos/right/up/normal/size/emission
+    area_light_hint: dict | None = None
 
     @property
     def n_tris(self) -> int:
@@ -94,13 +105,59 @@ class HostScene:
         """Read a Radiance .hdr and build its sampling tables."""
         self.envmap = envmap_mod.load(path)
 
-    def build_bvh(self, use_sbvh: bool = True) -> None:
-        """SAH or SBVH build with the native builder
-        (reference: src/tracer.cpp:574-590 initHierarchy)."""
-        from fluctus_tpu_torch.accel import native
-        self.bvh = native.build_native(self.v0, self.v1, self.v2,
-                                       bvh_mod.MAX_LEAF, bvh_mod.MAX_DEPTH,
-                                       1e-5, use_sbvh)
+    def build_bvh(self, cache_dir: str | None = DEFAULT_CACHE_DIR,
+                  use_sbvh: bool = True) -> None:
+        """Load the cached hierarchy, or build it and cache it (reference:
+        src/tracer.cpp:574-590 initHierarchy). The cache is the JAX
+        package's: `hierarchy_{sbvh|bvh}_v{BUILDER_VERSION}_{hash}.npz`
+        in `cache_dir` with the same keys, so either package reads what
+        the other wrote. The native builder builds unless FLUCTUS_NATIVE=0
+        selects the NumPy SBVH or SAH builder; a failed native build
+        raises (the JAX package gives way to NumPy there). A cache file
+        that cannot be read (one the JAX package is still writing in
+        place, say) is built and written again."""
+        cache_path = None
+        if cache_dir and self.hash:
+            kind = "sbvh" if use_sbvh else "bvh"
+            cache_path = os.path.join(
+                cache_dir, f"hierarchy_{kind}_v{bvh_mod.BUILDER_VERSION}_"
+                f"{self.hash}.npz")
+            if os.path.exists(cache_path):
+                try:
+                    with np.load(cache_path) as z:
+                        self.bvh = bvh_mod.BuiltBVH(
+                            node_lo=z["node_lo"], node_hi=z["node_hi"],
+                            node_right=z["node_right"],
+                            node_count=z["node_count"],
+                            node_parent=z["node_parent"],
+                            prim_idx=z["prim_idx"], depth=int(z["depth"]))
+                    return
+                except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+                    pass    # unreadable (the JAX package writes in place)
+        if not native_enabled():
+            if use_sbvh:
+                from fluctus_tpu_torch.accel.sbvh import build_sbvh
+                self.bvh = build_sbvh(self.v0, self.v1, self.v2)
+            else:
+                self.bvh = bvh_mod.build_bvh(self.v0, self.v1, self.v2)
+        else:
+            from fluctus_tpu_torch.accel import native
+            self.bvh = native.build_native(
+                self.v0, self.v1, self.v2, bvh_mod.MAX_LEAF,
+                bvh_mod.MAX_DEPTH, 1e-5, use_sbvh)
+        if cache_path:
+            os.makedirs(cache_dir, exist_ok=True)
+            # a temporary name in the same directory, then one rename:
+            # concurrent sessions never read a half-written file
+            tmp = f"{cache_path}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                np.savez_compressed(
+                    f, node_lo=self.bvh.node_lo, node_hi=self.bvh.node_hi,
+                    node_right=self.bvh.node_right,
+                    node_count=self.bvh.node_count,
+                    node_parent=self.bvh.node_parent,
+                    prim_idx=self.bvh.prim_idx, depth=self.bvh.depth)
+            os.replace(tmp, cache_path)
 
     def material_arrays(self):
         mats = self.materials
@@ -161,7 +218,7 @@ class HostScene:
                                   tboxes=t(hb.tboxes), tile=hb.tile)
         else:
             if self.bvh is None:
-                self.build_bvh(use_sbvh=False)
+                self.build_bvh(cache_dir=None, use_sbvh=False)
             wide = build_wide(self.bvh, self.v0, self.v1, self.v2)
             wbvh = WideBVH(nodes=t(wide.nodes), leaves=t(wide.leaves),
                            root_ref=int(wide.root_ref),
@@ -234,30 +291,68 @@ def fast_big_eligible(host, device) -> bool:
 
 
 def load_scene(path: str, env_map: str | None = None) -> HostScene:
-    """Load an OBJ/MTL scene and, with `env_map`, a Radiance .hdr env map
-    (reference: src/scene.cpp:53-103)."""
+    """Load a model by extension, .obj, .ply, .pbrt or .pbf, and with
+    `env_map` a Radiance .hdr env map (reference: src/scene.cpp:53-103).
+    A PBRT file is parsed through its cache in data/pbf_cache, as in the
+    JAX package; PBRT and PBF scenes carry no normal maps (`map_n` stays
+    -1) and may carry an area-light hint."""
     ext = os.path.splitext(path)[1].lower()
-    if ext != ".obj":
-        raise NotImplementedError(
-            f"{ext} scenes are not ported yet (ROADMAP Queue 1); use .obj")
-    mesh = load_obj(path)
-    mats = [default_material()] + mesh.materials
-    folder = os.path.dirname(path)
     pool = TexturePool()
-    maps = {k: np.full(len(mats), -1, np.int64)
-            for k in ("map_kd", "map_ks", "map_bump")}
-    for i, mat in enumerate(mats[1:], start=1):
-        for k in maps:
-            name = getattr(mat, k)
-            if name:
-                maps[k][i] = pool.try_import(os.path.join(folder, name), name)
+    area_light_hint = None
+    maps = None
+    if ext == ".ply":
+        v0, v1, v2, n0, n1, n2, uv0, uv1, uv2 = load_ply(path)
+        mats = [default_material()]
+        mat_id = np.zeros(len(v0), np.int32)
+    elif ext == ".obj":
+        mesh = load_obj(path)
+        v0, v1, v2 = mesh.v0, mesh.v1, mesh.v2
+        n0, n1, n2 = mesh.n0, mesh.n1, mesh.n2
+        uv0, uv1, uv2 = mesh.uv0, mesh.uv1, mesh.uv2
+        mat_id = mesh.mat_id
+        mats = [default_material()] + mesh.materials
+        maps = _import_maps(pool, mats, os.path.dirname(path),
+                            ("map_kd", "map_ks", "map_bump"))
+    elif ext in (".pbrt", ".pbf"):
+        if ext == ".pbf":
+            # the binary container, opened directly (reference:
+            # src/scene.cpp:573-620 Scene::loadPBFModel)
+            from fluctus_tpu_torch.scene.loaders.pbf import load_pbf
+            (v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, mat_id,
+             pbrt_mats, area_light_hint) = load_pbf(path)
+        else:
+            from fluctus_tpu_torch.scene.loaders.pbrt import load_pbrt
+            (v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, mat_id,
+             pbrt_mats, area_light_hint) = load_pbrt(path)
+        mats = [default_material()] + pbrt_mats
+        maps = _import_maps(pool, mats, os.path.dirname(path),
+                            ("map_kd", "map_ks"))
+    else:
+        raise ValueError(f"unsupported scene format: {path} (use .obj, "
+                         ".ply, .pbrt or .pbf)")
     scene = HostScene(
-        v0=mesh.v0, v1=mesh.v1, v2=mesh.v2, n0=mesh.n0, n1=mesh.n1,
-        n2=mesh.n2, uv0=mesh.uv0, uv1=mesh.uv1, uv2=mesh.uv2,
-        mat_id=np.asarray(mesh.mat_id, np.int32), materials=mats,
+        v0=v0, v1=v1, v2=v2, n0=n0, n1=n1, n2=n2, uv0=uv0, uv1=uv1,
+        uv2=uv2, mat_id=np.asarray(mat_id, np.int32), materials=mats,
         textures=pool, hash=file_hash(path), name=os.path.basename(path),
-        map_kd=maps["map_kd"], map_ks=maps["map_ks"],
-        map_n=maps["map_bump"])
+        area_light_hint=area_light_hint)
+    if maps is not None:
+        scene.map_kd = maps["map_kd"]
+        scene.map_ks = maps["map_ks"]
+        scene.map_n = maps.get("map_bump", np.full(len(mats), -1, np.int64))
     if env_map:
         scene.load_env_map(env_map)
     return scene
+
+
+def _import_maps(pool: TexturePool, mats: list, folder: str,
+                 keys: tuple) -> dict:
+    """Texture slots of every material but the default one: {key: (M,)
+    slot ids, -1 where a material names no map or its file is missing or
+    damaged}."""
+    maps = {k: np.full(len(mats), -1, np.int64) for k in keys}
+    for i, mat in enumerate(mats[1:], start=1):
+        for k in keys:
+            name = getattr(mat, k)
+            if name:
+                maps[k][i] = pool.try_import(os.path.join(folder, name), name)
+    return maps

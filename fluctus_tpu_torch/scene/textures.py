@@ -2,12 +2,12 @@
 `fluctus_tpu/scene/textures.py`; reference: src/texture.cpp:16-41,
 src/scene.cpp:304-320, src/clcontext.cpp:570-611).
 
-Images are decoded by the port's own readers (scene/imageformat.py: PNG,
-JPEG, BMP and TGA, chosen by the file's signature), which give what the
-JAX package's PIL `convert("RGBA")` gives. As there, a missing file, or
-one whose data is damaged, leaves the slot at -1. A well-formed file in a
-format the port does not decode raises, so no map the JAX package would
-load is dropped without notice.
+Images are decoded by the port's own readers (scene/imageformat.py picks
+one by the file's signature, as PIL identifies it), which give what the
+JAX package's PIL `convert("RGBA")` gives. As there, a missing file, one
+no PIL plugin identifies, or one whose data is damaged leaves the slot at
+-1. A well-formed file in a format the port does not decode raises, so no
+map the JAX package would load is dropped without notice.
 """
 from __future__ import annotations
 
@@ -33,10 +33,10 @@ class TexturePool:
     _by_name: dict = field(default_factory=dict)
 
     def try_import(self, path: str, name: str) -> int:
-        """Load-or-reuse by name; -1 when the file is missing or damaged
-        (reference: src/scene.cpp:304-320 tryImportTexture). Raises
-        UnsupportedImage (a ValueError) for a format the port does not
-        decode, and ValueError for bytes no decoder recognises."""
+        """Load-or-reuse by name; -1 when the file is missing, is in no
+        format PIL identifies, or is damaged (reference:
+        src/scene.cpp:304-320 tryImportTexture). Raises UnsupportedImage
+        for a format the port does not decode."""
         if not name:
             return -1
         if name in self._by_name:
@@ -49,6 +49,8 @@ class TexturePool:
             kind = imageformat.sniff(data)
         except imageformat.UnsupportedImage as e:
             raise imageformat.UnsupportedImage(f"{path}: {e}") from None
+        if kind is None:
+            return -1
         if kind == "jpeg":
             from fluctus_tpu_torch.scene import jpeg
             jpeg.load_library()       # a failed build raises, never -1
@@ -56,7 +58,7 @@ class TexturePool:
             rgba = imageformat.decode(data, kind)
         except imageformat.UnsupportedImage as e:
             raise imageformat.UnsupportedImage(f"{path}: {e}") from None
-        except (ValueError, IndexError, struct.error, zlib.error):
+        except (ValueError, IndexError, EOFError, struct.error, zlib.error):
             return -1                 # damaged or truncated, as PIL fails
         # uv (0, 0) is the bottom-left texel (the reference loads with
         # IL_ORIGIN_LOWER_LEFT), so flip the top-first rows

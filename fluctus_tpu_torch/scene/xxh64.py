@@ -1,11 +1,24 @@
-"""XXH64 (Yann Collet's xxHash, 64-bit) in pure Python.
+"""XXH64 (Yann Collet's xxHash, 64-bit): the scene hash.
 
-The scene hash keys the saved camera and light state
-(`data/states/state_<hash>.json`), so it must equal the `xxhash` package's
-`xxh64().hexdigest()` of the file; the port carries its own copy to keep
-that package off its import path.
+The hash keys the saved camera and light state
+(`data/states/state_<hash>.json`), the hierarchy cache and the PBRT parse
+cache, so it must equal the `xxhash` package's `xxh64().hexdigest()` of
+the file; the port carries its own copy to keep that package off its
+import path. `file_hash` streams the file through the native hash
+(`native/xxh64.cpp`, built with g++ at first use; a failed build raises);
+`xxh64_digest` is its plain Python version, which the tests hold it
+against.
 """
 from __future__ import annotations
+
+import ctypes
+import os
+
+from fluctus_tpu_torch.build import build_shared
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
+                    "xxh64.cpp")
+_lib = None
 
 _M = (1 << 64) - 1
 P1 = 0x9E3779B185EBCA87
@@ -76,7 +89,24 @@ def xxh64_hexdigest(data: bytes, seed: int = 0) -> str:
     return f"{xxh64_digest(data, seed):016x}"
 
 
+def load_library():
+    """Build (at first use) and load the native hash."""
+    global _lib
+    if _lib is None:
+        path, _, _ = build_shared(
+            _SRC, "xxh64", ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"])
+        lib = ctypes.CDLL(path)
+        lib.xxh64_file.argtypes = [ctypes.c_char_p,
+                                   ctypes.POINTER(ctypes.c_ulonglong)]
+        lib.xxh64_file.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
 def file_hash(path: str) -> str:
-    """xxh64 of a file's contents (reference: src/utils.cpp:63-91)."""
-    with open(path, "rb") as f:
-        return xxh64_hexdigest(f.read())
+    """xxh64 of a file's contents, read in 1 MiB chunks (reference:
+    src/utils.cpp:63-91)."""
+    out = ctypes.c_ulonglong()
+    if load_library().xxh64_file(os.fsencode(path), ctypes.byref(out)):
+        raise OSError(f"cannot read {path}")
+    return f"{out.value:016x}"

@@ -166,8 +166,9 @@ print("DECODED-OK")
 
 
 def test_port_decodes_textures_without_pil(tmp_path):
-    """The image decoders (PNG, JPEG with its g++ build, BMP, TGA) run
-    with PIL unimportable and give the rows PIL gives."""
+    """The image decoders (PNG, JPEG baseline and progressive with its g++
+    build, BMP, TGA, GIF, TIFF, PPM) run with PIL unimportable and give
+    the rows PIL gives."""
     import numpy as np
     from PIL import Image
     g = np.random.default_rng(0)
@@ -178,7 +179,11 @@ def test_port_decodes_textures_without_pil(tmp_path):
                                              subsampling="4:2:0")),
                          ("c.bmp", img.quantize(9), {}),
                          ("d.tga", img.convert("RGBA"),
-                          dict(compression="tga_rle"))):
+                          dict(compression="tga_rle")),
+                         ("e.jpg", img, dict(progressive=True)),
+                         ("f.gif", img.quantize(7), dict(interlace=True)),
+                         ("g.tif", img, dict(compression="tiff_lzw")),
+                         ("h.ppm", img, {})):
         im.save(tmp_path / name, **kw)
         rgba = np.asarray(Image.open(tmp_path / name).convert("RGBA"))
         np.save(tmp_path / f"{name}.npy", np.ascontiguousarray(rgba[::-1]))

@@ -2,13 +2,16 @@
 (csrc/traverse_brute.cu), K5 (csrc/traverse_forest.cu: the work queue in
 one launch and the per-launch kernel), K4
 (csrc/traverse_packet.cu) and the probes P1 and P2 (csrc/probes.cu) against
-their plain versions, the launch helper (launch.py) and the streaming
-wavefront against the lockstep integrator through K1, on the card. These
+their plain versions, the launch helper (launch.py), the streaming
+wavefront against the lockstep integrator through K1, env-lit frames, and
+PLY, PBRT, cached and NumPy-built scenes through K1 and K2, on the card. These
 need an NVIDIA card with nvcc, so they carry the `cuda` marker and skip
 elsewhere; the file imports no JAX, so it runs on the card with
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,7 @@ from fluctus_tpu_torch.ops import traverse_stack as ts
 from fluctus_tpu_torch.scene.scene import load_scene
 
 pytestmark = pytest.mark.cuda
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -636,3 +640,122 @@ def test_env_lit_frame_on_the_card_equals_cpu(card, tmp_path, backend):
     mean_rel = np.abs(img_g - img_c).mean() / np.abs(img_c).mean()
     assert within.mean() >= 0.995 and mean_rel <= 1e-4, (within.mean(),
                                                           mean_rel)
+
+
+# ------------------------------------------------------------ scene formats
+# PLY, PBRT and PBF scenes, the hierarchy cache and the NumPy builders on the
+# card: host code, traced by K1 and K2.
+
+def _held(img_g, img_c):
+    within = np.isclose(img_g, img_c, rtol=1e-3, atol=1e-4).all(-1)
+    mean_rel = np.abs(img_g - img_c).mean() / np.abs(img_c).mean()
+    assert within.mean() >= 0.995 and mean_rel <= 1e-4, (within.mean(),
+                                                          mean_rel)
+    assert float(img_c.mean()) > 1e-3
+
+
+def _grid_session(tmp_path, device, grid=3):
+    from fluctus_tpu_torch.core.types import RenderConfig
+    from fluctus_tpu_torch.fixtures import sky_env, sphere_grid_ply
+    from fluctus_tpu_torch.io.hdr import write_hdr
+    from fluctus_tpu_torch.render import driver
+    ply, sky = tmp_path / f"grid{grid}.ply", tmp_path / "sky.hdr"
+    if not ply.exists():
+        sphere_grid_ply(str(ply), grid, 3, seed=0)
+        write_hdr(str(sky), sky_env(64, 32, seed=3, sun_texels=1.5))
+    cfg = RenderConfig(width=32, height=32, max_bounces=2,
+                       use_area_light=False)
+    return driver.create_session(str(ply), str(sky), cfg, cache_dir=None,
+                                 state_dir=None, device=device)
+
+
+def test_ply_frame_on_the_card_equals_cpu(card, tmp_path):
+    """A 32x32 env-lit frame of the grid-3 sphere PLY (34,560 tris, under
+    the cutover: K1 over its hierarchy) equals the CPU's at the goldens'
+    limits."""
+    from fluctus_tpu_torch.render import driver
+    s_g = _grid_session(tmp_path, card)
+    assert s_g.host_scene.n_tris == 34560 and s_g.scene.wbvh is not None
+    ts.reset_counts()
+    img_g = driver.render(s_g, 2, integrator="lockstep").cpu().numpy()
+    assert ts.LAUNCHES["closest"] > 0 and ts.LAUNCHES["any"] > 0
+    img_c = driver.render(_grid_session(tmp_path, "cpu"), 2,
+                          integrator="lockstep").numpy()
+    _held(img_g, img_c)
+
+
+def test_pbrt_cornell_frame_on_the_card_equals_cpu(card, tmp_path,
+                                                   monkeypatch):
+    """The cornell written as PBRT with its quad emitter: the session takes
+    the file's area light, and a 32x32 stream frame without implicit light
+    hits (the emitter's triangles lie in the light's plane, see
+    chip_smoke.py's pbf phase) through K1's fused call equals the CPU's."""
+    from fluctus_tpu_torch.core.types import RenderConfig
+    from fluctus_tpu_torch.fixtures import scene_pbrt
+    from fluctus_tpu_torch.render import driver
+    monkeypatch.chdir(tmp_path)
+    path = scene_pbrt(f"{REPO}/assets/cornell_proxy.obj", str(tmp_path), {
+        "pos": [0.0, 3.95, 0.0], "right": [1.0, 0.0, 0.0],
+        "up": [0.0, 0.0, -1.0], "normal": [0.0, -1.0, 0.0],
+        "size": [1.0, 1.0], "emission": [15.0, 15.0, 15.0]})
+    cfg = RenderConfig(width=32, height=32, max_bounces=4,
+                       use_env_map=False, sample_impl=False)
+    imgs = []
+    for dev in (card, "cpu"):
+        s = driver.create_session(path, cfg=cfg, cache_dir=None,
+                                  state_dir=None, device=dev)
+        assert s.cfg.use_area_light
+        imgs.append(driver.render(s, 2, integrator="stream").cpu().numpy())
+    _held(*imgs)
+
+
+def test_k2_on_a_ply_scene_equals_plain(card, tmp_path, monkeypatch):
+    """The grid-3 PLY above a lowered cutover uploads as a brute forest:
+    K2 equals its plain version on the frame's primary rays."""
+    from fluctus_tpu_torch.integrators import common
+    from fluctus_tpu_torch.ops import camera
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    monkeypatch.setenv("FLUCTUS_FAST_BIG_MIN_TRIS", "10000")
+    tb.load_kernel()
+    s = _grid_session(tmp_path, card)
+    bf = s.scene.bforest
+    assert bf is not None and s.scene.wbvh is None
+    pix = torch.arange(0, 1024, device=card, dtype=torch.int32)
+    half = torch.full(pix.shape, 0.5, device=card)
+    zero = torch.zeros(pix.shape, device=card)
+    o, d = camera.generate_rays(s.params.camera, pix, 32, 32, half, half,
+                                zero, zero, s.params.world_radius)
+    t = torch.full((1024,), common.T_MAX, device=card)
+    k = tb.traverse_closest(bf, o, d, t, launch=tb.vlaunch_kernel)
+    p = tb.traverse_closest(bf, o, d, t, launch=tb.vlaunch_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(k.prim, p.prim) and torch.equal(k.t, p.t)
+    assert torch.equal(k.u, p.u) and torch.equal(k.v, p.v)
+    assert int((k.prim >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("route", ["cached", "numpy"])
+def test_cached_and_numpy_hierarchies_through_k1(card, tmp_path,
+                                                 monkeypatch, route):
+    """The cornell's hierarchy read back from the npz cache, or built by
+    the NumPy SAH builder under FLUCTUS_NATIVE=0, traced by K1 bit-equal
+    to the plain version."""
+    from fluctus_tpu_torch.render import driver
+    if route == "numpy":
+        monkeypatch.setenv("FLUCTUS_NATIVE", "0")
+    kw = dict(use_sbvh=route == "cached", cache_dir=str(tmp_path)
+              if route == "cached" else None, state_dir=None, device=card)
+    s = driver.create_session("assets/cornell_proxy.obj", **kw)
+    if route == "cached":
+        s = driver.create_session("assets/cornell_proxy.obj", **kw)
+        assert len(list(tmp_path.iterdir())) == 1
+    o, d, t = _rays(s.host_scene, 8192, 6, card)
+    w = s.scene.wbvh
+    k = ts.traverse_kernel(w, o, d, t, any_hit=False)
+    p, _ = ts.traverse_plain(w, o, d, t, any_hit=False)
+    ka = ts.traverse_kernel(w, o, d, t, any_hit=True)
+    _, pa = ts.traverse_plain(w, o, d, t, any_hit=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k.prim, p.prim) and torch.equal(k.t, p.t)
+    assert torch.equal(k.u, p.u) and torch.equal(k.v, p.v)
+    assert torch.equal(ka, pa)

@@ -67,8 +67,3 @@ def test_missing_texture_stays_unset(tmp_path):
                    "f 1 2 3\n")
     s = load_scene(str(obj))
     assert s.map_kd.tolist() == [-1, -1]
-
-
-def test_non_obj_scene_is_refused():
-    with pytest.raises(NotImplementedError):
-        load_scene("assets/scene.ply")

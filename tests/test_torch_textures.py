@@ -1,16 +1,20 @@
 """Texture formats: the port's TexturePool (fluctus_tpu_torch/scene/
-textures.py and its decoders png.py, jpeg.py with native/jpeg.cpp, bmp.py,
-tga.py) against the JAX package's (PIL's `Image.open(...).convert("RGBA")`)
-on the same files, written into tmp_path with PIL or, for what PIL does
-not write (every PNG colour type and depth, Adam7, tRNS keys; BMP
-bitfields and top-down rows; right-to-left TGA), by hand.
+textures.py, imageformat.py and its decoders png.py, jpeg.py with
+native/jpeg.cpp, bmp.py, tga.py, gif.py, pnm.py, tiff.py) against the JAX
+package's (PIL's `Image.open(...).convert("RGBA")`) on the same files,
+written into tmp_path with PIL or, for what PIL does not write (every PNG
+colour type and depth, Adam7, tRNS keys; BMP bitfields, 4- and 16-bit
+pixels, RLE and OS/2 headers; right-to-left and 16-bit TGA; GIF frames
+offset in their screen; TIFF tiles, 16-bit samples and the predictor;
+plain PNM at odd maxvals and PFM), by hand.
 
-Every format is held byte for byte, JPEG included: the port's decoder
-makes libjpeg-turbo's choices (islow IDCT, fancy upsampling, its YCbCr
-tables), so its RGBA equals PIL's exactly. A truncated file is -1 in both
-pools; a well-formed file in a format the port does not decode
-(progressive JPEG, GIF, TIFF, PPM, WebP) loads in the JAX pool and raises
-ValueError in the port's, so the gap stays visible."""
+Every format is held byte for byte, progressive JPEG included: the port's
+decoder makes libjpeg-turbo's choices (islow IDCT, fancy upsampling, its
+YCbCr tables), so its RGBA equals PIL's exactly. A truncated file is -1
+in both pools, and so are bytes no PIL plugin identifies; a well-formed
+file in a format the port does not decode (WebP, ICO, DDS, JPEG-in-TIFF)
+loads in the JAX pool and raises UnsupportedImage in the port's, so the
+gap stays visible."""
 import io
 import struct
 import zlib
@@ -20,6 +24,7 @@ import pytest
 from PIL import Image, features
 
 from fluctus_tpu.scene.textures import TexturePool as JaxPool
+from fluctus_tpu_torch.scene import imageformat
 from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 from fluctus_tpu_torch.scene.textures import TexturePool
 
@@ -303,6 +308,439 @@ def test_jpeg_extended_sequential_16_bit_tables(tmp_path):
     assert_same(path)
 
 
+# ------------------------------------------------------------ PNM and PFM
+
+def _pnm_cases():
+    g = np.random.default_rng(11)
+    w, h = 7, 5
+    cases = {}
+    for mv in (1, 7, 255, 256, 1000, 65535):
+        v = g.integers(0, mv + 1, (h, w, 3))
+        for m, b in (("P2", 1), ("P3", 3), ("P5", 1), ("P6", 3)):
+            head = f"{m}\n# comment\n{w} {h}\n{mv}\n".encode()
+            vv = v[..., :b]
+            if m in ("P2", "P3"):
+                body = " ".join(map(str, vv.reshape(-1))).encode() + b"\n"
+            else:
+                body = vv.astype(np.uint8 if mv < 256 else ">u2").tobytes()
+            cases[f"{m} maxval {mv}"] = head + body
+    bits = g.integers(0, 2, (h, w))
+    cases["P1"] = f"P1\n{w} {h}\n".encode() + " ".join(
+        map(str, bits.reshape(-1))).encode()
+    cases["P1 packed digits"] = f"P1 {w} {h}\n".encode() + "".join(
+        map(str, bits.reshape(-1))).encode()
+    cases["P4"] = f"P4\n{w} {h}\n".encode() + np.packbits(
+        bits, axis=1).tobytes()
+    f = (g.normal(0, 100, (h, w)) + 100).astype(np.float32)
+    f[0, 0], f[1, 1], f[2, 2] = np.nan, np.inf, -3.0
+    cases["Pf little-endian"] = f"Pf\n{w} {h}\n-1.0\n".encode() + \
+        f.astype("<f4").tobytes()
+    cases["Pf big-endian"] = f"Pf\n{w} {h}\n2.5\n".encode() + \
+        f.astype(">f4").tobytes()
+    cases["P6 truncated"] = cases["P6 maxval 255"][:40]
+    cases["P2 sample over maxval"] = b"P2\n2 1\n10\n1 11\n"
+    return cases
+
+
+@pytest.mark.parametrize("name", list(_pnm_cases()))
+def test_pnm_and_pfm(tmp_path, name):
+    path = tmp_path / "t.pnm"
+    path.write_bytes(_pnm_cases()[name])
+    if "truncated" in name or "over" in name:
+        assert both(path) == [-1, -1]
+    else:
+        assert_same(path)
+
+
+# ------------------------------------------------------------ progressive
+
+@pytest.mark.parametrize("size", [(17, 13), (48, 64), (1, 1)])
+@pytest.mark.parametrize("kw", [
+    dict(subsampling="4:2:0", quality=75),
+    dict(subsampling="4:2:2", quality=95, restart_marker_blocks=3),
+    dict(subsampling="4:4:4", quality=30, optimize=True),
+    dict(subsampling="4:2:0", quality=100, restart_marker_blocks=1),
+    dict(grey=True, quality=60, restart_marker_blocks=2)])
+def test_jpeg_progressive(tmp_path, size, kw):
+    kw = dict(kw)
+    img = Image.fromarray(smooth(*size))
+    if kw.pop("grey", False):
+        img = img.convert("L")
+    path = tmp_path / "t.jpg"
+    img.save(path, "JPEG", progressive=True, **kw)
+    assert_same(path)
+
+
+def test_jpeg_progressive_truncated_is_minus_one(tmp_path):
+    buf = io.BytesIO()
+    Image.fromarray(smooth(40, 40)).save(buf, "JPEG", progressive=True)
+    path = tmp_path / "t.jpg"
+    path.write_bytes(buf.getvalue()[:len(buf.getvalue()) * 2 // 3])
+    assert both(path) == [-1, -1]
+
+
+# ------------------------------------------------------------ GIF
+
+def _lzw_literal(idx, min_size):
+    """GIF LZW of literal codes, a clear code before the table grows."""
+    clear, end, size = 1 << min_size, (1 << min_size) + 1, min_size + 1
+    codes, nxt = [clear], end + 1
+    for v in idx:
+        codes.append(int(v))
+        if codes[-2] != clear:
+            nxt += 1
+        if nxt >= (1 << size) - 1:
+            codes.append(clear)
+            nxt = end + 1
+    codes.append(end)
+    acc = bits = 0
+    out = bytearray()
+    for c in codes:
+        acc |= c << bits
+        bits += size
+        while bits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            bits -= 8
+    return bytes(out + (bytes([acc]) if bits else b""))
+
+
+def _sub_blocks(b):
+    return b"".join(bytes([len(b[i:i + 255])]) + b[i:i + 255]
+                    for i in range(0, len(b), 255)) + b"\0"
+
+
+def write_gif(sw, sh, gpal, idx, x0=0, y0=0, lpal=None, trans=None,
+              interlace=False, min_size=None, code=None):
+    fh, fw = idx.shape
+    out = bytearray(b"GIF89a" + struct.pack("<HH", sw, sh))
+    if gpal is not None:
+        out += bytes([0x80 | (len(gpal).bit_length() - 2), 0, 0])
+        out += np.asarray(gpal, np.uint8).tobytes()
+    else:
+        out += b"\0\0\0"
+    if trans is not None:
+        out += bytes([0x21, 0xF9, 4, 1, 0, 0, trans, 0])
+    fl = 0x40 if interlace else 0
+    if lpal is not None:
+        fl |= 0x80 | (len(lpal).bit_length() - 2)
+    out += b"\x2c" + struct.pack("<HHHH", x0, y0, fw, fh) + bytes([fl])
+    if lpal is not None:
+        out += np.asarray(lpal, np.uint8).tobytes()
+    ms = min_size or max(2, int(idx.max()).bit_length())
+    out += bytes([ms]) + _sub_blocks(
+        code if code is not None else _lzw_literal(idx.reshape(-1), ms))
+    return bytes(out + b";")
+
+
+def _gif_cases():
+    g = np.random.default_rng(12)
+    cases = {}
+    rgb = smooth(23, 40)
+    for colors in (2, 16, 256):
+        im = Image.fromarray(rgb).quantize(colors)
+        for tag, kw in (("", {}), (" interlaced", dict(interlace=True)),
+                        (" transparent", dict(transparency=1))):
+            buf = io.BytesIO()
+            im.save(buf, "GIF", **kw)
+            cases[f"PIL {colors} colours{tag}"] = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(rgb[..., 0]).save(buf, "GIF")
+    cases["PIL grey"] = buf.getvalue()
+    pal4, pal16 = g.integers(0, 256, (4, 3)), g.integers(0, 256, (16, 3))
+    idx = g.integers(0, 4, (6, 9))
+    cases["interlaced 19 rows"] = write_gif(5, 19, pal4, g.integers(
+        0, 4, (19, 5)), interlace=True)
+    cases["frame offset in its screen"] = write_gif(12, 10, pal4, idx, 2, 3)
+    cases["offset, transparent"] = write_gif(12, 10, pal4, idx, 2, 3,
+                                             trans=2)
+    cases["frame grows the screen"] = write_gif(5, 4, pal4, idx, 1, 1)
+    cases["local palette"] = write_gif(9, 6, pal4, idx, lpal=pal16)
+    cases["no palette, transparent"] = write_gif(9, 6, None, idx, trans=3)
+    cases["grey ramp palette"] = write_gif(9, 6, [[i] * 3 for i in range(4)],
+                                           idx)
+    cases["index past the table"] = write_gif(9, 6, pal4, g.integers(
+        0, 16, (6, 9)))
+    cases["code size 8"] = write_gif(9, 6, pal4, idx, min_size=8)
+    cases["end code early"] = write_gif(
+        9, 6, pal4, idx, code=_lzw_literal(idx.reshape(-1)[:20], 2))
+    cases["truncated"] = write_gif(9, 6, pal4, idx)[:30]
+    return cases
+
+
+@pytest.mark.parametrize("name", list(_gif_cases()))
+def test_gif(tmp_path, name):
+    path = tmp_path / "t.gif"
+    path.write_bytes(_gif_cases()[name])
+    if name in ("end code early", "truncated"):
+        assert both(path) == [-1, -1]
+    else:
+        assert_same(path)
+
+
+# ------------------------------------------------------------ more BMP, TGA
+
+def write_bmp(w, h, bits, pixels, pal=None, comp=0, core=False, masks=None):
+    """A BMP of pre-packed `pixels` (bottom row first) with a 12-byte
+    OS/2 core header or a 40-byte info header (masks after it)."""
+    ent = 3 if core else 4
+    palb = b"" if pal is None else b"".join(
+        bytes([c[2], c[1], c[0]]) + b"\0" * (ent - 3) for c in pal)
+    if core:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, bits, comp,
+                           len(pixels), 2835, 2835, 0, 0)
+    mb = struct.pack("<III", *masks) if masks else b""
+    off = 14 + len(info) + len(mb) + len(palb)
+    return (b"BM" + struct.pack("<IHHI", off + len(pixels), 0, 0, off)
+            + info + mb + palb + pixels)
+
+
+def _rows(idx, bits):
+    """Rows bottom-up, each padded to 4 bytes."""
+    h, w = idx.shape
+    stride = ((w * bits + 31) >> 3) & ~3
+    out = b""
+    for r in idx[::-1]:
+        if bits == 16:
+            row = r.astype("<u2").tobytes()
+        elif bits < 8:
+            row = np.packbits(np.unpackbits(r.astype(np.uint8)[:, None],
+                                            axis=1)[:, 8 - bits:]).tobytes()
+        else:
+            row = r.astype(np.uint8).tobytes()
+        out += row + bytes(stride - len(row))
+    return out
+
+
+def _bmp_cases():
+    g = np.random.default_rng(13)
+    w, h = 11, 7
+    cases = {}
+    for bits in (1, 4):
+        pal = g.integers(0, 256, (1 << bits, 3)).tolist()
+        idx = g.integers(0, 1 << bits, (h, w))
+        cases[f"{bits}-bit"] = write_bmp(w, h, bits, _rows(idx, bits), pal)
+        cases[f"{bits}-bit OS/2"] = write_bmp(w, h, bits, _rows(idx, bits),
+                                              pal, core=True)
+    v = g.integers(0, 65536, (h, w))
+    cases["16-bit 5-5-5"] = write_bmp(w, h, 16, _rows(v, 16))
+    cases["16-bit 5-6-5"] = write_bmp(w, h, 16, _rows(v, 16), comp=3,
+                                      masks=(0xF800, 0x7E0, 0x1F))
+    pal = g.integers(0, 256, (256, 3)).tolist()
+    cases["8-bit OS/2"] = write_bmp(w, h, 8, _rows(g.integers(
+        0, 256, (h, w)), 8), pal, core=True)
+    runs = b"".join(bytes([4, r, 0, 3, 1, 2, 3, 0, w - 7, r ^ 5, 0, 0])
+                    for r in range(h)) + b"\0\1"
+    cases["RLE8"] = write_bmp(w, h, 8, runs, pal, comp=1)
+    cases["RLE8 delta"] = write_bmp(w, h, 8, bytes([3, 9, 0, 2, 7, 7, 2, 1])
+                                    + runs, pal, comp=1)
+    pal16 = g.integers(0, 256, (16, 3)).tolist()
+    runs4 = b"".join(bytes([5, 0x3A, 0, 5, 0x12, 0x34, 0x50, 0, w - 10,
+                            0x7C, 0, 0]) for _ in range(h)) + b"\0\1"
+    cases["RLE4"] = write_bmp(w, h, 4, runs4, pal16, comp=2)
+    cases["RLE8 truncated"] = write_bmp(w, h, 8, runs[:20], pal, comp=1)
+    cases["2-bit"] = write_bmp(w, h, 2, bytes(100))
+    return cases
+
+
+@pytest.mark.parametrize("name", list(_bmp_cases()))
+def test_bmp_depths_rle_and_os2(tmp_path, name):
+    """1-, 4- and 16-bit BMPs, RLE8/RLE4 by PIL's decoder's rules and
+    OS/2 headers; a truncated RLE stream and a depth PIL does not read
+    are -1 in both."""
+    path = tmp_path / "t.bmp"
+    path.write_bytes(_bmp_cases()[name])
+    if name in ("RLE8 truncated", "2-bit"):
+        assert both(path) == [-1, -1]
+    else:
+        assert_same(path)
+
+
+def write_tga(w, h, itype, depth, px, cmap=None, start=0, flags=0):
+    mlen, mdepth, cm = 0, 0, b""
+    if cmap is not None:
+        mdepth, cm = cmap
+        mlen = len(cm) // (mdepth // 8)
+    return struct.pack("<BBBHHBHHHHBB", 0, int(cmap is not None), itype,
+                       start, mlen, mdepth, 0, 0, w, h, depth, flags) + \
+        cm + px
+
+
+def _tga_rle(px, bpp, w):
+    """A repeat packet for each run of two or more, raw packets else."""
+    out = bytearray()
+    for r0 in range(0, len(px), w * bpp):
+        row = px[r0:r0 + w * bpp]
+        i = 0
+        while i < w:
+            j = i
+            while j < w and j - i < 128 and \
+                    row[j * bpp:(j + 1) * bpp] == row[i * bpp:(i + 1) * bpp]:
+                j += 1
+            if j - i >= 2:
+                out += bytes([0x80 | (j - i - 1)]) + row[i * bpp:(i + 1) * bpp]
+            else:
+                j = min(w, i + 3)
+                out += bytes([j - i - 1]) + row[i * bpp:j * bpp]
+            i = j
+    return bytes(out)
+
+
+def _tga_cases():
+    g = np.random.default_rng(14)
+    w, h = 9, 6
+    cases = {}
+    v16 = g.integers(0, 65536, w * h).astype("<u2").tobytes()
+    for flags in (0, 0x20, 0x10, 0x30):
+        cases[f"16-bit colour, origin {flags:#x}"] = write_tga(
+            w, h, 2, 16, v16, flags=flags)
+    rep = np.repeat(np.frombuffer(v16, "<u2")[:w * h // 3], 3)
+    cases["16-bit colour RLE"] = write_tga(
+        w, h, 10, 16, _tga_rle(rep.astype("<u2").tobytes(), 2, w))
+    la = g.integers(0, 256, w * h * 2).astype(np.uint8).tobytes()
+    cases["16-bit grey"] = write_tga(w, h, 3, 16, la)
+    cases["16-bit grey RLE"] = write_tga(w, h, 11, 16, _tga_rle(la, 2, w))
+    cases["1-bit grey"] = write_tga(w, h, 3, 1, g.integers(
+        0, 256, 2 * h).astype(np.uint8).tobytes())
+    idx = g.integers(0, 40, w * h).astype(np.uint8).tobytes()
+    for md in (16, 24, 32):
+        cm = (md, g.integers(0, 256, 30 * md // 8).astype(np.uint8).tobytes())
+        cases[f"{md}-bit map"] = write_tga(w, h, 1, 8, idx, cm, start=5)
+        cases[f"{md}-bit map RLE"] = write_tga(w, h, 9, 8,
+                                               _tga_rle(idx, 1, w), cm,
+                                               start=5)
+    return cases
+
+
+@pytest.mark.parametrize("name", list(_tga_cases()))
+def test_tga_depths_and_maps(tmp_path, name):
+    """16-bit colour (PIL's inverted attribute bit as alpha), 16-bit and
+    1-bit grey, 16- and 24-bit colour maps starting past index 0; a 32-bit
+    map, which PIL 12 fails to load, is -1 in both."""
+    path = tmp_path / "t.tga"
+    path.write_bytes(_tga_cases()[name])
+    if name.startswith("32-bit map"):
+        assert both(path) == [-1, -1]
+    else:
+        assert_same(path)
+
+
+# ------------------------------------------------------------ TIFF
+
+def write_tiff(w, h, bits, spp, photo, chunks, comp=1, tile=None, rps=None,
+               extra=None, pred=1, bo="<", cmap=None):
+    """A classic TIFF of pre-encoded strips (rps rows) or tiles."""
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits] * spp),
+            (259, 3, [comp]), (262, 3, [photo]), (277, 3, [spp])]
+    if extra is not None:
+        tags.append((338, 3, extra))
+    if pred != 1:
+        tags.append((317, 3, [pred]))
+    if cmap is not None:
+        tags.append((320, 3, cmap))
+    offs, o = [], 8
+    for c in chunks:
+        offs.append(o)
+        o += len(c)
+    counts = [len(c) for c in chunks]
+    if tile:
+        tags += [(322, 4, [tile[0]]), (323, 4, [tile[1]]), (324, 4, offs),
+                 (325, 4, counts)]
+    else:
+        tags += [(273, 4, offs), (278, 4, [rps or h]), (279, 4, counts)]
+    tags.sort()
+    ifd_off = o + o % 2
+    ext_off = ifd_off + 2 + 12 * len(tags) + 4
+    ifd, ext = struct.pack(bo + "H", len(tags)), b""
+    for tag, typ, vals in tags:
+        raw = struct.pack(bo + {3: "H", 4: "I"}[typ] * len(vals), *vals)
+        if len(raw) <= 4:
+            ifd += struct.pack(bo + "HHI", tag, typ, len(vals)) + \
+                raw.ljust(4, b"\0")
+        else:
+            ifd += struct.pack(bo + "HHII", tag, typ, len(vals),
+                               ext_off + len(ext))
+            ext += raw
+    head = (b"II*\0" if bo == "<" else b"MM\0*") + struct.pack(bo + "I",
+                                                               ifd_off)
+    return head + b"".join(chunks) + b"\0" * (o % 2) + ifd + b"\0" * 4 + ext
+
+
+def _tiff_cases():
+    g = np.random.default_rng(15)
+    cases = {}
+    base = Image.fromarray(smooth(9, 13))
+    modes = {"1": base.convert("1"), "L": base.convert("L"),
+             "LA": base.convert("LA"), "RGB": base, "RGBA":
+             base.convert("RGBA"), "P": base.quantize(20),
+             "I;16": Image.fromarray(g.integers(0, 65536, (9, 13)).astype(
+                 np.uint16))}
+    for mode, im in modes.items():
+        for comp in ("raw", "packbits", "tiff_lzw", "tiff_adobe_deflate"):
+            buf = io.BytesIO()
+            im.save(buf, "TIFF", compression=comp)
+            cases[f"PIL {mode} {comp}"] = buf.getvalue()
+        if mode in ("L", "RGB", "RGBA", "I;16"):
+            buf = io.BytesIO()
+            im.save(buf, "TIFF", compression="tiff_lzw", tiffinfo={317: 2})
+            cases[f"PIL {mode} LZW, predictor"] = buf.getvalue()
+    w, h = 13, 9
+    for bo in ("<", ">"):
+        for bits in (8, 16):
+            top = (1 << bits) - 1
+            dt = np.uint8 if bits == 8 else bo + "u2"
+            for spp, extra in ((3, None), (4, [2]), (4, [1]), (4, [0])):
+                a = g.integers(0, top + 1, (h, w, spp))
+                if extra == [1]:
+                    a[..., :3] = np.minimum(a[..., :3], a[..., 3:4])
+                name = f"{bits}-bit x{spp} extra {extra} {bo}"
+                cases[name + " strips"] = write_tiff(
+                    w, h, bits, spp, 2, [a[i:i + 4].astype(dt).tobytes()
+                                         for i in range(0, h, 4)],
+                    rps=4, extra=extra, bo=bo)
+                d = a.copy()
+                d[:, 1:] = (a[:, 1:] - a[:, :-1]) % (top + 1)
+                cases[name + " deflate, predictor"] = write_tiff(
+                    w, h, bits, spp, 2,
+                    [zlib.compress(d[i:i + 4].astype(dt).tobytes())
+                     for i in range(0, h, 4)], comp=8, rps=4, extra=extra,
+                    pred=2, bo=bo)
+    a = g.integers(0, 256, (40, 37, 3))
+    tiles = []
+    for ty in range(0, 40, 16):
+        for tx in range(0, 37, 16):
+            t = np.zeros((16, 16, 3), np.uint8)
+            blk = a[ty:ty + 16, tx:tx + 16]
+            t[:blk.shape[0], :blk.shape[1]] = blk
+            tiles.append(zlib.compress(t.tobytes()))
+    cases["tiles 16x16, Deflate"] = write_tiff(37, 40, 8, 3, 2, tiles,
+                                               comp=32946, tile=(16, 16))
+    for bits in (1, 2, 4):
+        for photo in (0, 1, 3):
+            v = g.integers(0, 1 << bits, (h, w)).astype(np.uint8)
+            packed = np.packbits(np.unpackbits(v[..., None], axis=2)[
+                ..., 8 - bits:].reshape(h, -1), axis=1).tobytes()
+            cmap = g.integers(0, 65536, 3 << bits).tolist() \
+                if photo == 3 else None
+            cases[f"{bits}-bit photometric {photo}"] = write_tiff(
+                w, h, bits, 1, photo, [packed], cmap=cmap)
+    full = cases["PIL RGB tiff_lzw"]
+    cases["truncated"] = full[:len(full) // 2]
+    return cases
+
+
+@pytest.mark.parametrize("name", list(_tiff_cases()))
+def test_tiff(tmp_path, name):
+    path = tmp_path / "t.tif"
+    path.write_bytes(_tiff_cases()[name])
+    if name == "truncated":
+        assert both(path) == [-1, -1]
+    else:
+        assert_same(path)
+
+
 # ------------------------------------------------------------ failures
 
 @pytest.mark.parametrize("fmt", ["png", "jpg", "bmp", "tga"])
@@ -317,35 +755,116 @@ def test_truncated_file_is_minus_one_in_both(tmp_path, fmt):
 
 
 def _unported():
+    """{case: (extension, PIL save arguments, whether the port decodes
+    it)}: formats PIL writes, decoded by the port or still raising."""
     cases = {"progressive jpeg": ("jpg", dict(format="JPEG",
-                                              progressive=True)),
-             "gif": ("gif", dict(format="GIF")),
-             "tiff": ("tif", dict(format="TIFF")),
-             "ppm": ("ppm", dict(format="PPM"))}
+                                              progressive=True), True),
+             "gif": ("gif", dict(format="GIF"), True),
+             "tiff": ("tif", dict(format="TIFF"), True),
+             "ppm": ("ppm", dict(format="PPM"), True),
+             "ico": ("ico", dict(format="ICO"), False),
+             "dds": ("dds", dict(format="DDS"), False),
+             "jpeg in tiff": ("tif", dict(format="TIFF",
+                                          compression="jpeg"), False)}
     if features.check("webp"):
-        cases["webp"] = ("webp", dict(format="WEBP", lossless=True))
+        cases["webp"] = ("webp", dict(format="WEBP", lossless=True), False)
     return cases
 
 
 @pytest.mark.parametrize("name", list(_unported()))
 def test_unported_format_loads_in_jax_and_raises_in_port(tmp_path, name):
-    ext, kw = _unported()[name]
+    """Each format loads in the JAX pool; the port's pool gives the same
+    bytes for those it decodes and raises UnsupportedImage, naming the
+    format, for the rest."""
+    ext, kw, decoded = _unported()[name]
     path = tmp_path / f"t.{ext}"
     Image.fromarray(smooth(16, 16)).save(path, **kw)
-    pool = JaxPool()
-    assert pool.try_import(str(path), "t") == 0
-    with pytest.raises(ValueError, match="not decoded by the port"):
+    assert JaxPool().try_import(str(path), "t") == 0
+    if decoded:
+        assert_same(path)
+        return
+    with pytest.raises(UnsupportedImage, match="not decoded by the port"):
         TexturePool().try_import(str(path), "t")
-    with pytest.raises(UnsupportedImage):
-        TexturePool().try_import(str(path), "t")
+
+
+EXR_HEADER = (b"\x76\x2f\x31\x01\x02\x00\x00\x00channels\x00chlist\x00"
+              + bytes(40))
 
 
 def test_unrecognised_bytes_raise(tmp_path):
-    path = tmp_path / "t.png"
-    path.write_bytes(b"this is not an image at all")
-    assert JaxPool().try_import(str(path), "t") == -1
-    with pytest.raises(ValueError, match="recognises"):
-        TexturePool().try_import(str(path), "t")
+    """Bytes no PIL plugin identifies (seeded noise, an OpenEXR header,
+    a colour PFM) leave the slot at -1 in both pools, as files PIL does
+    not identify do in the JAX package."""
+    noise = np.random.default_rng(9).integers(0, 256, 300,
+                                              dtype=np.uint8).tobytes()
+    pf = b"PF\n2 2\n-1.0\n" + np.zeros(12, "<f4").tobytes()
+    for data in (b"this is not an image at all", noise, EXR_HEADER, pf):
+        path = tmp_path / "t.png"
+        path.write_bytes(data)
+        assert both(path) == [-1, -1], data[:16]
+
+
+@pytest.mark.parametrize("data", [
+    b"", b"\x00" * 64, b"P7 332\n", b"GIF89a", b"II*\x00\x08\x00\x00\x00",
+    b"\x89PNG\r\n\x1a\n", b"BM" + bytes(60), b"P6\n4 4\n255\n",
+    b"\xff\xd8\xff\xe0" + bytes(20), EXR_HEADER],
+    ids=["empty", "zeros", "xv thumb", "gif head", "tiff head", "png head",
+         "bmp zeros", "ppm head", "jpeg head", "exr"])
+def test_identification_as_pil(tmp_path, data):
+    """Short, empty and header-only files: -1 in both pools, or, where
+    PIL identifies a format the port does not decode, a raise."""
+    path = tmp_path / "t.bin"
+    path.write_bytes(data)
+    want = JaxPool().try_import(str(path), "t")
+    try:
+        got = TexturePool().try_import(str(path), "t")
+    except UnsupportedImage:
+        got = "raise"
+    assert want == -1 and got in (-1, "raise"), (want, got)
+    if got == "raise":                   # a PIL plugin accepts the bytes
+        name, _ = imageformat.identify(data)
+        assert Image.OPEN[name][1](data[:16])
+
+
+MAGICS = [b"BLP1", b"BM", b"(\x00\x00\x00", b"BUFR", b"\x00\x00\x02\x00",
+          b"\n\x05", b"\xb1h\xde:", b"DDS ", b"%!PS", b"\xc5\xd0\xd3\xc6",
+          b"SIMPLE", b"FTEX", b"GIF87a", b"GRIB\x00\x00\x00\x01",
+          b"\x89HDF\r\n\x1a\n", b"\x89PNG\r\n\x1a\n", b"\xffO\xffQ",
+          b"icns", b"\x00\x00\x01\x00", b"\xff\xd8\xff",
+          b"\x00" * 7 + b"\x04", b"\x00\x00\x01\xb3", b"II*\x00", b"MM\x00+",
+          b"DanM", b"\x80\xe8\x00\x00", b"P5", b"Pf", b"P7", b"8BPS", b"qoif",
+          b"\x01\xda", b"Y\xa6j\x95", b"RIFF\x00\x00\x00\x00WEBPVP8L",
+          b"\x01\x00\x00\x00", b"  #define", b"/* XPM */", b"P7 332",
+          b"\x00\x00\x00\x0cftypavif"]
+
+
+def test_signature_table_copies_pil():
+    """Every `_accept` PIL registers for Image.open, against the port's
+    copy, on each plugin's magic and on seeded noise (16-byte prefixes,
+    as Image.open reads): the same verdict, except where the port's row
+    adds the `_open` test that lets PIL go on to the next plugin (CUR and
+    ICO with an empty directory, PPM magics PIL has no mode for)."""
+    from PIL import Image as PILImage
+    PILImage.init()
+    g = np.random.default_rng(4)
+    probes = [m + bytes(16) for m in MAGICS]
+    probes += [m + bytes([1, 0]) + bytes(14) for m in MAGICS]
+    probes += [g.integers(0, 256, 16, dtype=np.uint8).tobytes()
+               for _ in range(400)]
+    probes += [bytes([k]) + g.integers(0, 256, 15, dtype=np.uint8).tobytes()
+               for k in (0, 1, 0x0A, 0x1C, 0x50, 0xFF) for _ in range(40)]
+    rows = {name: test for name, test, _ in imageformat._PLUGINS}
+    assert set(rows) == set(PILImage.ID)
+    for name in PILImage.ID:
+        accept = PILImage.OPEN[name][1]
+        if accept is None:
+            continue
+        for data in probes:
+            want = bool(accept(data))
+            got = rows[name](data)
+            if name in ("CUR", "ICO", "PPM") and want and not got:
+                continue
+            assert got == want, (name, data)
 
 
 # ------------------------------------------------------------ a render
