@@ -35,7 +35,20 @@ MIS env map, thin-lens DoF) with it through create_session, renders it
 the stream (K1's fused closest call), and holds 64x64 env-lit renders of
 the luxball and of the cornell with env and area light, through K1 (the
 lockstep and the stream) and K4, against the same renders on the host's
-CPU. Conference (232k triangles, above the
+CPU. Gradients: grad-check holds the gradients of parallel/mesh.py's
+loss_fn and deferred loss_fn_stream (kd, env_image, env_strength, ni,
+cam_pos, cam_fov) on the CPU tests' planes (env-lit; area-lit by NEE under
+a tilted camera) and the 64x64 env-lit luxball, on the card through K1
+and through K4 (backend "pallas"), against the same code on the host's
+CPU, and counts the traversal launches of each forward and backward (the
+backward must launch none); grad-step runs one stream optimizer step on
+the 512x512 luxball (4 bounces, env_image and kd differentiable, 4 spp,
+the full frame), checkpointed and under FLUCTUS_STREAM_SAVE=all, with the
+seconds of its parts, fwd+bwd MRays/s and peak memory, then one lockstep
+step at minibatch 4096; optimize runs render/optimize.py's
+run_optimization (method "auto", the stream) for 3 steps against a
+target rendered with kd x 0.5, and resumes it to 4. Conference (232k
+triangles, above the
 fast-big cutover, so its session holds a brute-chunk forest and no
 hierarchy): holds K2 and K3 against their plain versions through the same
 schedulers (both also on the forests of equal-t copies that pin their
@@ -69,8 +82,9 @@ its rays, its PBF conversion with host arrays equal to the PBRT route's,
 and 64x64 stream renders of both through K1 and K4 against the CPU (pbf);
 the PBRT frame written as PNG and HDR and read back (save-image); the
 conference under FLUCTUS_FAST_BIG=0 cold and warm through the hierarchy
-cache (session-cache); and the kitchen's NumPy-built SAH hierarchy
-(FLUCTUS_NATIVE=0) through K1 bit-equal to plain (native-off). Every
+cache (session-cache); the kitchen's NumPy-built SAH hierarchy
+(FLUCTUS_NATIVE=0) through K1 bit-equal to plain (native-off); and a
+2048x2048 BC7 DDS texture through scene/native/bcn.cpp (dds). Every
 other session passes cache_dir=None. Each phase prints one line with its
 wall time; the last three lines are the kernels record, the card and the
 device record.
@@ -2183,7 +2197,350 @@ def phase_formats(card: str) -> dict:
         torch.cuda.empty_cache()
         out["cache_secs"] = phase_session_cache(tmp_dir)
         out["native_off_secs"] = phase_native_off()
+    out["dds_secs"] = phase_dds()
     return out
+
+
+def phase_dds() -> float:
+    """One 2048x2048 BC7 texture (fixtures.dds_bytes: 262,144 seeded
+    blocks, the first nine in BC7 modes 0-7 and the reserved mode 8)
+    through the texture dispatch and scene/native/bcn.cpp (built with g++
+    first). Returns the decode seconds."""
+    import numpy as np
+    from fluctus_tpu_torch.fixtures import dds_bytes
+    from fluctus_tpu_torch.scene import dds, imageformat
+
+    t0 = time.perf_counter()
+    dds.load_library()
+    t_build = time.perf_counter() - t0
+    data = dds_bytes("BC7", 2048, 2048, seed=7)
+    t1 = time.perf_counter()
+    kind = imageformat.sniff(data)
+    rgba = imageformat.decode(data, kind)
+    secs = time.perf_counter() - t1
+    check(kind == "dds" and rgba.shape == (2048, 2048, 4),
+          "the BC7 texture did not decode")
+    check(bool((rgba[0:4, 32:36] == np.array([0, 0, 0, 255],
+                                              np.uint8)).all()),
+          "the reserved-mode block (the ninth) is not opaque black")
+    say("dds", t0, f"BC7 2048x2048 ({len(data)} bytes): g++ build "
+        f"{t_build:.2f} s, decode {secs:.3f} s")
+    return secs
+
+
+# ------------------------------------------------------------ gradients
+
+GRAD_LEAVES = ("kd", "env_image", "env_strength", "ni", "cam_pos", "cam_fov")
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6
+GRAD_SIZE = 64
+GRAD_POOL = 1024
+
+
+def grad_sessions(env_path, dev, backend="auto"):
+    """The grad-check sessions at 64x64: the plane of the CPU gradient
+    tests env-lit (tests/test_integrator.py::plane_session) and area-lit
+    by next-event estimation only under the tilted camera
+    (tests/test_gradients.py::_camera_grad_session), both by
+    fixtures.plane_session, and the env-lit luxball of env_sessions."""
+    from fluctus_tpu_torch import fixtures
+
+    out = {"plane_env": fixtures.plane_session(dev, size=GRAD_SIZE),
+           "plane_area": fixtures.plane_session(
+               dev, size=GRAD_SIZE, env_val=None, use_area_light=True,
+               sample_impl=False, tilted=True),
+           "luxball_env": env_sessions(env_path, dev, backend)[
+               "luxball_env"]}
+    for s_ in out.values():
+        s_.cfg = s_.cfg.replace(backend=backend)
+    return out
+
+
+def grads_of(sess, form: str, n_seg: int = 0):
+    """Loss and gradients of GRAD_LEAVES through parallel/mesh.py: loss_fn
+    (form "lockstep") or the deferred loss_fn_stream ("stream", n_seg
+    segments of GRAD_POOL lanes), every pixel at sample 0 against a
+    constant 0.1. Returns (loss, {leaf: grad}, forward launches, backward
+    launches, plain calls)."""
+    import torch
+    from fluctus_tpu_torch.parallel import mesh
+    from fluctus_tpu_torch.render.optimize import _DIFF_GETTERS
+
+    s_, p_, c_ = sess.scene, sess.params, sess.cfg
+    n = c_.width * c_.height
+    pix = torch.arange(n, device=s_.device)
+    tgt = torch.full((n, 3), 0.1, device=s_.device)
+    leaves = {k: _DIFF_GETTERS[k](s_, p_).detach().clone()
+              .requires_grad_(True) for k in GRAD_LEAVES}
+    reset_counts()
+    with torch.enable_grad():
+        if form == "stream":
+            loss, nd = mesh.loss_fn_stream(leaves, s_, p_, c_, pix, 0, tgt,
+                                           GRAD_POOL, n_seg, deferred=True)
+            check(int(nd) == n, f"the {form} loss left {n - int(nd)} rays "
+                  "undrained")
+        else:
+            loss = mesh.loss_fn(leaves, s_, p_, c_, pix, 0, tgt)
+        fwd = launch_counts()
+        plain = launch_counts("PLAIN_CALLS")
+        reset_counts()
+        g = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    bwd = launch_counts()
+    plain_b = launch_counts("PLAIN_CALLS")
+    grads = {k: (torch.zeros_like(leaves[k]) if x is None else x).cpu()
+             for k, x in zip(leaves, g)}
+    check(all(bool(torch.isfinite(x).all()) for x in grads.values()),
+          f"non-finite {form} gradients")
+    return float(loss.detach()), grads, fwd, bwd, (plain, plain_b)
+
+
+def worst_leaf(grads, ref):
+    """(leaf, max |a - b|, the largest |a - b| / (atol + rtol |b|)) over
+    the leaves, the leaf with the largest ratio."""
+    rows = []
+    for k, a in grads.items():
+        b = ref[k]
+        d = (a - b).abs()
+        rows.append((k, float(d.max()), float((d / (GRAD_ATOL + GRAD_RTOL
+                                                    * b.abs())).max())))
+    return max(rows, key=lambda r: r[2])
+
+
+def phase_grad_check(env_path: str, card: str) -> dict:
+    """Gradients of loss_fn and the deferred loss_fn_stream for kd,
+    env_image, env_strength, ni, cam_pos and cam_fov on the grad_sessions,
+    on the card through K1 and, under backend "pallas", through K4,
+    against the same port code on this host's CPU (plain versions), at
+    rtol 1e-3 / atol 1e-6; the traversal kernels' launches in the forward
+    and in the backward, which must launch none. Returns {session:
+    {route: forward launches}}."""
+    import torch
+    from fluctus_tpu_torch.integrators import wavefront
+
+    cpu = grad_sessions(env_path, "cpu")
+    out = {}
+    for name, cs in cpu.items():
+        c_ = cs.cfg
+        n = c_.width * c_.height
+        pix = torch.arange(n)
+        t0 = time.perf_counter()
+        k, _ = wavefront.plan_stream_segments(cs.scene, cs.params, c_, pix,
+                                              0, GRAD_POOL, deferred=True)
+        n_seg = k + 2
+        ref = {form: grads_of(cs, form, n_seg)
+               for form in ("lockstep", "stream")}
+        say("grad-check", t0, f"{name}: loss_fn and loss_fn_stream "
+            f"(deferred, pool {GRAD_POOL}, {n_seg} segments) on this "
+            f"host's CPU, the reference: losses "
+            f"{ref['lockstep'][0]:.6f} / {ref['stream'][0]:.6f}")
+        out[name] = {}
+        for backend, kernel in (("auto", "K1"), ("pallas", "K4")):
+            gs = grad_sessions(env_path, "cuda", backend)[name]
+            for form in ("lockstep", "stream"):
+                t0 = time.perf_counter()
+                loss, grads, fwd, bwd, plain = grads_of(gs, form, n_seg)
+                torch.cuda.synchronize()
+                mine = fwd.pop(kernel)
+                want_any = form == "lockstep" and (
+                    gs.cfg.sample_expl and (gs.cfg.use_env_map
+                                            or gs.cfg.use_area_light))
+                check(mine["closest"] > 0 and (mine["any"] > 0) == want_any,
+                      f"{name} {form} forward did not go through {kernel} "
+                      f"as expected: {mine}")
+                check(all(v == 0 for d in fwd.values() for v in d.values()),
+                      f"{name} {form} forward launched other kernels: {fwd}")
+                check(all(v == 0 for d in bwd.values() for v in d.values()),
+                      f"{name} {form} backward launched traversal kernels: "
+                      f"{bwd}")
+                check(all(v == 0 for p_ in plain for d in p_.values()
+                          for v in d.values()),
+                      f"plain traversal ran in {name} {form}: {plain}")
+                leaf, err, ratio = worst_leaf(grads, ref[form][1])
+                check(abs(loss - ref[form][0])
+                      <= GRAD_ATOL + GRAD_RTOL * abs(ref[form][0]),
+                      f"{name} {form} loss {loss} against the CPU's "
+                      f"{ref[form][0]}")
+                check(ratio <= 1.0, f"{name} {form} through {kernel}: "
+                      f"gradient of {leaf} off the CPU's by {err:.3e} "
+                      f"({ratio:.2f} x the tolerance)")
+                say("grad-check", t0,
+                    f"{name} {form} through {kernel}: forward launches "
+                    f"{mine}, backward launches 0 (no traversal kernel, no "
+                    f"plain version); every leaf within rtol {GRAD_RTOL} / "
+                    f"atol {GRAD_ATOL} of the CPU, worst {leaf} max abs "
+                    f"err {err:.3e} ({ratio:.3f} x the tolerance), on "
+                    f"{card}")
+                out[name][f"{form} {kernel}"] = mine
+            del gs
+    return out
+
+
+class LapClock:
+    """on_lap for render/optimize.py: the seconds of each part (the device
+    synchronized at its end) and the traversal launches in it."""
+
+    def __init__(self):
+        import torch
+        self.sync = torch.cuda.synchronize
+        self.secs, self.launches = {}, {}
+        self.sync()
+        reset_counts()
+        self.t = time.perf_counter()
+
+    def __call__(self, part: str) -> None:
+        self.sync()
+        now = time.perf_counter()
+        self.secs[part] = now - self.t
+        self.launches[part] = launch_counts()
+        reset_counts()
+        self.t = now
+
+
+def phase_grad_step(esess, card: str) -> dict:
+    """scripts/bench_grad.py's north-star shape on the in-repo stand-in:
+    the env-lit luxball at 512x512, 4 bounces, env_image (1024x512) and
+    kd differentiable. One stream optimizer step at 4 spp over the full
+    frame (2,097,152 rays in the two sample sets), checkpointed and under
+    FLUCTUS_STREAM_SAVE=all: the seconds of the planning, the radiance
+    pass, the loss forward and the backward, fwd+bwd MRays/s (the rays the
+    loss forward traced, counted on the device, over the step), K1's
+    launches and the peak of torch.cuda.max_memory_allocated; then one
+    lockstep step at minibatch 4096, 4 spp. No backward launches a
+    traversal kernel. Returns the K1 launches of the path."""
+    import torch
+    from fluctus_tpu_torch.integrators import wavefront
+    from fluctus_tpu_torch.render import optimize
+
+    s_, p_, c_ = esess.scene, esess.params, esess.cfg
+    dev = s_.device
+    n_pix = c_.width * c_.height
+    spp = 4
+    target = torch.full((n_pix, 3), 0.1, device=dev)
+    diff = {k: optimize._DIFF_GETTERS[k](s_, p_) for k in ("env_image",
+                                                            "kd")}
+    t0 = time.perf_counter()
+    reset_counts()
+    n_seg, pool = optimize.plan_stream(s_, p_, c_, n_pix, spp)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    plan_launches = launch_counts()["K1"]
+    say("grad-step", t0, f"luxball 512x512, 4 bounces, 4 spp, two sample "
+        f"sets: plan {t_plan:.3f} s, {n_seg} segments of a {pool}-lane "
+        f"pool (K1 {plan_launches})")
+    pix = optimize.stratified_pixels(n_pix, n_pix, 0, dev)
+    k1 = {"closest": plan_launches["closest"], "any": plan_launches["any"]}
+    for save in ("named", "all"):
+        with env(FLUCTUS_STREAM_SAVE=save):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            clock = LapClock()
+            with wavefront.count_loss_rays() as box:
+                loss, grads, nd, n_total = optimize.stream_grad(
+                    diff, s_, p_, c_, pix, target, 0, spp, n_seg, pool,
+                    on_lap=clock)
+            rays = int(box[0])
+            peak = torch.cuda.max_memory_allocated()
+        check(nd == n_total, f"the grad step left {n_total - nd} rays "
+              "undrained")
+        check(all(bool(torch.isfinite(g).all()) for g in grads.values())
+              and float(grads["kd"].abs().sum()) > 0.0,
+              "grad-step gradients not finite or kd's zero")
+        bwd = clock.launches["backward"]
+        check(all(v == 0 for d in bwd.values() for v in d.values()),
+              f"the grad step's backward launched traversal kernels: {bwd}")
+        secs = clock.secs
+        step = sum(secs.values())
+        for part in ("radiance", "loss_forward"):
+            for f in ("closest", "any"):
+                k1[f] += clock.launches[part]["K1"][f]
+        say("grad-step", t0,
+            f"stream step, FLUCTUS_STREAM_SAVE={save}: radiance "
+            f"{secs['radiance']:.3f} s (K1 {clock.launches['radiance']['K1']}"
+            f"), loss forward {secs['loss_forward']:.3f} s (K1 "
+            f"{clock.launches['loss_forward']['K1']}), backward "
+            f"{secs['backward']:.3f} s (no traversal launch); step "
+            f"{step:.3f} s; loss forward traced {rays} rays: "
+            f"{rays / step / 1e6:.3f} fwd+bwd MRays/s over the step "
+            f"({rays / (secs['loss_forward'] + secs['backward']) / 1e6:.3f}"
+            f" over loss forward + backward); peak memory "
+            f"{peak / 2**30:.2f} GiB; loss {float(loss):.6f}, |d kd| "
+            f"{float(grads['kd'].abs().sum()):.4e}, on {card}")
+    t0 = time.perf_counter()
+    mpix = optimize.stratified_pixels(n_pix, 4096, 0, dev)
+    torch.cuda.reset_peak_memory_stats()
+    clock = LapClock()
+    loss, grads = optimize.lockstep_grad(diff, s_, p_, c_, mpix, target, 0,
+                                         spp, on_lap=clock)
+    peak = torch.cuda.max_memory_allocated()
+    bwd = clock.launches["backward"]
+    check(all(v == 0 for d in bwd.values() for v in d.values()),
+          f"the lockstep step's backward launched traversal kernels: {bwd}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "lockstep step gradients not finite")
+    fwd = clock.launches["forward"]["K1"]
+    for f in ("closest", "any"):
+        k1[f] += fwd[f]
+    say("grad-step", t0,
+        f"lockstep step, minibatch 4096, 4 spp, two sample sets: forward "
+        f"{clock.secs['forward']:.3f} s (K1 {fwd}), backward "
+        f"{clock.secs['backward']:.3f} s (no traversal launch); peak "
+        f"memory {peak / 2**30:.2f} GiB; loss {float(loss):.6f}, on {card}")
+    return k1
+
+
+def phase_optimize(esess, tmp_dir: str, card: str) -> None:
+    """run_optimization on the env-lit luxball (512x512) for 3 steps, kd
+    differentiable, against a target the port renders with kd x 0.5 and
+    writes with io.hdr.write_hdr; method "auto", which must resolve to the
+    stream on the card (three stream_grad steps, no lockstep_grad);
+    minibatches of 16,384 pixels at 1 spp. Every loss finite, the final kd nearer the target's, and a second
+    call with steps=4 resumes from the checkpoint with a history of 4."""
+    import torch
+    from fluctus_tpu_torch.io.hdr import write_hdr
+    from fluctus_tpu_torch.render import driver, optimize
+
+    t0 = time.perf_counter()
+    m = esess.scene.materials
+    kd0 = m.kd.clone()
+    kd_t = kd0 * 0.5
+    tsess = dataclasses.replace(esess, scene=dataclasses.replace(
+        esess.scene, materials=dataclasses.replace(m, kd=kd_t)))
+    img = driver.render(tsess, 4, integrator="lockstep")
+    path = os.path.join(tmp_dir, "target.hdr")
+    write_hdr(path, img.cpu().numpy())
+    say("optimize", t0, "target: the luxball with kd x 0.5, lockstep 4 spp,"
+        " written as .hdr")
+    check(optimize.resolve_method("auto", esess.device) == "stream",
+          "method auto did not resolve to the stream on the card")
+    out = os.path.join(tmp_dir, "opt")
+    kw = dict(lr=0.05, spp=1, minibatch=16384, out_dir=out,
+              diff_keys=("kd",), checkpoint_every=1, log_every=100,
+              method="auto")
+    t0 = time.perf_counter()
+    reset_counts()
+    with counted_calls(optimize, ("stream_grad", "lockstep_grad")) as calls:
+        diff, hist = optimize.run_optimization(esess, path, steps=3, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1 = launch_counts()["K1"]
+    check(calls == {"stream_grad": 3, "lockstep_grad": 0},
+          f"the optimization did not take the stream: {calls}")
+    check(k1["closest"] > 0, f"the optimization launched no K1: {k1}")
+    check(len(hist) == 3 and all(h == h and abs(h) < float("inf")
+                                 for h in hist), f"losses {hist}")
+    d0 = float((kd0 - kd_t).abs().sum())
+    d1 = float((diff["kd"] - kd_t).abs().sum())
+    check(d1 < d0, f"kd did not move toward the target: {d0} -> {d1}")
+    t1 = time.perf_counter()
+    diff2, hist2 = optimize.run_optimization(esess, path, steps=4, **kw)
+    check(len(hist2) == 4 and hist2[:3] == hist,
+          f"resume gave the history {hist2} after {hist}")
+    say("optimize", t0,
+        f"run_optimization, method auto -> stream, 3 steps {secs:.3f} s "
+        f"(K1 {k1}), losses {[round(h, 6) for h in hist]}; sum |kd - "
+        f"target| {d0:.4f} -> {d1:.4f}; resumed to 4 steps in "
+        f"{time.perf_counter() - t1:.3f} s, history of 4, on {card}")
 
 
 def main() -> int:
@@ -2296,8 +2653,14 @@ def main() -> int:
             esess, 8, card, "frame-env", "K1", "luxball, env-lit,")
         secs_es, _ = phase_frame_stream(
             esess, 8, card, "frame-env-stream", "luxball, env-lit,")
-        del esess
         phase_golden_env(env_path, card)
+        # gradients and the inverse-rendering loop (K1; K4 in grad-check)
+        t_grad = time.perf_counter()
+        grad_launches = phase_grad_check(env_path, card)
+        k1_grad = phase_grad_step(esess, card)
+        phase_optimize(esess, tmp_dir, card)
+        secs_grad = time.perf_counter() - t_grad
+        del esess
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2429,6 +2792,17 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    for form, name in (("closest", "K1 traverse_stack closest, grad path"),
+                       ("any", "K1 traverse_stack any-hit, grad path")):
+        r = ktimes[form]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fluctus_tpu_torch/csrc/traverse_stack.cu",
+            "replaces": "fluctus_tpu/ops/traverse_mxu.py:97",
+            "launches": k1_grad[form],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     for sched, replaces, counts in (
             ("vlist", "fluctus_tpu/ops/traverse_brute.py:578", launches_big),
             ("rounds", "fluctus_tpu/ops/traverse_brute.py:70", launches_k3)):
@@ -2502,7 +2876,9 @@ def main() -> int:
           f"packet frame {secs_p:.3f} s, conference "
           f"frame {secs_big:.3f} s (brute), {secs_t:.3f} s (treelet), "
           f"luxball env-lit frame {secs_e:.3f} s lockstep, {secs_es:.3f} s "
-          f"stream; PLY session {fmt['ply_secs']['session']:.2f} s (load "
+          f"stream; gradients (grad-check, grad-step, optimize) "
+          f"{secs_grad:.2f} s (grad-check forward launches "
+          f"{grad_launches['luxball_env']}); PLY session {fmt['ply_secs']['session']:.2f} s (load "
           f"{fmt['ply_secs']['load_ply']:.2f}, hash "
           f"{fmt['ply_secs']['file_hash']:.2f}, brute forest "
           f"{fmt['ply_secs']['build_brute_forest']:.2f}), PLY frame "
@@ -2511,7 +2887,8 @@ def main() -> int:
           f"{fmt['frame_pbrt'][0]:.3f} s (K1 {fmt['frame_pbrt'][1]}), "
           f"conference cold / warm {fmt['cache_secs']['cold']:.2f} / "
           f"{fmt['cache_secs']['warm']:.2f} s, NumPy SAH kitchen session "
-          f"{fmt['native_off_secs']:.2f} s on {card}", flush=True)
+          f"{fmt['native_off_secs']:.2f} s, BC7 2048x2048 decode "
+          f"{fmt['dds_secs']:.3f} s on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -130,3 +130,24 @@ def params_from_numpy(arrays: dict, device="cuda") -> RenderParams:
         env_strength=f32("env_strength"),
         world_radius=f32("world_radius"),
         exposure=f32("exposure"))
+
+
+DIFF_KEYS = ("kd", "ks", "ns", "ni", "env_image", "env_strength") + tuple(
+    f"cam_{k}" for k in CAMERA_KEYS)
+
+
+def diff_from_numpy(arrays: dict, device="cuda") -> dict:
+    """The differentiable-leaf dict that `parallel.mesh.graft` takes, from
+    the JAX one as NumPy arrays (keys of DIFF_KEYS: kd, ks, ns, ni,
+    env_image, env_strength and the cam_* fields), as f32 tensors."""
+    unknown = set(arrays) - set(DIFF_KEYS)
+    if unknown:
+        raise KeyError(f"not a differentiable leaf: {sorted(unknown)}")
+    return {k: torch.as_tensor(np.array(v, np.float32), device=device)
+            for k, v in arrays.items()}
+
+
+def diff_to_numpy(diff: dict) -> dict:
+    """diff_from_numpy's inverse: the same keys as f32 NumPy arrays."""
+    return {k: v.detach().cpu().numpy().astype(np.float32)
+            for k, v in diff.items()}

@@ -1,6 +1,7 @@
 """Synthetic inputs: scenes written to disk in the formats the loaders
-read (`sphere_grid_ply`, `scene_pbrt`), an HDR sky (`sky_env`), and inputs
-that pin the traversal kernels' tie rules.
+read (`sphere_grid_ply`, `scene_pbrt`), an HDR sky (`sky_env`), DDS
+textures over seeded blocks (`dds_bytes`), the gradient tests' plane
+(`plane_session`), and inputs that pin the traversal kernels' tie rules.
 
 K2 and K3: brute forests holding copies of one triangle at several
 (chunk, slot) places, and the place whose id the visit-list walk must
@@ -598,3 +599,133 @@ def scene_pbrt(obj_path: str, out_dir: str, light: dict | None = None,
     with open(path, "w") as f:
         f.write("\n".join(out) + "\n")
     return path
+
+
+# dds_bytes formats: (pixel-format flags, FourCC, bit count, masks, DXGI
+# format, bytes a 4x4 block or a pixel, block-compressed)
+_DDS_FORMATS = {
+    "DXT1": (0x4, b"DXT1", 0, (), None, 8, True),
+    "DXT3": (0x4, b"DXT3", 0, (), None, 16, True),
+    "DXT5": (0x4, b"DXT5", 0, (), None, 16, True),
+    "ATI1": (0x4, b"ATI1", 0, (), None, 8, True),
+    "BC4U": (0x4, b"BC4U", 0, (), None, 8, True),
+    "ATI2": (0x4, b"ATI2", 0, (), None, 16, True),
+    "BC5U": (0x4, b"BC5U", 0, (), None, 16, True),
+    "BC5S": (0x4, b"BC5S", 0, (), None, 16, True),
+    "BC1": (0x4, b"DX10", 0, (), 71, 8, True),
+    "BC2": (0x4, b"DX10", 0, (), 74, 16, True),
+    "BC3": (0x4, b"DX10", 0, (), 77, 16, True),
+    "BC4": (0x4, b"DX10", 0, (), 80, 8, True),
+    "BC5": (0x4, b"DX10", 0, (), 83, 16, True),
+    "BC5_SNORM": (0x4, b"DX10", 0, (), 84, 16, True),
+    "BC7": (0x4, b"DX10", 0, (), 98, 16, True),
+    "BC7_SRGB": (0x4, b"DX10", 0, (), 99, 16, True),
+    "RGBA8": (0x4, b"DX10", 0, (), 28, 4, False),
+    "L8": (0x20000, b"", 8, (), None, 1, False),
+    "L8A8": (0x20001, b"", 16, (), None, 2, False),
+    "P8": (0x20, b"", 8, (), None, 1, False),
+    "RGB565": (0x40, b"", 16, (0xF800, 0x7E0, 0x1F), None, 2, False),
+    "ARGB4444": (0x41, b"", 16, (0xF00, 0xF0, 0xF, 0xF000), None, 2, False),
+    "RGB24": (0x40, b"", 24, (0xFF0000, 0xFF00, 0xFF), None, 3, False),
+    "XRGB32": (0x40, b"", 32, (0xFF0000, 0xFF00, 0xFF), None, 4, False),
+    "A2R10G10B10": (0x41, b"", 32, (0x3FF00000, 0xFFC00, 0x3FF,
+                                    0xC0000000), None, 4, False),
+}
+DDS_FORMATS = tuple(_DDS_FORMATS)
+
+
+def dds_bytes(fmt: str, width: int, height: int, seed: int = 0) -> bytes:
+    """A DDS file of `width` x `height` in format `fmt` (DDS_FORMATS: the
+    FourCC block formats, DX10 ones by DXGI name, and uncompressed L8,
+    L8A8, P8 (with a seeded RGBA palette) and masked RGB layouts) over
+    seeded random bytes: any 8 or 16 random bytes are a valid block.
+    For BC7 the first nine blocks are forced into modes 0-7 and the
+    reserved mode 8 (a first byte of zero), since random first bytes reach
+    mode 7 and mode 8 only once in 256 blocks."""
+    flags, fourcc, bits, masks, dxgi, unit, blocks = _DDS_FORMATS[fmt]
+    g = np.random.default_rng(seed)
+    if blocks:
+        n = ((width + 3) // 4) * ((height + 3) // 4)
+    else:
+        n = width * height
+    body = g.integers(0, 256, (n, unit), dtype=np.uint8)
+    if fmt.startswith("BC7"):
+        for mode in range(min(9, n)):
+            hi = int(g.integers(0, 256))
+            body[mode, 0] = 0 if mode == 8 else ((hi << (mode + 1))
+                                                 | (1 << mode)) & 0xFF
+    masks = tuple(masks) + (0,) * (4 - len(masks))
+    header = (b"DDS " + (124).to_bytes(4, "little")
+              + np.array([0x1007 | (0x80000 if blocks else 0), height,
+                          width, 0, 0, 1], "<u4").tobytes()
+              + bytes(44)
+              + np.array([32, flags], "<u4").tobytes()
+              + (fourcc or bytes(4))
+              + np.array((bits,) + masks, "<u4").tobytes()
+              + np.array([0x1000, 0, 0, 0, 0], "<u4").tobytes())
+    assert len(header) == 128
+    if dxgi is not None:
+        header += np.array([dxgi, 3, 0, 1, 0], "<u4").tobytes()
+    if fmt == "P8":
+        header += g.integers(0, 256, 1024, dtype=np.uint8).tobytes()
+    return header + body.tobytes()
+
+
+def plane_session(device="cuda", size: int = 24, max_bounces: int = 1,
+                  env_val: float | None = 1.0, use_area_light: bool = False,
+                  sample_impl: bool = True, tilted: bool = False):
+    """tests/test_integrator.py::plane_session on the port: a 1000 x 1000
+    Lambertian quad (albedo 0.6) at y = 0 under a constant 32x64 env map
+    (none with env_val None), seen from (0, 3, 0) looking down; with
+    `tilted`, the camera of tests/test_gradients.py::_camera_grad_session
+    (direction (0.35, -1, 0.2)), and with use_area_light the default area
+    light. Returns a RenderSession."""
+    import dataclasses
+
+    import torch
+
+    from fluctus_tpu_torch.core.types import RenderConfig, default_params
+    from fluctus_tpu_torch.render.driver import RenderSession
+    from fluctus_tpu_torch.scene import envmap as env_host
+    from fluctus_tpu_torch.scene.loaders.obj import MtlMaterial
+    from fluctus_tpu_torch.scene.scene import HostScene
+
+    half = 500.0
+    v = np.array([[-half, 0.0, -half], [half, 0.0, -half],
+                  [half, 0.0, half], [-half, 0.0, half]], np.float32)
+    v0, v1, v2 = np.stack([v[0], v[0]]), np.stack([v[2], v[3]]), \
+        np.stack([v[1], v[2]])
+    n = np.cross(v1 - v0, v2 - v0)
+    n = (n / np.linalg.norm(n, axis=1, keepdims=True)).astype(np.float32)
+    z2 = np.zeros((2, 2), np.float32)
+    host = HostScene(v0=v0, v1=v1, v2=v2, n0=n, n1=n, n2=n, uv0=z2, uv1=z2,
+                     uv2=z2, mat_id=np.zeros(2, np.int32),
+                     materials=[MtlMaterial(name="d", kd=(0.6, 0.6, 0.6),
+                                            ks=(0, 0, 0), ns=0.0, ni=0.0)])
+    if env_val is not None:
+        host.envmap = env_host.compute_tables(
+            np.full((32, 64, 3), env_val, np.float32))
+    host.build_bvh(cache_dir=None, use_sbvh=False)
+    cfg = RenderConfig(width=size, height=size, max_bounces=max_bounces,
+                       use_env_map=env_val is not None,
+                       use_area_light=use_area_light,
+                       sample_impl=sample_impl,
+                       bsdf_types_mask=host.material_types_mask)
+    params = default_params(world_radius=host.world_radius(), device=device)
+    d = np.array([0.0, -1.0, 0.0])
+    r, u = np.array([1.0, 0.0, 0.0]), np.array([0.0, 0.0, -1.0])
+    if tilted:
+        d = np.array([0.35, -1.0, 0.2])
+        d /= np.linalg.norm(d)
+        r = np.cross(d, [0.0, 1.0, 0.0])
+        r /= np.linalg.norm(r)
+        u = np.cross(r, d)
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    params = dataclasses.replace(params, camera=dataclasses.replace(
+        params.camera, pos=t([0.0, 3.0, 0.0]), dir=t(d), up=t(u),
+        right=t(r)))
+    return RenderSession(host_scene=host, scene=host.to_device(device),
+                         params=params, cfg=cfg)

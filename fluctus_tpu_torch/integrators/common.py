@@ -2,6 +2,14 @@
 `fluctus_tpu/integrators/common.py`; reference: wf_logic.cl,
 mk_next_vertex.cl, mk_sample_bsdf.cl).
 
+Visibility is frozen, as in the JAX package: every traversal call gets
+detached rays and its result is a constant, and `hit_from_traversal`
+recomputes t, u and v on the frozen triangle so that gradients reach the
+camera. `checkpointed` runs a bounce or segment body under
+`torch.utils.checkpoint` with a tape of its traversal results (the JAX
+checkpoint policy `save_only_these_names("trace", "shadow")`): the
+recomputation in the backward replays them and launches no traversal.
+
 Traversal goes, in the JAX package's order, through `ops.traverse_brute`
 (kernels K2 and K3) on a scene that carries a brute forest,
 `ops.traverse_forest` (K5) on one with a treelet forest, and otherwise
@@ -12,7 +20,12 @@ keyed by (pixel, sample, bounce, stream).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import threading
+
 import torch
+import torch.utils.checkpoint
 
 from fluctus_tpu_torch.core import rng, samplers, vecmath as vm
 from fluctus_tpu_torch.core.types import (
@@ -65,9 +78,86 @@ def _packets(scene, cfg) -> bool:
             and scene.bforest is None and scene.ftables is None)
 
 
+class _Tape:
+    """The traversal results of one checkpointed body, in call order."""
+
+    def __init__(self):
+        self.results = []
+        self.pos = 0
+        self.replay = False
+
+
+_active = threading.local()
+
+
+@contextlib.contextmanager
+def _using(tape: _Tape, replay: bool):
+    prev = getattr(_active, "tape", None)
+    _active.tape = tape
+    tape.replay, tape.pos = replay, 0
+    try:
+        yield
+    finally:
+        _active.tape = prev
+
+
+def _taped(fn, *args):
+    """fn(*args), a traversal: recorded on the active tape, or, inside a
+    recomputation, the result the forward call produced, in call order,
+    with nothing launched."""
+    tape = getattr(_active, "tape", None)
+    if tape is None:
+        return fn(*args)
+    if tape.replay:
+        out = tape.results[tape.pos]
+        tape.pos += 1
+        return out
+    out = fn(*args)
+    tape.results.append(out)
+    return out
+
+
+def checkpointed(body, *args):
+    """body(*args) under `torch.utils.checkpoint` (non-reentrant): the
+    backward recomputes the shading of the body and replays its traversal
+    results from a tape, so it launches no traversal kernel (the JAX
+    package's checkpoint policy `save_only_these_names("trace",
+    "shadow")`)."""
+    tape = _Tape()
+    return torch.utils.checkpoint.checkpoint(
+        body, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (_using(tape, False), _using(tape, True)))
+
+
+def _tensor_leaves(rec):
+    if isinstance(rec, torch.Tensor):
+        yield rec
+    elif dataclasses.is_dataclass(rec):
+        for f in dataclasses.fields(rec):
+            yield from _tensor_leaves(getattr(rec, f.name))
+
+
+def grad_needed(scene: DeviceScene, params: RenderParams) -> bool:
+    """Whether autograd records a render of (scene, params): grad mode on
+    and some leaf requiring grad. Forward-only renders take no checkpoint
+    and no tape."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for rec in (scene, params)
+        for t in _tensor_leaves(rec))
+
+
+def _detached(x):
+    return x.detach() if isinstance(x, torch.Tensor) else x
+
+
 def _traverse_closest_tr(scene, cfg, orig, dir, t_max) -> Traversal:
-    """Closest-hit traversal under a scalar or per-lane t_max."""
-    orig, dir = orig.contiguous(), dir.contiguous()
+    """Closest-hit traversal under a scalar or per-lane t_max, on detached
+    rays (visibility carries no gradient)."""
+    return _taped(_closest_tr, scene, cfg, orig.detach().contiguous(),
+                  dir.detach().contiguous(), _detached(t_max))
+
+
+def _closest_tr(scene, cfg, orig, dir, t_max) -> Traversal:
     if _packets(scene, cfg):
         t_vec = torch.broadcast_to(torch.as_tensor(
             t_max, dtype=torch.float32, device=orig.device), orig.shape[:1])
@@ -85,8 +175,13 @@ def _traverse_closest_tr(scene, cfg, orig, dir, t_max) -> Traversal:
 
 
 def _traverse_any(scene, cfg, orig, dir, lens) -> torch.Tensor:
-    """Any-hit traversal under the per-lane distance `lens`."""
-    orig, dir = orig.contiguous(), dir.contiguous()
+    """Any-hit traversal under the per-lane distance `lens`, on detached
+    rays."""
+    return _taped(_any, scene, cfg, orig.detach().contiguous(),
+                  dir.detach().contiguous(), lens.detach())
+
+
+def _any(scene, cfg, orig, dir, lens) -> torch.Tensor:
     if _packets(scene, cfg):
         return ray_sort.sorted_apply(
             orig, dir, *traverse_pallas.wbvh_bounds(scene.wbvh),
@@ -108,14 +203,14 @@ def trace_scene(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
 
 
 def fused_rays(orig, dir, sh_orig, sh_dir, sh_len):
-    """The rays of the fused call: [ext ; shadow] origins and directions,
-    and t_max T_MAX for the extension rays, max(sh_len, 1e-6) for the
-    shadow rays."""
+    """The rays of the fused call, detached: [ext ; shadow] origins and
+    directions, and t_max T_MAX for the extension rays, max(sh_len, 1e-6)
+    for the shadow rays."""
     t_ext = torch.full((orig.shape[0],), T_MAX, dtype=torch.float32,
                        device=orig.device)
-    return (torch.cat([orig, sh_orig]).contiguous(),
-            torch.cat([dir, sh_dir]).contiguous(),
-            torch.cat([t_ext, torch.clamp(sh_len, min=1e-6)]))
+    return (torch.cat([orig.detach(), sh_orig.detach()]).contiguous(),
+            torch.cat([dir.detach(), sh_dir.detach()]).contiguous(),
+            torch.cat([t_ext, torch.clamp(sh_len.detach(), min=1e-6)]))
 
 
 def trace_scene_with_shadow(scene: DeviceScene, params: RenderParams,
@@ -151,9 +246,13 @@ def trace_scene_with_shadow(scene: DeviceScene, params: RenderParams,
 
 def hit_from_traversal(scene: DeviceScene, params: RenderParams,
                        cfg: RenderConfig, orig, dir, tr: Traversal) -> Hit:
-    """Hit record from a traversal: t/u/v recomputed on the hit triangle
-    (the JAX package does so to carry gradients; the values agree with the
-    traversal's up to roundoff), then the area-light quad."""
+    """Hit record from a traversal, then the area-light quad. Only the
+    prim id (visibility) is frozen: t/u/v are recomputed with
+    Moller-Trumbore on the frozen triangle from the rays as given, so
+    gradients with respect to the ray origin and direction (the camera)
+    flow through the hit point, as in the JAX package; the values agree
+    with the traversal's up to roundoff. The traversal result itself
+    carries no gradient."""
     g = scene.geom
     prim = tr.prim.to(torch.int64)
     hit_tri = prim >= 0

@@ -2,9 +2,11 @@
 (counterpart of `fluctus_tpu/integrators/lockstep.py`; reference:
 src/tracer.cpp:95-169 renderSingle and the mk_*.cl microkernels).
 
-The JAX package runs the bounces as a `lax.while_loop`; here it is a Python
-loop that stops once every lane has terminated. Russian roulette is off, as
-in the reference's exact-spp export.
+The JAX package runs the bounces as a `lax.while_loop` (forward) or a
+checkpointed `lax.scan` (gradients); here it is a Python loop that stops
+once every lane has terminated, each bounce checkpointed when autograd
+records it. Russian roulette is off, as in the reference's exact-spp
+export.
 """
 from __future__ import annotations
 
@@ -29,12 +31,17 @@ def sample_radiance(scene: DeviceScene, params: RenderParams,
                     sample_idx) -> torch.Tensor:
     """One complete path per pixel index; returns (B, 3) radiance. The
     bounce loop ends after max_bounces + 1 vertices or as soon as no lane
-    is alive (the JAX package's early_exit=True)."""
-    types = cfg.bsdf_types_mask
-    dev = pixel_idx.device
+    is alive (the JAX package's early_exit=True).
+
+    Differentiable: where autograd records the call (`common.grad_needed`)
+    each bounce runs under `common.checkpointed`, so the backward
+    re-shades a bounce from its saved traversal results and never traces
+    again (the JAX package's checkpointed scan). Dead lanes add nothing,
+    so the early exit gives the value and the gradient of JAX's
+    fixed-trip scan. A forward-only call takes no checkpoint."""
     pix = pixel_idx
     samp = sample_idx
-
+    dev = pix.device
     u_ax = rng.uniform(pix, samp, 0, rng.Streams.AA_X)
     u_ay = rng.uniform(pix, samp, 0, rng.Streams.AA_Y)
     u_lr = rng.uniform(pix, samp, 0, rng.Streams.LENS_R)
@@ -43,78 +50,96 @@ def sample_radiance(scene: DeviceScene, params: RenderParams,
                                       cfg.height, u_ax, u_ay, u_lr, u_lt,
                                       params.world_radius)
     b = pix.shape[0]
-    ei = torch.zeros((b, 3), dtype=torch.float32, device=dev)
-    throughput = torch.ones((b, 3), dtype=torch.float32, device=dev)
-    last_pdf_w = torch.ones(b, dtype=torch.float32, device=dev)
-    last_specular = torch.ones(b, dtype=torch.bool, device=dev)
-    alive = torch.ones(b, dtype=torch.bool, device=dev)
-    zero3 = torch.zeros_like(ei)
+    carry = (orig, dir,
+             torch.ones((b, 3), dtype=torch.float32, device=dev),
+             torch.zeros((b, 3), dtype=torch.float32, device=dev),
+             torch.ones(b, dtype=torch.float32, device=dev),
+             torch.ones(b, dtype=torch.bool, device=dev),
+             torch.ones(b, dtype=torch.bool, device=dev))
+    diff = common.grad_needed(scene, params)
 
     for bounce in range(cfg.max_bounces + 1):
-        if not bool(alive.any()):
+        if not bool(carry[6].any()):
             break
-        path_len = bounce + 1
-        t_orig, t_dir = common.neutralize_rays(orig, dir, alive)
-        hit = common.trace_scene(scene, params, cfg, t_orig, t_dir)
-        miss = hit.prim < 0
 
-        # implicit env hit (mk_next_vertex.cl:72-96); without implicit
-        # sampling only the camera ray sees the env map
-        if cfg.use_env_map:
-            bg = env_ops.eval_dir(scene.envmap, dir) * params.env_strength
-            if not cfg.sample_impl:
-                bg = (1.0 if path_len == 1 else 0.0) * bg
-            w_env = common.implicit_env_weight(
-                scene, params, cfg, dir, last_pdf_w, last_specular,
-                path_len, LIGHT_PICK_PROB)
-            ei = ei + vm.where3(miss & alive,
-                                w_env[..., None] * throughput * bg, zero3)
+        def body(*c, bounce=bounce):
+            return _bounce(scene, params, cfg, pix, samp, bounce, c)
 
-        # implicit area-light hit (mk_next_vertex.cl:98-117)
-        if cfg.use_area_light and cfg.sample_impl:
-            w_area = common.implicit_area_weight(
-                params, cfg, hit, orig, dir, last_pdf_w, last_specular,
-                path_len, LIGHT_PICK_PROB)
-            ei = ei + vm.where3(
-                hit.area_light & alive,
-                w_area[..., None] * throughput * params.area_light.emission,
-                zero3)
-        alive = alive & ~miss & ~hit.area_light
+        carry = common.checkpointed(body, *carry) if diff else body(*carry)
+    return carry[3]
 
-        # shading context + NEE (mk_sample_bsdf.cl)
-        ctx = common.make_shading_ctx(scene, hit, dir)
-        sh_orig = hit.p - common.OFFSET_SHADOW * dir
-        singular = bsdf_mod.is_singular(ctx.bsdf_id)
-        nee_mask = alive & ~singular
-        if cfg.sample_expl and cfg.use_env_map:
-            c = common.nee_env(scene, params, cfg, ctx, sh_orig, dir, types,
-                               pix, samp, bounce, LIGHT_PICK_PROB,
-                               active=nee_mask)
-            ei = ei + vm.where3(nee_mask, throughput * c, zero3)
-        if cfg.sample_expl and cfg.use_area_light:
-            c = common.nee_area(scene, params, cfg, ctx, sh_orig, dir, types,
-                                pix, samp, bounce, LIGHT_PICK_PROB,
-                                active=nee_mask)
-            ei = ei + vm.where3(nee_mask, throughput * c, zero3)
 
-        # continuation (mk_sample_bsdf.cl:158-199)
-        u1 = rng.uniform(pix, samp, bounce, rng.Streams.BSDF_U)
-        u2 = rng.uniform(pix, samp, bounce, rng.Streams.BSDF_V)
-        ul = rng.uniform(pix, samp, bounce, rng.Streams.BSDF_LOBE)
-        s = bsdf_mod.bsdf_sample(ctx, dir, u1, u2, ul, types)
-        wo = vm.normalize(s.wo)
-        cos_th = vm.dot(ctx.n, wo)
-        ok = (s.pdf != 0.0) & ~vm.is_zero(s.f)
-        new_t = throughput * s.f \
-            * (cos_th / torch.where(ok, s.pdf, 1.0))[..., None]
-        throughput = vm.where3(alive & ok, new_t, throughput)
-        alive = alive & ok & ~vm.is_zero(throughput)
+def _bounce(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
+            pix, samp, bounce: int, carry):
+    """One vertex of every lane's path: trace, implicit light hits,
+    next-event estimation and continuation (reference: mk_next_vertex.cl,
+    mk_sample_bsdf.cl). carry: (orig, dir, throughput, ei, last_pdf_w,
+    last_specular, alive)."""
+    orig, dir, throughput, ei, last_pdf_w, last_specular, alive = carry
+    types = cfg.bsdf_types_mask
+    zero3 = torch.zeros_like(ei)
+    path_len = bounce + 1
+    t_orig, t_dir = common.neutralize_rays(orig, dir, alive)
+    hit = common.trace_scene(scene, params, cfg, t_orig, t_dir)
+    miss = hit.prim < 0
 
-        orig = hit.p + common.OFFSET_CONT * wo
-        dir = vm.where3(alive, wo, dir)
-        last_pdf_w = torch.where(alive, s.pdf, last_pdf_w)
-        last_specular = torch.where(alive, singular, last_specular)
-    return ei
+    # implicit env hit (mk_next_vertex.cl:72-96); without implicit
+    # sampling only the camera ray sees the env map
+    if cfg.use_env_map:
+        bg = env_ops.eval_dir(scene.envmap, dir) * params.env_strength
+        if not cfg.sample_impl:
+            bg = (1.0 if path_len == 1 else 0.0) * bg
+        w_env = common.implicit_env_weight(
+            scene, params, cfg, dir, last_pdf_w, last_specular,
+            path_len, LIGHT_PICK_PROB)
+        ei = ei + vm.where3(miss & alive,
+                            w_env[..., None] * throughput * bg, zero3)
+
+    # implicit area-light hit (mk_next_vertex.cl:98-117)
+    if cfg.use_area_light and cfg.sample_impl:
+        w_area = common.implicit_area_weight(
+            params, cfg, hit, orig, dir, last_pdf_w, last_specular,
+            path_len, LIGHT_PICK_PROB)
+        ei = ei + vm.where3(
+            hit.area_light & alive,
+            w_area[..., None] * throughput * params.area_light.emission,
+            zero3)
+    alive = alive & ~miss & ~hit.area_light
+
+    # shading context + NEE (mk_sample_bsdf.cl)
+    ctx = common.make_shading_ctx(scene, hit, dir)
+    sh_orig = hit.p - common.OFFSET_SHADOW * dir
+    singular = bsdf_mod.is_singular(ctx.bsdf_id)
+    nee_mask = alive & ~singular
+    if cfg.sample_expl and cfg.use_env_map:
+        c = common.nee_env(scene, params, cfg, ctx, sh_orig, dir, types,
+                           pix, samp, bounce, LIGHT_PICK_PROB,
+                           active=nee_mask)
+        ei = ei + vm.where3(nee_mask, throughput * c, zero3)
+    if cfg.sample_expl and cfg.use_area_light:
+        c = common.nee_area(scene, params, cfg, ctx, sh_orig, dir, types,
+                            pix, samp, bounce, LIGHT_PICK_PROB,
+                            active=nee_mask)
+        ei = ei + vm.where3(nee_mask, throughput * c, zero3)
+
+    # continuation (mk_sample_bsdf.cl:158-199)
+    u1 = rng.uniform(pix, samp, bounce, rng.Streams.BSDF_U)
+    u2 = rng.uniform(pix, samp, bounce, rng.Streams.BSDF_V)
+    ul = rng.uniform(pix, samp, bounce, rng.Streams.BSDF_LOBE)
+    s = bsdf_mod.bsdf_sample(ctx, dir, u1, u2, ul, types)
+    wo = vm.normalize(s.wo)
+    cos_th = vm.dot(ctx.n, wo)
+    ok = (s.pdf != 0.0) & ~vm.is_zero(s.f)
+    new_t = throughput * s.f \
+        * (cos_th / torch.where(ok, s.pdf, 1.0))[..., None]
+    throughput = vm.where3(alive & ok, new_t, throughput)
+    alive = alive & ok & ~vm.is_zero(throughput)
+
+    orig = hit.p + common.OFFSET_CONT * wo
+    dir = vm.where3(alive, wo, dir)
+    last_pdf_w = torch.where(alive, s.pdf, last_pdf_w)
+    last_specular = torch.where(alive, singular, last_specular)
+    return orig, dir, throughput, ei, last_pdf_w, last_specular, alive
 
 
 def _render_tile_spp(scene: DeviceScene, params: RenderParams,

@@ -28,12 +28,22 @@ src/wf_extrays.cl, src/wf_shadowrays.cl, src/wf_mat_*.cl).
 The JAX package runs a launch of segments as one `lax.scan` program; here
 a launch is a Python loop over segments that carries the same state, all
 on the device. The only host reads are the drain checks of `render_stream`
-and the final sample count. The loss half of the JAX module
-(`stream_loss*`, `stream_radiance`, `plan_stream_segments`) is not ported:
-it belongs to the gradients (ROADMAP Queue 1).
+and the final sample count.
+
+The loss half (`stream_loss`, `stream_loss_deferred`, `stream_radiance`,
+`plan_stream_segments`) runs one sample per listed (pixel, sample) ray
+through a small pool: a finished lane folds its squared error, or its
+weighted radiance, into a scalar and respawns on the next ray id, so the
+traced work follows the paths' real lengths. Each segment of a
+differentiated loss runs under `common.checkpointed` (the JAX package's
+checkpointed scan; `FLUCTUS_STREAM_SAVE=all` keeps every intermediate
+instead), so the backward never traces.
 """
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
 import time
 
 import torch
@@ -609,3 +619,297 @@ def _bin_rows(rows, n_pix: int, spp: int):
                       1) / spp
     n_done = (keys != EMPTY_KEY).sum()
     return img, n_done
+
+
+# ------------------------------------------------------------ loss half
+#
+# The differentiable stream: a pool far smaller than the ray list, each
+# terminated lane respawning at once on the next ray id, so the traced
+# work is the sum of the path lengths rather than the lockstep's
+# n x (max_bounces + 1). The loss is separable per ray, so a finished
+# lane folds its term into a scalar the moment it finishes: no binning,
+# no scatter in the differentiated graph. The counter RNG keys a ray by
+# (pixel, sample), so its radiance is the lockstep's.
+
+# segments between the drain checks of the loss and the planner
+_DRAIN_EVERY = 4
+
+
+def _sample_vec(sample_idx, n: int, device) -> torch.Tensor:
+    """Per-ray sample ids: a scalar broadcasts (one sample per pixel); an
+    (n,) tensor gives each listed ray its own sample id, so one batch can
+    hold several samples of a pixel."""
+    return torch.broadcast_to(torch.as_tensor(sample_idx, dtype=torch.int64,
+                                              device=device), (n,))
+
+
+def _fold_loss(loss_acc, ei, done, ray_id, target, weight, n: int):
+    """Fold the finished lanes into the scalar. L2 (weight None):
+    sum((ei - target[ray])^2). Weighted: sum(weight[ray] . ei) with the
+    weights constant, the term from which the optimizer assembles the
+    paired-sample gradient (render/optimize.py)."""
+    idx = torch.clamp(ray_id, max=n - 1)
+    if weight is None:
+        diff = ei - target[idx]
+        return loss_acc + torch.where(done[:, None], diff * diff, 0.0).sum()
+    w = weight.detach()[idx]
+    return loss_acc + torch.where(done[:, None], w * ei, 0.0).sum()
+
+
+def _stream_loss_init(params, cfg, pixel_idx, sample_idx, pool: int):
+    """The pool's first rays: lane i takes ray i, lanes past the list
+    start dead. Returns (state, ray_id, counter, loss_acc, n_done)."""
+    n = pixel_idx.shape[0]
+    dev = pixel_idx.device
+    sample_vec = _sample_vec(sample_idx, n, dev)
+    lane = torch.arange(pool, dtype=torch.int64, device=dev)
+    ray0 = torch.clamp(lane, max=n - 1)
+    state = _fresh_state(params, cfg, pixel_idx[ray0].to(torch.int64),
+                         sample_vec[ray0])
+    state.alive = lane < n
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return (state, ray0, zero + min(pool, n),
+            torch.zeros((), dtype=torch.float32, device=dev), zero)
+
+
+def _loss_advance(params, cfg, pixel_idx, sample_vec, state, ray_id,
+                  counter, seg, terminate, n: int):
+    """Respawn the terminated lanes on the next ray ids, in lane order
+    (the exclusive rank over the terminated mask); returns (state, ray_id,
+    counter)."""
+    hit, _, ei, wo, new_t, s_pdf, singular, path_len = seg
+    new_ray = counter + _exclusive_rank(terminate)
+    can = terminate & (new_ray < n)
+    new_ray_c = torch.where(can, new_ray, 0)
+    new_pix = pixel_idx[new_ray_c].to(torch.int64)
+    samp = sample_vec[new_ray_c]
+    r_orig, r_dir = _raygen(params, cfg, new_pix, samp)
+    keep = torch.where(terminate, can, state.alive)
+    state = _next_state(state, terminate, keep, r_orig, r_dir, new_pix,
+                        samp, hit, wo, new_t, ei, s_pdf, singular, path_len)
+    return (state, torch.where(terminate, new_ray_c, ray_id),
+            counter + can.sum())
+
+
+def _stream_loss_segment(scene, params, cfg, pixel_idx, sample_idx, target,
+                         carry, weight=None):
+    """One pooled segment: advance every live lane a bounce, fold the
+    finished lanes (_fold_loss), respawn from the ray list."""
+    n = pixel_idx.shape[0]
+    sample_vec = _sample_vec(sample_idx, n, pixel_idx.device)
+    state, ray_id, counter, loss_acc, n_done = carry
+    seg = _segment_core(scene, params, cfg, state)
+    terminate = seg[1] & state.alive
+    done = terminate & (seg[7] > 0)
+    loss_acc = _fold_loss(loss_acc, seg[2], done, ray_id, target, weight, n)
+    n_done = n_done + done.sum()
+    state, ray_id, counter = _loss_advance(
+        params, cfg, pixel_idx, sample_vec, state, ray_id, counter, seg,
+        terminate, n)
+    return (state, ray_id, counter, loss_acc, n_done)
+
+
+def _stream_loss_segment_d(scene, params, cfg, pixel_idx, sample_idx,
+                           target, carry, weight=None):
+    """Deferred-shadow form of _stream_loss_segment: the previous
+    segment's shadow rays trace in this segment's closest call, and a
+    finished ray folds one segment late, once its last shadow ray has
+    resolved (reference: wf_logic.cl:134-156)."""
+    n = pixel_idx.shape[0]
+    sample_vec = _sample_vec(sample_idx, n, pixel_idx.device)
+    (state, ray_id, counter, loss_acc, n_done, pend, fin_ray,
+     fin_ei) = carry
+    (hit, terminate, ei, wo, new_t, s_pdf, singular, path_len, resolved,
+     pend2) = _segment_core(scene, params, cfg, state, pend=pend)
+
+    # the resolved candidate goes to the finished ray that awaits it, else
+    # to the live path that drew it
+    fin_has = fin_ray >= 0
+    loss_acc = _fold_loss(loss_acc, fin_ei + resolved, fin_has,
+                          torch.clamp(fin_ray, 0, n - 1), target, weight, n)
+    n_done = n_done + fin_has.sum()
+    ei = ei + vm.where3(~fin_has, resolved, torch.zeros_like(resolved))
+
+    terminate = terminate & state.alive
+    done = terminate & (path_len > 0)
+    fin_ray_n = torch.where(done, ray_id, -1)
+    fin_ei_n = vm.where3(done, ei, torch.zeros_like(ei))
+    seg = (hit, terminate, ei, wo, new_t, s_pdf, singular, path_len)
+    state, ray_id, counter = _loss_advance(
+        params, cfg, pixel_idx, sample_vec, state, ray_id, counter, seg,
+        terminate, n)
+    return (state, ray_id, counter, loss_acc, n_done, pend2, fin_ray_n,
+            fin_ei_n)
+
+
+def _save_all() -> bool:
+    """FLUCTUS_STREAM_SAVE=all: no checkpoint, every intermediate kept
+    (the backward then only transposes; more memory, less compute)."""
+    return os.environ.get("FLUCTUS_STREAM_SAVE", "named") == "all"
+
+
+def _deferred_carry(base, pool: int, device):
+    return base + (_pend_init(pool, device),
+                   torch.full((pool,), -1, dtype=torch.int64, device=device),
+                   torch.zeros((pool, 3), dtype=torch.float32,
+                               device=device))
+
+
+def _drained(carry, deferred: bool) -> torch.Tensor:
+    """No lane alive (and, deferred, no finished ray awaiting its shadow
+    ray): every later segment adds nothing."""
+    more = carry[0].alive.any()
+    if deferred:
+        more = more | (carry[6] >= 0).any()
+    return ~more
+
+
+_counting = threading.local()
+
+
+@contextlib.contextmanager
+def count_loss_rays():
+    """Count, on the device, the rays the loss segments trace inside the
+    block: each segment's live lanes as extension rays and, with
+    next-event estimation on, as many shadow rays (the stream's counters'
+    rule). Yields a one-element list holding the 0-d int64 total."""
+    box = [0]
+    prev = getattr(_counting, "box", None)
+    _counting.box = box
+    try:
+        yield box
+    finally:
+        _counting.box = prev
+
+
+def _run_segments(scene, params, cfg, pixel_idx, sample_idx, target, carry,
+                  n_segments: int, weight, deferred: bool):
+    """Up to n_segments segments, each checkpointed where autograd records
+    it, stopping early once drained (exact: a drained segment adds
+    nothing to the loss or the count)."""
+    seg = _stream_loss_segment_d if deferred else _stream_loss_segment
+    ckpt = common.grad_needed(scene, params) and not _save_all()
+    box = getattr(_counting, "box", None)
+
+    def body(c):
+        return seg(scene, params, cfg, pixel_idx, sample_idx, target, c,
+                   weight=weight)
+
+    for k in range(n_segments):
+        if box is not None:
+            box[0] = box[0] + carry[0].alive.sum() * (2 if _nee_on(cfg)
+                                                      else 1)
+        carry = common.checkpointed(body, carry) if ckpt else body(carry)
+        if (k + 1) % _DRAIN_EVERY == 0 and bool(_drained(carry, deferred)):
+            break
+    return carry
+
+
+def stream_loss(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
+                pixel_idx, sample_idx, target, pool: int, n_segments: int,
+                weight=None):
+    """Differentiable loss over one sample per listed pixel through the
+    pooled stream. Default: the mean squared error against target[ray],
+    over 3n. With `weight` (n, 3): the raw sum of weight[k] . radiance_k,
+    the weights constant (render/optimize.py). Returns (loss, n_done);
+    n_done must equal len(pixel_idx), or rays were left out (size
+    n_segments with plan_stream_segments)."""
+    n = pixel_idx.shape[0]
+    carry = _stream_loss_init(params, cfg, pixel_idx, sample_idx, pool)
+    carry = _run_segments(scene, params, cfg, pixel_idx, sample_idx, target,
+                          carry, n_segments, weight, deferred=False)
+    loss_acc, n_done = carry[3], carry[4]
+    if weight is not None:
+        return loss_acc, n_done
+    return loss_acc / float(n * 3), n_done
+
+
+def stream_loss_deferred(scene: DeviceScene, params: RenderParams,
+                         cfg: RenderConfig, pixel_idx, sample_idx, target,
+                         pool: int, n_segments: int, weight=None):
+    """stream_loss with one fused traversal call a segment (the shadow
+    rays deferred a segment). The same estimator: the same RNG streams and
+    MIS weights; the shadow resolve and the summation order shift. Size
+    n_segments with plan_stream_segments(deferred=True). Without
+    next-event estimation there is nothing to defer, and it is
+    stream_loss."""
+    if not _nee_on(cfg):
+        return stream_loss(scene, params, cfg, pixel_idx, sample_idx,
+                           target, pool, n_segments, weight=weight)
+    n = pixel_idx.shape[0]
+    carry = _deferred_carry(
+        _stream_loss_init(params, cfg, pixel_idx, sample_idx, pool), pool,
+        pixel_idx.device)
+    carry = _run_segments(scene, params, cfg, pixel_idx, sample_idx, target,
+                          carry, n_segments, weight, deferred=True)
+    loss_acc, n_done = carry[3], carry[4]
+    if weight is not None:
+        return loss_acc, n_done
+    return loss_acc / float(n * 3), n_done
+
+
+@torch.no_grad()
+def stream_radiance(scene: DeviceScene, params: RenderParams,
+                    cfg: RenderConfig, pixel_idx, sample_idx, pool: int,
+                    n_segments: int):
+    """Forward-only radiance of each listed (pixel, sample) ray through the
+    pooled stream. Returns ((n, 3) radiance in list order, n_done). Each
+    ray id finishes exactly once, so a finished lane's radiance goes to
+    its row by `index_copy_` (the JAX package's stable sort of write-once
+    rows gives the same rows); unfinished lanes write a spare row n. Not
+    differentiable by design: the optimizer takes its gradient through
+    the weighted stream_loss fold, with weights from this pass."""
+    n = pixel_idx.shape[0]
+    dev = pixel_idx.device
+    sample_vec = _sample_vec(sample_idx, n, dev)
+    state, ray_id, counter, _, n_done = _stream_loss_init(
+        params, cfg, pixel_idx, sample_idx, pool)
+    out = torch.zeros((n + 1, 3), dtype=torch.float32, device=dev)
+    for k in range(n_segments):
+        seg = _segment_core(scene, params, cfg, state)
+        terminate = seg[1] & state.alive
+        done = terminate & (seg[7] > 0)
+        out.index_copy_(0, torch.where(done, ray_id, n), seg[2])
+        n_done = n_done + done.sum()
+        state, ray_id, counter = _loss_advance(
+            params, cfg, pixel_idx, sample_vec, state, ray_id, counter, seg,
+            terminate, n)
+        if (k + 1) % _DRAIN_EVERY == 0 and not bool(state.alive.any()):
+            break
+    return out[:n], n_done
+
+
+@torch.no_grad()
+def plan_stream_segments(scene: DeviceScene, params: RenderParams,
+                         cfg: RenderConfig, pixel_idx, sample_idx,
+                         pool: int, cap: int = 4096,
+                         deferred: bool = False):
+    """The number of segments that drains the ray list at this pool size:
+    the loss segments, forward only, until no lane is alive (deferred: and
+    no finished ray awaits its shadow ray), at most `cap`. The drain is
+    read every few segments; the count is the first segment after which
+    it held, as the JAX package's while loop counts. Returns (segments,
+    n_done) as ints."""
+    if deferred and not _nee_on(cfg):
+        deferred = False   # stream_loss_deferred is then stream_loss
+    n = pixel_idx.shape[0]
+    dev = pixel_idx.device
+    target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    carry = _stream_loss_init(params, cfg, pixel_idx, sample_idx, pool)
+    if deferred:
+        carry = _deferred_carry(carry, pool, dev)
+    seg = _stream_loss_segment_d if deferred else _stream_loss_segment
+    if bool(_drained(carry, deferred)):
+        return 0, int(carry[4])
+    flags = []
+    k = 0
+    while k < cap:
+        carry = seg(scene, params, cfg, pixel_idx, sample_idx, target, carry)
+        flags.append(_drained(carry, deferred))
+        k += 1
+        if k % _DRAIN_EVERY == 0 or k == cap:
+            hit = torch.stack(flags).nonzero()
+            if hit.numel():
+                return k - len(flags) + int(hit[0, 0]) + 1, int(carry[4])
+            flags = []
+    return k, int(carry[4])

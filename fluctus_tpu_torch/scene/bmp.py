@@ -13,16 +13,18 @@ of grey ramp entries reads the index itself, and the RLE packets are read
 by PIL's own decoder's rules (its delta escape reads four bytes, an odd
 absolute run of RLE4 drops its last pixel, and absolute runs pad to an
 even file offset). Depths, compressions and bitfields PIL does not read
-are damage (-1 in the pool, as in the JAX package); a 4-bit palette that
-is the grey ramp (PIL reads it as 8-bit grey) raises UnsupportedImage.
+are damage (-1 in the pool, as in the JAX package). A 4-bit palette that
+is the grey ramp makes PIL read the packed rows as 8-bit grey through a
+memory map of the file (the JAX pool opens a path): row y is the `width`
+bytes from the row's start, running on into the next row when the width
+passes the padded row, and zeros past the file's end; RLE4 under such a
+palette gives the indices as grey values.
 """
 from __future__ import annotations
 
 import struct
 
 import numpy as np
-
-from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 
 # 32-bit BI_BITFIELDS masks (r, g, b, a) PIL reads, and the byte of each
 # channel in a little-endian pixel (-1: none)
@@ -94,14 +96,34 @@ def decode_bmp(data: bytes) -> np.ndarray:
     """BMP bytes -> (H, W, 4) uint8 RGBA, top row first."""
     if data[:2] != b"BM" or len(data) < 30:
         raise ValueError("not a BMP file")
-    offset = struct.unpack("<I", data[10:14])[0]
-    hsize = struct.unpack("<I", data[14:18])[0]
+    return _decode(data, 14, struct.unpack("<I", data[10:14])[0])[0]
+
+
+def decode_dib(data: bytes, start: int, halve: bool = False,
+               raw_alpha: bool = False) -> tuple[np.ndarray, int]:
+    """The device-independent bitmap at `start` (a header, bitfield masks,
+    a palette, then the pixels, with no file header), as PIL's
+    DibImageFile reads it inside an ICO or CUR file -> (H, W, 4) uint8
+    RGBA, top row first. halve: the header's height counts an AND mask
+    too, so only its first half is the image. raw_alpha: a 32-bit BI_RGB
+    image keeps its fourth byte as alpha (PIL's rule for a cursor whose
+    bitmap starts at byte 22). Returns (RGBA, the offset of the pixels)."""
+    return _decode(data, start, None, halve, raw_alpha)
+
+
+def _decode(data: bytes, start: int, offset, halve: bool = False,
+            raw_alpha: bool = False) -> tuple[np.ndarray, int]:
+    """The bitmap whose header starts at `start`; its pixels at `offset`,
+    or (None) right after its palette. Returns (RGBA, pixel offset)."""
+    if len(data) < start + 4:
+        raise ValueError("BMP: truncated header")
+    hsize = struct.unpack("<I", data[start:start + 4])[0]
     if hsize not in (12, 40, 52, 56, 64, 108, 124):
         raise ValueError(f"BMP: unknown {hsize}-byte header")
-    hd = data[18:14 + hsize]
+    hd = data[start + 4:start + hsize]
     if len(hd) != hsize - 4:
         raise ValueError("BMP: truncated header")
-    pos = 14 + hsize
+    pos = start + hsize
     if hsize == 12:                                # OS/2 core header
         w, h, _, bits = struct.unpack("<HHHH", hd[:8])
         comp, colors, top_down, entry = 0, 0, False, 3
@@ -114,9 +136,11 @@ def decode_bmp(data: bytes) -> np.ndarray:
     if bits not in (1, 4, 8, 16, 24, 32):
         raise ValueError(f"BMP: PIL reads no {bits}-bit images")
     colors = colors or (1 << bits)
+    if halve:
+        h = h // 2
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
-    order = (2, 1, 0, -1)
+    order = (2, 1, 0, 3) if raw_alpha and bits == 32 else (2, 1, 0, -1)
     bits16 = 5                                     # 5-5-5 unless masked
     if comp == 3:                                  # BI_BITFIELDS
         if len(hd) >= 48:
@@ -142,6 +166,7 @@ def decode_bmp(data: bytes) -> np.ndarray:
     if w <= 0 or h <= 0:
         raise ValueError("BMP: bad size")
     pal = None
+    grey_bytes = False      # PIL's mode L over sub-byte rows
     if bits <= 8:
         if not 0 < colors <= 65536:
             raise ValueError("BMP: bad palette size")
@@ -155,14 +180,14 @@ def decode_bmp(data: bytes) -> np.ndarray:
         pal[:, 3] = 255
         if grey and colors == 2:
             pal[1, :3] = 255
-        elif grey and bits == 8:
-            pal[:, :3] = np.arange(256, dtype=np.uint8)[:, None]
         elif grey:
-            raise UnsupportedImage(f"BMP: a {bits}-bit grey-ramp palette is "
-                                   "not decoded by the port")
+            pal[:, :3] = np.arange(256, dtype=np.uint8)[:, None]
+            grey_bytes = bits < 8
         else:
             n = min(256, colors)
             pal[:n, :3] = ent[:n, 2::-1]
+    if offset is None:          # a DIB: the pixels follow the palette
+        offset = pos + (entry * colors if bits <= 8 else 0)
     if comp in (1, 2):
         idx = _rle(data, offset, w, h, comp == 2)
         rgba = pal[idx]
@@ -172,7 +197,14 @@ def decode_bmp(data: bytes) -> np.ndarray:
         if len(px) != stride * h:
             raise ValueError("BMP: truncated image data")
         rows = np.frombuffer(px, np.uint8).reshape(h, stride)
-        if bits < 8:
+        if grey_bytes:
+            # PIL maps the file and reads row y's first `width` bytes from
+            # offset + y * stride, into the next row when the width passes
+            # the padded row; past the file's end the mapped page reads 0
+            buf = np.frombuffer(data[offset:] + bytes(w), np.uint8)
+            at = np.arange(h)[:, None] * stride + np.arange(w)[None, :]
+            rgba = pal[buf[at]]
+        elif bits < 8:
             idx = np.unpackbits(rows, axis=1)
             if bits == 4:
                 idx = idx.reshape(h, -1, 4) @ np.array([8, 4, 2, 1],
@@ -198,4 +230,4 @@ def decode_bmp(data: bytes) -> np.ndarray:
                     rgba[..., c] = p[..., k]
     if not top_down:
         rgba = rgba[::-1]
-    return np.ascontiguousarray(rgba)
+    return np.ascontiguousarray(rgba), offset

@@ -12,7 +12,8 @@ outcomes:
 
 - a format the port decodes goes to its decoder: PNG (scene/png.py),
   JPEG (scene/jpeg.py), BMP (scene/bmp.py), GIF (scene/gif.py), TIFF
-  (scene/tiff.py), PBM/PGM/PPM/PFM (scene/pnm.py) and TGA (scene/tga.py);
+  (scene/tiff.py), PBM/PGM/PPM/PFM (scene/pnm.py), TGA (scene/tga.py),
+  ICO and CUR (scene/ico.py) and DDS (scene/dds.py);
 - a format PIL reads and the port does not decode raises
   `UnsupportedImage` naming it, so a map the JAX package would load is
   never dropped without notice;
@@ -122,11 +123,11 @@ _PLUGINS = (
     ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")), "raise"),
     ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC")), None),
     ("CUR", lambda d: d.startswith(b"\0\0\2\0") and _i16(d, 4) > 0,
-     "raise"),
+     "cur"),
     ("PCX", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5),
      "raise"),
     ("DCX", lambda d: _i32(d) == 0x3ADE68B1, "raise"),
-    ("DDS", lambda d: d.startswith(b"DDS "), "raise"),
+    ("DDS", lambda d: d.startswith(b"DDS "), "dds"),
     ("EPS", lambda d: d.startswith(b"%!PS") or _i32(d) == 0xC6D3D0C5,
      "raise"),
     ("FITS", lambda d: d.startswith(b"SIMPLE"), "raise"),
@@ -143,7 +144,7 @@ _PLUGINS = (
      "raise"),
     ("ICNS", lambda d: d.startswith(b"icns"), "raise"),
     ("ICO", lambda d: d.startswith(b"\0\0\1\0") and _i16(d, 4) > 0,
-     "raise"),
+     "ico"),
     ("IM", _im, "raise"),
     ("IMT", _imt, "raise"),
     ("IPTC", _iptc, "raise"),
@@ -183,9 +184,10 @@ def identify(data: bytes) -> tuple[str | None, str | None]:
 
 
 def sniff(data: bytes) -> str | None:
-    """The decoder for `data` ("png", "jpeg", "bmp", "gif", "tiff", "pnm"
-    or "tga"), or None when the JAX package leaves the slot at -1. Raises
-    UnsupportedImage naming a format PIL reads and the port does not."""
+    """The decoder for `data` ("png", "jpeg", "bmp", "gif", "tiff", "pnm",
+    "tga", "ico", "cur" or "dds"), or None when the JAX package leaves the
+    slot at -1. Raises UnsupportedImage naming a format PIL reads and the
+    port does not."""
     name, outcome = identify(data)
     if outcome == "raise":
         raise UnsupportedImage(f"{name} images are not decoded by the port")
@@ -213,5 +215,11 @@ def decode(data: bytes, kind: str) -> np.ndarray:
     if kind == "pnm":
         from fluctus_tpu_torch.scene.pnm import decode_pnm
         return decode_pnm(data)
+    if kind in ("ico", "cur"):
+        from fluctus_tpu_torch.scene import ico
+        return ico.decode_ico(data) if kind == "ico" else ico.decode_cur(data)
+    if kind == "dds":
+        from fluctus_tpu_torch.scene.dds import decode_dds
+        return decode_dds(data)
     from fluctus_tpu_torch.scene.tga import decode_tga
     return decode_tga(data)

@@ -132,9 +132,13 @@ def _read_chunks(data: bytes):
             return hdr, plte, trns, b"".join(idat)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 4) uint8 RGBA, top row first."""
+def decode_png(data: bytes, transparency: bool = True) -> np.ndarray:
+    """PNG bytes -> (H, W, 4) uint8 RGBA, top row first. With
+    `transparency` False a tRNS chunk is ignored, as in a PNG frame of an
+    ICO file (PIL's icon image does not take over the frame's info)."""
     hdr, plte, trns, idat = _read_chunks(data)
+    if not transparency:
+        trns = None
     if hdr is None:
         raise ValueError("PNG: no IHDR")
     w, h, depth, ctype, comp, filt, interlace = hdr

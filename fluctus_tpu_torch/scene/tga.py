@@ -12,16 +12,15 @@ are honoured: bottom-up unless bit 5 is set, right-to-left when bit 4 is.
 An RLE packet may not run past its row (PIL's decoder refuses one, so the
 file reads as damaged). TGA has no signature: `accept` is PIL's header
 check. A header PIL refuses (another map depth, an image type and depth
-it has no mode for) is damage; a 1-bit RLE image raises
-UnsupportedImage.
+it has no mode for) is damage, and so is a 1-bit RLE image: PIL 12's RLE
+decoder moves depth // 8 = 0 bytes a pixel there, never fills the image
+and reports it truncated, whatever the data.
 """
 from __future__ import annotations
 
 import struct
 
 import numpy as np
-
-from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 
 
 def accept(data: bytes) -> bool:
@@ -88,7 +87,7 @@ def decode_tga(data: bytes) -> np.ndarray:
         raise ValueError(f"TGA: PIL has no mode for type {itype} at "
                          f"{depth} bits")
     if depth == 1 and itype & 8:
-        raise UnsupportedImage("TGA: 1-bit RLE is not decoded by the port")
+        raise ValueError("TGA: PIL's RLE decoder reads no 1-bit image")
     pos = 18 + id_len
     pal = None
     if cmt:

@@ -1,8 +1,10 @@
-"""The port stands alone: with jax, flax, xxhash, PIL and fluctus_tpu made
-unimportable, fluctus_tpu_torch (the stream, the benchmark harness, the
-bench, the probes and their scripts included) and chip_smoke.py import,
-the kitchen renders on the CPU with its textures through the lockstep and
-the stream, the luxball renders env-lit from an HDR the port writes, a brute-chunk forest and a treelet forest build and traverse
+"""The port stands alone: with jax, flax, optax, orbax, xxhash, PIL and
+fluctus_tpu made unimportable, fluctus_tpu_torch (the stream, the
+benchmark harness, the bench, the probes and their scripts included) and
+chip_smoke.py import, the kitchen renders on the CPU with its textures
+through the lockstep and the stream, the luxball renders env-lit from an
+HDR the port writes and two optimizer steps (with their checkpoint) run
+on it, a brute-chunk forest and a treelet forest build and traverse
 under both of their schedulers, and a packet call (backend "pallas")
 runs. The machine with the card has none of those packages."""
 import os
@@ -12,7 +14,8 @@ import sys
 
 from torch_common import REPO
 
-BLOCKED = ("jax", "jaxlib", "flax", "xxhash", "PIL", "fluctus_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "xxhash", "PIL",
+           "fluctus_tpu")
 
 _CHILD = r'''
 import importlib, pkgutil, sys
@@ -105,6 +108,14 @@ assert e.cfg.use_env_map and tuple(e.scene.envmap.image.shape) == (16, 32, 3)
 for integ in ("lockstep", "stream"):
     img = driver.render(e, 1, integrator=integ)
     assert bool(torch.isfinite(img).all()) and float(img.sum()) > 0.0, integ
+from fluctus_tpu_torch.render.optimize import run_optimization
+tgt = os.path.join(tempfile.mkdtemp(), "t.hdr")
+write_hdr(tgt, (driver.render(e, 1, integrator="lockstep") * 0.5).numpy())
+diff, hist = run_optimization(e, tgt, steps=2, spp=1, log_every=100,
+                              out_dir=os.path.dirname(tgt),
+                              checkpoint_every=1, diff_keys=("kd",
+                                                             "env_image"))
+assert len(hist) == 2 and all(h == h for h in hist), hist
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
@@ -121,7 +132,8 @@ def test_port_imports_and_renders_without_jax_stack():
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|xxhash|PIL|fluctus_tpu)\b"
+    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|orbax|xxhash|PIL|"
+    r"fluctus_tpu)\b"
     r"(?!_torch)", re.M)
 
 
@@ -167,14 +179,18 @@ print("DECODED-OK")
 
 def test_port_decodes_textures_without_pil(tmp_path):
     """The image decoders (PNG, JPEG baseline and progressive with its g++
-    build, BMP, TGA, GIF, TIFF, PPM) run with PIL unimportable and give
-    the rows PIL gives."""
+    build, BMP, TGA, GIF, TIFF, PPM, DDS with its g++ build, ICO) run
+    with PIL unimportable and give the rows PIL gives."""
     import numpy as np
     from PIL import Image
     g = np.random.default_rng(0)
     img = Image.fromarray(g.integers(0, 256, (9, 13, 3), dtype=np.uint8))
     names = []
     for name, im, kw in (("a.png", img.convert("LA"), {}),
+                         ("i.dds", img.convert("RGBA"),
+                          dict(pixel_format="DXT5")),
+                         ("j.ico", img.convert("RGBA").resize((16, 16)),
+                          dict(bitmap_format="bmp")),
                          ("b.jpg", img, dict(quality=80,
                                              subsampling="4:2:0")),
                          ("c.bmp", img.quantize(9), {}),

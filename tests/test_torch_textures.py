@@ -12,9 +12,11 @@ Every format is held byte for byte, progressive JPEG included: the port's
 decoder makes libjpeg-turbo's choices (islow IDCT, fancy upsampling, its
 YCbCr tables), so its RGBA equals PIL's exactly. A truncated file is -1
 in both pools, and so are bytes no PIL plugin identifies; a well-formed
-file in a format the port does not decode (WebP, ICO, DDS, JPEG-in-TIFF)
-loads in the JAX pool and raises UnsupportedImage in the port's, so the
-gap stays visible."""
+file in a format the port does not decode (WebP, JPEG-in-TIFF) loads in
+the JAX pool and raises UnsupportedImage in the port's, so the gap stays
+visible. DDS (uncompressed layouts and BC1-BC5, BC7 through
+native/bcn.cpp), ICO and CUR equal PIL on files PIL writes and on DDS
+files of seeded blocks (`fixtures.dds_bytes`)."""
 import io
 import struct
 import zlib
@@ -24,6 +26,7 @@ import pytest
 from PIL import Image, features
 
 from fluctus_tpu.scene.textures import TexturePool as JaxPool
+from fluctus_tpu_torch import fixtures
 from fluctus_tpu_torch.scene import imageformat
 from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 from fluctus_tpu_torch.scene.textures import TexturePool
@@ -741,6 +744,139 @@ def test_tiff(tmp_path, name):
         assert_same(path)
 
 
+# ------------------------------------------------------------ DDS, ICO, CUR
+
+DDS_SIZES = ((16, 12), (13, 7), (1, 1))
+
+
+@pytest.mark.parametrize("size", DDS_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("fmt", fixtures.DDS_FORMATS)
+def test_dds_seeded_blocks(tmp_path, fmt, size):
+    """Every layout of fixtures.dds_bytes (BC1-BC5 by FourCC and DX10,
+    signed BC5, BC7 with a block in each mode 0-7 and the reserved mode 8,
+    DX10 RGBA8, L8, L8A8, P8 and masked RGB(A)) over seeded random bytes,
+    at sizes that do and do not fill their last blocks."""
+    path = tmp_path / "t.dds"
+    path.write_bytes(fixtures.dds_bytes(fmt, *size, seed=size[0]))
+    assert_same(path)
+
+
+@pytest.mark.parametrize("mode,pf", [
+    ("RGBA", "DXT1"), ("RGBA", "DXT3"), ("RGBA", "DXT5"), ("RGBA", "BC2"),
+    ("RGBA", "BC3"), ("RGB", "BC5"), ("RGBA", None), ("RGB", None),
+    ("L", None), ("LA", None)])
+def test_dds_written_by_pil(tmp_path, mode, pf):
+    """DDS files PIL writes: its block encoders and its uncompressed
+    layouts."""
+    path = tmp_path / "t.dds"
+    img = Image.fromarray(smooth(19, 23)).convert("RGBA")
+    img.putalpha(Image.fromarray(smooth(19, 23)[..., 2]))
+    img.convert(mode).save(path, "DDS",
+                           **({} if pf is None else {"pixel_format": pf}))
+    assert_same(path)
+
+
+def test_dds_bc7_2048_and_damage(tmp_path):
+    """A 2048^2 BC7 texture (262,144 blocks) decodes as PIL does, a
+    truncated block stream is -1 in both, and BC6H, which PIL reads,
+    raises in the port."""
+    path = tmp_path / "t.dds"
+    data = fixtures.dds_bytes("BC7", 2048, 2048, seed=7)
+    path.write_bytes(data)
+    assert_same(path)
+    path.write_bytes(data[:len(data) // 2])
+    assert both(path) == [-1, -1]
+    bc6 = bytearray(fixtures.dds_bytes("BC7", 8, 8, seed=1))
+    bc6[128:132] = (95).to_bytes(4, "little")      # DXGI BC6H_UF16
+    path.write_bytes(bytes(bc6))
+    assert JaxPool().try_import(str(path), "t") == 0
+    with pytest.raises(UnsupportedImage, match="BC6H"):
+        TexturePool().try_import(str(path), "t")
+
+
+def _ico_cases():
+    cases = {}
+    img = Image.fromarray(smooth(32, 32)).convert("RGBA")
+    img.putalpha(Image.fromarray(smooth(32, 32)[..., 1]))
+    for mode in ("RGBA", "RGB", "P", "L", "1"):
+        for fmt in ("png", "bmp"):
+            buf = io.BytesIO()
+            img.convert(mode).save(buf, "ICO", bitmap_format=fmt,
+                                   sizes=[(16, 16), (32, 32), (24, 24)])
+            cases[f"ICO {mode} {fmt}"] = buf.getvalue()
+    g = np.random.default_rng(16)
+
+    def dib(w, h, bits, pal, px):
+        palb = b"".join(bytes([c[2], c[1], c[0], 0]) for c in pal or [])
+        return struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0,
+                           len(px), 0, 0, 0, 0) + palb + px
+
+    def cur(entries):
+        off, dirs, body = 6 + 16 * len(entries), b"", b""
+        for w, h, d in entries:
+            dirs += struct.pack("<BBBBHHII", w, h, 0, 0, 1, 1, len(d),
+                                off + len(body))
+            body += d
+        return b"\0\0\2\0" + struct.pack("<H", len(entries)) + dirs + body
+
+    w, h = 13, 9
+    for bits in (1, 4, 8, 24, 32):
+        stride = ((w * bits + 31) >> 3) & ~3
+        pal = g.integers(0, 256, (1 << bits, 3)).tolist() \
+            if bits <= 8 else None
+        px = g.integers(0, 256, 2 * stride * h, dtype=np.uint8).tobytes()
+        cases[f"CUR {bits}-bit"] = cur([(w, h, dib(w, h, bits, pal, px))])
+        cases[f"CUR {bits}-bit, second entry larger"] = cur(
+            [(4, 4, dib(4, 4, bits, pal, px[:160])),
+             (w, h, dib(w, h, bits, pal, px))])
+    return cases
+
+
+@pytest.mark.parametrize("name", list(_ico_cases()))
+def test_ico_and_cur(tmp_path, name):
+    """ICO files PIL writes (PNG and BMP frames, every mode; the largest
+    entry loads, a BMP frame's alpha from its AND mask or, at 32 bits,
+    its fourth bytes) and hand-built cursors (the largest entry, no mask,
+    a 32-bit bitmap at byte 22 keeping its alpha)."""
+    path = tmp_path / "t.ico"
+    path.write_bytes(_ico_cases()[name])
+    assert_same(path)
+
+
+def _repaired_cases():
+    g = np.random.default_rng(17)
+    cases = {}
+    for w in (1, 3, 4, 5, 11):
+        idx = g.integers(0, 16, (7, w))
+        cases[f"4-bit grey ramp, width {w}"] = write_bmp(
+            w, 7, 4, _rows(idx, 4), [[i] * 3 for i in range(16)])
+    runs4 = bytes([5, 0x3A, 0, 4, 0x12, 0x34, 0, 0]) * 3 + b"\0\1"
+    cases["RLE4 grey ramp"] = write_bmp(9, 3, 4, runs4,
+                                        [[i] * 3 for i in range(16)],
+                                        comp=2)
+    w, h = 9, 6
+    raw = g.integers(0, 256, 2 * h).astype(np.uint8).tobytes()
+    for flags in (0, 0x20):
+        cases[f"1-bit RLE TGA, origin {flags:#x}"] = write_tga(
+            w, h, 11, 1, _tga_rle(raw, 1, 2) + bytes(64), flags=flags)
+    return cases
+
+
+@pytest.mark.parametrize("name", list(_repaired_cases()))
+def test_grey_ramp_bmp_and_one_bit_rle_tga(tmp_path, name):
+    """A 4-bit BMP whose palette is the grey ramp reads its packed rows as
+    8-bit grey in PIL (from a memory map of the file, a row past its
+    padded bytes running on into the next); PIL 12's RLE decoder never
+    fills a 1-bit TGA (-1 in both pools)."""
+    path = tmp_path / ("t.tga" if "TGA" in name else "t.bmp")
+    path.write_bytes(_repaired_cases()[name])
+    want, got = both(path)
+    if isinstance(want, int):
+        assert got == want == -1
+    else:
+        assert_same(path)
+
+
 # ------------------------------------------------------------ failures
 
 @pytest.mark.parametrize("fmt", ["png", "jpg", "bmp", "tga"])
@@ -762,8 +898,8 @@ def _unported():
              "gif": ("gif", dict(format="GIF"), True),
              "tiff": ("tif", dict(format="TIFF"), True),
              "ppm": ("ppm", dict(format="PPM"), True),
-             "ico": ("ico", dict(format="ICO"), False),
-             "dds": ("dds", dict(format="DDS"), False),
+             "ico": ("ico", dict(format="ICO"), True),
+             "dds": ("dds", dict(format="DDS"), True),
              "jpeg in tiff": ("tif", dict(format="TIFF",
                                           compression="jpeg"), False)}
     if features.check("webp"):

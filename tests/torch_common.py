@@ -77,3 +77,17 @@ def assert_hits_match(rp, rj, t_rel=1e-5, uv_atol=1e-4):
                                atol=uv_atol)
     np.testing.assert_allclose(rp.v.numpy()[same], np.asarray(rj.v)[same],
                                atol=uv_atol)
+
+
+def port_session(scene, params, cfg, device="cpu"):
+    """A JAX (scene, params, cfg) carried to the port: the same arrays and
+    the same static configuration."""
+    from fluctus_tpu_torch.convert import params_from_numpy, scene_from_numpy
+    from fluctus_tpu_torch.core.types import RenderConfig
+
+    keys = ("width", "height", "max_bounces", "use_env_map",
+            "use_area_light", "sample_impl", "sample_expl", "use_roulette",
+            "tonemap_op", "bsdf_types_mask", "tile_size", "pool_size")
+    return (scene_from_numpy(scene_arrays(scene), device),
+            params_from_numpy(params_arrays(params), device),
+            RenderConfig(**{k: getattr(cfg, k) for k in keys}))
