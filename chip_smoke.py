@@ -84,7 +84,21 @@ the PBRT frame written as PNG and HDR and read back (save-image); the
 conference under FLUCTUS_FAST_BIG=0 cold and warm through the hierarchy
 cache (session-cache); the kitchen's NumPy-built SAH hierarchy
 (FLUCTUS_NATIVE=0) through K1 bit-equal to plain (native-off); and a
-2048x2048 BC7 DDS texture through scene/native/bcn.cpp (dds). Every
+2048x2048 BC7 DDS texture through scene/native/bcn.cpp (dds), and one
+512x512 file of each of PCX, DCX, QOI, SGI (raw and RLE), MSP (versions 1
+and 2), XBM, DIB, PSD (raw and PackBits) and Sun raster (raw and RLE)
+through the texture dispatch (formats). The auxiliary surfaces: the
+kitchen's denoiser buffers through K1 at 512x512 (one closest launch a
+tile) and K4 at 64x64, each against the plain walk on the card (aux), and
+K1 timed against its plain version on those tiles' rays (aux-time); its
+denoised 4 spp frame, and the denoised 128x128 luxball nearer a 64 spp
+frame than the raw one (denoise); two progressive increments of the
+luxball bit-equal to the one-shot frame, the reset, the PNG export and
+the 2-bounce preview (progressive); the kitchen's centre pick, one K1
+launch of one ray, the focus and the saved state (pick); and the command
+line, `python3 -m fluctus_tpu_torch.cli` render (plain, --hdr, --denoise,
+--progressive), benchmark, optimize and convert on the kitchen, and
+render under the backends jnp, packed and wide against auto (cli). Every
 other session passes cache_dir=None. Each phase prints one line with its
 wall time; the last three lines are the kernels record, the card and the
 device record.
@@ -1754,9 +1768,10 @@ PLY_GRID = 17          # BASELINE config 4's stand-in: 17^3 icospheres
 PLY_SPP = 4
 
 
-def timed_calls(module, names, secs: dict):
+def timed_calls(module, names, secs: dict, sync: bool = False):
     """Wrap the functions `names` of `module` so their seconds add up in
-    `secs` (a context manager; the originals come back after)."""
+    `secs` (a context manager; the originals come back after); with
+    `sync`, each call's seconds end at a torch.cuda.synchronize()."""
     old = {n: getattr(module, n) for n in names}
 
     def timed(n):
@@ -1765,6 +1780,9 @@ def timed_calls(module, names, secs: dict):
             try:
                 return old[n](*args, **kw)
             finally:
+                if sync:
+                    import torch
+                    torch.cuda.synchronize()
                 secs[n] = secs.get(n, 0.0) + time.perf_counter() - t
         return fn
 
@@ -2198,6 +2216,7 @@ def phase_formats(card: str) -> dict:
         out["cache_secs"] = phase_session_cache(tmp_dir)
         out["native_off_secs"] = phase_native_off()
     out["dds_secs"] = phase_dds()
+    out["raster_secs"] = phase_raster_formats()
     return out
 
 
@@ -2543,6 +2562,389 @@ def phase_optimize(esess, tmp_dir: str, card: str) -> None:
         f"{time.perf_counter() - t1:.3f} s, history of 4, on {card}")
 
 
+# ------------------------------------------------------------ surfaces
+
+def hold_aux(got, want, what: str, ties_allowed: bool) -> int:
+    """Hold render_aux buffers against the plain walk's: depth at rtol
+    1e-6 everywhere, albedo and normal bit-equal except (with
+    `ties_allowed`) at pixels where the two stopped on different
+    triangles at equal t, under 1 % of them. Returns those pixels."""
+    import torch
+    a, n, d = got
+    wa, wn, wd = want
+    check(bool(torch.isfinite(d).all()) and bool(torch.isfinite(a).all()),
+          f"{what}: non-finite aux buffers")
+    rel = float(((d - wd).abs() / wd.abs().clamp(min=1e-30)).max())
+    check(rel <= 1e-6, f"{what}: depth off by {rel:.3e} relative")
+    tie = ((a != wa) | (n != wn)).any(-1)
+    n_tie = int(tie.sum())
+    check(n_tie == 0 or (ties_allowed and n_tie < 0.01 * tie.numel()),
+          f"{what}: albedo or normal differ on {n_tie} pixels")
+    return n_tie
+
+
+def phase_aux(sess, card: str) -> dict:
+    """render_aux on the kitchen session (512x512): K1's closest form, one
+    launch a tile and nothing else, against the same buffers through
+    K1's plain version on the card (backend "wide"); then at 64x64 under
+    backend "pallas" through K4 against the plain walk. Returns the
+    seconds and K1's launches."""
+    import torch
+    from fluctus_tpu_torch.render import driver
+
+    cfg = sess.cfg
+    t0 = time.perf_counter()
+    reset_counts()
+    got = driver.render_aux(sess)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    k1 = launches.pop("K1")
+    tiles = -(-cfg.width * cfg.height // cfg.tile_size)
+    check(k1 == {"closest": tiles, "any": 0},
+          f"render_aux launched K1 {k1}, not one closest launch a tile")
+    check(all(v == 0 for d in launches.values() for v in d.values()),
+          f"render_aux launched other kernels: {launches}")
+    plain = launch_counts("PLAIN_CALLS")
+    check(all(v == 0 for d in plain.values() for v in d.values()),
+          f"render_aux ran a plain traversal: {plain}")
+    want = driver.render_aux(dataclasses.replace(
+        sess, cfg=cfg.replace(backend="wide")))
+    hold_aux(got, want, "K1 aux buffers", ties_allowed=False)
+    a, n, d = got
+    t1 = time.perf_counter()
+    timing = time_aux_tiles(sess)
+    say("aux-time", t1, f"K1 closest on the aux path's {timing['tiles']} "
+        f"tiles of centre rays: {timing['ms']:.4f} ms a launch (plain "
+        f"{timing['plain_ms']:.1f} ms), bound {timing['bound_ms']:.5f} ms "
+        f"by {timing['bound_by']}, max abs t err "
+        f"{timing['max_abs_err']:.3e}, on {card}")
+    small = dataclasses.replace(sess, cfg=cfg.replace(width=64, height=64,
+                                                      backend="pallas"))
+    reset_counts()
+    got4 = driver.render_aux(small)
+    torch.cuda.synchronize()
+    k4 = launch_counts()["K4"]
+    check(k4["closest"] >= 1 and launch_counts()["K1"]["closest"] == 0,
+          f"the pallas aux buffers did not go through K4 alone: {k4}")
+    ties4 = hold_aux(got4, driver.render_aux(dataclasses.replace(
+        small, cfg=small.cfg.replace(backend="wide"))), "K4 aux buffers",
+        ties_allowed=True)
+    miss = int((d == 2.0).sum())
+    say("aux", t0, f"kitchen {cfg.width}x{cfg.height} render_aux: "
+        f"{secs:.3f} s, K1 launches {k1}; albedo, normal and depth "
+        f"bit-equal to the plain walk on the card; {miss} misses, mean "
+        f"depth {float(d[d < 2.0].mean()):.4f} world radii; 64x64 through "
+        f"K4 ({k4['closest']} closest launches): depth within 1e-6, "
+        f"{ties4} equal-t tie pixels, on {card}")
+    return {"secs": secs, "k1": k1["closest"], "timing": timing}
+
+
+def time_aux_tiles(sess) -> dict:
+    """K1's closest form against its plain version on render_aux's own
+    launches: each tile of cfg.tile_size centre rays (u = v = 0.5, no
+    lens, t_max T_MAX), kernel and plain in turns on the same rays, bit
+    for bit. Returns ms and plain_ms per launch, the bound per launch from
+    these rays' visits (bound_ms), bound_by, max_abs_err and the tiles."""
+    import torch
+    from fluctus_tpu_torch.integrators import common
+    from fluctus_tpu_torch.ops import camera
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.timing import time_launches
+
+    cfg, p, bvh = sess.cfg, sess.params, sess.scene.wbvh
+    n_pix = cfg.width * cfg.height
+    tile = min(cfg.tile_size, n_pix)
+    stats: dict = {}
+    k_ms = p_ms = err = 0.0
+    starts = range(0, n_pix, tile)
+    for start in starts:
+        pix = torch.arange(start, min(start + tile, n_pix),
+                           dtype=torch.int32, device=sess.device)
+        half = torch.full(pix.shape, 0.5, device=sess.device)
+        zero = torch.zeros(pix.shape, device=sess.device)
+        o, d = camera.generate_rays(p.camera, pix, cfg.width, cfg.height,
+                                    half, half, zero, zero, p.world_radius)
+        kc = ts.traverse_kernel(bvh, o, d, common.T_MAX, any_hit=False)
+        pc, _ = ts.traverse_plain(bvh, o, d, common.T_MAX, any_hit=False,
+                                  stats=stats)
+        check(torch.equal(kc.prim, pc.prim) and torch.equal(kc.t, pc.t),
+              f"K1 differs from its plain version on aux tile {start}")
+        err = max(err, float((kc.t - pc.t).abs().max()))
+        run_p = lambda: ts.traverse_plain(bvh, o, d, common.T_MAX, False)
+        run_k = lambda: ts.traverse_kernel(bvh, o, d, common.T_MAX, False)
+        p1 = time_launches(run_p, 2, 1)
+        k1 = time_launches(run_k, 20, 1)
+        k2 = time_launches(run_k, 20, 1)
+        p2 = time_launches(run_p, 2, 1)
+        k_ms += (k1 + k2) / 2
+        p_ms += (p1 + p2) / 2
+    n = len(starts)
+    b_ms, b_by = bound_ms(bvh, n_pix, stats, any_hit=False)
+    return dict(ms=k_ms / n, plain_ms=p_ms / n, bound_ms=b_ms / n,
+                bound_by=b_by, max_abs_err=err, tiles=n)
+
+
+def phase_denoise(sess, card: str) -> dict:
+    """render_denoised on the kitchen (512x512, its 8 bounces, 4 spp,
+    lockstep) with the seconds of its render, aux buffers and filter;
+    then test_render_denoised_end_to_end's check on an in-repo scene: the
+    env-lit luxball at 128x128 (4 bounces, a pinhole camera, as the
+    teapot's) under the seeded sky without its sun disc (the teapot's
+    night.hdr has none), where the denoised 2 spp frame's MSE against a
+    64 spp frame must be below 0.6 x the raw frame's. The feature buffers
+    come from centre rays without the lens, so a thin-lens frame would
+    hold its defocus blur against sharp edges: with the luxball's 0.06
+    aperture the denoised frame is farther from the 64 spp one than the
+    raw frame (MSE 2.664e-3 against 2.395e-3 on the card)."""
+    import torch
+    from fluctus_tpu_torch.fixtures import sky_env
+    from fluctus_tpu_torch.io.hdr import write_hdr
+    from fluctus_tpu_torch.render import driver
+
+    secs = {}
+    t0 = time.perf_counter()
+    with timed_calls(driver, ("render", "render_aux"), secs, sync=True):
+        den = driver.render_denoised(sess, 4, integrator="lockstep")
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    cfg = sess.cfg
+    check(tuple(den.shape) == (cfg.height, cfg.width, 3)
+          and bool(torch.isfinite(den).all()), "the denoised frame")
+    parts = {"render": secs["render"], "aux": secs["render_aux"],
+             "denoise": total - secs["render"] - secs["render_aux"]}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        path = os.path.join(tmp_dir, "sky_nosun.hdr")
+        write_hdr(path, sky_env(1024, 512, seed=ENV_SEED,
+                                sun_radiance=0.0))
+        lux = driver.create_session(LUXBALL, path, env_cfg(128, 128),
+                                    cache_dir=None, state_dir=None,
+                                    device="cuda")
+    t1 = time.perf_counter()
+    raw = driver.render(lux, 2, integrator="lockstep")
+    dl = driver.render_denoised(lux, 2, integrator="lockstep")
+    ref = driver.render(lux, 64, integrator="lockstep")
+    mse_raw = float(((raw - ref) ** 2).mean())
+    mse_den = float(((dl - ref) ** 2).mean())
+    check(mse_den < 0.6 * mse_raw, f"the denoised luxball is not nearer "
+          f"the 64 spp frame: MSE {mse_den:.3e} against {mse_raw:.3e}")
+    say("denoise", t0, f"kitchen {cfg.width}x{cfg.height} 4 spp "
+        f"render_denoised: render {parts['render']:.3f} s, aux "
+        f"{parts['aux']:.3f} s, denoise {parts['denoise']:.3f} s; luxball "
+        f"128x128 under the sunless sky: MSE against 64 spp {mse_den:.4e} "
+        f"denoised, {mse_raw:.4e} raw (ratio {mse_den / mse_raw:.3f}, "
+        f"limit 0.6) in {time.perf_counter() - t1:.2f} s, on {card}")
+    return parts
+
+
+def phase_progressive(esess, tmp_dir: str, card: str) -> float:
+    """The env-lit luxball (512x512): two ProgressiveRender increments of
+    4 spp (samples_per_launch 4) bit-equal to lockstep.render(8,
+    samples_per_launch=4); a parameter change resets the accumulator;
+    render_progressive(export_every=1) writes a PNG; render_preview runs
+    at 2 bounces, bit-equal to the lockstep at 2 bounces. Returns the
+    seconds."""
+    import torch
+    from fluctus_tpu_torch.integrators import lockstep
+    from fluctus_tpu_torch.render import driver
+
+    t0 = time.perf_counter()
+    prog = driver.ProgressiveRender(esess, samples_per_launch=4)
+    prog.add(4)
+    check(prog.add(4) == 8, "the progressive count")
+    img = prog.image()
+    t_prog = time.perf_counter() - t0
+    one = lockstep.render(esess.scene, esess.params, esess.cfg, 8,
+                          samples_per_launch=4)
+    check(torch.equal(img, one), "two progressive increments differ from "
+          "the one-shot frame")
+    prog.session = dataclasses.replace(esess, params=dataclasses.replace(
+        esess.params, env_strength=esess.params.env_strength * 2.0))
+    check(prog.add(4) == 4, "a parameter change did not reset the "
+          "accumulator")
+    out = os.path.join(tmp_dir, "progressive.png")
+    driver.render_progressive(esess, iterations=2, spp_increment=1,
+                              export_every=1, export_path=out)
+    check(os.path.getsize(out) > 0, "render_progressive wrote no PNG")
+    prev = driver.render_preview(esess, 1)
+    check(esess.cfg.max_bounces > 2 and torch.equal(prev, lockstep.render(
+        esess.scene, esess.params, esess.cfg.replace(max_bounces=2), 1)),
+        "render_preview is not the 2-bounce lockstep frame")
+    secs = time.perf_counter() - t0
+    say("progressive", t0, f"luxball {esess.cfg.width}x{esess.cfg.height}: "
+        f"2 x 4 spp progressive {t_prog:.3f} s, bit-equal to the 8 spp "
+        f"one-shot; reset on a parameter change; PNG export "
+        f"{os.path.getsize(out)} bytes; 2-bounce preview; {secs:.2f} s in "
+        f"all, on {card}")
+    return secs
+
+
+def phase_pick(sess, card: str) -> float:
+    """The centre pick on the kitchen: one K1 launch of one ray whose t
+    and prim equal the plain walk's on the card; pick_dof_depth sets the
+    focal distance; save_state then load_state round-trip the camera in a
+    temporary directory. Returns the seconds."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.core.types import default_params
+    from fluctus_tpu_torch.render import state as st
+
+    t0 = time.perf_counter()
+    reset_counts()
+    t, prim = st.pick(sess.scene, sess.params, sess.cfg, 0.5, 0.5)
+    k1 = launch_counts()["K1"]
+    check(k1 == {"closest": 1, "any": 0}, f"pick launched K1 {k1}")
+    t_p, prim_p = st.pick(sess.scene, sess.params,
+                          sess.cfg.replace(backend="wide"), 0.5, 0.5)
+    check(prim >= 0 and (t, prim) == (t_p, prim_p),
+          f"the pick ({t}, {prim}) is not the plain walk's "
+          f"({t_p}, {prim_p})")
+    p2 = st.pick_dof_depth(sess.scene, sess.params, sess.cfg)
+    check(float(p2.camera.focal_dist) == np.float32(t),
+          "pick_dof_depth did not set the focal distance")
+    with tempfile.TemporaryDirectory() as d:
+        st.save_state(p2, sess.host_scene.hash, state_dir=d)
+        back = st.load_state(default_params(device="cuda"),
+                             sess.host_scene.hash, state_dir=d)
+    for f in dataclasses.fields(back.camera):
+        check(torch.equal(getattr(back.camera, f.name),
+                          getattr(p2.camera, f.name)),
+              f"the saved camera's {f.name} did not come back")
+    secs = time.perf_counter() - t0
+    say("pick", t0, f"kitchen centre pick: t {t:.6f}, prim {prim} through "
+        f"one K1 launch of one ray, equal to the plain walk; focal "
+        f"distance set; state saved and read back; {secs:.3f} s, on "
+        f"{card}")
+    return secs
+
+
+def phase_cli(card: str, device: str = "cuda", size: int = 512,
+              spp: int = 4, small_size: int = 64) -> dict:
+    """python3 -m fluctus_tpu_torch.cli as a user runs it, from the
+    repository root (so the kitchen's saved state is found), every output
+    and the hierarchy cache in a temporary directory; the commands run
+    at once, each in its own process. The kitchen at 512x512, 4 spp:
+    render (plain, --hdr, --denoise 0.5, --progressive 2 --export-every
+    1), benchmark --duration 5 with --csv and --txt, optimize --steps 2
+    --minibatch 4096 against a constant 0.05 target the phase writes, and
+    convert of the PBRT kitchen of fixtures.scene_pbrt; and at 64x64,
+    1 spp, --backend jnp, packed and wide, each held against the auto
+    frame of the same command at the goldens' tolerance on >= 99.5 % of
+    pixels. Returns {command: seconds} and the phase's seconds."""
+    import subprocess
+    import numpy as np
+    from fluctus_tpu_torch.fixtures import scene_pbrt
+    from fluctus_tpu_torch.io.hdr import read_hdr, write_hdr
+
+    t0 = time.perf_counter()
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def out(name):
+            return os.path.join(tmp, name)
+
+        with open(os.path.join(STATES, "state_c68e332cfae81cc6.json")) as f:
+            state = json.load(f)
+        pbrt = scene_pbrt(KITCHEN, tmp, state["area_light"])
+        base = ["--area-light", "--cache-dir", out("hierarchies"),
+                "--device", device]
+        big = [KITCHEN, "-x", str(size), "-y", str(size), *base]
+        small = [KITCHEN, "-x", str(small_size), "-y", str(small_size),
+                 "-s", "1", "--hdr", "--integrator", "lockstep", *base]
+        cmds = {
+            "render": (["render", *big, "-s", str(spp), "-o", out("r.png")],
+                       out("r.png")),
+            "render --hdr": (["render", *big, "-s", str(spp), "--hdr", "-o",
+                              out("r.hdr")], out("r.hdr")),
+            "render --denoise 0.5": (["render", *big, "-s", str(spp),
+                                      "--denoise", "0.5", "-o",
+                                      out("d.png")], out("d.png")),
+            "render --progressive 2": (["render", *big, "-s", str(spp),
+                                        "--progressive", "2",
+                                        "--export-every", "1", "-o",
+                                        out("p.png")], out("p.png")),
+            "benchmark": (["benchmark", *big, "--duration", "5", "--csv",
+                           out("b.csv"), "--txt", out("b.txt")],
+                          out("b.csv")),
+            "convert": (["convert", pbrt, out("k.pbf")], out("k.pbf")),
+        }
+        for be in ("auto", "jnp", "packed", "wide"):
+            cmds[f"render --backend {be}"] = (
+                ["render", *small, "--backend", be, "-o",
+                 out(f"{be}.hdr")], out(f"{be}.hdr"))
+
+        def run(name):
+            args, made = cmds[name]
+            t = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "fluctus_tpu_torch.cli", *args],
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+            secs[name] = time.perf_counter() - t
+            check(proc.returncode == 0, f"cli {name}: rc "
+                  f"{proc.returncode}\n{proc.stdout[-2000:]}"
+                  f"{proc.stderr[-4000:]}")
+            check(os.path.exists(made) and os.path.getsize(made) > 0,
+                  f"cli {name} wrote no {made}")
+            return proc.stdout
+
+        write_hdr(out("target.hdr"), np.full((size, size, 3), 0.05,
+                                             np.float32))
+        cmds["optimize"] = (["optimize", *big, "--target",
+                             out("target.hdr"), "--steps", "2",
+                             "--minibatch", "4096", "--spp", "1",
+                             "--out-dir", out("opt")],
+                            out("opt/loss_history.npy"))
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            outs = dict(zip(cmds, pool.map(run, list(cmds))))
+        hist = np.load(out("opt/loss_history.npy"))
+        check(hist.shape == (2,) and bool(np.isfinite(hist).all()),
+              f"cli optimize: loss history {hist}")
+        bench = json.loads(outs["benchmark"].strip().splitlines()[-1])
+        auto = read_hdr(out("auto.hdr"))
+        shares = {}
+        for be in ("jnp", "packed", "wide"):
+            share, mean_rel = golden_share(read_hdr(out(f"{be}.hdr")), auto)
+            shares[be] = share
+            check(share >= 0.995, f"cli --backend {be}: {share:.4f} of "
+                  f"pixels within the golden tolerance of the auto frame")
+    total = time.perf_counter() - t0
+    say("cli", t0, "python3 -m fluctus_tpu_torch.cli, rc 0 and an output "
+        "each: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+        + f"; benchmark {bench['total_mrays_s']:.3f} MRays/s "
+        f"({bench['integrator']}); optimize loss {hist[0]:.6f} -> "
+        f"{hist[1]:.5f}; 64x64 frames within the golden tolerance of auto:"
+        f" " + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+        + f"; {total:.2f} s in all, on {card}")
+    return {"secs": total, "commands": secs}
+
+
+def phase_raster_formats() -> dict:
+    """One 512x512 file of each of the raster formats PCX, DCX, QOI, SGI,
+    MSP, XBM, DIB, PSD and Sun raster (fixtures.raster_bytes, psd_bytes,
+    sun_raster_bytes; the card's machine has no PIL, so equality with PIL
+    is the CPU tests' part) through the texture dispatch. Returns {format: decode seconds}."""
+    from fluctus_tpu_torch import fixtures
+    from fluctus_tpu_torch.scene import imageformat
+
+    t0 = time.perf_counter()
+    files = {f: fixtures.raster_bytes(f, 512, 512, seed=3)
+             for f in fixtures.RASTER_FORMATS}
+    files["psd"] = fixtures.psd_bytes("RGB", 512, 512, False, seed=3)
+    files["psd-rle"] = fixtures.psd_bytes("RGBA", 512, 512, True, seed=3)
+    files["sun"] = fixtures.sun_raster_bytes(24, 512, 512, False, seed=3)
+    files["sun-rle"] = fixtures.sun_raster_bytes(8, 512, 512, True, seed=3,
+                                                 colors=256)
+    secs = {}
+    for name, data in files.items():
+        t = time.perf_counter()
+        rgba = imageformat.decode(data, imageformat.sniff(data))
+        secs[name] = time.perf_counter() - t
+        check(rgba.shape == (512, 512, 4) and rgba.std() > 0,
+              f"the {name} texture did not decode")
+    say("formats", t0, "512x512 decodes: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in secs.items()))
+    return secs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2638,6 +3040,11 @@ def main() -> int:
                                           "K4", "kitchen, backend pallas,")
     for name, (gs, spp) in golden_sessions("cuda", "pallas").items():
         phase_golden_only(gs, name, spp, "K4")
+    # the auxiliary surfaces on the kitchen session: the denoiser's
+    # buffers (K1, and K4 at 64x64), the denoised frame, picking
+    aux = phase_aux(sess, card)
+    den = phase_denoise(sess, card)
+    secs_pick = phase_pick(sess, card)
     del sess, small, psess
     torch.cuda.empty_cache()
 
@@ -2660,6 +3067,7 @@ def main() -> int:
         k1_grad = phase_grad_step(esess, card)
         phase_optimize(esess, tmp_dir, card)
         secs_grad = time.perf_counter() - t_grad
+        secs_prog = phase_progressive(esess, tmp_dir, card)
         del esess
     torch.cuda.empty_cache()
 
@@ -2778,6 +3186,7 @@ def main() -> int:
     del tsess, ft, tw
     torch.cuda.empty_cache()
     phase_deep_stack()
+    cli = phase_cli(card)
     fmt = phase_formats(card)
 
     kernels = []
@@ -2803,6 +3212,15 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    r = aux["timing"]
+    kernels.append({
+        "name": "K1 traverse_stack closest, aux path", "route": "cuda",
+        "source": "fluctus_tpu_torch/csrc/traverse_stack.cu",
+        "replaces": "fluctus_tpu/ops/traverse_mxu.py:97",
+        "launches": aux["k1"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None})
     for sched, replaces, counts in (
             ("vlist", "fluctus_tpu/ops/traverse_brute.py:578", launches_big),
             ("rounds", "fluctus_tpu/ops/traverse_brute.py:70", launches_k3)):
@@ -2888,7 +3306,13 @@ def main() -> int:
           f"conference cold / warm {fmt['cache_secs']['cold']:.2f} / "
           f"{fmt['cache_secs']['warm']:.2f} s, NumPy SAH kitchen session "
           f"{fmt['native_off_secs']:.2f} s, BC7 2048x2048 decode "
-          f"{fmt['dds_secs']:.3f} s on {card}", flush=True)
+          f"{fmt['dds_secs']:.3f} s, 512x512 raster decodes "
+          f"{sum(fmt['raster_secs'].values()):.3f} s; kitchen render_aux "
+          f"{aux['secs']:.3f} s (K1 {aux['k1']}), denoised frame render "
+          f"{den['render']:.3f} + aux {den['aux']:.3f} + denoise "
+          f"{den['denoise']:.3f} s, progressive {secs_prog:.2f} s, pick "
+          f"{secs_pick:.3f} s, cli {cli['secs']:.2f} s on {card}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

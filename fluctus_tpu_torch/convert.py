@@ -16,8 +16,9 @@ import numpy as np
 import torch
 
 from fluctus_tpu_torch.core.types import (
-    AreaLight, BruteForest, Camera, DeviceScene, EnvMap, ForestTables,
-    Geometry, Materials, RenderParams, TextureAtlas, WideBVH)
+    AreaLight, BruteForest, Camera, DeviceScene, EnvMap, FlatBVH,
+    ForestTables, Geometry, Materials, PackedBVH, RenderParams, TextureAtlas,
+    WideBVH)
 
 GEOM_KEYS = ("v0", "v1", "v2", "n0", "n1", "n2", "uv0", "uv1", "uv2",
              "mat_id")
@@ -28,6 +29,9 @@ CAMERA_KEYS = ("pos", "dir", "up", "right", "fov", "aperture_size",
                "focal_dist")
 LIGHT_KEYS = ("pos", "right", "up", "normal", "emission", "size")
 ENV_KEYS = ("image", "pdf_table", "prob_table", "alias_table")
+FLAT_KEYS = ("node_lo", "node_hi", "node_right", "node_count",
+             "node_parent", "prim_idx")
+PACKED_KEYS = ("child_boxes", "child_refs", "leaf_tris", "leaf_ids")
 
 
 def _t(a, device):
@@ -93,7 +97,9 @@ def _prefixed(arrays: dict, prefix: str) -> dict:
 def scene_from_numpy(arrays: dict, device="cuda") -> DeviceScene:
     """DeviceScene from the JAX scene's leaves (see module docstring). The
     "wbvh.*" keys may be absent (a fast-big scene); "bforest.*" keys, where
-    present, carry a brute forest, and "ftables.*" keys a treelet forest.
+    present, carry a brute forest, "ftables.*" keys a treelet forest,
+    "bvh.*" keys (FLAT_KEYS) the binary hierarchy and "pbvh.*" keys
+    (PACKED_KEYS and root_ref) its packed rows.
     The "envmap.*" keys (ENV_KEYS) are required: a JAX scene always
     carries an env map, the 1x1 black one when none is loaded."""
     def group(prefix, keys):
@@ -106,6 +112,14 @@ def scene_from_numpy(arrays: dict, device="cuda") -> DeviceScene:
         bforest = brute_from_numpy(_prefixed(arrays, "bforest."), device)
     if "ftables.nodes" in arrays:
         ftables = forest_from_numpy(_prefixed(arrays, "ftables."), device)
+    bvh = pbvh = None
+    if "bvh.node_lo" in arrays:
+        bvh = FlatBVH(**{k: torch.as_tensor(np.ascontiguousarray(
+            arrays[f"bvh.{k}"]), device=device) for k in FLAT_KEYS})
+    if "pbvh.child_boxes" in arrays:
+        pbvh = PackedBVH(**{k: torch.as_tensor(np.ascontiguousarray(
+            arrays[f"pbvh.{k}"]), device=device) for k in PACKED_KEYS},
+            root_ref=int(arrays["pbvh.root_ref"]))
     return DeviceScene(geom=Geometry(**group("geom", GEOM_KEYS)),
                        wbvh=wbvh,
                        materials=Materials(**group("materials",
@@ -113,7 +127,7 @@ def scene_from_numpy(arrays: dict, device="cuda") -> DeviceScene:
                        atlas=TextureAtlas(**group("atlas", ATLAS_KEYS)),
                        envmap=envmap_from_numpy(_prefixed(arrays, "envmap."),
                                                 device),
-                       bforest=bforest, ftables=ftables)
+                       bforest=bforest, ftables=ftables, bvh=bvh, pbvh=pbvh)
 
 
 def params_from_numpy(arrays: dict, device="cuda") -> RenderParams:

@@ -71,6 +71,30 @@ class WideBVH:
 
 
 @dataclass
+class FlatBVH:
+    """Flat binary hierarchy, left child = index + 1 (reference:
+    src/geom.h:71-80 `GPUNode`), traced by the `backend="jnp"` walk of
+    ops/traverse.py."""
+    node_lo: torch.Tensor     # (N, 3) f32
+    node_hi: torch.Tensor     # (N, 3) f32
+    node_right: torch.Tensor  # (N,) i32: inner -> right child; leaf -> start
+    node_count: torch.Tensor  # (N,) i32: 0 inner, prim count for a leaf
+    node_parent: torch.Tensor  # (N,) i32, -1 at the root
+    prim_idx: torch.Tensor    # (K,) i32 triangle ids
+
+
+@dataclass
+class PackedBVH:
+    """Child-pair rows and swizzled leaves (accel/pack.py layout), traced
+    by the `backend="packed"` walk of ops/traverse_packed.py."""
+    child_boxes: torch.Tensor  # (N, 16) f32
+    child_refs: torch.Tensor   # (N, 2) i32: >= 0 inner, ~leaf row
+    leaf_tris: torch.Tensor    # (L, 8, 9) f32 [v0 e1 e2]
+    leaf_ids: torch.Tensor     # (L, 8) i32, -1 in pad slots
+    root_ref: int = 0
+
+
+@dataclass
 class BruteForest:
     """Brute-chunk tables of a big scene (accel/forest.py layout): spatial
     bins of triangles with no hierarchy inside a bin. Traversed by
@@ -154,7 +178,8 @@ class DeviceScene:
     `ftables` beside `wbvh`. `envmap` is always present: the loaded env
     map, or a 1x1 black one when none is loaded (the JAX package's
     `envmap.dummy()`), which `RenderConfig.use_env_map` then leaves
-    unread."""
+    unread. `bvh` and `pbvh`, the tables of the XLA backends "jnp" and
+    "packed", are uploaded only for a session that names that backend."""
     geom: Geometry
     wbvh: WideBVH | None
     materials: Materials
@@ -162,6 +187,8 @@ class DeviceScene:
     envmap: EnvMap
     bforest: BruteForest | None = None
     ftables: ForestTables | None = None
+    bvh: FlatBVH | None = None
+    pbvh: PackedBVH | None = None
 
     @property
     def device(self) -> torch.device:
@@ -190,8 +217,10 @@ class RenderConfig:
       plain K1 is that same restart-trail walk, so one name serves both.
     - "pallas": the packet kernel K4 over the 8-wide BVH (a forest scene
       still takes the per-lane kernels, as in the JAX package).
-    - "jnp", "packed", "wide": not ported (ROADMAP Queue 1, XLA traversal
-      backends).
+    - "jnp", "packed", "wide": the JAX package's XLA walks as plain
+      PyTorch on the session's device (ops/traverse.py over `bvh`,
+      ops/traverse_packed.py over `pbvh`, ops/traverse_wide.py over
+      `wbvh`): no kernel, taken only when named.
     """
     width: int = 512
     height: int = 512

@@ -1,7 +1,11 @@
 """Synthetic inputs: scenes written to disk in the formats the loaders
 read (`sphere_grid_ply`, `scene_pbrt`), an HDR sky (`sky_env`), DDS
-textures over seeded blocks (`dds_bytes`), the gradient tests' plane
-(`plane_session`), and inputs that pin the traversal kernels' tie rules.
+textures over seeded blocks (`dds_bytes`), PSD, Sun raster, SGI, MSP
+and the other simple raster formats (`psd_bytes`, `sun_raster_bytes`,
+`sgi_bytes`, `msp_bytes`, `raster_bytes`), the gradient tests' plane
+(`plane_session`), a binary hierarchy deeper than the JAX walks' stacks
+(`binary_chain_bvh`), and inputs that pin the traversal kernels' tie
+rules.
 
 K2 and K3: brute forests holding copies of one triangle at several
 (chunk, slot) places, and the place whose id the visit-list walk must
@@ -34,6 +38,8 @@ cluster's two CTAs, entry e to CTA e % 2.
   the lower of two entries of one team in a later piece.
 """
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
@@ -417,6 +423,48 @@ def deep_chain_forest(wide_depth: int, seed: int = 0, n_rays: int = 1024):
     return arrays, orig, dir_.astype(np.float32), np.concatenate([t0, t1])
 
 
+def binary_chain_bvh(depth: int, near: int = 0):
+    """A left-deep binary hierarchy (accel/bvh.py's flat layout) of
+    `depth` inner nodes over depth + 1 one-triangle leaves, and one ray
+    through all of them: inner node i has inner node i + 1 (the last one
+    a leaf) as its left child and a leaf as its right, so a stack walk
+    holds one more pending leaf a level and needs depth + 1 entries.
+    Triangle k lies in the plane z = k + 2, triangle `near` at z = 1;
+    the ray starts at (0.1, 0.1, 0) along +z, so its closest hit is
+    triangle `near` at t = 1. The JAX package's binary and packed walks
+    keep 96 stack entries (tests/test_torch_backends.py).
+
+    Returns (dict of the BuiltBVH fields node_lo, node_hi, node_right,
+    node_count, node_parent, prim_idx, depth; v0, v1, v2; orig, dir)."""
+    n = 2 * depth + 1
+    n_tris = depth + 1
+    z = np.arange(n_tris, dtype=np.float32) + 2.0
+    z[near] = 1.0
+    v0 = np.stack([np.full(n_tris, -1.0), np.full(n_tris, -1.0), z], 1)
+    v1 = np.stack([np.full(n_tris, 3.0), np.full(n_tris, -1.0), z], 1)
+    v2 = np.stack([np.full(n_tris, -1.0), np.full(n_tris, 3.0), z], 1)
+    lo = np.tile(np.float32([-1.0, -1.0, 0.0]), (n, 1))
+    hi = np.tile(np.float32([3.0, 3.0, n_tris + 2.0]), (n, 1))
+    right = np.zeros(n, np.int32)
+    count = np.zeros(n, np.int32)
+    parent = np.full(n, -1, np.int32)
+    inner = np.arange(depth)
+    # inner i at index i; its right leaf at 2 * depth - i holds triangle
+    # i; the leftmost leaf at index depth holds triangle depth
+    right[inner] = 2 * depth - inner
+    parent[1:depth + 1] = inner
+    parent[2 * depth - inner] = inner
+    right[2 * depth - inner] = inner
+    count[2 * depth - inner] = 1
+    right[depth], count[depth] = depth, 1
+    arrays = dict(node_lo=lo, node_hi=hi, node_right=right,
+                  node_count=count, node_parent=parent,
+                  prim_idx=np.arange(n_tris, dtype=np.int32), depth=depth)
+    f32 = lambda a: np.asarray(a, np.float32)
+    return (arrays, f32(v0), f32(v1), f32(v2), f32([[0.1, 0.1, 0.0]]),
+            f32([[0.0, 0.0, 1.0]]))
+
+
 def sky_env(width: int = 1024, height: int = 512, seed: int = 0,
             sun=(0.3, 0.3), sun_radiance: float = 1000.0,
             sun_texels: float = 3.0) -> np.ndarray:
@@ -669,6 +717,311 @@ def dds_bytes(fmt: str, width: int, height: int, seed: int = 0) -> bytes:
     if fmt == "P8":
         header += g.integers(0, 256, 1024, dtype=np.uint8).tobytes()
     return header + body.tobytes()
+
+
+def _packbits(row: bytes) -> bytes:
+    """PackBits (Apple's TN1023): runs of 3 to 128 equal bytes as
+    257 - n and the byte, the rest as literals of up to 128 bytes."""
+    out = bytearray()
+    i, n = 0, len(row)
+    lit = bytearray()
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and row[j] == row[i]:
+            j += 1
+        if j - i >= 3:
+            if lit:
+                out += bytes([len(lit) - 1]) + lit
+                lit = bytearray()
+            out += bytes([257 - (j - i), row[i]])
+            i = j
+            continue
+        lit.append(row[i])
+        i += 1
+        if len(lit) == 128:
+            out += bytes([127]) + lit
+            lit = bytearray()
+    if lit:
+        out += bytes([len(lit) - 1]) + lit
+    return bytes(out)
+
+
+def _runs_picture(g, h, w, levels):
+    """Seeded samples below `levels`, (h, w) ints, where each sample
+    repeats its left neighbour with probability 0.6, so run-length coders
+    find runs."""
+    px = g.integers(0, levels, (h, w))
+    keep = g.random((h, w)) < 0.6
+    for x in range(1, w):
+        px[:, x] = np.where(keep[:, x], px[:, x - 1], px[:, x])
+    return px
+
+
+PSD_MODES = {"1": (0, 1, 1), "L": (1, 8, 1), "P": (2, 8, 1),
+             "RGB": (3, 8, 3), "RGBA": (3, 8, 4)}
+
+
+def psd_bytes(mode: str, width: int, height: int, rle: bool,
+              seed: int = 0) -> bytes:
+    """A PSD file (Adobe's layout: header, colour-mode data, image
+    resources, layer section, merged composite) of seeded pixels in mode
+    "1" (bitmap), "L", "P" (a seeded 256-colour palette), "RGB" or
+    "RGBA", the composite raw or PackBits-coded a row (`rle`). The
+    resources hold one entry and the layer section 8 bytes, which a
+    reader skips. PIL reads PSD and writes none."""
+    g = np.random.default_rng(seed)
+    cmode, depth, chans = PSD_MODES[mode]
+    levels = 2 if mode == "1" else 256
+    planes = [_runs_picture(g, height, width, levels) for _ in range(chans)]
+    out = bytearray(b"8BPS" + struct.pack(">H6xHIIHH", 1, chans, height,
+                                          width, depth, cmode))
+    if mode == "P":
+        pal = g.integers(0, 256, (3, 256), dtype=np.uint8).tobytes()
+        out += struct.pack(">I", len(pal)) + pal
+    else:
+        out += struct.pack(">I", 0)
+    res = b"8BIM" + struct.pack(">H", 1005) + b"\0\0" \
+        + struct.pack(">I", 4) + bytes(4)
+    out += struct.pack(">I", len(res)) + res
+    out += struct.pack(">I", 8) + struct.pack(">I", 0) + bytes(4)
+    rows = []
+    for p in planes:
+        if mode == "1":
+            p = np.packbits(p.astype(np.uint8), axis=1)
+        rows.append([bytes(r.astype(np.uint8)) for r in p])
+    if not rle:
+        out += struct.pack(">H", 0)
+        for plane in rows:
+            out += b"".join(plane)
+        return bytes(out)
+    coded = [[_packbits(r) for r in plane] for plane in rows]
+    out += struct.pack(">H", 1)
+    out += b"".join(struct.pack(">H", len(r)) for plane in coded
+                    for r in plane)
+    out += b"".join(r for plane in coded for r in plane)
+    return bytes(out)
+
+
+def _sun_rle(stream: bytes) -> bytes:
+    """Sun raster RLE: 0x80 n-1 v for runs of 3 to 256 (and any 0x80
+    run), 0x80 0 for one 0x80, other bytes as themselves."""
+    out = bytearray()
+    i, n = 0, len(stream)
+    while i < n:
+        j = i
+        while j < n and j - i < 256 and stream[j] == stream[i]:
+            j += 1
+        run = j - i
+        if run >= 3 or (stream[i] == 0x80 and run >= 2):
+            out += bytes([0x80, run - 1, stream[i]])
+        elif stream[i] == 0x80:
+            out += b"\x80\x00"
+            run = 1
+        else:
+            out += bytes(stream[i:j])
+        i += run
+    return bytes(out)
+
+
+def sun_raster_bytes(depth: int, width: int, height: int, rle: bool,
+                     seed: int = 0, colors: int = 0,
+                     rgb_order: bool = False) -> bytes:
+    """A Sun raster file (the SunOS rasterfile layout: 32-byte header,
+    colour map, rows padded to 16 bits) of seeded pixels at depth 1, 4,
+    8, 24 or 32; `colors` > 0 adds an RGB colour map of that many seeded
+    entries (depth 4 or 8); `rle` codes the padded row stream as type 2,
+    else type 1 (or type 3, RGB byte order, with `rgb_order`). PIL reads
+    Sun raster and writes none."""
+    g = np.random.default_rng(seed)
+    stride = ((width * depth + 15) // 16) * 2
+    if depth <= 8:
+        px = _runs_picture(g, height, width, 1 << depth).astype(np.uint8)
+        if depth < 8:
+            per = 8 // depth
+            pad = (-width) % per
+            px = np.pad(px, ((0, 0), (0, pad)))
+            sh = (8 - depth) - depth * np.arange(per)
+            px = (px.reshape(height, -1, per) << sh).sum(-1).astype(
+                np.uint8)
+    else:
+        b = depth // 8
+        px = np.stack([_runs_picture(g, height, width, 256)
+                       for _ in range(b)], -1).astype(np.uint8).reshape(
+            height, width * b)
+    rows = np.zeros((height, stride), np.uint8)
+    rows[:, :px.shape[1]] = px
+    stream = rows.tobytes()
+    cmap = b""
+    if colors:
+        cmap = g.integers(0, 256, (3, colors), dtype=np.uint8).tobytes()
+    ftype = 2 if rle else (3 if rgb_order else 1)
+    body = _sun_rle(stream) if rle else stream
+    return (struct.pack(">8I", 0x59A66A95, width, height, depth,
+                        len(body), ftype, 1 if colors else 0, len(cmap))
+            + cmap + body)
+
+
+def _pcx_rle(row: bytes) -> bytes:
+    """PCX's RLE of one row: runs of 2 to 63 equal bytes as 0xC0 | n
+    and the byte, a byte of 0xC0 or more always as a run."""
+    out = bytearray()
+    i, n = 0, len(row)
+    while i < n:
+        j = i
+        while j < n and j - i < 63 and row[j] == row[i]:
+            j += 1
+        if j - i > 1 or row[i] >= 0xC0:
+            out += bytes([0xC0 | (j - i), row[i]])
+        else:
+            out.append(row[i])
+        i = j
+    return bytes(out)
+
+
+def _sgi_rle_row(v: np.ndarray, word: str) -> bytes:
+    """SGI RLE of one channel's row: runs of 3 to 127 equal samples
+    (count, sample), literal stretches (0x80 | count, samples), a zero
+    count at the end; samples and counts as bytes or 16-bit words."""
+    out, x, w = [], 0, len(v)
+    while x < w:
+        j = x
+        while j < w and j - x < 127 and v[j] == v[x]:
+            j += 1
+        if j - x >= 3:
+            out += [j - x, int(v[x])]
+            x = j
+            continue
+        j = x
+        while j < w and j - x < 127 and not (
+                j + 2 < w and v[j] == v[j + 1] == v[j + 2]):
+            j += 1
+        out += [0x80 | (j - x)] + [int(a) for a in v[x:j]]
+        x = j
+    out.append(0)
+    return np.asarray(out, word).tobytes()
+
+
+def sgi_bytes(px: np.ndarray, bpc: int, rle: bool) -> bytes:
+    """An SGI file (the SGI image format's layout) of px (h, w, z) samples
+    below 2^(8 bpc), stored bottom row first, 1 or 2 bytes a sample: raw
+    planes, or (`rle`) rows coded by `_sgi_rle_row` after the offset and
+    length tables."""
+    h, w, z = px.shape
+    dim = 1 if h == 1 and z == 1 else (2 if z == 1 else 3)
+    head = struct.pack(">HBBHHHH", 474, rle, bpc, dim, w, h, z).ljust(
+        512, b"\0")
+    word = "u1" if bpc == 1 else ">u2"
+    planes = px.transpose(2, 0, 1)
+    if not rle:
+        return head + planes.astype(word).tobytes()
+    rows = [_sgi_rle_row(planes[c, y], word) for c in range(z)
+            for y in range(h)]
+    starts = np.cumsum([512 + 8 * len(rows)] + [len(r) for r in rows[:-1]])
+    return (head + np.asarray(starts, ">u4").tobytes()
+            + np.asarray([len(r) for r in rows], ">u4").tobytes()
+            + b"".join(rows))
+
+
+def msp_bytes(bits: np.ndarray, version: int) -> bytes:
+    """A Windows Paint (MSP) file of the 1-bit rows `bits` (h, w; 1
+    white): version 1 raw, or version 2 with a row map and each row coded
+    as runs (0 n v) and literals (k, then k bytes), an all-white row as
+    count 0."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    words = [0] * 16
+    words[0:2] = struct.unpack("<2H", b"DanM" if version == 1 else b"LinS")
+    words[2], words[3] = w, h
+    for k in range(15):
+        words[15] ^= words[k]
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + rows.tobytes()
+    coded = []
+    for r in rows:
+        out, x = bytearray(), 0
+        while x < len(r) and not (r == 0xFF).all():
+            j = x
+            while j < len(r) and j - x < 255 and r[j] == r[x]:
+                j += 1
+            out += bytes([0, j - x, r[x]]) if j - x >= 3 \
+                else bytes([j - x]) + r[x:j].tobytes()
+            x = j
+        coded.append(bytes(out))
+    return (head + struct.pack(f"<{h}H", *map(len, coded))
+            + b"".join(coded))
+
+
+def raster_bytes(fmt: str, width: int, height: int, seed: int = 0) -> bytes:
+    """A file of seeded pixels in one of the simple raster formats the
+    texture decoders read, written here by the format's own layout (PIL
+    writes most of them, but the machine with the card has no PIL): "pcx"
+    (24-bit, RLE), "dcx" (that PCX as a one-frame DCX), "qoi" (RGBA:
+    RGBA, RGB and run ops), "sgi" and "sgi-rle" (RGB, 8-bit, raw or RLE),
+    "msp" and "msp-rle" (1-bit, versions 1 and 2), "xbm" and "dib"
+    (24-bit BGR, a BMP without its file header)."""
+    g = np.random.default_rng(seed)
+    rgb = np.stack([_runs_picture(g, height, width, 256) for _ in range(3)],
+                   -1).astype(np.uint8)
+    bits = (rgb[..., 0] > 127).astype(np.uint8)
+    if fmt in ("pcx", "dcx"):
+        stride = width + width % 2
+        head = bytearray(128)
+        head[0:4] = bytes([10, 5, 1, 8])
+        head[4:12] = struct.pack("<HHHH", 0, 0, width - 1, height - 1)
+        head[65] = 3
+        head[66:68] = struct.pack("<H", stride)
+        rows = np.zeros((height, 3, stride), np.uint8)
+        rows[:, :, :width] = rgb.transpose(0, 2, 1)
+        body = b"".join(_pcx_rle(r.tobytes()) for r in rows)
+        pcx = bytes(head) + body
+        if fmt == "pcx":
+            return pcx
+        return struct.pack("<III", 0x3ADE68B1, 12, 0) + pcx
+    if fmt == "qoi":
+        a = np.where(g.random((height, width)) < 0.2, 128, 255)
+        px = np.concatenate([rgb, a[..., None].astype(np.uint8)], -1)
+        flat = px.reshape(-1, 4)
+        out = bytearray(b"qoif" + struct.pack(">II", width, height)
+                        + bytes([4, 0]))
+        prev, i, n = (0, 0, 0, 255), 0, len(flat)
+        while i < n:
+            cur = tuple(int(c) for c in flat[i])
+            run = 0
+            while i < n and run < 62 and tuple(
+                    int(c) for c in flat[i]) == prev:
+                run += 1
+                i += 1
+            if run:
+                out.append(0xC0 | (run - 1))
+                continue
+            if cur[3] == prev[3]:
+                out += bytes([0xFE]) + bytes(cur[:3])
+            else:
+                out += bytes([0xFF]) + bytes(cur)
+            prev = cur
+            i += 1
+        return bytes(out + b"\0" * 7 + b"\1")
+    if fmt in ("sgi", "sgi-rle"):
+        return sgi_bytes(rgb[::-1], 1, fmt == "sgi-rle")
+    if fmt in ("msp", "msp-rle"):
+        return msp_bytes(bits, 1 if fmt == "msp" else 2)
+    if fmt == "xbm":
+        rows = np.packbits(bits, axis=1, bitorder="little").reshape(-1)
+        vals = ",".join(f"0x{v:02x}" for v in rows)
+        return (f"#define t_width {width}\n#define t_height {height}\n"
+                f"static char t_bits[] = {{\n{vals}\n}};\n").encode()
+    if fmt == "dib":
+        stride = (width * 3 + 3) & ~3
+        rows = np.zeros((height, stride), np.uint8)
+        rows[:, :width * 3] = rgb[::-1, :, ::-1].reshape(height, -1)
+        return struct.pack("<IiiHHIIiiII", 40, width, height, 1, 24, 0,
+                           rows.size, 2835, 2835, 0, 0) + rows.tobytes()
+    raise ValueError(f"unknown raster format {fmt!r}")
+
+
+RASTER_FORMATS = ("pcx", "dcx", "qoi", "sgi", "sgi-rle", "msp", "msp-rle",
+                  "xbm", "dib")
 
 
 def plane_session(device="cuda", size: int = 24, max_bounces: int = 1,

@@ -15,8 +15,11 @@ Traversal goes, in the JAX package's order, through `ops.traverse_brute`
 `ops.traverse_forest` (K5) on one with a treelet forest, and otherwise
 `ops.traverse_stack` (K1), or `ops.traverse_pallas` (K4) under
 `backend="pallas"`: the kernels on a CUDA scene, their plain versions on a
-CPU scene. Every stochastic decision draws from the counter-based RNG
-keyed by (pixel, sample, bounce, stream).
+CPU scene. The JAX package's XLA walks, `backend="jnp"` (`ops.traverse`),
+`"packed"` (`ops.traverse_packed`) and `"wide"` (`ops.traverse_wide`),
+are plain PyTorch on either device and taken only when named. Every
+stochastic decision draws from the counter-based RNG keyed by (pixel,
+sample, bounce, stream).
 """
 from __future__ import annotations
 
@@ -34,8 +37,8 @@ from fluctus_tpu_torch.ops import bsdf as bsdf_mod
 from fluctus_tpu_torch.ops import envmap as env_ops
 from fluctus_tpu_torch.ops import texture as tex_ops
 from fluctus_tpu_torch.ops import (
-    ray_sort, traverse_brute, traverse_forest, traverse_pallas,
-    traverse_stack)
+    ray_sort, traverse, traverse_brute, traverse_forest, traverse_packed,
+    traverse_pallas, traverse_stack, traverse_wide)
 from fluctus_tpu_torch.ops.intersect import ray_area_light
 from fluctus_tpu_torch.ops.traverse_stack import Traversal
 
@@ -44,29 +47,30 @@ OFFSET_SHADOW = 1e-3   # reference: wf_logic.cl:184 (orig = P - 1e-3*dir)
 OFFSET_CONT = 1e-4     # reference: wf_mat_diffuse.cl:54 (P + 1e-4*newDir)
 
 
-BACKENDS = ("auto", "mxu", "pallas")
-UNPORTED_BACKENDS = ("jnp", "packed", "wide")
+BACKENDS = ("auto", "mxu", "pallas", "jnp", "packed", "wide")
+XLA_BACKENDS = ("jnp", "packed", "wide")
 
 
 def resolve_backend(name: str) -> str:
     """"auto" and "mxu" -> "mxu" (the per-lane kernels K1/K2/K3/K5);
-    "pallas" -> "pallas" (the packet kernel K4). The JAX package's XLA
-    backends are not ported."""
-    if name in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet (ROADMAP Queue 1, XLA "
-            "traversal backends); use 'auto', 'mxu' or 'pallas'")
+    "pallas" -> "pallas" (the packet kernel K4); "jnp", "packed" and
+    "wide" stay as named (the JAX package's XLA walks, plain PyTorch)."""
     if name not in BACKENDS:
         raise ValueError(f"unknown backend {name!r}")
-    return "pallas" if name == "pallas" else "mxu"
+    return "mxu" if name == "auto" else name
 
 
 def _check_backend_data(scene, cfg):
-    if cfg.backend in UNPORTED_BACKENDS + ("pallas",) and scene.wbvh is None:
+    if cfg.backend in XLA_BACKENDS + ("pallas",) and scene.wbvh is None:
         raise ValueError(
             f"backend '{cfg.backend}' needs the full hierarchy, but this "
             "scene was uploaded via the fast big-scene path (brute forest "
             "only). Use backend='mxu' or set FLUCTUS_FAST_BIG=0.")
+    table = {"jnp": "bvh", "packed": "pbvh"}.get(cfg.backend)
+    if table and getattr(scene, table) is None:
+        raise ValueError(
+            f"backend '{cfg.backend}' needs the scene's `{table}` tables: "
+            f"upload with to_device(..., backend='{cfg.backend}')")
 
 
 def _packets(scene, cfg) -> bool:
@@ -158,6 +162,8 @@ def _traverse_closest_tr(scene, cfg, orig, dir, t_max) -> Traversal:
 
 
 def _closest_tr(scene, cfg, orig, dir, t_max) -> Traversal:
+    if cfg.backend in XLA_BACKENDS:
+        return _xla_walk(scene, cfg, orig, dir, t_max, any_hit=False)
     if _packets(scene, cfg):
         t_vec = torch.broadcast_to(torch.as_tensor(
             t_max, dtype=torch.float32, device=orig.device), orig.shape[:1])
@@ -174,6 +180,21 @@ def _closest_tr(scene, cfg, orig, dir, t_max) -> Traversal:
     return traverse_stack.traverse_closest(scene.wbvh, orig, dir, t_max)
 
 
+def _xla_walk(scene, cfg, orig, dir, t_max, any_hit: bool):
+    """The JAX package's XLA walks (its `common.py:160-176` dispatch):
+    "jnp" the binary stack walk, "packed" the child-pair walk, "wide" the
+    restart-trail walk; closest Traversal or any-hit flags."""
+    _check_backend_data(scene, cfg)
+    if cfg.backend == "jnp":
+        g = scene.geom
+        fn = traverse.traverse_any if any_hit else traverse.traverse_closest
+        return fn(scene.bvh, g.v0, g.v1, g.v2, orig, dir, t_max)
+    mod = traverse_packed if cfg.backend == "packed" else traverse_wide
+    tables = scene.pbvh if cfg.backend == "packed" else scene.wbvh
+    fn = mod.traverse_any if any_hit else mod.traverse_closest
+    return fn(tables, orig, dir, t_max)
+
+
 def _traverse_any(scene, cfg, orig, dir, lens) -> torch.Tensor:
     """Any-hit traversal under the per-lane distance `lens`, on detached
     rays."""
@@ -182,6 +203,8 @@ def _traverse_any(scene, cfg, orig, dir, lens) -> torch.Tensor:
 
 
 def _any(scene, cfg, orig, dir, lens) -> torch.Tensor:
+    if cfg.backend in XLA_BACKENDS:
+        return _xla_walk(scene, cfg, orig, dir, lens, any_hit=True)
     if _packets(scene, cfg):
         return ray_sort.sorted_apply(
             orig, dir, *traverse_pallas.wbvh_bounds(scene.wbvh),

@@ -155,25 +155,36 @@ def _render_tile_spp(scene: DeviceScene, params: RenderParams,
     return acc
 
 
-def render(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
-           spp: int) -> torch.Tensor:
-    """cfg.width x cfg.height at exactly `spp` samples per pixel; returns
-    (H, W, 3) float32 linear radiance. Pixels go in tiles of cfg.tile_size
-    rays, samples in groups of SAMPLES_PER_LAUNCH."""
-    dev = scene.device
+def accumulate(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
+               acc: torch.Tensor, sample0: int, spp: int,
+               samples_per_launch: int = SAMPLES_PER_LAUNCH) -> None:
+    """Add samples sample0 .. sample0 + spp - 1 of every pixel into `acc`
+    ((n_pix, 3), in place). Pixels go in tiles of cfg.tile_size rays,
+    samples in groups of `samples_per_launch`, each group summed before it
+    is added to the tile's running sum (the JAX package's fused launches).
+    The one fold of `render` and of the driver's progressive accumulator,
+    so their sums agree bit for bit."""
     n_pix = cfg.width * cfg.height
     tile = min(cfg.tile_size, n_pix)
-    acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    stop = sample0 + spp
     for start in range(0, n_pix, tile):
-        idx = torch.arange(start, min(start + tile, n_pix), device=dev,
+        idx = torch.arange(start, min(start + tile, n_pix), device=acc.device,
                            dtype=torch.int32)
-        tile_acc = torch.zeros((idx.shape[0], 3), dtype=torch.float32,
-                               device=dev)
-        s = 0
-        while s < spp:
-            k = min(SAMPLES_PER_LAUNCH, spp - s)
-            tile_acc = tile_acc + _render_tile_spp(scene, params, cfg, idx,
-                                                   s, k)
+        t = acc[start:start + idx.shape[0]]
+        s = sample0
+        while s < stop:
+            k = min(samples_per_launch, stop - s)
+            t = t + _render_tile_spp(scene, params, cfg, idx, s, k)
             s += k
-        acc[start:start + idx.shape[0]] += tile_acc
+        acc[start:start + idx.shape[0]] = t
+
+
+def render(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
+           spp: int, samples_per_launch: int = SAMPLES_PER_LAUNCH
+           ) -> torch.Tensor:
+    """cfg.width x cfg.height at exactly `spp` samples per pixel; returns
+    (H, W, 3) float32 linear radiance (`accumulate` on a zero sum)."""
+    acc = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
+                      device=scene.device)
+    accumulate(scene, params, cfg, acc, 0, spp, samples_per_launch)
     return (acc / spp).reshape(cfg.height, cfg.width, 3)

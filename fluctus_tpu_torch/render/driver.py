@@ -1,5 +1,6 @@
 """Render driver: scene set-up, camera framing, frame renders, display
-export (counterpart of `fluctus_tpu/render/driver.py`; reference:
+export, the denoiser's feature buffers, denoised, progressive and preview
+renders (counterpart of `fluctus_tpu/render/driver.py`; reference:
 src/tracer.cpp).
 
 Entry points run on the CUDA card unless the caller passes device="cpu";
@@ -19,6 +20,7 @@ from fluctus_tpu_torch.core.types import (
     AreaLight, DeviceScene, RenderConfig, RenderParams, default_params)
 from fluctus_tpu_torch.integrators import common, lockstep, wavefront
 from fluctus_tpu_torch.ops import camera as cam_ops
+from fluctus_tpu_torch.ops import envmap as env_ops
 from fluctus_tpu_torch.ops import tonemap as tm
 from fluctus_tpu_torch.scene.scene import (
     DEFAULT_CACHE_DIR, HostScene, fast_big_eligible, load_scene)
@@ -85,14 +87,15 @@ def create_session(scene_path: str, env_map: str | None = None,
     turns `cfg.use_area_light` on, before framing and the saved state, as
     in the JAX package. The traversal backend resolves as
     `common.resolve_backend` says: "auto" to the per-lane kernels,
-    "pallas" to the packet kernel K4."""
+    "pallas" to the packet kernel K4, "jnp", "packed" and "wide" to the
+    XLA walks, whose tables are uploaded only then."""
     dev = resolve_device(device)
     cfg = cfg or RenderConfig()
     backend = common.resolve_backend(cfg.backend)
     host = load_scene(scene_path, env_map=env_map)
     if not fast_big_eligible(host, dev):
         host.build_bvh(cache_dir=cache_dir, use_sbvh=use_sbvh)
-    scene = host.to_device(dev)
+    scene = host.to_device(dev, backend=backend)
     cfg = cfg.replace(backend=backend,
                       bsdf_types_mask=host.material_types_mask,
                       use_env_map=cfg.use_env_map
@@ -178,11 +181,12 @@ def _tensor_leaves(rec):
             yield from _tensor_leaves(getattr(rec, f.name))
 
 
-def _params_digest(params: RenderParams) -> bytes:
-    """Content hash of the parameters: with the config, the key of the
-    cached integrator choice, so a moved camera or light probes again."""
+def _params_digest(params: RenderParams, *extra: torch.Tensor) -> bytes:
+    """Content hash of every tensor leaf of the parameters and of `extra`:
+    with the config, the key of the cached integrator choice, so a moved
+    camera or light probes again."""
     h = hashlib.blake2b(digest_size=16)
-    for leaf in _tensor_leaves(params):
+    for leaf in (*_tensor_leaves(params), *extra):
         h.update(leaf.detach().cpu().numpy().tobytes())
     return h.digest()
 
@@ -228,10 +232,7 @@ def render(session: RenderSession, spp: int,
 def render_ldr(session: RenderSession, spp: int,
                integrator: str = "auto") -> torch.Tensor:
     """Frame after exposure, tonemap and display gamma."""
-    img = render(session, spp, integrator=integrator)
-    w = torch.ones(img.shape[:2], dtype=torch.float32, device=img.device)
-    return tm.postprocess(img, w, session.params.exposure,
-                          session.cfg.tonemap_op)
+    return display_frame(session, render(session, spp, integrator=integrator))
 
 
 def mrays_benchmark(session: RenderSession, duration_s: float = 10.0,
@@ -249,3 +250,156 @@ def mrays_benchmark(session: RenderSession, duration_s: float = 10.0,
     out = run(session, duration_s=duration_s)
     out["integrator"] = integrator
     return out
+
+
+def display_frame(session: RenderSession, img: torch.Tensor) -> torch.Tensor:
+    """Exposure, tonemap and display gamma of a linear frame."""
+    w = torch.ones(img.shape[:2], dtype=torch.float32, device=img.device)
+    return tm.postprocess(img, w, session.params.exposure,
+                          session.cfg.tonemap_op)
+
+
+@dataclass
+class ProgressiveRender:
+    """One accumulator refined by sample increments (reference:
+    Tracer::update's refinement loop, src/tracer.cpp:189-358, reset when
+    the camera or parameters change :203-218).
+
+    `add` continues the sample indices where the last increment stopped
+    and folds them onto the accumulator through `lockstep.accumulate`, the
+    one-shot render's own fold, so K increments of N spp equal one
+    `lockstep.render(K * N, samples_per_launch=...)` bit for bit when N is
+    a multiple of the group size (the JAX package's
+    test_progressive_matches_oneshot)."""
+    session: RenderSession
+    samples_per_launch: int = 16
+    acc: torch.Tensor | None = None     # (n_pix, 3) radiance sum
+    spp_done: int = 0
+    _digest: bytes | None = None
+
+    def reset(self) -> None:
+        cfg = self.session.cfg
+        self.acc = torch.zeros((cfg.width * cfg.height, 3),
+                               dtype=torch.float32,
+                               device=self.session.device)
+        self.spp_done = 0
+
+    def add(self, spp_increment: int) -> int:
+        """Accumulate `spp_increment` more samples a pixel, first resetting
+        if any parameter or the env image changed since the last add.
+        Returns the samples a pixel so far."""
+        sess = self.session
+        d = _params_digest(sess.params, sess.scene.envmap.image)
+        if self.acc is None or d != self._digest:
+            self.reset()
+            self._digest = d
+        spl = self.samples_per_launch
+        if spp_increment % spl:
+            # group boundaries aligned with the one-shot fold
+            spl = max(1, min(spl, spp_increment))
+            while spp_increment % spl:
+                spl -= 1
+        lockstep.accumulate(sess.scene, sess.params, sess.cfg, self.acc,
+                            self.spp_done, spp_increment, spl)
+        self.spp_done += spp_increment
+        return self.spp_done
+
+    def image(self) -> torch.Tensor:
+        """The current linear-radiance estimate (H, W, 3)."""
+        cfg = self.session.cfg
+        if self.acc is None or self.spp_done == 0:
+            return torch.zeros((cfg.height, cfg.width, 3),
+                               dtype=torch.float32,
+                               device=self.session.device)
+        return (self.acc / self.spp_done).reshape(cfg.height, cfg.width, 3)
+
+
+def render_progressive(session: RenderSession, iterations: int,
+                       spp_increment: int = 4, export_every: int = 0,
+                       export_path: str | None = None, hdr: bool = False,
+                       callback=None) -> torch.Tensor:
+    """`iterations` increments of a ProgressiveRender, writing the current
+    estimate to `export_path` every `export_every` iterations and after
+    the last (reference: saveImage every 1000 iterations,
+    src/tracer.cpp:356-357). Returns the final linear frame."""
+    prog = ProgressiveRender(session)
+    for it in range(1, iterations + 1):
+        prog.add(spp_increment)
+        if callback is not None:
+            callback(it, prog)
+        if export_every and export_path and it % export_every == 0:
+            _export_progressive(session, prog, export_path, hdr)
+    if export_path and (not export_every or iterations % export_every):
+        _export_progressive(session, prog, export_path, hdr)
+    return prog.image()
+
+
+def _export_progressive(session, prog, path, hdr):
+    from fluctus_tpu_torch.io.image import save_image
+    img = prog.image()
+    if not hdr:
+        img = display_frame(session, img)
+    save_image(path, img.cpu().numpy())
+
+
+def render_preview(session: RenderSession, spp: int = 1) -> torch.Tensor:
+    """Lockstep frame with the bounces clamped to 2, as the reference's
+    first frame after a camera move (src/tracer.cpp:228-241)."""
+    cfg = session.cfg.replace(max_bounces=min(2, session.cfg.max_bounces))
+    return lockstep.render(session.scene, session.params, cfg, spp)
+
+
+def _aux_tile(scene: DeviceScene, params: RenderParams, cfg: RenderConfig,
+              pix: torch.Tensor):
+    half = torch.full(pix.shape, 0.5, dtype=torch.float32, device=pix.device)
+    zero = torch.zeros(pix.shape, dtype=torch.float32, device=pix.device)
+    orig, dir = cam_ops.generate_rays(params.camera, pix, cfg.width,
+                                      cfg.height, half, half, zero, zero,
+                                      params.world_radius)
+    hit = common.trace_scene(scene, params, cfg, orig, dir)
+    ctx = common.make_shading_ctx(scene, hit, dir)
+    missed = hit.prim < 0
+    albedo = ctx.kd
+    if cfg.use_env_map:
+        bg = env_ops.eval_dir(scene.envmap, dir) * params.env_strength
+        albedo = torch.where(missed[:, None], bg, albedo)
+    normal = torch.where(missed[:, None], 0.0, ctx.n)
+    depth = torch.where(missed, 2.0,
+                        hit.t / torch.clamp(params.world_radius, min=1e-6))
+    return albedo, normal, depth
+
+
+def render_aux(session: RenderSession):
+    """The denoiser's feature buffers from the primary hit of a ray
+    through each pixel centre, with no lens offset: albedo (H, W, 3) (the
+    env colour on a miss when the env map lights the scene), normal (H, W,
+    3) (zero on a miss) and depth (H, W) in world radii (2 on a miss)
+    (reference: the albedo and normal buffers fed to the OptiX denoiser,
+    src/denoiser/OptixDenoiser.cpp:86-159). One closest traversal a tile
+    of cfg.tile_size pixels."""
+    scene, params, cfg = session.scene, session.params, session.cfg
+    n_pix = cfg.width * cfg.height
+    tile = min(cfg.tile_size, n_pix)
+    outs = []
+    for start in range(0, n_pix, tile):
+        pix = torch.arange(start, min(start + tile, n_pix),
+                           dtype=torch.int32, device=session.device)
+        outs.append(_aux_tile(scene, params, cfg, pix))
+    shape = (cfg.height, cfg.width)
+    albedo, normal, depth = (torch.cat(o) for o in zip(*outs))
+    return (albedo.reshape(shape + (3,)), normal.reshape(shape + (3,)),
+            depth.reshape(shape))
+
+
+def render_denoised(session: RenderSession, spp: int, blend: float = 1.0,
+                    integrator: str = "auto",
+                    iterations: int = 4) -> torch.Tensor:
+    """`render`, then the A-trous denoiser over the `render_aux` buffers
+    (in place of the reference's OptiX denoiser path). Returns linear
+    radiance (H, W, 3)."""
+    from fluctus_tpu_torch.ops.denoise import atrous_denoise
+
+    img = render(session, spp, integrator=integrator)
+    albedo, normal, depth = render_aux(session)
+    return atrous_denoise(img, albedo, normal, depth, iterations=iterations,
+                          blend=blend)

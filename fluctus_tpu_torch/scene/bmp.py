@@ -99,6 +99,12 @@ def decode_bmp(data: bytes) -> np.ndarray:
     return _decode(data, 14, struct.unpack("<I", data[10:14])[0])[0]
 
 
+def decode_dib_file(data: bytes) -> np.ndarray:
+    """A DIB file (a BMP without its file header, PIL's DibImageFile) ->
+    (H, W, 4) uint8 RGBA, top row first."""
+    return _decode(data, 0, None)[0]
+
+
 def decode_dib(data: bytes, start: int, halve: bool = False,
                raw_alpha: bool = False) -> tuple[np.ndarray, int]:
     """The device-independent bitmap at `start` (a header, bitfield masks,

@@ -7,13 +7,16 @@ package's TexturePool loads.
 plugin PIL 12 registers for `Image.open`, in PIL's order (its `_accept`,
 or for the plugins that have none the header test of their `_open`; for
 CUR and ICO, whose signature a TGA header can carry, also the non-empty
-directory their `_open` needs, so PIL goes on to TGA), with one of three
-outcomes:
+directory their `_open` needs, so PIL goes on to TGA, and for GBR the
+header tests of its `_open`), with one of three outcomes:
 
 - a format the port decodes goes to its decoder: PNG (scene/png.py),
-  JPEG (scene/jpeg.py), BMP (scene/bmp.py), GIF (scene/gif.py), TIFF
-  (scene/tiff.py), PBM/PGM/PPM/PFM (scene/pnm.py), TGA (scene/tga.py),
-  ICO and CUR (scene/ico.py) and DDS (scene/dds.py);
+  JPEG (scene/jpeg.py), BMP and DIB (scene/bmp.py), GIF (scene/gif.py),
+  TIFF (scene/tiff.py), PBM/PGM/PPM/PFM (scene/pnm.py), TGA
+  (scene/tga.py), ICO and CUR (scene/ico.py), DDS (scene/dds.py), PCX
+  and DCX (scene/pcx.py), QOI (scene/qoi.py), SGI (scene/sgi.py), PSD
+  (scene/psd.py), Sun raster (scene/sun.py), MSP (scene/msp.py) and XBM
+  (scene/xbm.py);
 - a format PIL reads and the port does not decode raises
   `UnsupportedImage` naming it, so a map the JAX package would load is
   never dropped without notice;
@@ -97,6 +100,23 @@ def _spider(data: bytes) -> bool:
     return False
 
 
+def _gbr(data: bytes) -> bool:
+    """GbrImagePlugin's `_accept`, then the header tests of its `_open`
+    (a non-zero size, colour depth 1 or 4, version 2's "GIMP"), without
+    which PIL goes on to the next plugin (a QOI file of width 1 or 2
+    passes the accept test)."""
+    if len(data) < 8:
+        return False
+    size, version = struct.unpack_from(">II", data)
+    if size < 20 or version not in (1, 2):
+        return False
+    if len(data) < 20:
+        return False
+    w, h, depth = struct.unpack_from(">III", data, 8)
+    return (w != 0 and h != 0 and depth in (1, 4)
+            and (version == 1 or data[20:24] == b"GIMP"))
+
+
 def _pnm(data: bytes) -> bool:
     from fluctus_tpu_torch.scene import pnm
     return len(data) >= 2 and data[:1] == b"P" and \
@@ -114,7 +134,7 @@ def _tga(data: bytes) -> bool:
 # the one Image.open tries: Image.preinit's plugins, then Image.init's.
 _PLUGINS = (
     ("BMP", lambda d: d.startswith(b"BM"), "bmp"),
-    ("DIB", lambda d: _i32(d) in (12, 40, 52, 56, 64, 108, 124), "raise"),
+    ("DIB", lambda d: _i32(d) in (12, 40, 52, 56, 64, 108, 124), "dib"),
     ("GIF", lambda d: d.startswith((b"GIF87a", b"GIF89a")), "gif"),
     ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), "jpeg"),
     ("PPM", _pnm, "pnm"),
@@ -125,8 +145,8 @@ _PLUGINS = (
     ("CUR", lambda d: d.startswith(b"\0\0\2\0") and _i16(d, 4) > 0,
      "cur"),
     ("PCX", lambda d: len(d) >= 2 and d[0] == 10 and d[1] in (0, 2, 3, 5),
-     "raise"),
-    ("DCX", lambda d: _i32(d) == 0x3ADE68B1, "raise"),
+     "pcx"),
+    ("DCX", lambda d: _i32(d) == 0x3ADE68B1, "dcx"),
     ("DDS", lambda d: d.startswith(b"DDS "), "dds"),
     ("EPS", lambda d: d.startswith(b"%!PS") or _i32(d) == 0xC6D3D0C5,
      "raise"),
@@ -134,8 +154,7 @@ _PLUGINS = (
     ("FLI", lambda d: len(d) >= 16 and _i16(d, 4) in (0xAF11, 0xAF12)
      and _i16(d, 14) in (0, 3), "raise"),
     ("FTEX", lambda d: d.startswith(b"FTEX"), "raise"),
-    ("GBR", lambda d: len(d) >= 8 and struct.unpack_from(">i", d)[0] >= 20
-     and struct.unpack_from(">i", d, 4)[0] in (1, 2), "raise"),
+    ("GBR", _gbr, "raise"),
     ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1,
      None),
     ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"), None),
@@ -153,22 +172,22 @@ _PLUGINS = (
     ("TIFF", lambda d: d.startswith((b"MM\x00*", b"II*\x00", b"MM*\x00",
                                      b"II\x00*", b"MM\x00+", b"II+\x00")),
      "tiff"),
-    ("MSP", lambda d: d.startswith((b"DanM", b"LinS")), "raise"),
+    ("MSP", lambda d: d.startswith((b"DanM", b"LinS")), "msp"),
     ("PCD", lambda d: d[2048:2052] == b"PCD_" and len(d) >= 2048 + 1539,
      "raise"),
     ("PIXAR", lambda d: d.startswith(b"\200\350\000\000"), "raise"),
-    ("PSD", lambda d: d.startswith(b"8BPS"), "raise"),
-    ("QOI", lambda d: d.startswith(b"qoif"), "raise"),
+    ("PSD", lambda d: d.startswith(b"8BPS"), "psd"),
+    ("QOI", lambda d: d.startswith(b"qoif"), "qoi"),
     ("SGI", lambda d: len(d) >= 2 and struct.unpack_from(">H", d)[0] == 474,
-     "raise"),
+     "sgi"),
     ("SPIDER", _spider, "raise"),
     ("SUN", lambda d: len(d) >= 4 and struct.unpack_from(">I", d)[0]
-     == 0x59A66A95, "raise"),
+     == 0x59A66A95, "sun"),
     ("TGA", _tga, "tga"),
     ("WEBP", _webp, "raise"),
     ("WMF", lambda d: d.startswith((b"\xd7\xcd\xc6\x9a\x00\x00",
                                     b"\x01\x00\x00\x00")), None),
-    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), "raise"),
+    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), "xbm"),
     ("XPM", lambda d: d.startswith(b"/* XPM */"), "raise"),
     ("XVTHUMB", lambda d: d.startswith(b"P7 332"), "raise"),
 )
@@ -184,42 +203,34 @@ def identify(data: bytes) -> tuple[str | None, str | None]:
 
 
 def sniff(data: bytes) -> str | None:
-    """The decoder for `data` ("png", "jpeg", "bmp", "gif", "tiff", "pnm",
-    "tga", "ico", "cur" or "dds"), or None when the JAX package leaves the
-    slot at -1. Raises UnsupportedImage naming a format PIL reads and the
-    port does not."""
+    """The decoder for `data` (a key of `decode`), or None when the JAX
+    package leaves the slot at -1. Raises UnsupportedImage naming a
+    format PIL reads and the port does not."""
     name, outcome = identify(data)
     if outcome == "raise":
         raise UnsupportedImage(f"{name} images are not decoded by the port")
     return outcome
 
 
+# decoder key -> (module under fluctus_tpu_torch.scene, function)
+_DECODERS = {
+    "png": ("png", "decode_png"), "jpeg": ("jpeg", "decode_jpeg"),
+    "bmp": ("bmp", "decode_bmp"), "dib": ("bmp", "decode_dib_file"),
+    "gif": ("gif", "decode_gif"), "tiff": ("tiff", "decode_tiff"),
+    "pnm": ("pnm", "decode_pnm"), "ico": ("ico", "decode_ico"),
+    "cur": ("ico", "decode_cur"), "dds": ("dds", "decode_dds"),
+    "tga": ("tga", "decode_tga"), "pcx": ("pcx", "decode_pcx"),
+    "dcx": ("pcx", "decode_dcx"), "qoi": ("qoi", "decode_qoi"),
+    "sgi": ("sgi", "decode_sgi"), "psd": ("psd", "decode_psd"),
+    "sun": ("sun", "decode_sun"), "msp": ("msp", "decode_msp"),
+    "xbm": ("xbm", "decode_xbm"),
+}
+
+
 def decode(data: bytes, kind: str) -> np.ndarray:
     """Image bytes of format `kind` -> (H, W, 4) uint8 RGBA, top row
     first. The decoders import this module, so they are imported here."""
-    if kind == "png":
-        from fluctus_tpu_torch.scene.png import decode_png
-        return decode_png(data)
-    if kind == "jpeg":
-        from fluctus_tpu_torch.scene.jpeg import decode_jpeg
-        return decode_jpeg(data)
-    if kind == "bmp":
-        from fluctus_tpu_torch.scene.bmp import decode_bmp
-        return decode_bmp(data)
-    if kind == "gif":
-        from fluctus_tpu_torch.scene.gif import decode_gif
-        return decode_gif(data)
-    if kind == "tiff":
-        from fluctus_tpu_torch.scene.tiff import decode_tiff
-        return decode_tiff(data)
-    if kind == "pnm":
-        from fluctus_tpu_torch.scene.pnm import decode_pnm
-        return decode_pnm(data)
-    if kind in ("ico", "cur"):
-        from fluctus_tpu_torch.scene import ico
-        return ico.decode_ico(data) if kind == "ico" else ico.decode_cur(data)
-    if kind == "dds":
-        from fluctus_tpu_torch.scene.dds import decode_dds
-        return decode_dds(data)
-    from fluctus_tpu_torch.scene.tga import decode_tga
-    return decode_tga(data)
+    import importlib
+    module, fn = _DECODERS[kind]
+    mod = importlib.import_module(f"fluctus_tpu_torch.scene.{module}")
+    return getattr(mod, fn)(data)

@@ -24,10 +24,11 @@ import torch
 from fluctus_tpu_torch.accel import bvh as bvh_mod
 from fluctus_tpu_torch.accel.forest import (
     TARGET_TRIS, build_brute_forest, build_host_forest, native_enabled)
+from fluctus_tpu_torch.accel.pack import pack_bvh
 from fluctus_tpu_torch.accel.wide import LEAF_WIDTH, build_wide
 from fluctus_tpu_torch.core.types import (
-    BSDF_ID, BXDF_DIFFUSE, BruteForest, DeviceScene, EnvMap, ForestTables,
-    Geometry, Materials, TextureAtlas, WideBVH)
+    BSDF_ID, BXDF_DIFFUSE, BruteForest, DeviceScene, EnvMap, FlatBVH,
+    ForestTables, Geometry, Materials, PackedBVH, TextureAtlas, WideBVH)
 from fluctus_tpu_torch.scene import envmap as envmap_mod
 from fluctus_tpu_torch.scene.envmap import HostEnvMap
 from fluctus_tpu_torch.scene.loaders.obj import MtlMaterial, load_obj
@@ -175,7 +176,7 @@ class HostScene:
             bsdf_id=np.asarray([BSDF_ID[m.bsdf_type] for m in mats],
                                np.int64))
 
-    def to_device(self, device="cuda") -> DeviceScene:
+    def to_device(self, device="cuda", backend: str = "auto") -> DeviceScene:
         """Upload geometry, the traversal tables, materials, the texture
         atlas and the env map with its tables, or the 1x1 black map when
         none is loaded (reference: CLContext::uploadSceneData,
@@ -196,6 +197,11 @@ class HostScene:
           the card K1 over the full hierarchy is much faster than K2 on
           the same rays, and both return the same hits up to equal-t
           ties, so the port keeps K1 (ROADMAP Queue 3).
+
+        `backend` "jnp" also uploads the binary hierarchy (`bvh`) and
+        "packed" its packed rows (`pbvh`, accel/pack.py) for those walks;
+        every other backend uploads neither (the JAX package uploads
+        both always).
         """
         dev = torch.device(device)
 
@@ -207,7 +213,7 @@ class HostScene:
                         n0=t(self.n0), n1=t(self.n1), n2=t(self.n2),
                         uv0=t(self.uv0), uv1=t(self.uv1), uv2=t(self.uv2),
                         mat_id=t(self.mat_id, torch.int64))
-        wbvh = bforest = ftables = None
+        wbvh = bforest = ftables = bvh = pbvh = None
         if fast_big_eligible(self, dev):
             target = int(os.environ.get("FLUCTUS_BRUTE_TARGET_TRIS",
                                         _brute_auto_target(self.n_tris)))
@@ -224,6 +230,16 @@ class HostScene:
                            root_ref=int(wide.root_ref),
                            depth=int(wide.depth),
                            leaf_width=int(wide.leaves.shape[1]))
+            if backend == "jnp":
+                bvh = FlatBVH(*(t(getattr(self.bvh, f)) for f in (
+                    "node_lo", "node_hi", "node_right", "node_count",
+                    "node_parent", "prim_idx")))
+            elif backend == "packed":
+                pk = pack_bvh(self.bvh, self.v0, self.v1, self.v2)
+                pbvh = PackedBVH(
+                    child_boxes=t(pk.child_boxes),
+                    child_refs=t(pk.child_refs), leaf_tris=t(pk.leaf_tris),
+                    leaf_ids=t(pk.leaf_ids), root_ref=pk.root_ref)
             if (wide.nodes.size + wide.leaves.size) * 4 > FOREST_TABLE_BYTES:
                 if os.environ.get("FLUCTUS_PACKET_FOREST", "0") == "1":
                     raise NotImplementedError(
@@ -251,7 +267,8 @@ class HostScene:
                       prob_table=t(env.prob_table),
                       alias_table=t(env.alias_table))
         return DeviceScene(geom=geom, wbvh=wbvh, materials=mats, atlas=atlas,
-                           envmap=envd, bforest=bforest, ftables=ftables)
+                           envmap=envd, bforest=bforest, ftables=ftables,
+                           bvh=bvh, pbvh=pbvh)
 
 
 def _brute_auto_target(n_tris: int) -> int:

@@ -5,8 +5,9 @@ chip_smoke.py import, the kitchen renders on the CPU with its textures
 through the lockstep and the stream, the luxball renders env-lit from an
 HDR the port writes and two optimizer steps (with their checkpoint) run
 on it, a brute-chunk forest and a treelet forest build and traverse
-under both of their schedulers, and a packet call (backend "pallas")
-runs. The machine with the card has none of those packages."""
+under both of their schedulers, a packet call (backend "pallas") runs,
+the denoised, progressive and preview renders, picking, the saved state,
+the XLA backends ("jnp", "packed", "wide") and the command line run. The machine with the card has none of those packages."""
 import os
 import re
 import subprocess
@@ -116,6 +117,32 @@ diff, hist = run_optimization(e, tgt, steps=2, spp=1, log_every=100,
                               checkpoint_every=1, diff_keys=("kd",
                                                              "env_image"))
 assert len(hist) == 2 and all(h == h for h in hist), hist
+from fluctus_tpu_torch.render import state
+den = driver.render_denoised(e, 1, integrator="lockstep")
+assert den.shape == (8, 8, 3) and bool(torch.isfinite(den).all())
+prog = driver.ProgressiveRender(e, samples_per_launch=1)
+prog.add(1)
+assert prog.add(1) == 2 and torch.equal(
+    prog.image(), driver.lockstep.render(e.scene, e.params, e.cfg, 2))
+assert driver.render_preview(e, 1).shape == (8, 8, 3)
+t, prim = state.pick(s.scene, s.params, s.cfg, 0.5, 0.5)
+assert prim >= 0 and t > 0.0
+sd = tempfile.mkdtemp()
+state.save_state(s.params, "h", state_dir=sd)
+assert torch.equal(state.load_state(e.params, "h", state_dir=sd).camera.pos,
+                   s.params.camera.pos)
+for be in ("jnp", "packed", "wide"):
+    b = driver.create_session("assets/cornell_proxy.obj",
+                              cfg=RenderConfig(width=8, height=8,
+                                               backend=be),
+                              state_dir=None, cache_dir=None, device="cpu")
+    assert driver.render(b, 1).shape == (8, 8, 3), be
+from fluctus_tpu_torch.cli import main as cli_main
+out = os.path.join(tempfile.mkdtemp(), "c.png")
+cli_main(["render", "assets/cornell_proxy.obj", "-x", "8", "-y", "8", "-s",
+          "1", "--area-light", "--cache-dir", "", "-o", out,
+          "--device", "cpu"])
+assert os.path.getsize(out) > 0
 leaked = [m for m in sys.modules
           if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
 assert not leaked, leaked
@@ -179,8 +206,9 @@ print("DECODED-OK")
 
 def test_port_decodes_textures_without_pil(tmp_path):
     """The image decoders (PNG, JPEG baseline and progressive with its g++
-    build, BMP, TGA, GIF, TIFF, PPM, DDS with its g++ build, ICO) run
-    with PIL unimportable and give the rows PIL gives."""
+    build, BMP, TGA, GIF, TIFF, PPM, DDS with its g++ build, ICO, PCX,
+    QOI, SGI, DIB, MSP, XBM) run with PIL unimportable and give the rows
+    PIL gives."""
     import numpy as np
     from PIL import Image
     g = np.random.default_rng(0)
@@ -199,7 +227,11 @@ def test_port_decodes_textures_without_pil(tmp_path):
                          ("e.jpg", img, dict(progressive=True)),
                          ("f.gif", img.quantize(7), dict(interlace=True)),
                          ("g.tif", img, dict(compression="tiff_lzw")),
-                         ("h.ppm", img, {})):
+                         ("h.ppm", img, {}),
+                         ("k.pcx", img, {}), ("l.qoi", img, {}),
+                         ("m.sgi", img, {}), ("n.dib", img.quantize(9), {}),
+                         ("o.msp", img.convert("1"), {}),
+                         ("p.xbm", img.convert("1"), {})):
         im.save(tmp_path / name, **kw)
         rgba = np.asarray(Image.open(tmp_path / name).convert("RGBA"))
         np.save(tmp_path / f"{name}.npy", np.ascontiguousarray(rgba[::-1]))

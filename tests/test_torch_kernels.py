@@ -759,3 +759,65 @@ def test_cached_and_numpy_hierarchies_through_k1(card, tmp_path,
     assert torch.equal(k.prim, p.prim) and torch.equal(k.t, p.t)
     assert torch.equal(k.u, p.u) and torch.equal(k.v, p.v)
     assert torch.equal(ka, pa)
+
+
+def _kitchen_session(device, size=32, backend="auto"):
+    from fluctus_tpu_torch.core.types import RenderConfig
+    from fluctus_tpu_torch.render import driver
+    cfg = RenderConfig(width=size, height=size, max_bounces=2,
+                       use_env_map=False, use_area_light=True,
+                       backend=backend)
+    return driver.create_session("assets/kitchen_proxy.obj", cfg=cfg,
+                                 state_dir="data/states", auto_frame=False,
+                                 cache_dir=None, device=device)
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_aux_buffers_on_the_card_equal_plain(card, backend):
+    """render_aux through K1 (one closest launch a tile) or K4 against the
+    same buffers from the plain walk (backend "wide") on the card: depth
+    at rtol 1e-6, albedo and normal bit-equal except where the two
+    stopped on different triangles at equal t (K4's tie rule is not
+    K1's)."""
+    import dataclasses
+    from fluctus_tpu_torch.integrators import common
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    from fluctus_tpu_torch.render import driver
+    s = _kitchen_session(card, backend=backend)
+    mod = tp if backend == "pallas" else ts
+    mod.reset_counts()
+    got = driver.render_aux(s)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES["closest"] >= 1 and mod.LAUNCHES["any"] == 0
+    plain = dataclasses.replace(s, cfg=s.cfg.replace(backend="wide"))
+    want = driver.render_aux(plain)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0.0)
+    tie = ((got[0] != want[0]) | (got[1] != want[1])).any(-1)
+    assert float(tie.float().mean()) < 0.01
+    assert torch.equal(got[0][~tie], want[0][~tie])
+    assert torch.equal(got[1][~tie], want[1][~tie])
+    if backend == "auto":
+        assert not bool(tie.any())
+    assert common.resolve_backend(backend) == s.cfg.backend
+
+
+def test_pick_one_ray_through_k1(card):
+    """pick is a batch of one ray: K1 takes B = 1 and agrees with the
+    plain walk; pick_dof_depth sets the focal distance."""
+    from fluctus_tpu_torch.render import state
+    s = _kitchen_session(card)
+    ts.reset_counts()
+    t, prim = state.pick(s.scene, s.params, s.cfg, 0.5, 0.5)
+    assert ts.LAUNCHES["closest"] == 1 and prim >= 0
+    cpu = _kitchen_session("cpu")
+    t_cpu, prim_cpu = state.pick(cpu.scene, cpu.params, cpu.cfg, 0.5, 0.5)
+    assert prim == prim_cpu and t == pytest.approx(t_cpu, rel=1e-6)
+    for b in (1, 3, 13):
+        o = s.params.camera.pos.expand(b, 3).contiguous()
+        d = torch.nn.functional.normalize(torch.randn(
+            b, 3, generator=torch.Generator().manual_seed(b)), dim=1).to(card)
+        k = ts.traverse_kernel(s.scene.wbvh, o, d, 3.4e38, any_hit=False)
+        p, _ = ts.traverse_plain(s.scene.wbvh, o, d, 3.4e38, any_hit=False)
+        assert torch.equal(k.prim, p.prim) and torch.equal(k.t, p.t)
+    p2 = state.pick_dof_depth(s.scene, s.params, s.cfg)
+    assert float(p2.camera.focal_dist) == np.float32(t)

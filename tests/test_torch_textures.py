@@ -877,6 +877,147 @@ def test_grey_ramp_bmp_and_one_bit_rle_tga(tmp_path, name):
         assert_same(path)
 
 
+# ------------------------------------------------------------ raster formats
+
+def _pil_bytes(im, fmt, **kw):
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def _pcx_planes(idx, planes, pal, stride_pad=0):
+    """A PCX of `planes` one-bit planes (EGA style), rows RLE-coded as
+    PIL codes them, the stride made even (PIL's rule) plus `stride_pad`."""
+    h, w = idx.shape
+    stride = (w + 7) // 8
+    stride += stride % 2 + stride_pad
+    head = bytearray(128)
+    head[0:4] = bytes([10, 5, 1, 1])
+    head[4:12] = struct.pack("<HHHH", 0, 0, w - 1, h - 1)
+    head[16:64] = np.asarray(pal, np.uint8).tobytes()
+    head[65] = planes
+    head[66:68] = struct.pack("<H", stride)
+    body = bytearray()
+    for y in range(h):
+        for k in range(planes):
+            row = np.zeros(stride, np.uint8)
+            bits = np.packbits(((idx[y] >> k) & 1).astype(np.uint8))
+            row[:len(bits)] = bits
+            for b in row:
+                body += bytes([0xC1, b]) if b >= 0xC0 else bytes([b])
+    return bytes(head + body)
+
+
+def _raster_cases():
+    g = np.random.default_rng(21)
+    cases = {}
+    for h, w in ((9, 13), (16, 16), (3, 2)):
+        im = Image.fromarray(smooth(h, w))
+        rgba = np.asarray(im.convert("RGBA")).copy()
+        rgba[..., 3] = g.integers(0, 256, (h, w))
+        rgba[::2, 1::3] = rgba[0, 0]
+        for mode in ("1", "L", "P", "RGB"):
+            x = im.quantize(29) if mode == "P" else im.convert(mode)
+            cases[f"PCX {mode} {w}x{h}"] = _pil_bytes(x, "PCX")
+            cases[f"DIB {mode} {w}x{h}"] = _pil_bytes(x, "DIB")
+        cases[f"DIB RGBA {w}x{h}"] = _pil_bytes(im.convert("RGBA"), "DIB")
+        cases[f"QOI RGB {w}x{h}"] = _pil_bytes(im, "QOI")
+        cases[f"QOI RGBA {w}x{h}"] = _pil_bytes(Image.fromarray(rgba),
+                                                "QOI")
+        for mode in ("L", "RGB", "RGBA"):
+            src = im.convert(mode)
+            if mode == "RGBA":
+                src = Image.fromarray(rgba)
+            for bpc in (1, 2):
+                cases[f"SGI {mode} {8 * bpc}-bit {w}x{h}"] = _pil_bytes(
+                    src, "SGI", bpc=bpc)
+                px = np.asarray(src).reshape(h, w, -1)[::-1].astype(
+                    np.int64) * (257 if bpc == 2 else 1)
+                cases[f"SGI RLE {mode} {8 * bpc}-bit {w}x{h}"] = \
+                    fixtures.sgi_bytes(px, bpc, rle=True)
+        cases[f"MSP 1 {w}x{h}"] = _pil_bytes(im.convert("1"), "MSP")
+        bits = np.asarray(im.convert("1")).copy()
+        bits[0] = True                       # a blank (all-white) row
+        cases[f"MSP 2 {w}x{h}"] = fixtures.msp_bytes(bits, 2)
+        cases[f"XBM {w}x{h}"] = _pil_bytes(im.convert("1"), "XBM")
+        cases[f"XBM hot spot {w}x{h}"] = _pil_bytes(
+            im.convert("1"), "XBM", hotspot=(1, 2))
+        for mode in fixtures.PSD_MODES:
+            for rle in (False, True):
+                cases[f"PSD {mode} {'RLE' if rle else 'raw'} {w}x{h}"] = \
+                    fixtures.psd_bytes(mode, w, h, rle, seed=h + w)
+        for depth in (1, 4, 8, 24, 32):
+            for rle in (False, True):
+                tag = "RLE" if rle else "raw"
+                cases[f"Sun {depth}-bit {tag} {w}x{h}"] = \
+                    fixtures.sun_raster_bytes(depth, w, h, rle, seed=w)
+                if depth in (4, 8):
+                    cases[f"Sun {depth}-bit map {tag} {w}x{h}"] = \
+                        fixtures.sun_raster_bytes(
+                            depth, w, h, rle, seed=h,
+                            colors=9 if depth == 4 else 200)
+            if depth >= 24:
+                cases[f"Sun {depth}-bit RGB order {w}x{h}"] = \
+                    fixtures.sun_raster_bytes(depth, w, h, False, seed=3,
+                                              rgb_order=True)
+    idx = g.integers(0, 16, (11, 21))
+    pal = g.integers(0, 256, (16, 3))
+    cases["PCX 4 planes"] = _pcx_planes(idx, 4, pal)
+    cases["PCX 4 planes, padded stride"] = _pcx_planes(idx, 4, pal, 2)
+    cases["PCX 2 planes"] = _pcx_planes(idx & 3, 2, pal)
+    grey = Image.fromarray(smooth(12, 10)[..., 0])
+    ramp = _pil_bytes(grey.convert("P"), "PCX")
+    cases["PCX 8-bit, grey-ramp palette"] = ramp[:-768] + bytes(
+        np.repeat(np.arange(256, dtype=np.uint8), 3))
+    frame = _pil_bytes(Image.fromarray(smooth(10, 14)), "PCX")
+    cases["DCX, one frame"] = (struct.pack("<II", 0x3ADE68B1, 12)
+                               + struct.pack("<I", 0) + frame)
+    for fmt in fixtures.RASTER_FORMATS:
+        cases[f"fixtures.raster_bytes {fmt}"] = fixtures.raster_bytes(
+            fmt, 37, 23, seed=5)
+    cases["DCX, two frames"] = (
+        struct.pack("<III", 0x3ADE68B1, 16, 16 + len(frame))
+        + struct.pack("<I", 0) + frame + _pil_bytes(grey, "PCX"))
+    return cases
+
+
+RASTER_CASES = _raster_cases()
+
+
+@pytest.mark.parametrize("name", list(RASTER_CASES))
+def test_raster_formats_equal_pil(tmp_path, name):
+    """DIB, PCX, DCX, QOI, SGI (raw and RLE, 8 and 16 bits), PSD (raw and
+    PackBits), Sun raster (raw and RLE, with and without a colour map),
+    MSP (versions 1 and 2) and XBM: the port's RGBA equals PIL's byte for
+    byte."""
+    path = tmp_path / "t.img"
+    path.write_bytes(RASTER_CASES[name])
+    assert_same(path)
+
+
+@pytest.mark.parametrize("name", ["PCX RGB 16x16", "QOI RGBA 16x16",
+                                  "SGI RLE RGB 8-bit 16x16",
+                                  "PSD RGB RLE 16x16",
+                                  "Sun 8-bit map RLE 16x16", "MSP 2 16x16",
+                                  "XBM 16x16", "DCX, one frame"])
+def test_raster_formats_truncated_are_minus_one(tmp_path, name):
+    data = RASTER_CASES[name]
+    path = tmp_path / "t.img"
+    path.write_bytes(data[:len(data) * 2 // 3])
+    assert both(path) == [-1, -1]
+
+
+def test_psd_cmyk_loads_in_jax_and_raises_in_port(tmp_path):
+    """A CMYK composite (colour mode 4): PIL reads it, the port names it."""
+    data = bytearray(fixtures.psd_bytes("RGBA", 6, 5, False, seed=1))
+    data[24:26] = struct.pack(">H", 4)
+    path = tmp_path / "t.psd"
+    path.write_bytes(bytes(data))
+    assert JaxPool().try_import(str(path), "t") == 0
+    with pytest.raises(UnsupportedImage, match="PSD CMYK"):
+        TexturePool().try_import(str(path), "t")
+
+
 # ------------------------------------------------------------ failures
 
 @pytest.mark.parametrize("fmt", ["png", "jpg", "bmp", "tga"])
@@ -900,6 +1041,10 @@ def _unported():
              "ppm": ("ppm", dict(format="PPM"), True),
              "ico": ("ico", dict(format="ICO"), True),
              "dds": ("dds", dict(format="DDS"), True),
+             "pcx": ("pcx", dict(format="PCX"), True),
+             "dib": ("dib", dict(format="DIB"), True),
+             "qoi": ("qoi", dict(format="QOI"), True),
+             "sgi": ("sgi", dict(format="SGI"), True),
              "jpeg in tiff": ("tif", dict(format="TIFF",
                                           compression="jpeg"), False)}
     if features.check("webp"):
@@ -979,7 +1124,8 @@ def test_signature_table_copies_pil():
     copy, on each plugin's magic and on seeded noise (16-byte prefixes,
     as Image.open reads): the same verdict, except where the port's row
     adds the `_open` test that lets PIL go on to the next plugin (CUR and
-    ICO with an empty directory, PPM magics PIL has no mode for)."""
+    ICO with an empty directory, PPM magics PIL has no mode for, GBR
+    headers its `_open` refuses)."""
     from PIL import Image as PILImage
     PILImage.init()
     g = np.random.default_rng(4)
@@ -991,6 +1137,7 @@ def test_signature_table_copies_pil():
                for k in (0, 1, 0x0A, 0x1C, 0x50, 0xFF) for _ in range(40)]
     rows = {name: test for name, test, _ in imageformat._PLUGINS}
     assert set(rows) == set(PILImage.ID)
+    opened = ("CUR", "ICO", "PPM", "GBR")
     for name in PILImage.ID:
         accept = PILImage.OPEN[name][1]
         if accept is None:
@@ -998,7 +1145,7 @@ def test_signature_table_copies_pil():
         for data in probes:
             want = bool(accept(data))
             got = rows[name](data)
-            if name in ("CUR", "ICO", "PPM") and want and not got:
+            if name in opened and want and not got:
                 continue
             assert got == want, (name, data)
 

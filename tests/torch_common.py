@@ -11,7 +11,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def scene_arrays(scene) -> dict:
     """JAX DeviceScene -> the dotted-key dict of NumPy arrays that
-    fluctus_tpu_torch.convert.scene_from_numpy takes."""
+    fluctus_tpu_torch.convert.scene_from_numpy takes (the binary and packed
+    tables of the XLA backends included)."""
     out = {}
     for group in ("geom", "materials", "atlas", "envmap"):
         rec = getattr(scene, group)
@@ -22,6 +23,11 @@ def scene_arrays(scene) -> dict:
                 "wbvh.leaves": np.asarray(w.leaves),
                 "wbvh.root_ref": w.root_ref, "wbvh.depth": w.depth,
                 "wbvh.leaf_width": w.leaf_width})
+    for name in ("bvh", "pbvh"):
+        rec = getattr(scene, name, None)
+        if rec is not None:
+            for f in dataclasses.fields(rec):
+                out[f"{name}.{f.name}"] = np.asarray(getattr(rec, f.name))
     return out
 
 
