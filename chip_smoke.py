@@ -98,8 +98,23 @@ the 2-bounce preview (progressive); the kitchen's centre pick, one K1
 launch of one ray, the focus and the saved state (pick); and the command
 line, `python3 -m fluctus_tpu_torch.cli` render (plain, --hdr, --denoise,
 --progressive), benchmark, optimize and convert on the kitchen, and
-render under the backends jnp, packed and wide against auto (cli). Every
-other session passes cache_dir=None. Each phase prints one line with its
+render under the backends jnp, packed and wide against auto (cli). The
+packet forest: the conference under FLUCTUS_PACKET_FOREST=1 (its set-up
+seconds by step and its 8 chunks: session-pforest), both forest walks,
+K1's and K4's, one launch a chunk, bit-equal to the same loops over
+their plain versions on 65,536 rays and against K1 over the full
+hierarchy up to ties (pforest-check), timed with their bounds
+(pforest-time), the conference golden and the 512x512 frame through each
+forest only (frame-pforest-k1, frame-pforest-k4). Parallel: the env-lit
+luxball at 512x512, 8 spp on a 4-shard mesh over the card,
+render_sharded and render_stream_sharded against the single-device
+renders, the spawn counters, grad_step with and without the mesh and
+grad_step_stream against grad_step at minibatch 4,096, and
+scaling_benchmark at 1, 2 and 4 shards (parallel, parallel-scaling;
+shards share the card, so efficiency is no scaling figure); then two
+processes in a gloo group, one shard each on the card, against the
+in-process 2-shard mesh (parallel-ranks). Every other session passes
+cache_dir=None. Each phase prints one line with its
 wall time; the last three lines are the kernels record, the card and the
 device record.
 Any failed check raises, so the script exits non-zero. It needs a CUDA
@@ -2919,9 +2934,11 @@ def phase_cli(card: str, device: str = "cuda", size: int = 512,
 
 def phase_raster_formats() -> dict:
     """One 512x512 file of each of the raster formats PCX, DCX, QOI, SGI,
-    MSP, XBM, DIB, PSD and Sun raster (fixtures.raster_bytes, psd_bytes,
-    sun_raster_bytes; the card's machine has no PIL, so equality with PIL
-    is the CPU tests' part) through the texture dispatch. Returns {format: decode seconds}."""
+    MSP, XBM, DIB, PSD (RGB, RGBA, CMYK, Lab), Sun raster and the TIFF
+    layouts planar, BigTIFF CMYK and float (fixtures.raster_bytes,
+    psd_bytes, sun_raster_bytes, tiff_bytes; the card's machine has no
+    PIL, so equality with PIL is the CPU tests' part) through the texture
+    dispatch. Returns {format: decode seconds}."""
     from fluctus_tpu_torch import fixtures
     from fluctus_tpu_torch.scene import imageformat
 
@@ -2930,6 +2947,20 @@ def phase_raster_formats() -> dict:
              for f in fixtures.RASTER_FORMATS}
     files["psd"] = fixtures.psd_bytes("RGB", 512, 512, False, seed=3)
     files["psd-rle"] = fixtures.psd_bytes("RGBA", 512, 512, True, seed=3)
+    files["psd-cmyk"] = fixtures.psd_bytes("CMYK", 512, 512, True, seed=3)
+    files["psd-lab"] = fixtures.psd_bytes("LAB", 512, 512, False, seed=3)
+    import numpy as np
+    import zlib
+    g = np.random.default_rng(3)
+    px = g.integers(0, 256, (512, 512, 4)).astype(np.uint8)
+    files["tiff-planar"] = fixtures.tiff_bytes(
+        512, 512, 8, 3, 2, [zlib.compress(px[:, :, k].tobytes())
+                            for k in range(3)], comp=8, planar=2)
+    files["bigtiff-cmyk"] = fixtures.tiff_bytes(
+        512, 512, 8, 4, 5, [px.tobytes()], bigtiff=True)
+    files["tiff-float"] = fixtures.tiff_bytes(
+        512, 512, 32, 1, 1, [(px[..., 0].astype(np.float32) * 1.5 - 20)
+                             .tobytes()], fmt=[3])
     files["sun"] = fixtures.sun_raster_bytes(24, 512, 512, False, seed=3)
     files["sun-rle"] = fixtures.sun_raster_bytes(8, 512, 512, True, seed=3,
                                                  colors=256)
@@ -2943,6 +2974,413 @@ def phase_raster_formats() -> dict:
     say("formats", t0, "512x512 decodes: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in secs.items()))
     return secs
+
+
+# ------------------------------------------------------------ packet forest
+
+PF_RAYS = 1 << 16      # rays of each forest call held against plain
+
+
+def pforest_bound(chunks, n_rays, any_hit, stats):
+    """Least time for one forest call (one launch a chunk): bytes (every
+    chunk's real rows once, and each launch's rays in and hits out) over
+    HBM bandwidth, or the slab and Moller tests that the rays' visits in
+    all chunks need over the f32 instruction rate: (ms, what binds)."""
+    import torch
+    rows = 0
+    for c in chunks:
+        rows += int(torch.isfinite(c.nodes[:, 0:48:6]).any(-1).sum()) \
+            * NODE_ROW_BYTES
+        ids = c.leaves[..., 9].contiguous().view(torch.int32)
+        rows += int((ids >= 0).any(-1).sum()) * c.leaf_width * 10 * 4
+    io = len(chunks) * n_rays * (28 + (1 if any_hit else 16))
+    ops = (stats["child_tests"] * OPS_PER_CHILD
+           + stats["tri_tests"] * OPS_PER_TRI)
+    return larger((rows + io) / HBM_BYTES_PER_S * 1e3,
+                  ops / F32_INSTR_PER_S * 1e3)
+
+
+def forest_stats(chunks, maps, rays, any_hit):
+    """The plain walk's visit counts over the forest, with the t_max each
+    chunk gets in the forest walk (bound_ms's stats)."""
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    st: dict = {}
+    if any_hit:
+        ts._forest_any(lambda wb, o, d, t: ts.traverse_plain(
+            wb, o, d, t, True, stats=st)[1], chunks, *rays)
+    else:
+        ts._forest_closest(lambda wb, o, d, t: ts.traverse_plain(
+            wb, o, d, t, False, stats=st)[0], chunks, maps, *rays)
+    return st
+
+
+def phase_pforest_check(sess, rays) -> dict:
+    """K1's and K4's forest walks (one launch a chunk) against the same
+    loops over their plain versions, both forms, on the conference's
+    rays (K4's sorted as the integrator sorts them, by the whole scene's
+    bounds); then the K1 forest's hits against K1 over the full
+    hierarchy, which differ only where two triangles are hit at equal t
+    (to T_REL_TOL). Returns ({kernel: (max abs t error, flag
+    mismatches)}, {(kernel, form): plain ms of this one call}); K4's plain
+    walk takes half a minute a call, so it runs once."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+
+    ch, maps, w = sess.scene.wforest, sess.scene.wforest_maps, sess.scene.wbvh
+    o, d, t_c, o_s, d_s, t_s = rays
+    walks = {
+        "K1": (lambda *r: ts.traverse_closest_forest(ch, maps, *r),
+               lambda *r: ts.closest_forest_plain(ch, maps, *r),
+               lambda *r: ts.traverse_any_forest(ch, *r),
+               lambda *r: ts.any_forest_plain(ch, *r), lambda *r: r),
+        "K4": (lambda *r: tp.traverse_closest_forest(ch, maps, *r),
+               lambda *r: tp.traverse_closest_forest(
+                   ch, maps, *r, launch=tp.packet_plain),
+               lambda *r: tp.traverse_any_forest(ch, *r),
+               lambda *r: tp.traverse_any_forest(
+                   ch, *r, launch=tp.packet_plain),
+               lambda *r: sorted_by_ray_sort(w, *r))}
+    out, plain_ms = {}, {}
+
+    def timed(fn, *r):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(*r)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    for name, (kc_f, pc_f, ka_f, pa_f, order) in walks.items():
+        t0 = time.perf_counter()
+        rc, ra = order(o, d, t_c), order(o_s, d_s, t_s)
+        kc, ka = kc_f(*rc), ka_f(*ra)
+        pc, plain_ms[(name, "closest")] = timed(pc_f, *rc)
+        pa, plain_ms[(name, "any")] = timed(pa_f, *ra)
+        equal = all(bool(torch.equal(a, b)) for a, b in zip(kc, pc))
+        flag_mis = int((ka != pa).sum())
+        t_abs = float((kc.t - pc.t).abs().max())
+        say("pforest-check", t0,
+            f"{name} forest ({len(ch)} launches a call) vs the same loop "
+            f"over its plain version: closest {rc[0].shape[0]} rays, "
+            f"{int((kc.prim >= 0).sum())} hits, t/prim/u/v bit-equal "
+            f"{equal}; any-hit {ra[0].shape[0]} rays, {int(ka.sum())} "
+            f"blocked, flag mismatches {flag_mis}")
+        check(equal, f"the {name} forest's closest hits differ from plain")
+        check(flag_mis == 0, f"the {name} forest's flags differ from plain")
+        out[name] = (t_abs, flag_mis)
+    t0 = time.perf_counter()
+    kc = ts.traverse_closest_forest(ch, maps, o, d, t_c)
+    full = ts.traverse_kernel(w, o, d, t_c, any_hit=False)
+    diff = kc.prim != full.prim
+    ties = diff & (kc.t == full.t)
+    near = diff & ~ties & ((kc.t - full.t).abs()
+                           <= T_REL_TOL * full.t.abs())
+    other = int((diff & ~ties & ~near).sum())
+    same_hit = bool(torch.equal(kc.prim >= 0, full.prim >= 0))
+    say("pforest-check", t0,
+        f"K1 forest vs K1 over the full hierarchy, same {o.shape[0]} rays: "
+        f"prim mismatches {other} outside ties, {int(ties.sum())} tie rays "
+        f"at equal t, {int(near.sum())} at t within {T_REL_TOL} relative "
+        f"(triangles sharing an edge, found through other boxes); the same "
+        f"rays hit {same_hit}")
+    check(other == 0 and same_hit,
+          "the packet forest and the full hierarchy disagree")
+    return out, plain_ms
+
+
+def phase_pforest_time(sess, rays, plain_ms: dict) -> dict:
+    """Per forest call on PF_RAYS rays: kernel ms (one launch a chunk),
+    plain ms (pforest-check's call), and the bound (pforest_bound on the
+    plain walk's counts of the same rays), closest and any-hit, for K1
+    and for K4 (rays sorted). {(kernel, form): dict}."""
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.timing import time_launches
+
+    ch, maps, w = sess.scene.wforest, sess.scene.wforest_maps, sess.scene.wbvh
+    o, d, t_c, o_s, d_s, t_s = rays
+    out = {}
+    for form, r in (("closest", (o, d, t_c)), ("any", (o_s, d_s, t_s))):
+        anyh = form == "any"
+        t0 = time.perf_counter()
+        b_ms, b_by = pforest_bound(ch, r[0].shape[0], anyh,
+                                   forest_stats(ch, maps, r, anyh))
+        rs = sorted_by_ray_sort(w, *r)
+        if anyh:
+            runs = {"K1": lambda: ts.traverse_any_forest(ch, *r),
+                    "K4": lambda: tp.traverse_any_forest(ch, *rs)}
+        else:
+            runs = {"K1": lambda: ts.traverse_closest_forest(ch, maps, *r),
+                    "K4": lambda: tp.traverse_closest_forest(ch, maps, *rs)}
+        for k, run_k in runs.items():
+            ms = (time_launches(run_k, 5, 1) + time_launches(run_k, 5, 1)) / 2
+            p_ms = plain_ms[(k, form)]
+            out[(k, form)] = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by)
+            say("pforest-time", t0,
+                f"{k} forest {form}: {ms:.3f} ms per {r[0].shape[0]}-ray "
+                f"call of {len(ch)} launches (plain {p_ms:.1f} ms), bound "
+                f"{b_ms:.4f} ms by {b_by} on the plain walk's counts")
+    return out
+
+
+def phase_packet_forest(card: str) -> dict:
+    """The conference under FLUCTUS_PACKET_FOREST=1: the session (SBVH
+    hierarchy, 8-wide collapse and the packet forest of 4 MB chunks
+    beside it, since its wide tables pass FOREST_TABLE_BYTES) with its
+    set-up seconds by step; both forest walks held against their plain
+    versions and the full hierarchy (pforest-check) and timed
+    (pforest-time); the conference golden at 64x64 and the 512x512
+    6-bounce 4 spp lockstep frame through the K1 forest ("auto") and the
+    K4 forest ("pallas"), each through that kernel only, one launch a
+    chunk. Returns the launches, the errors and the times."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.scene import scene as scene_mod
+
+    t0 = time.perf_counter()
+    secs: dict = {}
+    with env(FLUCTUS_PACKET_FOREST="1"), \
+            timed_calls(driver, ("load_scene",), secs), \
+            timed_calls(scene_mod.HostScene, ("build_bvh",), secs), \
+            timed_calls(scene_mod, ("build_wide", "build_wide_forest",
+                                    "pad_forest"), secs, sync=True):
+        sess = driver.create_session(CONFERENCE, cfg=conference_cfg(512, 512),
+                                     cache_dir=None, state_dir=STATES,
+                                     auto_frame=False, device="cuda")
+    t_sess = time.perf_counter() - t0
+    s_ = sess.scene
+    ch = s_.wforest
+    check(len(ch) > 1 and s_.wbvh is not None and s_.bforest is None
+          and s_.ftables is None, "the session holds no packet forest")
+    check(all(c.root_ref == 0 for c in ch), "a forest chunk root is a leaf")
+    mb = sum((c.nodes.numel() + c.leaves.numel()) * 4 for c in ch) / 1e6
+    say("session-pforest", t0,
+        f"conference {sess.host_scene.n_tris} tris under "
+        f"FLUCTUS_PACKET_FOREST=1: session {t_sess:.2f} s (load "
+        f"{secs['load_scene']:.2f}, SBVH build {secs['build_bvh']:.2f}, "
+        f"8-wide collapse {secs['build_wide']:.2f}, forest build "
+        f"{secs['build_wide_forest']:.2f}, forest pad + upload "
+        f"{secs['pad_forest']:.2f}, the rest "
+        f"{t_sess - sum(secs.values()):.2f} s); {len(ch)} chunks at "
+        f"{scene_mod.FOREST_CHUNK_BYTES >> 20} MB, each padded to nodes "
+        f"{tuple(ch[0].nodes.shape)}, leaves {tuple(ch[0].leaves.shape)} "
+        f"({mb:.1f} MB), depths {[c.depth for c in ch]}; hierarchy nodes "
+        f"{tuple(s_.wbvh.nodes.shape)}, depth {s_.wbvh.depth}")
+    rays = brute_rays(sess, PF_RAYS, seed=11)
+    err, plain_ms = phase_pforest_check(sess, rays)
+    times = phase_pforest_time(sess, rays, plain_ms)
+    del rays
+    launches = {}
+    for backend, kernel, mod in (("auto", "K1", ts), ("pallas", "K4", tp)):
+        bs = dataclasses.replace(sess, cfg=sess.cfg.replace(backend=backend))
+        phase_golden_only(dataclasses.replace(bs, cfg=bs.cfg.replace(
+            width=64, height=64)), "conference", 4, kernel)
+        t0 = time.perf_counter()
+        with counted_calls(mod, ("traverse_closest_forest",
+                                 "traverse_any_forest")) as calls:
+            secs_f, mine = phase_frame_only(
+                bs, 4, card, f"frame-pforest-{kernel.lower()}", kernel,
+                f"conference, FLUCTUS_PACKET_FOREST=1, backend {backend},")
+        per = {"closest": calls["traverse_closest_forest"] * len(ch),
+               "any": calls["traverse_any_forest"] * len(ch)}
+        say(f"frame-pforest-{kernel.lower()}", t0,
+            f"{kernel} forest calls: {calls['traverse_closest_forest']} "
+            f"closest, {calls['traverse_any_forest']} any-hit; launches "
+            f"{mine} = one a chunk ({len(ch)} chunks)")
+        check(mine == per, f"the {kernel} forest frame made other than one "
+              "launch a chunk")
+        launches[kernel] = mine
+        launches[kernel + "_secs"] = secs_f
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": err, "times": times,
+            "chunks": len(ch), "session": t_sess}
+
+
+# ------------------------------------------------------------ parallel
+
+PAR_SHARDS = 4
+PAR_SPP = 8
+PAR_SCALING_SPP = 2
+PAR_GRAD_RAYS = 4096    # the grad-step cell's minibatch
+PAR_POOL = 1024
+
+
+def phase_parallel(esess, card: str, device: str = "cuda") -> dict:
+    """parallel/ on a PAR_SHARDS-shard mesh over one device (the shards
+    share it and run one after another): render_sharded and
+    render_stream_sharded against the single-device lockstep.render and
+    render_stream (rtol 1e-5 / atol 1e-6; the lockstep stripes should be
+    bit-equal), the per-shard spawn counters, grad_step with the mesh
+    against without and grad_step_stream against grad_step on kd and
+    env_strength at the grad-step cell's minibatch, and scaling_benchmark
+    at 1, 2 and 4 shards in both integrators. Returns K1's launches over
+    the phase's sharded renders and steps, and the scaling records."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.integrators import lockstep, wavefront
+    from fluctus_tpu_torch.parallel import distributed, mesh as pmesh
+    from fluctus_tpu_torch.render import optimize
+
+    s_, p_, c_ = esess.scene, esess.params, esess.cfg
+    dev = torch.device(device)
+    m = pmesh.make_mesh([dev] * PAR_SHARDS)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    what = (f"{c_.width}x{c_.height}, {c_.max_bounces} bounces, {PAR_SPP} "
+            f"spp, {PAR_SHARDS} shards sharing {device}")
+    t0 = time.perf_counter()
+    single = lockstep.render(s_, p_, c_, PAR_SPP)
+    sync()
+    t_single = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    reset_counts()
+    img = pmesh.render_sharded(s_, p_, c_, PAR_SPP, m)
+    sync()
+    k1 = launch_counts()["K1"]
+    t_sh = time.perf_counter() - t1
+    bit = bool(torch.equal(img, single))
+    diff = float((img - single).abs().max())
+    say("parallel", t0,
+        f"luxball env-lit {what}: render_sharded {t_sh:.3f} s against "
+        f"lockstep.render {t_single:.3f} s; bit-equal {bit}, max abs diff "
+        f"{diff:.3e}, K1 {k1}")
+    check(np.allclose(img.cpu().numpy(), single.cpu().numpy(), rtol=1e-5,
+                      atol=1e-6), "render_sharded differs from render")
+    t0 = time.perf_counter()
+    ref, _ = wavefront.render_stream(s_, p_, c_, PAR_SPP)
+    sync()
+    t_single = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    reset_counts()
+    img, counters = pmesh.render_stream_sharded(s_, p_, c_, PAR_SPP, m)
+    sync()
+    k1s = launch_counts()["K1"]
+    t_sh = time.perf_counter() - t1
+    n_loc = -(-c_.width * c_.height // m.size)
+    spawns = [int(x) for x in counters[:, 0]]
+    diff = float((img - ref).abs().max())
+    say("parallel", t0,
+        f"render_stream_sharded {t_sh:.3f} s against render_stream "
+        f"{t_single:.3f} s: max abs diff {diff:.3e}; per-shard [spawns, "
+        f"extension, shadow] {counters.tolist()}, spawns sum {sum(spawns)} "
+        f"(n_loc {n_loc} x {m.size} x {PAR_SPP} = "
+        f"{n_loc * m.size * PAR_SPP}); K1 {k1s}")
+    check(np.allclose(img.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5,
+                      atol=1e-6), "render_stream_sharded differs")
+    check(sum(spawns) == n_loc * m.size * PAR_SPP, "spawn counters")
+    for f in k1:
+        k1[f] += k1s[f]
+
+    t0 = time.perf_counter()
+    n_pix = c_.width * c_.height
+    pix = optimize.stratified_pixels(n_pix, PAR_GRAD_RAYS, 0, dev)
+    tgt = torch.full((pix.shape[0], 3), 0.1, device=dev)
+    diff_p = {k: optimize._DIFF_GETTERS[k](s_, p_)
+              for k in ("kd", "env_strength")}
+    l1, n1 = pmesh.grad_step(diff_p, s_, p_, c_, pix, 0, tgt)
+    reset_counts()
+    l4, n4 = pmesh.grad_step(diff_p, s_, p_, c_, pix, 0, tgt, mesh=m)
+    n_seg = wavefront.plan_stream_segments(
+        s_, p_, c_, pix[:PAR_GRAD_RAYS // m.size], 0, PAR_POOL,
+        deferred=True)[0] + 4
+    ls, ns, nd = pmesh.grad_step_stream(diff_p, s_, p_, c_, pix, 0, tgt,
+                                        PAR_POOL, n_seg, m)
+    sync()
+    kg = launch_counts()["K1"]
+    for f in k1:
+        k1[f] += kg[f]
+
+    def worst(a, b):
+        return max(float(((a[k] - b[k]).abs() / (1e-7 + b[k].abs())).max())
+                   for k in a)
+    say("parallel", t0,
+        f"grad_step on {PAR_GRAD_RAYS} stratified rays (kd, env_strength): "
+        f"loss {float(l1):.8f} without a mesh, {float(l4):.8f} with "
+        f"({m.size} shards), leaves' max rel diff {worst(n4, n1):.3e}; "
+        f"grad_step_stream ({n_seg} segments of a {PAR_POOL}-lane pool a "
+        f"shard) loss {float(ls):.8f}, n_done {int(nd)}, leaves' max rel "
+        f"diff against grad_step {worst(ns, n1):.3e}; K1 {kg}")
+    check(abs(float(l4) - float(l1)) <= 1e-5 * abs(float(l1))
+          and all(np.allclose(n4[k].cpu().numpy(), n1[k].cpu().numpy(),
+                              rtol=1e-5, atol=1e-7) for k in n1),
+          "grad_step with the mesh differs from without")
+    check(int(nd) == PAR_GRAD_RAYS, "grad_step_stream left rays undrained")
+    check(abs(float(ls) - float(l1)) <= 1e-5 * abs(float(l1))
+          and all(np.allclose(ns[k].cpu().numpy(), n1[k].cpu().numpy(),
+                              rtol=1e-4, atol=1e-7) for k in n1),
+          "grad_step_stream differs from grad_step")
+
+    scaling = {}
+    for integ in ("lockstep", "stream"):
+        t0 = time.perf_counter()
+        rows = distributed.scaling_benchmark(
+            s_, p_, c_, spp=PAR_SCALING_SPP, device_counts=[1, 2, 4],
+            integrator=integ, devices=[dev] * 4)
+        scaling[integ] = rows
+        say("parallel-scaling", t0,
+            f"{integ}, {PAR_SCALING_SPP} spp, shards sharing one {device} "
+            f"(efficiency is no scaling figure): {json.dumps(rows)}")
+        check([r["devices"] for r in rows] == [1, 2, 4]
+              and all(r["mrays_s"] > 0 for r in rows), "scaling records")
+    return {"k1": k1, "scaling": scaling}
+
+
+PAR_RANKS = 2
+
+
+def phase_parallel_ranks(env_path: str, card: str, device: str = "cuda:0",
+                         size: int = 512, spp: int = 4) -> dict:
+    """Two processes started by torch.multiprocessing, joined in a gloo
+    group (NCCL refuses two ranks on one GPU), each holding one shard on
+    `device`: the all-gathered render_sharded image and the all-reduced
+    grad_step_stream (fixtures.rank_worker; gloo's collectives go through
+    a host copy of just those tensors) against the same spec on a
+    single-process 2-shard mesh: image bit-equal, loss and leaves within
+    rtol 1e-6."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from fluctus_tpu_torch import fixtures
+    from fluctus_tpu_torch.parallel import mesh as pmesh
+
+    spec = {"device": device, "scene": LUXBALL, "env": env_path,
+            "size": size, "max_bounces": 4, "aperture": 0.06, "spp": spp,
+            "grad_rays": PAR_GRAD_RAYS, "leaves": ["kd", "env_strength"],
+            "pool": PAR_POOL}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.pt")
+        mp.spawn(fixtures.rank_worker, nprocs=PAR_RANKS, args=(
+            PAR_RANKS, "file://" + os.path.join(tmp, "rendezvous"), out,
+            spec))
+        got = torch.load(out)
+    t_ranks = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    reset_counts()
+    want = fixtures.sharded_run(fixtures.rank_session(spec), spec,
+                                pmesh.make_mesh([device] * PAR_RANKS))
+    k1 = launch_counts()["K1"]
+    bit = bool(torch.equal(got["img"], want["img"]))
+    rel = max(float(((got[k] - want[k]).abs()
+                     / (1e-12 + want[k].abs())).max())
+              for k in ("loss", "kd", "env_strength"))
+    say("parallel-ranks", t0,
+        f"{PAR_RANKS} ranks in a gloo group (NCCL refuses two ranks on one "
+        f"GPU; each collective tensor staged through the host), one shard "
+        f"each on {device}, luxball {size}x{size} {spp} spp: {t_ranks:.2f} "
+        f"s with process start; the in-process {PAR_RANKS}-shard mesh "
+        f"{time.perf_counter() - t1:.2f} s (K1 {k1}); image bit-equal "
+        f"{bit}; loss {float(got['loss']):.8f} / {float(want['loss']):.8f}, "
+        f"n_done {int(got['n_done'])}; max rel diff of loss and leaves "
+        f"{rel:.3e}, on {card}")
+    check(got["mesh_size"] == PAR_RANKS and bit, "the ranks' image differs "
+          "from the in-process mesh's")
+    check(all(np.allclose(got[k].numpy(), want[k].numpy(), rtol=1e-6,
+                          atol=0) for k in ("loss", "kd", "env_strength")),
+          "the ranks' step differs from the in-process mesh's")
+    return {"k1": k1, "secs": t_ranks}
 
 
 def main() -> int:
@@ -3068,6 +3506,9 @@ def main() -> int:
         phase_optimize(esess, tmp_dir, card)
         secs_grad = time.perf_counter() - t_grad
         secs_prog = phase_progressive(esess, tmp_dir, card)
+        # parallel/: a 4-shard mesh on the card, then two gloo ranks
+        par = phase_parallel(esess, card)
+        ranks = phase_parallel_ranks(env_path, card)
         del esess
     torch.cuda.empty_cache()
 
@@ -3185,6 +3626,8 @@ def main() -> int:
         width=64, height=64)), "conference", 4, "K5")
     del tsess, ft, tw
     torch.cuda.empty_cache()
+    # the packet forest: K1 (auto) and K4 (pallas) one launch a chunk
+    pf = phase_packet_forest(card)
     phase_deep_stack()
     cli = phase_cli(card)
     fmt = phase_formats(card)
@@ -3264,6 +3707,35 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+    for kernel, source, replaces in (
+            ("K1", "traverse_stack.cu", "fluctus_tpu/ops/traverse_mxu.py:97"),
+            ("K4", "traverse_packet.cu",
+             "fluctus_tpu/ops/traverse_pallas.py:60")):
+        t_abs, flag_mis = pf["err"][kernel]
+        for form, label in (("closest", "closest"), ("any", "any-hit")):
+            r = pf["times"][(kernel, form)]
+            kernels.append({
+                "name": f"{kernel} {source[:-3]} {label}, packet forest "
+                        f"(ms per call of {pf['chunks']} launches)",
+                "route": "cuda", "source": f"fluctus_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": pf["launches"][kernel][form],
+                "max_abs_err": t_abs if form == "closest"
+                else float(flag_mis > 0),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None})
+    for form, name in (("closest", "K1 traverse_stack closest, parallel path"),
+                       ("any", "K1 traverse_stack any-hit, parallel path")):
+        r = ktimes[form]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fluctus_tpu_torch/csrc/traverse_stack.cu",
+            "replaces": "fluctus_tpu/ops/traverse_mxu.py:97",
+            "launches": par["k1"][form] + ranks["k1"][form],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     for key, replaces in (("p1_1_block", "scripts/probe_pallas_floor.py:55"),
                           ("p1_64_blocks",
                            "scripts/probe_pallas_floor.py:65")):
@@ -3311,7 +3783,12 @@ def main() -> int:
           f"{aux['secs']:.3f} s (K1 {aux['k1']}), denoised frame render "
           f"{den['render']:.3f} + aux {den['aux']:.3f} + denoise "
           f"{den['denoise']:.3f} s, progressive {secs_prog:.2f} s, pick "
-          f"{secs_pick:.3f} s, cli {cli['secs']:.2f} s on {card}",
+          f"{secs_pick:.3f} s, cli {cli['secs']:.2f} s; packet forest "
+          f"session {pf['session']:.2f} s, frames "
+          f"{pf['launches']['K1_secs']:.3f} s (K1) / "
+          f"{pf['launches']['K4_secs']:.3f} s (K4) over "
+          f"{pf['chunks']} chunks; parallel ranks {ranks['secs']:.2f} s on "
+          f"{card}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -158,3 +158,44 @@ def _measure_depth(nodes: np.ndarray, root_ref: int) -> int:
             if np.isfinite(lo_x[j]) and refs[j] >= 0:
                 stack.append((int(refs[j]), d + 1))
     return depth
+
+
+def estimate_table_bytes(n_tris: int, leaf_width: int = LEAF_WIDTH) -> int:
+    """Table footprint estimate of a wide BVH over n_tris triangles:
+    collapsed leaves average ~50% occupancy, hence twice the leaf rows
+    (fluctus_tpu/accel/wide.py::estimate_table_bytes)."""
+    leaves = max(1, (n_tris + leaf_width - 1) // leaf_width) * 2
+    nodes = max(1, leaves // 4)
+    return leaves * leaf_width * 10 * 4 + nodes * 56 * 4
+
+
+def build_wide_forest(v0, v1, v2, build_binary, leaf_width: int = LEAF_WIDTH,
+                      budget_bytes: int = 4 << 20):
+    """The packet forest's chunks (fluctus_tpu/accel/wide.py::
+    build_wide_forest): split the triangles at the median centroid of the
+    widest axis until each chunk's `estimate_table_bytes` fits
+    `budget_bytes`, then build a binary BVH (`build_binary`) and its
+    8-wide collapse per chunk. Returns (list of WideBVHHost, list of
+    int32 maps from a chunk's triangle ids to global ids)."""
+    centroid = ((np.minimum(np.minimum(v0, v1), v2)
+                 + np.maximum(np.maximum(v0, v1), v2)) * 0.5)
+    chunks: list[np.ndarray] = []
+    todo = [np.arange(len(v0), dtype=np.int64)]
+    while todo:                       # depth first, lower half first
+        ids = todo.pop()
+        if estimate_table_bytes(len(ids), leaf_width) <= budget_bytes:
+            chunks.append(ids)
+            continue
+        c = centroid[ids]
+        axis = int(np.argmax(c.max(0) - c.min(0)))
+        order = np.argsort(c[:, axis], kind="stable")
+        half = len(ids) // 2
+        todo += [ids[order[half:]], ids[order[:half]]]
+
+    hosts, maps = [], []
+    for ids in chunks:
+        built = build_binary(v0[ids], v1[ids], v2[ids])
+        hosts.append(build_wide(built, v0[ids], v1[ids], v2[ids],
+                                leaf_width=leaf_width))
+        maps.append(ids.astype(np.int32))
+    return hosts, maps

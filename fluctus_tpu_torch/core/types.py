@@ -174,8 +174,11 @@ class EnvMap:
 class DeviceScene:
     """Scene tensors on one device. A scene above the fast-big cutover
     carries `bforest` and no hierarchy (`wbvh` None); a scene uploaded
-    under FLUCTUS_FOREST=treelet with wide tables above 8 MB carries
-    `ftables` beside `wbvh`. `envmap` is always present: the loaded env
+    with wide tables above 8 MB carries, beside `wbvh`, `ftables` under
+    FLUCTUS_FOREST=treelet, or under FLUCTUS_PACKET_FOREST=1 the packet
+    forest: `wforest`, one `WideBVH` a chunk (every chunk padded to the
+    same rows, its root inner), and `wforest_maps`, each chunk's int32 map
+    from its triangle ids to global ids. `envmap` is always present: the loaded env
     map, or a 1x1 black one when none is loaded (the JAX package's
     `envmap.dummy()`), which `RenderConfig.use_env_map` then leaves
     unread. `bvh` and `pbvh`, the tables of the XLA backends "jnp" and
@@ -189,6 +192,8 @@ class DeviceScene:
     ftables: ForestTables | None = None
     bvh: FlatBVH | None = None
     pbvh: PackedBVH | None = None
+    wforest: tuple = ()
+    wforest_maps: tuple = ()
 
     @property
     def device(self) -> torch.device:

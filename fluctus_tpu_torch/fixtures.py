@@ -758,15 +758,17 @@ def _runs_picture(g, h, w, levels):
 
 
 PSD_MODES = {"1": (0, 1, 1), "L": (1, 8, 1), "P": (2, 8, 1),
-             "RGB": (3, 8, 3), "RGBA": (3, 8, 4)}
+             "RGB": (3, 8, 3), "RGBA": (3, 8, 4), "CMYK": (4, 8, 4),
+             "LAB": (9, 8, 3)}
 
 
 def psd_bytes(mode: str, width: int, height: int, rle: bool,
               seed: int = 0) -> bytes:
     """A PSD file (Adobe's layout: header, colour-mode data, image
     resources, layer section, merged composite) of seeded pixels in mode
-    "1" (bitmap), "L", "P" (a seeded 256-colour palette), "RGB" or
-    "RGBA", the composite raw or PackBits-coded a row (`rle`). The
+    "1" (bitmap), "L", "P" (a seeded 256-colour palette), "RGB",
+    "RGBA", "CMYK" or "LAB", the composite raw or PackBits-coded a row
+    (`rle`). The
     resources hold one entry and the layer section 8 bytes, which a
     reader skips. PIL reads PSD and writes none."""
     g = np.random.default_rng(seed)
@@ -1082,3 +1084,151 @@ def plane_session(device="cuda", size: int = 24, max_bounces: int = 1,
         right=t(r)))
     return RenderSession(host_scene=host, scene=host.to_device(device),
                          params=params, cfg=cfg)
+
+
+def rank_session(spec: dict):
+    """The session of a sharded-run spec: spec["scene"] None for
+    plane_session(spec["device"], spec["size"], spec["max_bounces"]),
+    else a scene path opened through driver.create_session with the env
+    map spec["env"] at spec["size"]^2, spec["max_bounces"] bounces and the
+    thin-lens aperture spec.get("aperture")."""
+    import dataclasses
+
+    import torch
+
+    from fluctus_tpu_torch.core.types import RenderConfig
+    from fluctus_tpu_torch.render import driver
+
+    dev = spec["device"]
+    if spec.get("scene") is None:
+        return plane_session(dev, size=spec["size"],
+                             max_bounces=spec["max_bounces"])
+    cfg = RenderConfig(width=spec["size"], height=spec["size"],
+                       max_bounces=spec["max_bounces"],
+                       use_env_map=spec.get("env") is not None)
+    sess = driver.create_session(spec["scene"], spec.get("env"), cfg,
+                                 cache_dir=None, state_dir=None, device=dev)
+    if spec.get("aperture") is not None:
+        sess.params = dataclasses.replace(
+            sess.params, camera=dataclasses.replace(
+                sess.params.camera, aperture_size=torch.tensor(
+                    spec["aperture"], dtype=torch.float32, device=dev)))
+    return sess
+
+
+def sharded_run(sess, spec: dict, mesh) -> dict:
+    """render_sharded at spec["spp"] and one grad_step_stream over
+    spec["grad_rays"] stratified pixels (sample 0, target 0.1, the leaves
+    spec["leaves"], a pool of spec["pool"] lanes) on `mesh`: {"img",
+    "loss", "n_done", "n_seg", and each new leaf}, on the CPU."""
+    import torch
+
+    from fluctus_tpu_torch.integrators import wavefront
+    from fluctus_tpu_torch.parallel import mesh as pmesh
+    from fluctus_tpu_torch.render import optimize
+
+    s_, p_, cfg = sess.scene, sess.params, sess.cfg
+    dev = s_.device
+    out = {"img": pmesh.render_sharded(s_, p_, cfg, spec["spp"], mesh)}
+    n_pix = cfg.width * cfg.height
+    pix = optimize.stratified_pixels(n_pix, spec["grad_rays"], 0, dev)
+    target = torch.full((pix.shape[0], 3), 0.1, device=dev)
+    diff = {k: optimize._DIFF_GETTERS[k](s_, p_) for k in spec["leaves"]}
+    n_seg = wavefront.plan_stream_segments(
+        s_, p_, cfg, pix, 0, spec["pool"], deferred=True)[0] + 4
+    loss, new, n_done = pmesh.grad_step_stream(
+        diff, s_, p_, cfg, pix, 0, target, spec["pool"], n_seg, mesh)
+    out.update(loss=loss, n_done=n_done, n_seg=n_seg, **new)
+    return {k: (v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in out.items()}
+
+
+def rank_worker(rank: int, world: int, init_url: str, out_path: str,
+                spec: dict) -> None:
+    """One rank of a gloo group (torch.multiprocessing.spawn's target):
+    join the group, build the spec's session on spec["device"], run
+    sharded_run on a mesh of one local shard, and on rank 0 save the
+    results to `out_path` (torch.save). Imports torch and the port only,
+    so a spawned child needs neither JAX nor the tests."""
+    import torch
+    import torch.distributed as dist
+
+    from fluctus_tpu_torch.parallel import distributed, mesh as pmesh
+
+    distributed.initialize(init_url, world, rank, device=spec["device"],
+                           backend="gloo")
+    try:
+        sess = rank_session(spec)
+        mesh = pmesh.make_mesh([spec["device"]])
+        out = sharded_run(sess, spec, mesh)
+        out["mesh_size"] = mesh.size
+        if rank == 0:
+            torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+_TIFF_FMT = {3: "H", 4: "I", 7: "B", 16: "Q"}
+
+
+def tiff_bytes(w: int, h: int, bits, spp: int, photo: int, chunks,
+               comp: int = 1, tile=None, rps=None, extra=None, pred: int = 1,
+               bo: str = "<", cmap=None, planar: int = 1, fill: int = 1,
+               fmt=None, bigtiff: bool = False, tables: bytes | None = None,
+               subsampling=None) -> bytes:
+    """A TIFF of pre-encoded strips (rps rows each) or tiles (`tile` = (w,
+    h)), in the chunk order the file lists (all planes of a planar file,
+    plane after plane). `bits` is one depth for every sample or a tuple;
+    the tags written: PlanarConfiguration `planar`, FillOrder `fill`,
+    SampleFormat `fmt` (a value per sample), ExtraSamples `extra`,
+    Predictor `pred`, ColorMap `cmap`, JPEGTables `tables`,
+    YCbCrSubSampling `subsampling`. Classic TIFF, or BigTIFF (version 43,
+    8-byte offsets and counts, 20-byte entries) with `bigtiff`. PIL
+    writes none of planar, fill order 2, predictor 3 or BigTIFF."""
+    bits = tuple(bits) if isinstance(bits, (tuple, list)) else (bits,) * spp
+    off_type = 16 if bigtiff else 4
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, list(bits)),
+            (259, 3, [comp]), (262, 3, [photo]), (277, 3, [spp])]
+    for tag, typ, vals in ((266, 3, None if fill == 1 else [fill]),
+                           (284, 3, None if planar == 1 else [planar]),
+                           (317, 3, None if pred == 1 else [pred]),
+                           (320, 3, cmap), (338, 3, extra),
+                           (339, 3, fmt), (530, 3, subsampling),
+                           (347, 7, None if tables is None
+                            else list(tables))):
+        if vals is not None:
+            tags.append((tag, typ, list(vals)))
+    head = 16 if bigtiff else 8
+    offs, o = [], head
+    for c in chunks:
+        offs.append(o)
+        o += len(c)
+    counts = [len(c) for c in chunks]
+    if tile:
+        tags += [(322, 4, [tile[0]]), (323, 4, [tile[1]]),
+                 (324, off_type, offs), (325, off_type, counts)]
+    else:
+        tags += [(273, off_type, offs), (278, 4, [rps or h]),
+                 (279, off_type, counts)]
+    tags.sort()
+    ifd_off = o + o % 2
+    entry, count_f, inline = ((20, "Q", 8) if bigtiff else (12, "H", 4))
+    ext_off = ifd_off + struct.calcsize(count_f) + entry * len(tags) + inline
+    ifd, ext = struct.pack(bo + count_f, len(tags)), b""
+    for tag, typ, vals in tags:
+        raw = struct.pack(bo + _TIFF_FMT[typ] * len(vals), *vals)
+        cnt = "Q" if bigtiff else "I"
+        if len(raw) <= inline:
+            ifd += struct.pack(bo + "HH" + cnt, tag, typ, len(vals)) + \
+                raw.ljust(inline, b"\0")
+        else:
+            ifd += struct.pack(bo + "HH" + cnt + cnt, tag, typ, len(vals),
+                               ext_off + len(ext))
+            ext += raw + b"\0" * (len(raw) % 2)
+    magic = b"II" if bo == "<" else b"MM"
+    if bigtiff:
+        header = magic + struct.pack(bo + "HHHQ", 43, 8, 0, ifd_off)
+    else:
+        header = magic + struct.pack(bo + "HI", 42, ifd_off)
+    return (header + b"".join(chunks) + b"\0" * (o % 2) + ifd
+            + b"\0" * inline + ext)

@@ -14,8 +14,12 @@ Traversal goes, in the JAX package's order, through `ops.traverse_brute`
 (kernels K2 and K3) on a scene that carries a brute forest,
 `ops.traverse_forest` (K5) on one with a treelet forest, and otherwise
 `ops.traverse_stack` (K1), or `ops.traverse_pallas` (K4) under
-`backend="pallas"`: the kernels on a CUDA scene, their plain versions on a
-CPU scene. The JAX package's XLA walks, `backend="jnp"` (`ops.traverse`),
+`backend="pallas"`, over the packet forest chunk by chunk where the scene
+carries one: the kernels on a CUDA scene, their plain versions on a CPU
+scene. The JAX package falls back from its per-lane forest to the packet
+kernel's when a chunk's tables pass its VMEM test
+(`traverse_mxu.forest_fits_vmem`); K1 reads its tables from device
+memory, so the port keeps K1 there. The JAX package's XLA walks, `backend="jnp"` (`ops.traverse`),
 `"packed"` (`ops.traverse_packed`) and `"wide"` (`ops.traverse_wide`),
 are plain PyTorch on either device and taken only when named. Every
 stochastic decision draws from the counter-based RNG keyed by (pixel,
@@ -75,8 +79,9 @@ def _check_backend_data(scene, cfg):
 
 def _packets(scene, cfg) -> bool:
     """Whether traversal takes K4: backend "pallas" on a scene without a
-    forest (a forest scene takes its per-lane kernel, as in the JAX
-    package, whose packet forest is not ported)."""
+    brute or treelet forest (such a scene takes its per-lane kernel, as
+    in the JAX package). On a scene with the packet forest (`wforest`)
+    K4 traces it chunk by chunk."""
     _check_backend_data(scene, cfg)
     return (resolve_backend(cfg.backend) == "pallas"
             and scene.bforest is None and scene.ftables is None)
@@ -167,16 +172,24 @@ def _closest_tr(scene, cfg, orig, dir, t_max) -> Traversal:
     if _packets(scene, cfg):
         t_vec = torch.broadcast_to(torch.as_tensor(
             t_max, dtype=torch.float32, device=orig.device), orig.shape[:1])
+        if scene.wforest:
+            fn = lambda o, d, t: traverse_pallas.traverse_closest_forest(
+                scene.wforest, scene.wforest_maps, o, d, t)
+        else:
+            fn = lambda o, d, t: traverse_pallas.traverse_closest(
+                scene.wbvh, o, d, t)
+        # rays sorted by the whole scene's bounds, forest or not
         return ray_sort.sorted_apply(
-            orig, dir, *traverse_pallas.wbvh_bounds(scene.wbvh),
-            lambda o, d, t: traverse_pallas.traverse_closest(scene.wbvh, o,
-                                                             d, t), t_vec)
+            orig, dir, *traverse_pallas.wbvh_bounds(scene.wbvh), fn, t_vec)
     if scene.bforest is not None:
         return traverse_brute.traverse_closest(scene.bforest, orig, dir,
                                                t_max)
     if scene.ftables is not None:
         return traverse_forest.traverse_closest(scene.ftables, orig, dir,
                                                 t_max)
+    if scene.wforest:
+        return traverse_stack.traverse_closest_forest(
+            scene.wforest, scene.wforest_maps, orig, dir, t_max)
     return traverse_stack.traverse_closest(scene.wbvh, orig, dir, t_max)
 
 
@@ -206,14 +219,21 @@ def _any(scene, cfg, orig, dir, lens) -> torch.Tensor:
     if cfg.backend in XLA_BACKENDS:
         return _xla_walk(scene, cfg, orig, dir, lens, any_hit=True)
     if _packets(scene, cfg):
+        if scene.wforest:
+            fn = lambda o, d, t: traverse_pallas.traverse_any_forest(
+                scene.wforest, o, d, t)
+        else:
+            fn = lambda o, d, t: traverse_pallas.traverse_any(scene.wbvh, o,
+                                                              d, t)
         return ray_sort.sorted_apply(
-            orig, dir, *traverse_pallas.wbvh_bounds(scene.wbvh),
-            lambda o, d, t: traverse_pallas.traverse_any(scene.wbvh, o, d, t),
-            lens)
+            orig, dir, *traverse_pallas.wbvh_bounds(scene.wbvh), fn, lens)
     if scene.bforest is not None:
         return traverse_brute.traverse_any(scene.bforest, orig, dir, lens)
     if scene.ftables is not None:
         return traverse_forest.traverse_any(scene.ftables, orig, dir, lens)
+    if scene.wforest:
+        return traverse_stack.traverse_any_forest(scene.wforest, orig, dir,
+                                                  lens)
     return traverse_stack.traverse_any(scene.wbvh, orig, dir, lens)
 
 

@@ -405,15 +405,17 @@ def render_scatter_reference(scene: DeviceScene, params: RenderParams,
 # ------------------------------------------------------------ stream form
 
 def _respawn_budget(params, cfg, state, counters, spp, terminate, active,
-                    seg):
-    """Striding respawn under an exact spawn budget of n_pix * spp, and
-    the counters [spawns, extension rays, shadow rays]."""
-    n_pix = cfg.width * cfg.height
+                    seg, pix_base=0, n_pix_local=None):
+    """Striding respawn under an exact spawn budget of n_pix * spp over
+    the pixels [pix_base, pix_base + n_pix) (n_pix = n_pix_local, the
+    whole frame by default), and the counters [spawns, extension rays,
+    shadow rays]."""
+    n_pix = _n_pix(cfg, n_pix_local)
     hit, _, ei, wo, new_t, s_pdf, singular, path_len = seg
     rank = _exclusive_rank(terminate)
     new_spawn = counters[0] + rank
     can_spawn = terminate & (new_spawn < n_pix * spp)
-    new_pix = torch.where(can_spawn, new_spawn % n_pix, 0)
+    new_pix = torch.where(can_spawn, pix_base + new_spawn % n_pix, 0)
     new_samp = torch.where(can_spawn, new_spawn // n_pix, 0)
     r_orig, r_dir = _raygen(params, cfg, new_pix, new_samp)
     keep = torch.where(terminate, can_spawn, active)
@@ -434,32 +436,41 @@ def _rows(has, pix, ei):
             torch.where(has, ei[:, 2], z), torch.where(has, pix, -1))
 
 
+def _n_pix(cfg: RenderConfig, n_pix_local=None) -> int:
+    return cfg.width * cfg.height if n_pix_local is None else n_pix_local
+
+
 def _stream_segment(scene: DeviceScene, params: RenderParams,
                     cfg: RenderConfig, state: PathState,
-                    counters: torch.Tensor, spp: int):
+                    counters: torch.Tensor, spp: int, pix_base=0,
+                    n_pix_local: int | None = None):
     """One streaming segment. counters: [spawn counter, extension rays,
     shadow rays], int64. Returns (state, counters, row): the segment's
     completed samples as one (r, g, b, pixel) row per lane, pixel -1
-    where the lane finished no sample."""
+    where the lane finished no sample. Under sharding a shard streams
+    its own pixels [pix_base, pix_base + n_pix_local) under a spawn
+    budget of its own; the defaults cover the frame."""
     active = state.alive
     seg = _segment_core(scene, params, cfg, state)
     terminate = seg[1] & active
     done = terminate & (seg[7] > 0)
     row = _rows(done, state.pixel_index, seg[2])
     state, counters = _respawn_budget(params, cfg, state, counters, spp,
-                                      terminate, active, seg)
+                                      terminate, active, seg, pix_base,
+                                      n_pix_local)
     return state, counters, row
 
 
 def _stream_segment_d(scene: DeviceScene, params: RenderParams,
                       cfg: RenderConfig, state: PathState,
                       counters: torch.Tensor, spp: int, pend, fin_pix,
-                      fin_ei):
+                      fin_ei, pix_base=0, n_pix_local: int | None = None):
     """Deferred-shadow streaming segment: the previous segment's shadow
     rays trace in this segment's closest call, and a completed sample's
     row is emitted one segment late, once its last shadow ray has
     resolved (reference: wf_logic.cl:134-156). Returns (state, counters,
-    pend, fin_pix, fin_ei, row)."""
+    pend, fin_pix, fin_ei, row). pix_base / n_pix_local as in
+    _stream_segment."""
     active = state.alive
     (hit, terminate, ei, wo, new_t, s_pdf, singular, path_len, resolved,
      pend2) = _segment_core(scene, params, cfg, state, pend=pend)
@@ -475,7 +486,8 @@ def _stream_segment_d(scene: DeviceScene, params: RenderParams,
     fin_ei_n = vm.where3(done, ei, torch.zeros_like(ei))
     seg = (hit, terminate, ei, wo, new_t, s_pdf, singular, path_len)
     state, counters = _respawn_budget(params, cfg, state, counters, spp,
-                                      terminate, active, seg)
+                                      terminate, active, seg, pix_base,
+                                      n_pix_local)
     return state, counters, pend2, fin_pix_n, fin_ei_n, row
 
 
@@ -484,13 +496,14 @@ def _stack_rows(rows):
 
 
 def stream_rounds(scene, params, cfg, state, counters, spp: int,
-                  n_seg: int):
+                  n_seg: int, pix_base=0, n_pix_local: int | None = None):
     """n_seg segments, one launch of the stream. Returns (state, counters,
     rows) with rows (r, g, b, pixel), each (n_seg, pool)."""
     rows = []
     for _ in range(n_seg):
         state, counters, row = _stream_segment(scene, params, cfg, state,
-                                               counters, spp)
+                                               counters, spp, pix_base,
+                                               n_pix_local)
         rows.append(row)
     return state, counters, _stack_rows(rows)
 
@@ -507,13 +520,16 @@ def stream_rounds_deferred(scene, params, cfg, state, counters, pend,
     return state, counters, pend, fin_pix, fin_ei, _stack_rows(rows)
 
 
-def init_stream_state(params: RenderParams, cfg: RenderConfig, pool: int):
-    """Pre-spawn a full pool; returns (state, counters) with counters[0]
-    already counting the pre-spawns."""
-    n_pix = cfg.width * cfg.height
+def init_stream_state(params: RenderParams, cfg: RenderConfig, pool: int,
+                      pix_base=0, n_pix_local: int | None = None):
+    """Pre-spawn a full pool over the pixels [pix_base, pix_base +
+    n_pix_local) (the whole frame by default); returns (state, counters)
+    with counters[0] already counting the pre-spawns."""
+    n_pix = _n_pix(cfg, n_pix_local)
     dev = params.camera.pos.device
     lane = torch.arange(pool, dtype=torch.int64, device=dev)
-    state = _fresh_state(params, cfg, lane % n_pix, lane // n_pix)
+    state = _fresh_state(params, cfg, pix_base + lane % n_pix,
+                         lane // n_pix)
     counters = torch.tensor([pool, 0, 0], dtype=torch.int64, device=dev)
     return state, counters
 

@@ -37,6 +37,10 @@ overwrites its top entry, which can lose a subtree (ROADMAP Queue 3,
 faults of the JAX reference).
 One CUDA kernel covers both of the JAX kernel's table placements
 (`hbm`): rows come from device memory either way.
+
+`traverse_closest_forest` / `traverse_any_forest` trace the packet forest
+(`DeviceScene.wforest`) with one K4 call a chunk; passing
+`launch=packet_plain` gives their plain versions.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ import torch
 from fluctus_tpu_torch.core.types import WideBVH
 from fluctus_tpu_torch.launch import (CSRC, check, check_aligned, launch,
                                       load_library)
+from fluctus_tpu_torch.ops import traverse_stack
 from fluctus_tpu_torch.ops.traverse_stack import (
     TRI_EPS, WALK_HEADER, Traversal, _inv_dir as _safe_inv)
 
@@ -347,3 +352,25 @@ def traverse_closest(bvh: WideBVH, orig, dir, t_max,
 def traverse_any(bvh: WideBVH, orig, dir, t_max, launch=None):
     """True where some triangle is hit before the per-lane t_max."""
     return _run(bvh, orig, dir, t_max, True, launch)[1] > 0
+
+
+def traverse_closest_forest(chunks, prim_maps, orig, dir, t_max,
+                            launch=None) -> Traversal:
+    """Closest hit over the packet forest, one K4 call a chunk, the
+    running best t as the next chunk's per-lane t_max
+    (fluctus_tpu/ops/traverse_pallas.py::traverse_closest_forest). Rays
+    in the caller's order; `launch` as in traverse_closest."""
+    return traverse_stack._forest_closest(
+        lambda wb, o, d, t: traverse_closest(wb, o, d, t, launch),
+        chunks, prim_maps, orig, dir, t_max)
+
+
+def traverse_any_forest(chunks, orig, dir, t_max, launch=None):
+    """Any-hit over the packet forest: the flags of one K4 call a chunk,
+    ORed, each under the full t_max (the JAX package's
+    traverse_any_forest does not shorten the blocked lanes)."""
+    blocked = torch.zeros(orig.shape[0], dtype=torch.bool,
+                          device=orig.device)
+    for wb in chunks:
+        blocked = blocked | traverse_any(wb, orig, dir, t_max, launch)
+    return blocked

@@ -17,6 +17,11 @@ expressions, so the two agree bit for bit.
 
 `traverse_closest` / `traverse_any` take the plain version for CPU tensors
 and launch K1 for CUDA tensors; there is no fallback between the two.
+
+`traverse_closest_forest` / `traverse_any_forest` trace the packet forest
+(`DeviceScene.wforest`) with one K1 call a chunk, as the JAX package's
+`traverse_mxu.*_forest` do; `closest_forest_plain` / `any_forest_plain`
+are the same loops over the plain version.
 """
 from __future__ import annotations
 
@@ -300,3 +305,70 @@ def traverse_any(bvh: WideBVH, orig, dir, t_max) -> torch.Tensor:
         return traverse_kernel(bvh, orig, dir, t_max, any_hit=True)
     PLAIN_CALLS["any"] += 1
     return traverse_plain(bvh, orig, dir, t_max, any_hit=True)[1]
+
+
+# ---------------------------------------------------------------- forest
+
+def _forest_closest(walk, chunks, prim_maps, orig, dir, t_max) -> Traversal:
+    """Closest hit over the chunks in order, `walk(chunk, orig, dir,
+    t_vec)` per chunk: the running best t is the next chunk's per-lane
+    t_max, and a hit's chunk-local id maps through the chunk's id map
+    (fluctus_tpu/ops/traverse_mxu.py::traverse_closest_forest)."""
+    b = orig.shape[0]
+    dev = orig.device
+    best = Traversal(
+        torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                           device=dev), (b,)).contiguous(),
+        torch.full((b,), -1, dtype=torch.int32, device=dev),
+        torch.zeros(b, dtype=torch.float32, device=dev),
+        torch.zeros(b, dtype=torch.float32, device=dev))
+    for wb, pmap in zip(chunks, prim_maps):
+        r = walk(wb, orig, dir, best.t)
+        got = r.prim >= 0
+        gprim = pmap[torch.clamp(r.prim, min=0).long()].to(torch.int32)
+        best = Traversal(torch.where(got, r.t, best.t),
+                         torch.where(got, gprim, best.prim),
+                         torch.where(got, r.u, best.u),
+                         torch.where(got, r.v, best.v))
+    return best
+
+
+def _forest_any(walk, chunks, orig, dir, t_max) -> torch.Tensor:
+    """Any-hit over the chunks in order: a blocked lane's length drops to
+    0 for the later chunks, so it leaves them at their root
+    (fluctus_tpu/ops/traverse_mxu.py::traverse_any_forest)."""
+    b = orig.shape[0]
+    lens = torch.broadcast_to(torch.as_tensor(
+        t_max, dtype=torch.float32, device=orig.device), (b,))
+    blocked = torch.zeros(b, dtype=torch.bool, device=orig.device)
+    for wb in chunks:
+        cur = torch.where(blocked, 0.0, lens).contiguous()
+        blocked = blocked | walk(wb, orig, dir, cur)
+    return blocked
+
+
+def traverse_closest_forest(chunks, prim_maps, orig, dir,
+                            t_max) -> Traversal:
+    """Closest hit over the packet forest, one K1 launch a chunk (the
+    plain version for CPU tensors)."""
+    return _forest_closest(traverse_closest, chunks, prim_maps, orig, dir,
+                           t_max)
+
+
+def traverse_any_forest(chunks, orig, dir, t_max) -> torch.Tensor:
+    """Any-hit over the packet forest, one K1 launch a chunk."""
+    return _forest_any(traverse_any, chunks, orig, dir, t_max)
+
+
+def closest_forest_plain(chunks, prim_maps, orig, dir, t_max) -> Traversal:
+    """traverse_closest_forest over the plain version on any device."""
+    return _forest_closest(
+        lambda wb, o, d, t: traverse_plain(wb, o, d, t, False)[0],
+        chunks, prim_maps, orig, dir, t_max)
+
+
+def any_forest_plain(chunks, orig, dir, t_max) -> torch.Tensor:
+    """traverse_any_forest over the plain version on any device."""
+    return _forest_any(
+        lambda wb, o, d, t: traverse_plain(wb, o, d, t, True)[1],
+        chunks, orig, dir, t_max)

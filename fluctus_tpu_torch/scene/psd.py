@@ -9,10 +9,12 @@ and the layer section (skipped), then the composite: compression 0 (one
 plane a channel) or 1 (PackBits, after a table of each row's byte count;
 each channel's stream decoded on from where the counts put it). Modes:
 bitmap (1 bit, a set bit white, as PIL reads it), grey, duotone and
-multichannel as grey, indexed, RGB and, with four channels, RGBA; extra
+multichannel as grey, indexed, RGB and, with four channels, RGBA, and
+CMYK (PIL reads each plane inverted and converts as its TIFF CMYK) and
+Lab (converted as PIL converts LAB, scene/lab.py, with alpha 0); extra
 channels are not read. PIL's PackBits rules: 0x80 is a no-op, a run or
-literal that passes the end of a row is damage. CMYK and Lab raise
-UnsupportedImage; 16- and 32-bit files are no PIL mode (damage).
+literal that passes the end of a row is damage. 16- and 32-bit files are
+no PIL mode (damage).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import struct
 import numpy as np
 
 from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
+from fluctus_tpu_torch.scene.lab import lab_to_rgb
 
 # (colour mode, depth) -> PIL mode
 MODES = {(0, 1): "1", (0, 8): "L", (1, 8): "L", (2, 8): "P", (3, 8): "RGB",
@@ -70,10 +73,7 @@ def decode_psd(data: bytes) -> np.ndarray:
     if mode is None:
         raise ValueError(f"PSD: no PIL mode for {bits}-bit colour mode "
                          f"{cmode}")
-    if mode in ("CMYK", "LAB"):
-        raise UnsupportedImage(f"PSD {mode} images are not decoded by the "
-                               "port")
-    channels = {"RGB": 3}.get(mode, 1)
+    channels = {"RGB": 3, "CMYK": 4, "LAB": 3}.get(mode, 1)
     if channels > n_chan:
         raise ValueError("PSD: not enough channels")
     if mode == "RGB" and n_chan == 4:
@@ -130,6 +130,20 @@ def decode_psd(data: bytes) -> np.ndarray:
     elif mode == "P":
         pal = np.frombuffer(mode_data, np.uint8).reshape(3, 256).T
         rgba[..., :3] = pal[planes[0]]
+    elif mode == "CMYK":
+        # PIL reads each plane inverted (raw mode "C;I" ...), then CMYK to
+        # RGB with nk = 255 - k: each channel nk - MULDIV255(c, nk)
+        c = 255 - np.stack(planes, -1).astype(np.int64)
+        nk = 255 - c[..., 3:4]
+        t = c[..., :3] * nk + 128
+        rgba[..., :3] = np.clip(nk - ((t + (t >> 8)) >> 8), 0, 255)
+    elif mode == "LAB":
+        # PIL stores the planes as they are (a and b offset by 128) and
+        # converts through LittleCMS, which scene/lab.py reproduces; the
+        # transform copies the pixel's fourth byte, which PIL's PSD reader
+        # leaves 0, into alpha
+        rgba[..., :3] = lab_to_rgb(np.stack(planes, -1))
+        rgba[..., 3] = 0
     else:
         for c in range(channels):
             rgba[..., c] = planes[c]

@@ -8,7 +8,8 @@ comes from the native SAH/SBVH builder, or the NumPy builders under
 FLUCTUS_NATIVE=0, through an npz cache keyed by builder version and scene
 hash that the two packages share. Then one of two uploads: the 8-wide
 collapse and upload of its f32 rows (with a treelet forest beside them
-under FLUCTUS_FOREST=treelet, see `HostScene.to_device`); or, for a scene
+under FLUCTUS_FOREST=treelet, or the packet forest under
+FLUCTUS_PACKET_FOREST=1, see `HostScene.to_device`); or, for a scene
 above the fast-big cutover on a CUDA device, the brute-chunk forest alone
 (`fast_big_eligible`).
 """
@@ -23,9 +24,11 @@ import torch
 
 from fluctus_tpu_torch.accel import bvh as bvh_mod
 from fluctus_tpu_torch.accel.forest import (
-    TARGET_TRIS, build_brute_forest, build_host_forest, native_enabled)
+    TARGET_TRIS, build_binary, build_brute_forest, build_host_forest,
+    native_enabled)
 from fluctus_tpu_torch.accel.pack import pack_bvh
-from fluctus_tpu_torch.accel.wide import LEAF_WIDTH, build_wide
+from fluctus_tpu_torch.accel.wide import (
+    LEAF_WIDTH, build_wide, build_wide_forest)
 from fluctus_tpu_torch.core.types import (
     BSDF_ID, BXDF_DIFFUSE, BruteForest, DeviceScene, EnvMap, FlatBVH,
     ForestTables, Geometry, Materials, PackedBVH, TextureAtlas, WideBVH)
@@ -44,6 +47,9 @@ DEFAULT_CACHE_DIR = "data/hierarchies"
 # wide tables above this many bytes take a forest in the JAX package
 # (its TPU kernels keep the tables in VMEM); the port follows its rule
 FOREST_TABLE_BYTES = 8 << 20
+# the packet forest's budget of estimated table bytes per chunk (the
+# default of the JAX package's build_wide_forest)
+FOREST_CHUNK_BYTES = 4 << 20
 
 
 def default_material() -> MtlMaterial:
@@ -187,8 +193,10 @@ class HostScene:
         FOREST_TABLE_BYTES (8 MB), the forest knobs decide what goes
         beside it:
 
-        - FLUCTUS_PACKET_FOREST=1: the per-chunk packet forest, not ported
-          (raises NotImplementedError);
+        - FLUCTUS_PACKET_FOREST=1: the packet forest (`wforest`,
+          `wforest_maps`), one 8-wide BVH per chunk of at most
+          FOREST_CHUNK_BYTES of estimated tables, traced chunk by chunk
+          by K1 (or K4 under backend "pallas");
         - FLUCTUS_FOREST=treelet: the treelet forest (`ftables`, traced by
           K5), sized by FLUCTUS_FOREST_TARGET_TRIS and
           FLUCTUS_FOREST_LEAF_WIDTH;
@@ -214,6 +222,7 @@ class HostScene:
                         uv0=t(self.uv0), uv1=t(self.uv1), uv2=t(self.uv2),
                         mat_id=t(self.mat_id, torch.int64))
         wbvh = bforest = ftables = bvh = pbvh = None
+        wforest, wforest_maps = (), ()
         if fast_big_eligible(self, dev):
             target = int(os.environ.get("FLUCTUS_BRUTE_TARGET_TRIS",
                                         _brute_auto_target(self.n_tris)))
@@ -242,10 +251,12 @@ class HostScene:
                     leaf_ids=t(pk.leaf_ids), root_ref=pk.root_ref)
             if (wide.nodes.size + wide.leaves.size) * 4 > FOREST_TABLE_BYTES:
                 if os.environ.get("FLUCTUS_PACKET_FOREST", "0") == "1":
-                    raise NotImplementedError(
-                        "FLUCTUS_PACKET_FOREST=1: the packet forest is not "
-                        "ported yet (ROADMAP Queue 1, packet forest)")
-                if _forest_knob() == "treelet":
+                    hosts, maps = build_wide_forest(
+                        self.v0, self.v1, self.v2, build_binary,
+                        budget_bytes=FOREST_CHUNK_BYTES)
+                    wforest = pad_forest(hosts, t)
+                    wforest_maps = tuple(t(m) for m in maps)
+                elif _forest_knob() == "treelet":
                     hf = build_host_forest(
                         self.v0, self.v1, self.v2,
                         target_tris=int(os.environ.get(
@@ -268,7 +279,30 @@ class HostScene:
                       alias_table=t(env.alias_table))
         return DeviceScene(geom=geom, wbvh=wbvh, materials=mats, atlas=atlas,
                            envmap=envd, bforest=bforest, ftables=ftables,
-                           bvh=bvh, pbvh=pbvh)
+                           bvh=bvh, pbvh=pbvh, wforest=wforest,
+                           wforest_maps=wforest_maps)
+
+
+def pad_forest(hosts, t) -> tuple:
+    """The packet forest's chunks (WideBVHHost) as WideBVH tables padded
+    to the largest chunk's rows, put on the device by `t`: pad node rows
+    are never hit (+inf at each child's lo.x), pad leaf slots hold the id
+    -1 (the JAX package's `to_device` under FLUCTUS_PACKET_FOREST=1)."""
+    n_max = max(h.nodes.shape[0] for h in hosts)
+    l_max = max(h.leaves.shape[0] for h in hosts)
+    chunks = []
+    for h in hosts:
+        assert h.root_ref == 0, "forest chunk root must be inner"
+        nodes = np.zeros((n_max, 56), np.float32)
+        nodes[:, 0:48:6] = np.inf
+        nodes[:h.nodes.shape[0]] = h.nodes
+        leaves = np.zeros((l_max,) + h.leaves.shape[1:], np.float32)
+        leaves[..., 9] = np.int32(-1).view(np.float32)
+        leaves[:h.leaves.shape[0]] = h.leaves
+        chunks.append(WideBVH(nodes=t(nodes), leaves=t(leaves), root_ref=0,
+                              depth=int(h.depth),
+                              leaf_width=int(h.leaves.shape[1])))
+    return tuple(chunks)
 
 
 def _brute_auto_target(n_tris: int) -> int:

@@ -27,7 +27,8 @@ from fluctus_tpu.accel import native as jnative
 from fluctus_tpu.accel.forest import build_host_forest as jax_build
 from fluctus_tpu.core.types import RenderConfig as JaxConfig
 from fluctus_tpu.render import driver as jax_driver
-from fluctus_tpu_torch.accel.forest import build_host_forest
+from fluctus_tpu_torch.accel.forest import build_binary, build_host_forest
+from fluctus_tpu_torch.accel.wide import build_wide_forest
 from fluctus_tpu_torch.convert import (
     forest_from_numpy, params_from_numpy, scene_from_numpy)
 from fluctus_tpu_torch.core.types import RenderConfig
@@ -324,7 +325,8 @@ def test_forest_knobs_in_fast_big_rule(monkeypatch):
 def test_forest_tables_by_knob(monkeypatch):
     """Over the table threshold (lowered here so the cornell box passes
     it): no knob keeps the hierarchy alone (K1); treelet adds the forest,
-    sized by its two knobs; the packet forest raises."""
+    sized by its two knobs; the packet forest adds its padded chunks
+    (the chunk budget lowered too) and their id maps."""
     monkeypatch.setattr(scene_mod, "FOREST_TABLE_BYTES", 0)
     host = load_scene("assets/cornell_proxy.obj")
     host.build_bvh(use_sbvh=True)
@@ -342,8 +344,24 @@ def test_forest_tables_by_knob(monkeypatch):
     assert torch.equal(bits(s.ftables.leaves), bits(hf.leaves))
     assert s.ftables.lvl == hf.lvl and s.ftables.nodes.shape[0] >= 2
     monkeypatch.setenv("FLUCTUS_PACKET_FOREST", "1")
-    with pytest.raises(NotImplementedError, match="packet forest"):
-        host.to_device("cpu")
+    monkeypatch.setattr(scene_mod, "FOREST_CHUNK_BYTES", 16 << 10)
+    s = host.to_device("cpu")
+    hosts, maps = build_wide_forest(host.v0, host.v1, host.v2, build_binary,
+                                    budget_bytes=16 << 10)
+    assert s.wbvh is not None and s.ftables is None and s.bforest is None
+    assert len(s.wforest) == len(s.wforest_maps) == len(hosts) >= 3
+    n_max = max(h.nodes.shape[0] for h in hosts)
+    l_max = max(h.leaves.shape[0] for h in hosts)
+    for c, m, h, hm in zip(s.wforest, s.wforest_maps, hosts, maps):
+        assert c.root_ref == 0 and c.depth == h.depth
+        assert c.nodes.shape == (n_max, 56)
+        assert c.leaves.shape == (l_max, 16, 10)
+        n, l_ = h.nodes.shape[0], h.leaves.shape[0]
+        assert torch.equal(bits(c.nodes[:n]), bits(h.nodes))
+        assert torch.equal(bits(c.leaves[:l_]), bits(h.leaves))
+        assert bool(torch.isinf(c.nodes[n:, 0:48:6]).all())
+        assert bool((bits(c.leaves[l_:, :, 9]) == -1).all())
+        assert m.dtype == torch.int32 and torch.equal(m, torch.as_tensor(hm))
     # under the threshold the knobs change nothing
     monkeypatch.setattr(scene_mod, "FOREST_TABLE_BYTES", 8 << 20)
     s = host.to_device("cpu")

@@ -6,6 +6,8 @@ through the lockstep and the stream, the luxball renders env-lit from an
 HDR the port writes and two optimizer steps (with their checkpoint) run
 on it, a brute-chunk forest and a treelet forest build and traverse
 under both of their schedulers, a packet call (backend "pallas") runs,
+a 2-shard mesh renders through both integrators, the packet forest
+builds and traverses through both of its walks,
 the denoised, progressive and preview renders, picking, the saved state,
 the XLA backends ("jnp", "packed", "wide") and the command line run. The machine with the card has none of those packages."""
 import os
@@ -95,6 +97,23 @@ r = traverse_pallas.traverse_closest(s.scene.wbvh, o, d, 3.4e38)
 assert torch.equal(r.t, ref.t)
 assert torch.equal(traverse_pallas.traverse_any(s.scene.wbvh, o, d, 0.5),
                    blocked)
+from fluctus_tpu_torch.parallel import mesh as pmesh
+from fluctus_tpu_torch.scene import scene as scene_mod
+m2 = pmesh.make_mesh(["cpu", "cpu"])
+assert torch.equal(pmesh.render_sharded(s.scene, s.params, s.cfg, 1, m2),
+                   driver.lockstep.render(s.scene, s.params, s.cfg, 1))
+img2, cnt = pmesh.render_stream_sharded(s.scene, s.params, s.cfg, 1, m2)
+assert tuple(cnt.shape) == (2, 3) and bool(torch.isfinite(img2).all())
+scene_mod.FOREST_TABLE_BYTES, scene_mod.FOREST_CHUNK_BYTES = 0, 64 << 10
+os.environ["FLUCTUS_PACKET_FOREST"] = "1"
+pf = h.to_device("cpu")
+del os.environ["FLUCTUS_PACKET_FOREST"]
+assert len(pf.wforest) > 1
+for mod in (traverse_stack, traverse_pallas):
+    r = mod.traverse_closest_forest(pf.wforest, pf.wforest_maps, o, d, 3.4e38)
+    assert torch.allclose(r.t, ref.t, rtol=1e-5), mod
+    assert torch.equal(mod.traverse_any_forest(pf.wforest, o, d, 0.5),
+                       blocked), mod
 import tempfile
 from fluctus_tpu_torch.fixtures import sky_env
 from fluctus_tpu_torch.io.hdr import read_hdr, write_hdr
@@ -206,9 +225,9 @@ print("DECODED-OK")
 
 def test_port_decodes_textures_without_pil(tmp_path):
     """The image decoders (PNG, JPEG baseline and progressive with its g++
-    build, BMP, TGA, GIF, TIFF, PPM, DDS with its g++ build, ICO, PCX,
-    QOI, SGI, DIB, MSP, XBM) run with PIL unimportable and give the rows
-    PIL gives."""
+    build, BMP, TGA, GIF, TIFF (LZW, JPEG, CMYK), PPM, DDS with its g++
+    build, ICO, PCX, QOI, SGI, DIB, MSP, XBM, PSD CMYK and Lab) run with
+    PIL unimportable and give the rows PIL gives."""
     import numpy as np
     from PIL import Image
     g = np.random.default_rng(0)
@@ -231,8 +250,18 @@ def test_port_decodes_textures_without_pil(tmp_path):
                          ("k.pcx", img, {}), ("l.qoi", img, {}),
                          ("m.sgi", img, {}), ("n.dib", img.quantize(9), {}),
                          ("o.msp", img.convert("1"), {}),
-                         ("p.xbm", img.convert("1"), {})):
+                         ("p.xbm", img.convert("1"), {}),
+                         ("q.tif", img, dict(compression="jpeg")),
+                         ("r.tif", img.convert("CMYK"),
+                          dict(compression="tiff_deflate"))):
         im.save(tmp_path / name, **kw)
+        rgba = np.asarray(Image.open(tmp_path / name).convert("RGBA"))
+        np.save(tmp_path / f"{name}.npy", np.ascontiguousarray(rgba[::-1]))
+        names.append(name)
+    from fluctus_tpu_torch import fixtures
+    for mode in ("CMYK", "LAB"):
+        name = f"s{mode}.psd"
+        (tmp_path / name).write_bytes(fixtures.psd_bytes(mode, 13, 9, True))
         rgba = np.asarray(Image.open(tmp_path / name).convert("RGBA"))
         np.save(tmp_path / f"{name}.npy", np.ascontiguousarray(rgba[::-1]))
         names.append(name)

@@ -821,3 +821,64 @@ def test_pick_one_ray_through_k1(card):
         assert torch.equal(k.prim, p.prim) and torch.equal(k.t, p.t)
     p2 = state.pick_dof_depth(s.scene, s.params, s.cfg)
     assert float(p2.camera.focal_dist) == np.float32(t)
+
+
+@pytest.fixture(scope="module")
+def packet_forest(card, kitchen):
+    """The kitchen's packet forest at a 256 KB chunk budget (the scene's
+    own tables stay under the 8 MB forest threshold)."""
+    from fluctus_tpu_torch.accel.forest import build_binary
+    from fluctus_tpu_torch.accel.wide import build_wide_forest
+    from fluctus_tpu_torch.scene.scene import pad_forest
+    host, _ = kitchen
+    hosts, maps = build_wide_forest(host.v0, host.v1, host.v2, build_binary,
+                                    budget_bytes=256 << 10)
+    to = lambda a: torch.as_tensor(a, device=card)
+    return host, pad_forest(hosts, to), tuple(to(m) for m in maps)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k4"])
+def test_forest_walks_equal_plain(card, packet_forest, kernel):
+    """Each forest walk on the card, one launch a chunk in each form,
+    against the same loop over the plain version."""
+    from fluctus_tpu_torch.ops import traverse_pallas as tp
+    host, chunks, maps = packet_forest
+    o, d, t = _rays(host, 4096, 21, card)
+    if kernel == "k1":
+        ts.reset_counts()
+        k = ts.traverse_closest_forest(chunks, maps, o, d, t)
+        kb = ts.traverse_any_forest(chunks, o, d, t)
+        counts = dict(ts.LAUNCHES)
+        p = ts.closest_forest_plain(chunks, maps, o, d, t)
+        pb = ts.any_forest_plain(chunks, o, d, t)
+    else:
+        tp.reset_counts()
+        k = tp.traverse_closest_forest(chunks, maps, o, d, t)
+        kb = tp.traverse_any_forest(chunks, o, d, t)
+        counts = dict(tp.LAUNCHES)
+        p = tp.traverse_closest_forest(chunks, maps, o, d, t,
+                                       launch=tp.packet_plain)
+        pb = tp.traverse_any_forest(chunks, o, d, t, launch=tp.packet_plain)
+    torch.cuda.synchronize()
+    assert counts == {"closest": len(chunks), "any": len(chunks)}
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert torch.equal(kb, pb) and 0 < int(kb.sum()) < 4096
+    assert int((k.prim >= 0).sum()) > 1000
+
+
+def test_sharded_renders_on_the_card(card):
+    """Four shards on the one card: the lockstep stripes bit-equal to the
+    whole frame, the sharded stream within rtol 1e-5 / atol 1e-6 of the
+    single-device stream, its spawns covering the padded frame."""
+    from fluctus_tpu_torch.fixtures import plane_session
+    from fluctus_tpu_torch.integrators import lockstep, wavefront
+    from fluctus_tpu_torch.parallel import mesh as pmesh
+    s = plane_session("cuda", size=23, max_bounces=2)
+    m = pmesh.make_mesh([card] * 4)
+    img = pmesh.render_sharded(s.scene, s.params, s.cfg, 2, m)
+    assert torch.equal(img, lockstep.render(s.scene, s.params, s.cfg, 2))
+    got, counters = pmesh.render_stream_sharded(s.scene, s.params, s.cfg, 2,
+                                                m)
+    want, _ = wavefront.render_stream(s.scene, s.params, s.cfg, 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert int(counters[:, 0].sum()) == -(-23 * 23 // 4) * 4 * 2

@@ -5,18 +5,21 @@ package's (PIL's `Image.open(...).convert("RGBA")`) on the same files,
 written into tmp_path with PIL or, for what PIL does not write (every PNG
 colour type and depth, Adam7, tRNS keys; BMP bitfields, 4- and 16-bit
 pixels, RLE and OS/2 headers; right-to-left and 16-bit TGA; GIF frames
-offset in their screen; TIFF tiles, 16-bit samples and the predictor;
-plain PNM at odd maxvals and PFM), by hand.
+offset in their screen; TIFF tiles, 16-bit samples and the predictor,
+planar samples, fill order 2, signed and float samples, the
+floating-point predictor, BigTIFF and subsampled YCbCr JPEG-in-TIFF;
+plain PNM at odd maxvals and PFM; PSD), by hand (fixtures.tiff_bytes,
+psd_bytes and the rest).
 
-Every format is held byte for byte, progressive JPEG included: the port's
-decoder makes libjpeg-turbo's choices (islow IDCT, fancy upsampling, its
-YCbCr tables), so its RGBA equals PIL's exactly. A truncated file is -1
-in both pools, and so are bytes no PIL plugin identifies; a well-formed
-file in a format the port does not decode (WebP, JPEG-in-TIFF) loads in
-the JAX pool and raises UnsupportedImage in the port's, so the gap stays
-visible. DDS (uncompressed layouts and BC1-BC5, BC7 through
-native/bcn.cpp), ICO and CUR equal PIL on files PIL writes and on DDS
-files of seeded blocks (`fixtures.dds_bytes`)."""
+Every format is held byte for byte, progressive JPEG included: the
+port's decoder makes libjpeg-turbo's choices (islow IDCT, fancy
+upsampling, its YCbCr tables), so its RGBA equals PIL's exactly. A
+truncated file is -1 in both pools, and so are bytes no PIL plugin
+identifies; a well-formed file in a format the port does not decode
+(WebP) loads in the JAX pool and raises UnsupportedImage in the port's,
+so the gap stays visible. DDS (uncompressed layouts and BC1-BC5, BC7
+through native/bcn.cpp), ICO and CUR equal PIL on files PIL writes and
+on DDS files of seeded blocks (`fixtures.dds_bytes`)."""
 import io
 import struct
 import zlib
@@ -744,6 +747,250 @@ def test_tiff(tmp_path, name):
         assert_same(path)
 
 
+def _jpeg_segments(j: bytes):
+    """A JPEG stream split into its tables (DQT, DHT) and the rest from
+    SOF to EOI, APPn segments dropped."""
+    i, tables, rest = 2, b"", b""
+    while True:
+        (n,) = struct.unpack_from(">H", j, i + 2)
+        m = j[i + 1]
+        if m == 0xda:
+            return tables, rest + j[i:]
+        if m in (0xdb, 0xc4):
+            tables += j[i:i + 2 + n]
+        elif not 0xe0 <= m <= 0xef:
+            rest += j[i:i + 2 + n]
+        i += 2 + n
+
+
+def _jpeg_tiff(a, sub, rps=None, tile=None, tables=True):
+    """A YCbCr JPEG-in-TIFF of `a` as libtiff lays it out: one JPEG
+    stream a strip (rps rows) or tile, encoded by PIL at `sub`
+    (0 4:4:4, 1 4:2:2, 2 4:2:0), its tables in JPEGTables (`tables`) or
+    in every stream. PIL's TIFF writer cannot subsample."""
+    h, w = a.shape[:2]
+    if tile:
+        tw, th = tile
+        pad = np.zeros((-(-h // th) * th, -(-w // tw) * tw, 3), np.uint8)
+        pad[:h, :w] = a
+        parts = [pad[y:y + th, x:x + tw] for y in range(0, h, th)
+                 for x in range(0, w, tw)]
+    else:
+        parts = [a[y:y + rps] for y in range(0, h, rps)]
+    chunks, tabs = [], None
+    for p in parts:
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(p)).save(
+            buf, "JPEG", quality=88, subsampling=sub)
+        t, rest = _jpeg_segments(buf.getvalue())
+        if tables:
+            tabs = b"\xff\xd8" + t + b"\xff\xd9"
+            chunks.append(b"\xff\xd8" + rest)
+        else:
+            chunks.append(b"\xff\xd8" + t + rest)
+    return fixtures.tiff_bytes(
+        w, h, 8, 3, 6, chunks, comp=7, rps=rps, tile=tile, tables=tabs,
+        subsampling={0: (1, 1), 1: (2, 1), 2: (2, 2)}[sub])
+
+
+def _fp_diff(a: np.ndarray, spp: int = 1) -> bytes:
+    """libtiff's floating-point predictor on rows of float32: each row's
+    bytes as planes, most significant first, then differenced along the
+    row with stride spp."""
+    out = []
+    for row in a.reshape(a.shape[0], -1):
+        by = np.frombuffer(row.astype("<f4").tobytes(), np.uint8).reshape(
+            -1, 4)
+        planes = np.concatenate([by[:, 3 - k] for k in range(4)])
+        d = planes.copy()
+        d[spp:] = planes[spp:] - planes[:-spp]
+        out.append(d)
+    return np.concatenate(out).tobytes()
+
+
+REV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _tiff_layout_cases():
+    """{name: (file bytes, whether PIL reads it)}: the layouts of PR 15's
+    repair (planar, fill order 2, signed and float samples, predictor 3,
+    CMYK, BigTIFF, JPEG), written by PIL where it writes them and by
+    fixtures.tiff_bytes otherwise."""
+    g = np.random.default_rng(16)
+    tb = fixtures.tiff_bytes
+    cases = {}
+    pic = smooth(37, 29)
+    for mode in ("RGB", "L", "YCbCr"):
+        for rps in (None, 16):
+            buf = io.BytesIO()
+            Image.fromarray(pic).convert(mode).save(
+                buf, "TIFF", compression="jpeg",
+                tiffinfo={} if rps is None else {278: rps})
+            cases[f"PIL {mode} jpeg rps {rps}"] = (buf.getvalue(), True)
+    for sub in (0, 1, 2):
+        cases[f"YCbCr jpeg 4:{[4, 2, 2][sub]}:{[4, 2, 0][sub]} strips"] = (
+            _jpeg_tiff(pic, sub, rps=16), True)
+    cases["YCbCr jpeg 4:2:0 one stream, tables inline"] = (
+        _jpeg_tiff(pic, 2, rps=37, tables=False), True)
+    cases["YCbCr jpeg 4:2:0 tiles 16x16"] = (
+        _jpeg_tiff(pic, 2, tile=(16, 16)), True)
+    for mode, arr in (("F", (g.normal(size=(9, 13)) * 150 + 100).astype(
+            np.float32)), ("I", g.integers(-400, 700, (9, 13)).astype(
+                np.int32))):
+        arr.flat[:4] = [np.nan, np.inf, -np.inf, 255.5] if mode == "F" \
+            else [-1, 255, 256, 2 ** 31 - 1]
+        for comp in ("raw", "tiff_deflate", "tiff_lzw"):
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, "TIFF", compression=comp)
+            cases[f"PIL {mode} {comp}"] = (buf.getvalue(), True)
+    cmyk = Image.fromarray(pic).convert("CMYK")
+    for comp in ("raw", "packbits", "tiff_deflate"):
+        buf = io.BytesIO()
+        cmyk.save(buf, "TIFF", compression=comp)
+        cases[f"PIL CMYK {comp}"] = (buf.getvalue(), True)
+    w, h = 13, 9
+    for bo in ("<", ">"):
+        v16 = g.integers(-500, 800, (h, w)).astype(bo + "i2")
+        d16 = v16.copy()
+        d16[:, 1:] = v16[:, 1:] - v16[:, :-1]
+        v32 = g.integers(-500, 800, (h, w)).astype(bo + "i4")
+        f32 = (g.normal(size=(h, w)) * 150 + 100).astype(bo + "f4")
+        for comp, z in ((1, lambda x: x), (8, zlib.compress)):
+            cases[f"I;16S {bo} comp {comp}"] = (tb(
+                w, h, 16, 1, 1, [z(v16.tobytes())], comp=comp, fmt=[2],
+                bo=bo), True)
+            cases[f"I;32S {bo} comp {comp}"] = (tb(
+                w, h, 32, 1, 1, [z(v32.tobytes())], comp=comp, fmt=[2],
+                bo=bo), True)
+            cases[f"F min-is-white {bo} comp {comp}"] = (tb(
+                w, h, 32, 1, 0, [z(f32.tobytes())], comp=comp, fmt=[3],
+                bo=bo), True)
+        cases[f"I;16S {bo} deflate, predictor 2"] = (tb(
+            w, h, 16, 1, 1, [zlib.compress(d16.tobytes())], comp=8, fmt=[2],
+            bo=bo, pred=2), True)
+        cases[f"F {bo} deflate, predictor 3"] = (tb(
+            w, h, 32, 1, 1, [zlib.compress(_fp_diff(f32[i:i + 4]))
+                             for i in range(0, h, 4)], comp=8, fmt=[3],
+            bo=bo, pred=3, rps=4), True)
+        cases[f"I;32N {bo}"] = (tb(w, h, 32, 1, 1, [v32.astype(
+            bo + "u4").tobytes()], fmt=[1], bo=bo), bo == "<")
+        c16 = g.integers(0, 65536, (h, w, 4)).astype(bo + "u2")
+        cases[f"CMYK 16-bit {bo} deflate"] = (tb(
+            w, h, 16, 4, 5, [zlib.compress(c16.tobytes())], comp=8, bo=bo),
+            True)
+    cases["float16"] = (tb(w, h, 16, 1, 1, [np.ones((h, w), np.float16)
+                                            .tobytes()], fmt=[3]), False)
+    cases["signed 8-bit"] = (tb(w, h, 8, 1, 1, [g.integers(
+        0, 256, (h, w)).astype(np.uint8).tobytes()], fmt=[2]), True)
+    lab = g.integers(0, 256, (h, w, 3)).astype(np.uint8)
+    for comp, z in ((1, lambda x: x), (8, zlib.compress)):
+        cases[f"CIELAB comp {comp}"] = (tb(w, h, 8, 3, 8, [z(lab.tobytes())],
+                                           comp=comp), True)
+    c8 = g.integers(0, 256, (h, w, 5)).astype(np.uint8)
+    cases["CMYK + unused extra sample"] = (tb(w, h, 8, 5, 5, [
+        c8.tobytes()], extra=[0]), True)
+    # planar: one chunk list a plane (PIL writes none)
+    for bits in (8, 16):
+        dt = np.uint8 if bits == 8 else "<u2"
+        for name, spp, photo, extra in (("L", 1, 1, None), ("LA", 2, 1, [2]),
+                                        ("RGB", 3, 2, None),
+                                        ("RGBA", 4, 2, [2]),
+                                        ("RGBa", 4, 2, [1]),
+                                        ("RGBX", 4, 2, [0])):
+            a = g.integers(0, 1 << bits, (h, w, spp)).astype(dt)
+            if extra == [1]:
+                a[..., :3] = np.minimum(a[..., :3], a[..., 3:])
+            for comp, z in ((1, lambda x: x), (8, zlib.compress)):
+                reads = bits == 16 and name in ("LA",) or (
+                    comp == 1 and (name in ("LA", "RGBa", "RGBX")
+                                   or name == "L" and bits == 16)) or (
+                    name == "RGBX")
+                cases[f"planar {name} {bits}-bit comp {comp}"] = (tb(
+                    w, h, bits, spp, photo,
+                    [z(a[i:i + 4, :, k].tobytes()) for k in range(spp)
+                     for i in range(0, h, 4)], comp=comp, rps=4, extra=extra,
+                    planar=2), not reads)
+    a = g.integers(0, 256, (h, w)).astype(np.uint8)
+    cases["planar min-is-white 8-bit raw"] = (tb(
+        w, h, 8, 1, 0, [a.tobytes()], planar=2), True)
+    a = g.integers(0, 256, (40, 37, 3)).astype(np.uint8)
+    tiles = []
+    for k in range(3):
+        for ty in range(0, 40, 16):
+            for tx in range(0, 37, 16):
+                t = np.zeros((16, 16), np.uint8)
+                blk = a[ty:ty + 16, tx:tx + 16, k]
+                t[:blk.shape[0], :blk.shape[1]] = blk
+                tiles.append(t.tobytes())
+    cases["planar RGB tiles 16x16 raw"] = (tb(37, 40, 8, 3, 2, tiles,
+                                              tile=(16, 16), planar=2), True)
+    cases["planar RGB tiles 16x16 deflate"] = (tb(
+        37, 40, 8, 3, 2, [zlib.compress(x) for x in tiles], comp=8,
+        tile=(16, 16), planar=2), True)
+    # fill order 2: every stored byte bit-reversed
+    for name, bits, spp, photo, reads in (
+            ("L", 8, 1, 1, True), ("min-is-white L", 8, 1, 0, None),
+            ("RGB", 8, 3, 2, True), ("RGBA", 8, 4, 2, False),
+            ("1-bit", 1, 1, 1, True), ("1-bit min-is-white", 1, 1, 0, True),
+            ("4-bit", 4, 1, 1, True), ("4-bit palette", 4, 1, 3, None),
+            ("palette", 8, 1, 3, True), ("16-bit", 16, 1, 1, True)):
+        if bits < 8:
+            v = g.integers(0, 1 << bits, (h, w)).astype(np.uint8)
+            raw = np.packbits(np.unpackbits(v[..., None], axis=2)[
+                ..., 8 - bits:].reshape(h, -1), axis=1).tobytes()
+        else:
+            hi = 300 if bits == 16 else 256
+            raw = g.integers(0, hi, (h, w, spp)).astype(
+                np.uint8 if bits == 8 else "<u2").tobytes()
+        cmap = g.integers(0, 65536, 3 << bits).tolist() if photo == 3 \
+            else None
+        for comp, z in ((1, lambda x: x), (8, zlib.compress)):
+            stored = REV[np.frombuffer(z(raw), np.uint8)].tobytes()
+            ok = (comp == 8) if reads is None else reads
+            cases[f"fill order 2, {name}, comp {comp}"] = (tb(
+                w, h, bits, spp, photo, [stored], comp=comp, fill=2,
+                cmap=cmap, extra=[2] if spp == 4 else None), ok)
+    # BigTIFF
+    a = g.integers(0, 256, (h, w, 4)).astype(np.uint8)
+    for bo in ("<", ">"):
+        # PIL fails on big-endian BigTIFF: it tests the third byte for 43
+        cases[f"BigTIFF RGB {bo}"] = (tb(w, h, 8, 3, 2, [a[..., :3].tobytes()],
+                                         bo=bo, bigtiff=True), bo == "<")
+        cases[f"BigTIFF RGBA deflate strips {bo}"] = (tb(
+            w, h, 8, 4, 2, [zlib.compress(a[i:i + 4].tobytes())
+                            for i in range(0, h, 4)], comp=8, rps=4,
+            extra=[2], bo=bo, bigtiff=True), bo == "<")
+    tiles = []
+    for ty in range(0, 40, 16):
+        for tx in range(0, 37, 16):
+            t = np.zeros((16, 16), "<u2")
+            blk = g.integers(0, 300, (16, 16))
+            t[:] = blk
+            tiles.append(zlib.compress(t.tobytes()))
+    cases["BigTIFF 16-bit grey tiles"] = (tb(37, 40, 16, 1, 1, tiles, comp=8,
+                                             tile=(16, 16), bigtiff=True),
+                                          True)
+    return cases
+
+
+TIFF_LAYOUTS = _tiff_layout_cases()
+
+
+@pytest.mark.parametrize("name", list(TIFF_LAYOUTS))
+def test_tiff_layouts(tmp_path, name):
+    """Planar samples, fill order 2, signed and float samples, the
+    floating-point predictor, CMYK, BigTIFF and new-style JPEG: the
+    port's RGBA equals PIL's byte for byte, and a layout PIL cannot read
+    is -1 in both pools."""
+    data, reads = TIFF_LAYOUTS[name]
+    path = tmp_path / "t.tif"
+    path.write_bytes(data)
+    if reads:
+        assert_same(path)
+    else:
+        assert both(path) == [-1, -1]
+
+
 # ------------------------------------------------------------ DDS, ICO, CUR
 
 DDS_SIZES = ((16, 12), (13, 7), (1, 1))
@@ -1007,15 +1254,16 @@ def test_raster_formats_truncated_are_minus_one(tmp_path, name):
     assert both(path) == [-1, -1]
 
 
-def test_psd_cmyk_loads_in_jax_and_raises_in_port(tmp_path):
-    """A CMYK composite (colour mode 4): PIL reads it, the port names it."""
-    data = bytearray(fixtures.psd_bytes("RGBA", 6, 5, False, seed=1))
+@pytest.mark.parametrize("rle", [False, True], ids=["raw", "packbits"])
+def test_psd_cmyk_loads_in_jax_and_port(tmp_path, rle):
+    """A CMYK composite (colour mode 4) whose channel count says RGBA's
+    four: PIL reads each plane inverted and converts CMYK to RGB; the
+    port's RGBA equals PIL's."""
+    data = bytearray(fixtures.psd_bytes("RGBA", 6, 5, rle, seed=1))
     data[24:26] = struct.pack(">H", 4)
     path = tmp_path / "t.psd"
     path.write_bytes(bytes(data))
-    assert JaxPool().try_import(str(path), "t") == 0
-    with pytest.raises(UnsupportedImage, match="PSD CMYK"):
-        TexturePool().try_import(str(path), "t")
+    assert_same(path)
 
 
 # ------------------------------------------------------------ failures
@@ -1046,7 +1294,7 @@ def _unported():
              "qoi": ("qoi", dict(format="QOI"), True),
              "sgi": ("sgi", dict(format="SGI"), True),
              "jpeg in tiff": ("tif", dict(format="TIFF",
-                                          compression="jpeg"), False)}
+                                          compression="jpeg"), True)}
     if features.check("webp"):
         cases["webp"] = ("webp", dict(format="WEBP", lossless=True), False)
     return cases
