@@ -86,8 +86,9 @@ cache (session-cache); the kitchen's NumPy-built SAH hierarchy
 (FLUCTUS_NATIVE=0) through K1 bit-equal to plain (native-off); and a
 2048x2048 BC7 DDS texture through scene/native/bcn.cpp (dds), and one
 512x512 file of each of PCX, DCX, QOI, SGI (raw and RLE), MSP (versions 1
-and 2), XBM, DIB, PSD (raw and PackBits) and Sun raster (raw and RLE)
-through the texture dispatch (formats). The auxiliary surfaces: the
+and 2), XBM, DIB, XPM, XV thumbnail, IM, IMT, SPIDER, PIXAR, McIdas,
+FTEX, GBR, FITS, BLP, ICNS, PSD (raw and PackBits) and Sun raster (raw
+and RLE) through the texture dispatch (formats). The auxiliary surfaces: the
 kitchen's denoiser buffers through K1 at 512x512 (one closest launch a
 tile) and K4 at 64x64, each against the plain walk on the card (aux), and
 K1 timed against its plain version on those tiles' rays (aux-time); its
@@ -113,8 +114,19 @@ grad_step_stream against grad_step at minibatch 4,096, and
 scaling_benchmark at 1, 2 and 4 shards (parallel, parallel-scaling;
 shards share the card, so efficiency is no scaling figure); then two
 processes in a gloo group, one shard each on the card, against the
-in-process 2-shard mesh (parallel-ranks). Every other session passes
-cache_dir=None. Each phase prints one line with its
+in-process 2-shard mesh (parallel-ranks). The octant sort: the kitchen
+frame again under FLUCTUS_TRAV_SORT=octant, through K1 only and
+bit-equal to the unsorted frame (octant), and K1 on 65,536 bounce rays
+octant-sorted beside the same rays as given, with the sort and the
+unsort timed (octant-time). Last, the reference-protocol sweep, `python3
+-m fluctus_tpu_torch.scripts.run_protocol --duration 2` in a child
+process: the kitchen through K1 and the conference through K2, both
+integrators at 1024x1024, its CSV headers, summary keys, launches, the
+openness probe's pick and its verdict (protocol), then K1 and K2 held
+against their plain versions and timed on the sweep's own rays, each
+scene's first closest and any-hit call of its lockstep benchmark that
+launched its kernel (protocol-time). Every other session
+passes cache_dir=None. Each phase prints one line with its
 wall time; the last three lines are the kernels record, the card and the
 device record.
 Any failed check raises, so the script exits non-zero. It needs a CUDA
@@ -2934,7 +2946,9 @@ def phase_cli(card: str, device: str = "cuda", size: int = 512,
 
 def phase_raster_formats() -> dict:
     """One 512x512 file of each of the raster formats PCX, DCX, QOI, SGI,
-    MSP, XBM, DIB, PSD (RGB, RGBA, CMYK, Lab), Sun raster and the TIFF
+    MSP, XBM, DIB, XPM, XV thumbnail, IM, IMT, SPIDER, PIXAR, McIdas,
+    FTEX, GBR, FITS, BLP, ICNS (fixtures.RASTER_FORMATS), PSD (RGB, RGBA,
+    CMYK, Lab), Sun raster and the TIFF
     layouts planar, BigTIFF CMYK and float (fixtures.raster_bytes,
     psd_bytes, sun_raster_bytes, tiff_bytes; the card's machine has no
     PIL, so equality with PIL is the CPU tests' part) through the texture
@@ -3383,6 +3397,381 @@ def phase_parallel_ranks(env_path: str, card: str, device: str = "cuda:0",
     return {"k1": k1, "secs": t_ranks}
 
 
+# ------------------------------------------------------------ octant sort
+
+def phase_octant(sess, plain_img, secs_plain: float, card: str) -> dict:
+    """FLUCTUS_TRAV_SORT=octant on the kitchen: the lockstep frame
+    (512x512, 8 bounces, 16 spp) through the entry point with the knob,
+    K1 only, bit-equal to the frame without it (`plain_img`); then K1 on
+    65,536 of the kitchen's seeded bounce (extension) rays, octant-sorted
+    and as given, bit-equal through the sort, each held against the plain
+    walk on the sorted rays, with the sort and the unsort timed apart.
+    Returns the frame's K1 launches and the sorted rays' timings."""
+    import torch
+    from fluctus_tpu_torch.core.types import RenderConfig
+    from fluctus_tpu_torch.integrators import common
+    from fluctus_tpu_torch.ops import ray_sort
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.timing import time_launches
+
+    keep: dict = {}
+    t0 = time.perf_counter()
+    with env(FLUCTUS_TRAV_SORT="octant"):
+        secs, mine = phase_frame_only(
+            sess, 16, card, "octant", "K1",
+            "kitchen, FLUCTUS_TRAV_SORT=octant,", keep)
+    check(torch.equal(keep["img"], plain_img),
+          "the octant-sorted kitchen frame differs from the unsorted one")
+    say("octant", t0, f"frame bit-equal to the unsorted "
+        f"frame: {secs:.3f} s sorted against {secs_plain:.3f} s unsorted, "
+        f"K1 launches {mine}, on {card}")
+
+    t0 = time.perf_counter()
+    tile = 1 << 16
+    bvh = sess.scene.wbvh
+    o, d, t_c = kernel_rays(sess, tile, seed=13)[:3]
+    n_p = o.shape[0] - tile
+    o, d, t_c = (x[n_p:].contiguous() for x in (o, d, t_c))
+    order, rank = ray_sort.octant_order(d)
+    so, sd, st = (x[order].contiguous() for x in (o, d, t_c))
+    plain, _ = ts.traverse_plain(bvh, so, sd, st, False)
+    k_sorted = ts.traverse_kernel(bvh, so, sd, st, any_hit=False)
+    k_given = ts.traverse_kernel(bvh, o, d, t_c, any_hit=False)
+    with env(FLUCTUS_TRAV_SORT="octant"):
+        via = common._closest_tr(sess.scene, RenderConfig(), o, d, t_c)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k_sorted, plain)),
+          "K1 on octant-sorted rays differs from the plain walk")
+    hit = k_sorted.prim >= 0
+    err = float((k_sorted.t - plain.t)[hit].abs().max()) \
+        if bool(hit.any()) else 0.0
+    check(all(torch.equal(a, b) for a, b in zip(via, k_given)),
+          "the octant sort changed a K1 result")
+    stats: dict = {}
+    ts.traverse_plain(bvh, so, sd, st, False, stats=stats)
+    run_s = lambda: ts.traverse_kernel(bvh, so, sd, st, any_hit=False)
+    run_g = lambda: ts.traverse_kernel(bvh, o, d, t_c, any_hit=False)
+    run_p = lambda: ts.traverse_plain(bvh, so, sd, st, False)
+
+    def sort():
+        od, rk = ray_sort.octant_order(d)
+        return o[od], d[od], t_c[od], rk
+
+    def unsort():
+        return type(k_sorted)(*(a[rank] for a in k_sorted))
+    g1, s1 = time_launches(run_g, 20, 1), time_launches(run_s, 20, 1)
+    s2, g2 = time_launches(run_s, 20, 1), time_launches(run_g, 20, 1)
+    p_ms = (time_launches(run_p, 2, 1) + time_launches(run_p, 2, 1)) / 2
+    sort_ms = time_launches(sort, 20, 3)
+    unsort_ms = time_launches(unsort, 20, 3)
+    b_ms, b_by = bound_ms(bvh, tile, stats, False)
+    out = dict(ms=(s1 + s2) / 2, given_ms=(g1 + g2) / 2, plain_ms=p_ms,
+               bound_ms=b_ms, bound_by=b_by, sort_ms=sort_ms,
+               unsort_ms=unsort_ms, launches=mine, secs=secs,
+               max_abs_err=err)
+    say("octant-time", t0,
+        f"K1 closest per {tile}-ray launch on the kitchen's bounce rays: "
+        f"octant-sorted {out['ms']:.4f} ms ({s1:.4f}, {s2:.4f}) against "
+        f"{out['given_ms']:.4f} ms as given ({g1:.4f}, {g2:.4f}); sort "
+        f"{sort_ms:.4f} ms + unsort {unsort_ms:.4f} ms a call; plain "
+        f"{p_ms:.1f} ms; bound {b_ms:.4f} ms by {b_by}; bit-equal to "
+        f"plain and through the sort, on {card}")
+    return out
+
+
+# ------------------------------------------------------------ protocol sweep
+
+PROTOCOL_SECS = 2        # --duration of the sweep
+PROTOCOL_CHILD = r"""
+import json, runpy, sys
+import torch
+import chip_smoke
+from fluctus_tpu_torch.ops import (traverse_brute, traverse_forest,
+                                   traverse_pallas, traverse_stack)
+from fluctus_tpu_torch.render import benchmark, driver
+mods = {"K1": traverse_stack, "K2": traverse_brute, "K5": traverse_forest,
+        "K4": traverse_pallas}
+marks = []
+tiles = {}            # scene path -> form -> (table, orig, dir, t_max)
+now = {"scene": None, "armed": False}
+
+
+def snap(label):
+    marks.append((label, {k: [dict(m.LAUNCHES), dict(m.PLAIN_CALLS)]
+                          for k, m in mods.items()}))
+
+
+create = driver.create_session
+
+
+def create_session(path, *a, **kw):
+    snap(path)
+    now["scene"] = path
+    return create(path, *a, **kw)
+
+
+def keep(mod, name, form):
+    # the rays of the scene's first call of this form in its lockstep
+    # benchmark that launched its kernel: one of the sweep's own tiles (a
+    # brute call whose rays all miss every chunk launches nothing)
+    fn = getattr(mod, name)
+
+    def wrapped(table, o, d, t, *a, **kw):
+        got = tiles.setdefault(now["scene"], {})
+        if not now["armed"] or form in got:
+            return fn(table, o, d, t, *a, **kw)
+        rays = (table, o.clone(), d.clone(),
+                t.clone() if isinstance(t, torch.Tensor) else t)
+        before = sum(mod.LAUNCHES.values())
+        out = fn(table, o, d, t, *a, **kw)
+        if sum(mod.LAUNCHES.values()) > before:
+            got[form] = rays
+        return out
+    setattr(mod, name, wrapped)
+
+
+for mod in (traverse_stack, traverse_brute):
+    keep(mod, "traverse_closest", "closest")
+    keep(mod, "traverse_any", "any")
+lockstep_bench = benchmark.run_benchmark
+
+
+def run_benchmark(*a, **kw):
+    now["armed"] = True
+    try:
+        return lockstep_bench(*a, **kw)
+    finally:
+        now["armed"] = False
+
+
+benchmark.run_benchmark = run_benchmark
+driver.create_session = create_session
+sys.argv = ["run_protocol"] + sys.argv[1:]
+runpy.run_module("fluctus_tpu_torch.scripts.run_protocol",
+                 run_name="__main__")
+snap("end")
+print("PROTOCOL-LAUNCHES " + json.dumps(marks))
+print("PROTOCOL-TIMES " + json.dumps(
+    {path: chip_smoke.time_sweep_tiles(got) for path, got in tiles.items()}))
+"""
+
+
+def time_k1_call(bvh, o, d, t, any_hit: bool) -> dict:
+    """K1 against its plain version on one traversal call's rays, bit for
+    bit, then timed in turns (plain, kernel, kernel, plain). Returns ms
+    and plain_ms per launch, the bound from these rays' visits, bound_by,
+    max_abs_err and the rays."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.timing import time_launches
+
+    stats: dict = {}
+    k = ts.traverse_kernel(bvh, o, d, t, any_hit)
+    pc, pa = ts.traverse_plain(bvh, o, d, t, any_hit, stats=stats)
+    torch.cuda.synchronize()
+    if any_hit:
+        check(torch.equal(k, pa), "K1 any-hit flags differ from the plain "
+              "version on the sweep's rays")
+        err = float(bool((k != pa).any()))
+    else:
+        check(all(torch.equal(getattr(k, f), getattr(pc, f))
+                  for f in ("prim", "t", "u", "v")),
+              "K1 differs from its plain version on the sweep's rays")
+        hit = k.prim >= 0
+        err = float((k.t - pc.t)[hit].abs().max()) if bool(hit.any()) \
+            else 0.0
+    run_p = lambda: ts.traverse_plain(bvh, o, d, t, any_hit)
+    run_k = lambda: ts.traverse_kernel(bvh, o, d, t, any_hit)
+    p1 = time_launches(run_p, 2, 1)
+    k1 = time_launches(run_k, 20, 1)
+    k2 = time_launches(run_k, 20, 1)
+    p2 = time_launches(run_p, 2, 1)
+    b_ms, b_by = bound_ms(bvh, o.shape[0], stats, any_hit)
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, rays=o.shape[0],
+                launches_per_call=1)
+
+
+def time_k2_call(bf, o, d, t, any_hit: bool) -> dict:
+    """K2 against its plain version through the visit-list scheduler on
+    one traversal call's rays, bit for bit; then the kernel's and the
+    plain version's time summed over the call's launches, replayed on the
+    recorded inputs in turns, and the bound of those launches."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_brute as tb
+    from fluctus_tpu_torch.timing import time_launches
+
+    kern, plain = brute_launchers("vlist")
+    trav = tb.traverse_any if any_hit else tb.traverse_closest
+    rec = Recorder(kern)
+    with env(FLUCTUS_BRUTE_SCHED="vlist"):
+        k = trav(bf, o, d, t, launch=rec)
+        p = trav(bf, o, d, t, launch=plain)
+    torch.cuda.synchronize()
+    check(len(rec.calls) > 0, "K2 made no launch on the sweep's rays")
+    if any_hit:
+        check(torch.equal(k, p), "K2 any-hit flags differ from the plain "
+              "version on the sweep's rays")
+        err = float(bool((k != p).any()))
+    else:
+        check(all(torch.equal(getattr(k, f), getattr(p, f))
+                  for f in ("prim", "t", "u", "v")),
+              "K2 differs from its plain version on the sweep's rays")
+        hit = k.prim >= 0
+        err = float((k.t - p.t)[hit].abs().max()) if bool(hit.any()) \
+            else 0.0
+    stats_list = []
+    for args in rec.calls:
+        st: dict = {}
+        plain(*args, stats=st)
+        stats_list.append(st)
+    p1 = sum(time_launches(lambda: plain(*a), 1, 1) for a in rec.calls)
+    k1 = sum(time_launches(lambda: kern(*a), 10, 1) for a in rec.calls)
+    k2 = sum(time_launches(lambda: kern(*a), 10, 1) for a in rec.calls)
+    p2 = sum(time_launches(lambda: plain(*a), 1, 1) for a in rec.calls)
+    b_ms, b_by = brute_bound("vlist", rec.calls, stats_list)
+    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, rays=o.shape[0],
+                launches_per_call=len(rec.calls))
+
+
+def time_sweep_tiles(tiles: dict) -> dict:
+    """For each form recorded in one scene of the protocol sweep (the
+    rays of its first call in the lockstep benchmark), its kernel (K1 on a
+    hierarchy, K2 on a brute forest) held against its plain version and
+    timed on those rays."""
+    from fluctus_tpu_torch.core.types import BruteForest
+    out = {}
+    for form, (table, o, d, t) in tiles.items():
+        fn = time_k2_call if isinstance(table, BruteForest) else time_k1_call
+        out[form] = fn(table, o, d, t, form == "any")
+    return out
+
+
+def protocol_keys() -> list:
+    """The keys of the dict literal the JAX package's
+    scripts/run_protocol.py appends to its summary, read from its source
+    text (nothing of it is imported)."""
+    import ast
+    tree = ast.parse(open(os.path.join(REPO, "scripts",
+                                       "run_protocol.py")).read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "append"
+                and isinstance(node.func.value, ast.Name)
+                and node.func.value.id == "summary"):
+            return [k.value for k in node.args[0].keys]
+    raise RuntimeError("no summary in scripts/run_protocol.py")
+
+
+def phase_protocol(card: str) -> dict:
+    """The reference-protocol sweep, `python3 -m
+    fluctus_tpu_torch.scripts.run_protocol --duration 2`, in a child
+    process on the card, from a temporary working directory that links
+    the repository's data/states (its out/ and data/hierarchies are the
+    child's own): the kitchen (K1) and the conference (K2), both
+    integrators at 1024x1024. Checks the CSV headers, the summary's keys
+    against the JAX script's and the launches of each scene (K1 only on
+    the kitchen, K2 only on the conference, no plain version); prints the
+    rows, samples/s, the pick and its verdict. After the sweep, and
+    outside its counts, the child holds each scene's kernel against its
+    plain version and times both on the sweep's own rays: the first
+    closest and the first any-hit call of the scene's lockstep benchmark
+    that launched its kernel (time_sweep_tiles). Returns the launches,
+    those times and the seconds."""
+    import subprocess
+    from fluctus_tpu_torch.render.benchmark import CSV_HEADER
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "data"))
+        os.symlink(STATES, os.path.join(tmp, "data", "states"))
+        proc = subprocess.run(
+            [sys.executable, "-c", PROTOCOL_CHILD, "--duration",
+             str(PROTOCOL_SECS)], cwd=tmp, capture_output=True, text=True,
+            timeout=900, env={**os.environ, "PYTHONPATH": REPO})
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, "the protocol sweep failed:\n"
+              + proc.stdout[-3000:] + proc.stderr[-3000:])
+        lines = proc.stdout.splitlines()
+        marks, times = (json.loads([ln for ln in lines if ln.startswith(
+            tag)][-1].split(" ", 1)[1]) for tag in ("PROTOCOL-LAUNCHES ",
+                                                    "PROTOCOL-TIMES "))
+        summary = json.load(open(os.path.join(tmp, "out",
+                                              "protocol_summary.json")))
+        rows = {}
+        for scene in ("kitchen", "conference"):
+            for integ in ("lockstep", "stream"):
+                path = os.path.join(tmp, "out",
+                                    f"protocol_{scene}_{integ}.csv")
+                csv = open(path).read().splitlines()
+                check(csv[0] == CSV_HEADER, f"{path}: header {csv[0]!r}")
+                rows[(scene, integ)] = len(csv) - 1
+        txt = open(os.path.join(tmp, "out", "protocol_summary.txt")).read()
+    keys = protocol_keys()
+    check([r["scene"] for r in summary] == ["kitchen", "conference"],
+          f"the sweep ran {[r['scene'] for r in summary]}")
+    for r in summary:
+        check(list(r) == keys, f"summary keys {list(r)} are not {keys}")
+    # per-scene launches: from each scene's session to the next one's
+    launches = {}
+    labels = [m[0] for m in marks]
+    for scene, kernel in (("kitchen", "K1"), ("conference", "K2")):
+        i = next(k for k, lab in enumerate(labels) if lab.endswith(
+            f"{scene}_proxy.obj"))
+        a, b = marks[i][1], marks[i + 1][1]
+        delta = {k: {f: b[k][0][f] - a[k][0][f] for f in b[k][0]}
+                 for k in b}
+        plain = {k: {f: b[k][1][f] - a[k][1][f] for f in b[k][1]}
+                 for k in b}
+        if kernel == "K1":
+            mine = delta["K1"]
+            others = {k: v for k, v in delta.items() if k != "K1"}
+        else:
+            mine = {f: delta["K2"][f"k2_{f}"] for f in ("closest", "any")}
+            others = {k: v for k, v in delta.items() if k != "K2"}
+            others["K3"] = {f: delta["K2"][f"k3_{f}"]
+                            for f in ("closest", "any")}
+        check(mine["closest"] > 0 and mine["any"] > 0,
+              f"the {scene} sweep did not launch {kernel} in both forms: "
+              f"{mine}")
+        check(all(v == 0 for d in others.values() for v in d.values()),
+              f"the {scene} sweep launched other kernels: {others}")
+        check(all(v == 0 for d in plain.values() for v in d.values()),
+              f"plain traversal ran in the {scene} sweep: {plain}")
+        launches[scene] = mine
+        path = labels[i]
+        check(set(times.get(path, {})) == {"closest", "any"},
+              f"the {scene} sweep's lockstep benchmark recorded no rays of "
+              f"both forms: {sorted(times.get(path, {}))}")
+        times[scene] = times.pop(path)
+    for r in summary:
+        s = r["scene"]
+        say("protocol", t0,
+            f"{s}: CSV rows lockstep {rows[(s, 'lockstep')]}, stream "
+            f"{rows[(s, 'stream')]}; Msamples/s lockstep "
+            f"{r['lockstep_msamples_s']}, stream {r['stream_msamples_s']}; "
+            f"MRays/s lockstep {r['lockstep_mrays_s']} (analytic), stream "
+            f"{r['stream_mrays_s']} (queues); auto picked {r['auto']}, "
+            f"winner {r['winner']} -> "
+            f"{'OK' if r['auto_correct'] else 'MISS'}; launches "
+            f"{launches[s]}")
+    for scene, kernel in (("kitchen", "K1"), ("conference", "K2")):
+        for form, r in times[scene].items():
+            say("protocol-time", t0,
+                f"{scene}: {kernel} {form} on the sweep's first launching "
+                f"{form} call of its lockstep benchmark ({r['rays']} rays, "
+                f"{r['launches_per_call']} launches): {r['ms']:.4f} ms "
+                f"against plain {r['plain_ms']:.1f} ms, bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']}; bit-equal, on "
+                f"{card}")
+    say("protocol", t0, f"the sweep at 1024x1024, {PROTOCOL_SECS} s an "
+        f"integrator, took {secs:.2f} s with process start; report:\n"
+        + txt.rstrip() + f"\non {card}")
+    return dict(launches=launches, times=times, secs=secs, summary=summary)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3442,8 +3831,10 @@ def main() -> int:
     torch.cuda.synchronize()
     say("warm-up", t0, "64x64 1 spp")
 
+    kept: dict = {}
     secs, launches = phase_frame_only(sess, 16, card, "frame", "K1",
-                                      "kitchen")
+                                      "kitchen", kept)
+    octant = phase_octant(sess, kept.pop("img"), secs, card)
     gold = golden_sessions("cuda")
     for name, (gs, spp) in gold.items():
         phase_golden_only(gs, name, spp, "K1")
@@ -3631,6 +4022,7 @@ def main() -> int:
     phase_deep_stack()
     cli = phase_cli(card)
     fmt = phase_formats(card)
+    sweep = phase_protocol(card)
 
     kernels = []
     for form, name in (("closest", "K1 traverse_stack closest"),
@@ -3655,6 +4047,31 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "K1 traverse_stack closest, octant path "
+                "(FLUCTUS_TRAV_SORT=octant)", "route": "cuda",
+        "source": "fluctus_tpu_torch/csrc/traverse_stack.cu",
+        "replaces": "fluctus_tpu/ops/traverse_mxu.py:97",
+        "launches": octant["launches"]["closest"],
+        "max_abs_err": octant["max_abs_err"], "ms": octant["ms"],
+        "plain_ms": octant["plain_ms"], "bound_ms": octant["bound_ms"],
+        "bound_by": octant["bound_by"], "library_ms": None})
+    for scene, kernel, source, replaces in (
+            ("kitchen", "K1 traverse_stack", "traverse_stack.cu",
+             "fluctus_tpu/ops/traverse_mxu.py:97"),
+            ("conference", "K2 traverse_brute", "traverse_brute.cu",
+             "fluctus_tpu/ops/traverse_brute.py:578")):
+        for form, label in (("closest", "closest"), ("any", "any-hit")):
+            r = sweep["times"][scene][form]
+            kernels.append({
+                "name": f"{kernel} {label}, protocol sweep ({scene})",
+                "route": "cuda",
+                "source": f"fluctus_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": sweep["launches"][scene][form],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None})
     r = aux["timing"]
     kernels.append({
         "name": "K1 traverse_stack closest, aux path", "route": "cuda",
@@ -3787,8 +4204,11 @@ def main() -> int:
           f"session {pf['session']:.2f} s, frames "
           f"{pf['launches']['K1_secs']:.3f} s (K1) / "
           f"{pf['launches']['K4_secs']:.3f} s (K4) over "
-          f"{pf['chunks']} chunks; parallel ranks {ranks['secs']:.2f} s on "
-          f"{card}",
+          f"{pf['chunks']} chunks; parallel ranks {ranks['secs']:.2f} s; "
+          f"octant frame {octant['secs']:.3f} s, K1 sorted / given "
+          f"{octant['ms']:.4f} / {octant['given_ms']:.4f} ms, sort + "
+          f"unsort {octant['sort_ms'] + octant['unsort_ms']:.4f} ms; "
+          f"protocol sweep {sweep['secs']:.2f} s on {card}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -2,7 +2,9 @@
 source as the JAX package's builder, so both build identical trees).
 
 Compiled with g++ at first use into the package build directory; a failed
-compile raises.
+compile raises (`available` says whether it builds). Each build records
+the builder's counters in `built.stats`, printed for SBVH builds under
+FLUCTUS_BUILD_STATS=1, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -36,9 +38,19 @@ def get_lib():
         lib.build_hierarchy.restype = ctypes.c_int
         lib.fetch_arrays.argtypes = [_F, _F] + [_I32] * 4
         lib.fetch_arrays.restype = ctypes.c_int
+        lib.get_stats.argtypes = [ctypes.POINTER(ctypes.c_int64)] * 4
         lib.release.argtypes = []
         _lib = lib
     return _lib
+
+
+def available() -> bool:
+    """Whether the native builder compiles and loads here."""
+    try:
+        get_lib()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def build_native(v0, v1, v2, max_leaf: int, max_depth: int, alpha: float,
@@ -61,7 +73,19 @@ def build_native(v0, v1, v2, max_leaf: int, max_depth: int, alpha: float,
     ints = [np.empty(n, np.int32) for _ in range(3)] + [np.empty(k, np.int32)]
     lib.fetch_arrays(node_lo.ctypes.data_as(_F), node_hi.ctypes.data_as(_F),
                      *(a.ctypes.data_as(_I32) for a in ints))
+    sn, du, ul, ur = (ctypes.c_int64() for _ in range(4))
+    lib.get_stats(*(ctypes.byref(c) for c in (sn, du, ul, ur)))
     lib.release()
-    return BuiltBVH(node_lo=node_lo, node_hi=node_hi, node_right=ints[0],
-                    node_count=ints[1], node_parent=ints[2],
-                    prim_idx=ints[3], depth=depth.value)
+    built = BuiltBVH(node_lo=node_lo, node_hi=node_hi, node_right=ints[0],
+                     node_count=ints[1], node_parent=ints[2],
+                     prim_idx=ints[3], depth=depth.value)
+    tris = len(vs[0])
+    built.stats = {
+        "spatial_nodes": sn.value, "duplicated": du.value,
+        "unsplit_left": ul.value, "unsplit_right": ur.value,
+        "refs": int(k), "tris": int(tris),
+        "duplication_pct": 100.0 * (k - tris) / max(tris, 1),
+    }
+    if use_spatial and os.environ.get("FLUCTUS_BUILD_STATS", "0") == "1":
+        print(f"[sbvh] {built.stats}")
+    return built

@@ -11,10 +11,12 @@ image sum. It reports total MRays/s with the reference protocol's analytic
 ray accounting (src/clcontext.cpp:648-656), the rays the stream's queues
 really traced (src/tracer.cpp:333-345) over the same time, and Msamples/s.
 
-`bench.py` renders teapot.ply under the night.hdr env map; neither is in
-the repository and env maps are not ported, so this renders the
-in-repository kitchen (`assets/kitchen_proxy.obj`, 25,672 triangles) with
-its saved camera and ceiling area light. Needs a CUDA card.
+`bench.py` renders teapot.ply under the night.hdr env map; neither file
+is in the repository, so this renders the in-repository kitchen
+(`assets/kitchen_proxy.obj`, 25,672 triangles) with its saved camera and
+ceiling area light. The port renders env maps too; the kitchen stays the
+scene so that the metric keeps its meaning from one measurement to the
+next. Needs a CUDA card.
 """
 from __future__ import annotations
 

@@ -91,3 +91,15 @@ def to_unit_float(bits: torch.Tensor) -> torch.Tensor:
 
 def uniform(pixel, sample, bounce, stream) -> torch.Tensor:
     return to_unit_float(hash4(pixel, sample, bounce, stream)[0])
+
+
+def uniform2(pixel, sample, bounce, stream) -> tuple:
+    """Two independent uniforms per counter tuple (one hash)."""
+    h = hash4(pixel, sample, bounce, stream)
+    return to_unit_float(h[0]), to_unit_float(h[1])
+
+
+def uniform4(pixel, sample, bounce, stream) -> tuple:
+    """Four independent uniforms per counter tuple (one hash)."""
+    return tuple(to_unit_float(x) for x in hash4(pixel, sample, bounce,
+                                                  stream))

@@ -10,6 +10,7 @@ import torch
 
 from fluctus_tpu_torch.core import vecmath as vm
 
+PI = float(torch.tensor(math.pi, dtype=torch.float32))
 TWO_PI = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
 INV_PI = float(torch.tensor(1.0 / math.pi, dtype=torch.float32))
 

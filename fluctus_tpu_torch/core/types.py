@@ -22,6 +22,7 @@ BXDF_IDEAL_REFLECTION = 1 << 4
 BXDF_GGX_ROUGH_DIELECTRIC = 1 << 5
 BXDF_IDEAL_DIELECTRIC = 1 << 6
 BXDF_EMISSIVE = 1 << 7
+BXDF_SINGULAR_MASK = BXDF_IDEAL_REFLECTION | BXDF_IDEAL_DIELECTRIC
 
 BSDF_TYPES = [
     BXDF_DIFFUSE, BXDF_GLOSSY, BXDF_GGX_ROUGH_REFLECTION,
@@ -29,6 +30,7 @@ BSDF_TYPES = [
     BXDF_EMISSIVE,
 ]
 BSDF_ID = {t: i for i, t in enumerate(BSDF_TYPES)}
+NUM_BSDF_TYPES = len(BSDF_TYPES)
 
 
 @dataclass
@@ -257,6 +259,23 @@ class Hit:
     uv: torch.Tensor
     mat_id: torch.Tensor
     area_light: torch.Tensor  # bool
+
+
+def empty_hit(shape, t_max: float = 3.4028234663852886e38,
+              device="cpu") -> Hit:
+    """A miss everywhere (the reference's EMPTY_HIT, src/geom.h:144): t at
+    t_max (float32's largest by default), prim -1, zero point, normal, uv
+    and material, no area-light hit. Ids are int64, as the port's hits
+    carry them."""
+    shape = tuple(shape)
+    z3 = torch.zeros(shape + (3,), dtype=torch.float32, device=device)
+    return Hit(
+        t=torch.full(shape, t_max, dtype=torch.float32, device=device),
+        prim=torch.full(shape, -1, dtype=torch.int64, device=device),
+        p=z3, n=z3.clone(),
+        uv=torch.zeros(shape + (2,), dtype=torch.float32, device=device),
+        mat_id=torch.zeros(shape, dtype=torch.int64, device=device),
+        area_light=torch.zeros(shape, dtype=torch.bool, device=device))
 
 
 @dataclass

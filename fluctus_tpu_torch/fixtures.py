@@ -961,7 +961,12 @@ def raster_bytes(fmt: str, width: int, height: int, seed: int = 0) -> bytes:
     (24-bit, RLE), "dcx" (that PCX as a one-frame DCX), "qoi" (RGBA:
     RGBA, RGB and run ops), "sgi" and "sgi-rle" (RGB, 8-bit, raw or RLE),
     "msp" and "msp-rle" (1-bit, versions 1 and 2), "xbm" and "dib"
-    (24-bit BGR, a BMP without its file header)."""
+    (24-bit BGR, a BMP without its file header); and "xpm" (64 colours,
+    2 characters a pixel), "xvthumb", "im" (RGB), "imt", "spider",
+    "pixar", "mcidas" (16-bit, padded rows), "ftex" (DXT1), "gbr"
+    (version 2, RGBA), "fits" (16-bit), "blp" (BLP2 DXT5 with alpha) and
+    "icns" (one 512x512 PNG member: PIL opens it only where the picture's
+    size is one an icon may have, square powers of two among them)."""
     g = np.random.default_rng(seed)
     rgb = np.stack([_runs_picture(g, height, width, 256) for _ in range(3)],
                    -1).astype(np.uint8)
@@ -1019,11 +1024,100 @@ def raster_bytes(fmt: str, width: int, height: int, seed: int = 0) -> bytes:
         rows[:, :width * 3] = rgb[::-1, :, ::-1].reshape(height, -1)
         return struct.pack("<IiiHHIIiiII", 40, width, height, 1, 24, 0,
                            rows.size, 2835, 2835, 0, 0) + rows.tobytes()
+    return _raster_bytes_t1(fmt, rgb, g)
+
+
+def _spider_header(w: int, h: int) -> bytes:
+    """A SPIDER 2D image header as PIL writes it (big-endian float32)."""
+    lenbyt = 4 * w
+    labrec = -(-1024 // lenbyt)
+    words = np.zeros(labrec * w, ">f4")
+    words[[0, 1, 4, 11, 12, 21, 22]] = (1, h, 1, w, labrec, labrec * lenbyt,
+                                        lenbyt)
+    return words.tobytes()
+
+
+def _raster_bytes_t1(fmt: str, rgb: np.ndarray, g) -> bytes:
+    """The raster formats of PIL's simple plugins (XPM, XV thumbnail, IM,
+    IMT, SPIDER, PIXAR, McIdas, FTEX, GBR, FITS, BLP and ICNS), written
+    by their layouts from the seeded picture `rgb`."""
+    h, w = rgb.shape[:2]
+    grey = rgb[..., 0]
+    if fmt == "xpm":
+        keys = [bytes([35 + i // 8, 35 + i % 8]) for i in range(64)]
+        idx = (rgb[..., 0] >> 2).astype(np.int64)
+        pal = g.integers(0, 1 << 24, 64)
+        lines = [b"/* XPM */", b"static char *t[] = {",
+                 b'"%d %d 64 2",' % (w, h)]
+        lines += [b'"%s c #%06X",' % (k, c) for k, c in zip(keys, pal)]
+        lines.append(b"/* pixels */")
+        lines += [b'"' + b"".join(keys[i] for i in row) + b'",'
+                  for row in idx]
+        return b"\n".join(lines + [b"};", b""])
+    if fmt == "xvthumb":
+        return (b"P7 332\n#END_OF_COMMENTS\n%d %d 255\n" % (w, h)
+                + grey.astype(np.uint8).tobytes())
+    if fmt == "im":
+        head = (b"Image type: RGB image\r\nImage size (x*y): %d*%d\r\n"
+                b"File size (no of images): 1\r\n" % (w, h))
+        head += b"\0" * (511 - len(head)) + b"\x1a"
+        return head + rgb[::-1].transpose(0, 2, 1).tobytes()
+    if fmt == "imt":
+        return (b"width %d\nheight %d\npixel n8\n\x0c" % (w, h)
+                + grey.astype(np.uint8).tobytes())
+    if fmt == "spider":
+        px = grey.astype(np.float32) * 1.25 - 20.5
+        return _spider_header(w, h) + px.astype(">f4").tobytes()
+    if fmt == "pixar":
+        head = bytearray(1024)
+        head[:4] = b"\200\350\000\000"
+        struct.pack_into("<HH", head, 416, h, w)
+        struct.pack_into("<HH", head, 424, 14, 2)
+        return bytes(head) + rgb.tobytes()
+    if fmt == "mcidas":
+        words = np.zeros(64, ">i4")
+        words[[1, 8, 9, 10, 13, 14, 33]] = (4, h, w, 2, 1, 4, 256)
+        rows = np.zeros((h, 4 + 2 * w), np.uint8)
+        rows[:, 4:] = (grey.astype(np.int64) * 3 - 100).clip(0).astype(
+            ">u2").view(np.uint8).reshape(h, -1)
+        return words.tobytes() + rows.tobytes()
+    if fmt == "ftex":
+        blocks = g.integers(0, 256, ((w + 3) // 4) * ((h + 3) // 4) * 8,
+                            dtype=np.uint8).tobytes()
+        return (b"FTEX" + struct.pack("<7i", 1, w, h, 1, 1, 0, 32)
+                + struct.pack("<i", len(blocks)) + blocks)
+    if fmt == "gbr":
+        a = (grey.astype(np.int64) * 7 % 256).astype(np.uint8)
+        px = np.concatenate([rgb, a[..., None]], -1)
+        return (struct.pack(">5I", 34, 2, w, h, 4) + b"GIMP"
+                + struct.pack(">I", 10) + b"brush\0" + px.tobytes())
+    if fmt == "fits":
+        cards = [("SIMPLE", "T"), ("BITPIX", 16), ("NAXIS", 2),
+                 ("NAXIS1", w), ("NAXIS2", h)]
+        head = b"".join(f"{k:<8}= {v:>20}".encode().ljust(80)
+                        for k, v in cards) + b"END".ljust(80)
+        head += b" " * (-len(head) % 2880)
+        body = (grey.astype(np.int64) * 2 - 64).clip(0).astype(">u2")
+        return head + body.tobytes() + b"\0" * (-body.nbytes % 2880)
+    if fmt == "blp":
+        blocks = g.integers(0, 256, ((w + 3) // 4) * ((h + 3) // 4) * 16,
+                            dtype=np.uint8).tobytes()
+        head = (b"BLP2" + struct.pack("<i", 1) + bytes([2, 8, 7, 0])
+                + struct.pack("<II", w, h))
+        return (head + struct.pack("<16I", 1172, *[0] * 15)
+                + struct.pack("<16I", len(blocks), *[0] * 15)
+                + bytes(1024) + blocks)
+    if fmt == "icns":
+        from fluctus_tpu_torch.io.image import encode_png
+        png = encode_png(rgb)
+        return (b"icns" + struct.pack(">I", 16 + len(png)) + b"ic09"
+                + struct.pack(">I", 8 + len(png)) + png)
     raise ValueError(f"unknown raster format {fmt!r}")
 
 
 RASTER_FORMATS = ("pcx", "dcx", "qoi", "sgi", "sgi-rle", "msp", "msp-rle",
-                  "xbm", "dib")
+                  "xbm", "dib", "xpm", "xvthumb", "im", "imt", "spider",
+                  "pixar", "mcidas", "ftex", "gbr", "fits", "blp", "icns")
 
 
 def plane_session(device="cuda", size: int = 24, max_bounces: int = 1,

@@ -19,8 +19,16 @@ carries one: the kernels on a CUDA scene, their plain versions on a CPU
 scene. The JAX package falls back from its per-lane forest to the packet
 kernel's when a chunk's tables pass its VMEM test
 (`traverse_mxu.forest_fits_vmem`); K1 reads its tables from device
-memory, so the port keeps K1 there. The JAX package's XLA walks, `backend="jnp"` (`ops.traverse`),
-`"packed"` (`ops.traverse_packed`) and `"wide"` (`ops.traverse_wide`),
+memory, so the port keeps K1 there. `FLUCTUS_TRAV_SORT=octant` sorts
+the rays of a closest K1 walk over the full hierarchy by direction
+octant and unsorts the result (the JAX `_sorted_trav`), and only that
+walk: forests, packets, the XLA walks and any-hit walks ignore it. The
+port's fused extension + shadow call is such a closest walk, so its
+shadow half is sorted too, where JAX walks it unsorted through any-hit;
+a permutation and its inverse change no hit. The sort sits inside the
+taped call, so the tape holds the unsorted result. The JAX package's
+XLA walks, `backend="jnp"` (`ops.traverse`), `"packed"`
+(`ops.traverse_packed`) and `"wide"` (`ops.traverse_wide`),
 are plain PyTorch on either device and taken only when named. Every
 stochastic decision draws from the counter-based RNG keyed by (pixel,
 sample, bounce, stream).
@@ -29,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 
 import torch
@@ -190,6 +199,10 @@ def _closest_tr(scene, cfg, orig, dir, t_max) -> Traversal:
     if scene.wforest:
         return traverse_stack.traverse_closest_forest(
             scene.wforest, scene.wforest_maps, orig, dir, t_max)
+    if os.environ.get("FLUCTUS_TRAV_SORT") == "octant":
+        return ray_sort.octant_apply(
+            orig, dir, t_max, lambda o, d, t:
+            traverse_stack.traverse_closest(scene.wbvh, o, d, t))
     return traverse_stack.traverse_closest(scene.wbvh, orig, dir, t_max)
 
 

@@ -495,6 +495,13 @@ def _stack_rows(rows):
     return tuple(torch.stack([r[i] for r in rows]) for i in range(4))
 
 
+def stream_iteration(scene, params, cfg, state, counters, spp: int):
+    """One streaming segment over the whole frame, the public entry of
+    the JAX package's `stream_iteration`: `_stream_segment` as it is.
+    Returns (state, counters, row)."""
+    return _stream_segment(scene, params, cfg, state, counters, spp)
+
+
 def stream_rounds(scene, params, cfg, state, counters, spp: int,
                   n_seg: int, pix_base=0, n_pix_local: int | None = None):
     """n_seg segments, one launch of the stream. Returns (state, counters,

@@ -48,3 +48,32 @@ def generate_rays(camera: Camera, pixel_idx: torch.Tensor, width: int,
         camera.right * dx[:, None] + camera.up * dy[:, None])
     dir = vm.normalize(fp - orig)
     return orig, dir
+
+
+def camera_basis_from_rotation(yaw_deg, pitch_deg,
+                               world_right=(1.0, 0.0, 0.0),
+                               world_up=(0.0, 1.0, 0.0), device="cpu"):
+    """(right, up, dir) float32 from yaw and pitch, as the reference builds
+    its rotation matrix (src/tracer.cpp:803-818): the rotation about
+    `world_right` by the pitch times the one about `world_up` by the yaw,
+    in float64; the camera looks down -z of the rotated frame."""
+    import numpy as np
+
+    def rot(axis, rad):
+        axis = np.asarray(axis, np.float64)
+        axis = axis / np.linalg.norm(axis)
+        c, s = np.cos(rad), np.sin(rad)
+        x, y, z = axis
+        return np.array([
+            [c + x * x * (1 - c), x * y * (1 - c) - z * s,
+             x * z * (1 - c) + y * s],
+            [y * x * (1 - c) + z * s, c + y * y * (1 - c),
+             y * z * (1 - c) - x * s],
+            [z * x * (1 - c) - y * s, z * y * (1 - c) + x * s,
+             c + z * z * (1 - c)],
+        ])
+
+    r = rot(world_right, np.deg2rad(pitch_deg)) @ rot(world_up,
+                                                      np.deg2rad(yaw_deg))
+    return tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in (r[0], r[1], -r[2]))

@@ -7,6 +7,11 @@ nodes its 512 rays touch, and the treelet forest's block scheduler
 direction octant, then origin Morton code, before traversal and scatter
 the results back. The sorts are stable, as `jnp.argsort` is, so every
 packet and block holds the same rays as in the JAX package.
+
+`octant_apply` is the opt-in sort of the per-ray walk K1
+(`FLUCTUS_TRAV_SORT=octant`, the JAX package's `common._sorted_trav`):
+rays grouped by the signs of their direction alone, so that a block of
+the walk holds rays of one octant.
 """
 from __future__ import annotations
 
@@ -49,3 +54,28 @@ def sorted_apply(orig, dir, lo, hi, fn, *per_ray):
     if isinstance(out, torch.Tensor):
         return out[inv]
     return type(out)(*(a[inv] for a in out))
+
+
+def octant_order(dir):
+    """(order, rank) of the JAX package's `_sorted_trav`: the key
+    (d.x < 0) | (d.y < 0) << 1 | (d.z < 0) << 2 in int32 (so -0 counts as
+    positive), a stable argsort of it, and its inverse (JAX argsorts the
+    order again; a scatter gives the same permutation without a second
+    sort)."""
+    key = ((dir[:, 0] < 0).int() | ((dir[:, 1] < 0).int() << 1)
+           | ((dir[:, 2] < 0).int() << 2))
+    order = torch.argsort(key, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    return order, rank
+
+
+def octant_apply(orig, dir, t_max, fn):
+    """`fn(orig, dir, t_max)` on octant-sorted rays, its NamedTuple of
+    (B, ...) tensors brought back to the input order. A per-lane t_max
+    is sorted with the rays; a scalar one passes as it is."""
+    order, rank = octant_order(dir)
+    if isinstance(t_max, torch.Tensor) and t_max.dim() > 0:
+        t_max = t_max[order]
+    out = fn(orig[order], dir[order], t_max)
+    return type(out)(*(a[rank] for a in out))

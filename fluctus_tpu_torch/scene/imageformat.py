@@ -15,8 +15,13 @@ header tests of its `_open`), with one of three outcomes:
   TIFF (scene/tiff.py), PBM/PGM/PPM/PFM (scene/pnm.py), TGA
   (scene/tga.py), ICO and CUR (scene/ico.py), DDS (scene/dds.py), PCX
   and DCX (scene/pcx.py), QOI (scene/qoi.py), SGI (scene/sgi.py), PSD
-  (scene/psd.py), Sun raster (scene/sun.py), MSP (scene/msp.py) and XBM
-  (scene/xbm.py);
+  (scene/psd.py), Sun raster (scene/sun.py), MSP (scene/msp.py), XBM
+  (scene/xbm.py), XPM (scene/xpm.py), XV thumbnails (scene/xvthumb.py),
+  IM (scene/im.py), IMT (scene/imt.py), SPIDER (scene/spider.py), PIXAR
+  (scene/pixar.py), McIdas (scene/mcidas.py), FTEX (scene/ftex.py), GBR
+  (scene/gbr.py), FITS (scene/fits.py), BLP (scene/blp.py) and ICNS
+  with a PNG member (scene/icns.py); EPS goes to scene/eps.py, which
+  gives -1 or raises as PIL's Ghostscript lookup decides;
 - a format PIL reads and the port does not decode raises
   `UnsupportedImage` naming it, so a map the JAX package would load is
   never dropped without notice;
@@ -140,7 +145,7 @@ _PLUGINS = (
     ("PPM", _pnm, "pnm"),
     ("PNG", lambda d: d.startswith(b"\x89PNG\r\n\x1a\n"), "png"),
     ("AVIF", _avif, "raise"),
-    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")), "raise"),
+    ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")), "blp"),
     ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC")), None),
     ("CUR", lambda d: d.startswith(b"\0\0\2\0") and _i16(d, 4) > 0,
      "cur"),
@@ -149,25 +154,25 @@ _PLUGINS = (
     ("DCX", lambda d: _i32(d) == 0x3ADE68B1, "dcx"),
     ("DDS", lambda d: d.startswith(b"DDS "), "dds"),
     ("EPS", lambda d: d.startswith(b"%!PS") or _i32(d) == 0xC6D3D0C5,
-     "raise"),
-    ("FITS", lambda d: d.startswith(b"SIMPLE"), "raise"),
+     "eps"),
+    ("FITS", lambda d: d.startswith(b"SIMPLE"), "fits"),
     ("FLI", lambda d: len(d) >= 16 and _i16(d, 4) in (0xAF11, 0xAF12)
      and _i16(d, 14) in (0, 3), "raise"),
-    ("FTEX", lambda d: d.startswith(b"FTEX"), "raise"),
-    ("GBR", _gbr, "raise"),
+    ("FTEX", lambda d: d.startswith(b"FTEX"), "ftex"),
+    ("GBR", _gbr, "gbr"),
     ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1,
      None),
     ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"), None),
     ("JPEG2000", lambda d: d.startswith(
         (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")),
      "raise"),
-    ("ICNS", lambda d: d.startswith(b"icns"), "raise"),
+    ("ICNS", lambda d: d.startswith(b"icns"), "icns"),
     ("ICO", lambda d: d.startswith(b"\0\0\1\0") and _i16(d, 4) > 0,
      "ico"),
-    ("IM", _im, "raise"),
-    ("IMT", _imt, "raise"),
+    ("IM", _im, "im"),
+    ("IMT", _imt, "imt"),
     ("IPTC", _iptc, "raise"),
-    ("MCIDAS", lambda d: d.startswith(b"\0\0\0\0\0\0\0\4"), "raise"),
+    ("MCIDAS", lambda d: d.startswith(b"\0\0\0\0\0\0\0\4"), "mcidas"),
     ("MPEG", lambda d: d.startswith(b"\0\0\1\xb3"), None),
     ("TIFF", lambda d: d.startswith((b"MM\x00*", b"II*\x00", b"MM*\x00",
                                      b"II\x00*", b"MM\x00+", b"II+\x00")),
@@ -175,12 +180,12 @@ _PLUGINS = (
     ("MSP", lambda d: d.startswith((b"DanM", b"LinS")), "msp"),
     ("PCD", lambda d: d[2048:2052] == b"PCD_" and len(d) >= 2048 + 1539,
      "raise"),
-    ("PIXAR", lambda d: d.startswith(b"\200\350\000\000"), "raise"),
+    ("PIXAR", lambda d: d.startswith(b"\200\350\000\000"), "pixar"),
     ("PSD", lambda d: d.startswith(b"8BPS"), "psd"),
     ("QOI", lambda d: d.startswith(b"qoif"), "qoi"),
     ("SGI", lambda d: len(d) >= 2 and struct.unpack_from(">H", d)[0] == 474,
      "sgi"),
-    ("SPIDER", _spider, "raise"),
+    ("SPIDER", _spider, "spider"),
     ("SUN", lambda d: len(d) >= 4 and struct.unpack_from(">I", d)[0]
      == 0x59A66A95, "sun"),
     ("TGA", _tga, "tga"),
@@ -188,8 +193,8 @@ _PLUGINS = (
     ("WMF", lambda d: d.startswith((b"\xd7\xcd\xc6\x9a\x00\x00",
                                     b"\x01\x00\x00\x00")), None),
     ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), "xbm"),
-    ("XPM", lambda d: d.startswith(b"/* XPM */"), "raise"),
-    ("XVTHUMB", lambda d: d.startswith(b"P7 332"), "raise"),
+    ("XPM", lambda d: d.startswith(b"/* XPM */"), "xpm"),
+    ("XVTHUMB", lambda d: d.startswith(b"P7 332"), "xvthumb"),
 )
 
 
@@ -223,7 +228,14 @@ _DECODERS = {
     "dcx": ("pcx", "decode_dcx"), "qoi": ("qoi", "decode_qoi"),
     "sgi": ("sgi", "decode_sgi"), "psd": ("psd", "decode_psd"),
     "sun": ("sun", "decode_sun"), "msp": ("msp", "decode_msp"),
-    "xbm": ("xbm", "decode_xbm"),
+    "xbm": ("xbm", "decode_xbm"), "xpm": ("xpm", "decode_xpm"),
+    "xvthumb": ("xvthumb", "decode_xvthumb"), "im": ("im", "decode_im"),
+    "imt": ("imt", "decode_imt"), "spider": ("spider", "decode_spider"),
+    "pixar": ("pixar", "decode_pixar"),
+    "mcidas": ("mcidas", "decode_mcidas"), "ftex": ("ftex", "decode_ftex"),
+    "gbr": ("gbr", "decode_gbr"), "fits": ("fits", "decode_fits"),
+    "blp": ("blp", "decode_blp"), "icns": ("icns", "decode_icns"),
+    "eps": ("eps", "decode_eps"),
 }
 
 

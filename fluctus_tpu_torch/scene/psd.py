@@ -24,6 +24,7 @@ import numpy as np
 
 from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 from fluctus_tpu_torch.scene.lab import lab_to_rgb
+from fluctus_tpu_torch.scene.pilmodes import to_rgba
 
 # (colour mode, depth) -> PIL mode
 MODES = {(0, 1): "1", (0, 8): "L", (1, 8): "L", (2, 8): "P", (3, 8): "RGB",
@@ -132,11 +133,8 @@ def decode_psd(data: bytes) -> np.ndarray:
         rgba[..., :3] = pal[planes[0]]
     elif mode == "CMYK":
         # PIL reads each plane inverted (raw mode "C;I" ...), then CMYK to
-        # RGB with nk = 255 - k: each channel nk - MULDIV255(c, nk)
-        c = 255 - np.stack(planes, -1).astype(np.int64)
-        nk = 255 - c[..., 3:4]
-        t = c[..., :3] * nk + 128
-        rgba[..., :3] = np.clip(nk - ((t + (t >> 8)) >> 8), 0, 255)
+        # RGB
+        rgba[..., :3] = to_rgba("CMYK", 255 - np.stack(planes, -1))[..., :3]
     elif mode == "LAB":
         # PIL stores the planes as they are (a and b offset by 128) and
         # converts through LittleCMS, which scene/lab.py reproduces; the

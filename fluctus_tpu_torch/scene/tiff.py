@@ -49,6 +49,7 @@ import numpy as np
 
 from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 from fluctus_tpu_torch.scene.lab import lab_to_rgb
+from fluctus_tpu_torch.scene.pilmodes import to_rgba
 
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h",
           9: "i", 10: "ii", 11: "f", 12: "d", 13: "I", 16: "Q", 17: "q",
@@ -484,18 +485,8 @@ def _rgba(img, w, h, spp, b, mode, rawmode, t) -> np.ndarray:
         return out
     if mode == "P":
         return _palette(img[..., 0], b, t)
-    if mode in ("I;16", "I;16B"):    # min-is-white too: PIL does not invert
-        out[..., :3] = np.minimum(img[..., :1].astype(np.uint32),
-                                  255).astype(np.uint8)
-        return out
-    if mode == "I":
-        out[..., :3] = np.clip(img[..., :1].astype(np.int64), 0, 255)
-        return out
-    if mode == "F":
-        x = img[..., :1].astype(np.float32)
-        out[..., :3] = np.where(x >= 255, 255,
-                                np.where(x > 0, x, 0)).astype(np.uint8)
-        return out
+    if mode in ("I;16", "I;16B", "I", "F"):  # min-is-white: PIL does not
+        return to_rgba(mode, img[..., 0])    # invert 16-bit grey either
     if b == 16:                      # PIL keeps the high byte
         img = (img.astype(np.uint32) >> 8).astype(np.uint8)
     p = img.astype(np.uint8)
@@ -511,11 +502,7 @@ def _rgba(img, w, h, spp, b, mode, rawmode, t) -> np.ndarray:
                                                           np.uint8))
         return out
     if mode == "CMYK":
-        c = p[..., :4].astype(np.int64)
-        nk = 255 - c[..., 3:4]
-        t_ = c[..., :3] * nk + 128
-        out[..., :3] = np.clip(nk - ((t_ + (t_ >> 8)) >> 8), 0, 255)
-        return out
+        return to_rgba("CMYK", p)
     out[..., :3] = p[..., :3]
     if mode == "RGBA":
         a = p[..., 3].astype(np.int64)

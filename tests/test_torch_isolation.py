@@ -226,8 +226,9 @@ print("DECODED-OK")
 def test_port_decodes_textures_without_pil(tmp_path):
     """The image decoders (PNG, JPEG baseline and progressive with its g++
     build, BMP, TGA, GIF, TIFF (LZW, JPEG, CMYK), PPM, DDS with its g++
-    build, ICO, PCX, QOI, SGI, DIB, MSP, XBM, PSD CMYK and Lab) run with
-    PIL unimportable and give the rows PIL gives."""
+    build, ICO, PCX, QOI, SGI, DIB, MSP, XBM, PSD CMYK and Lab, IM,
+    SPIDER, BLP, ICNS) run with PIL unimportable and give the rows PIL
+    gives."""
     import numpy as np
     from PIL import Image
     g = np.random.default_rng(0)
@@ -253,7 +254,11 @@ def test_port_decodes_textures_without_pil(tmp_path):
                          ("p.xbm", img.convert("1"), {}),
                          ("q.tif", img, dict(compression="jpeg")),
                          ("r.tif", img.convert("CMYK"),
-                          dict(compression="tiff_deflate"))):
+                          dict(compression="tiff_deflate")),
+                         ("s.im", img, {}),
+                         ("t.spi", img.convert("F"), dict(format="SPIDER")),
+                         ("u.blp", img.quantize(9), {}),
+                         ("v.icns", img.resize((16, 16)), {})):
         im.save(tmp_path / name, **kw)
         rgba = np.asarray(Image.open(tmp_path / name).convert("RGBA"))
         np.save(tmp_path / f"{name}.npy", np.ascontiguousarray(rgba[::-1]))
@@ -271,3 +276,50 @@ def test_port_decodes_textures_without_pil(tmp_path):
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "DECODED-OK" in proc.stdout
+
+
+_SWEEP_CHILD = r'''
+import os, sys, tempfile
+BLOCKED = %r
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"{name} is blocked in this test")
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, %r)
+import numpy as np
+from fluctus_tpu_torch.accel import cpu_ref
+from fluctus_tpu_torch.scripts import run_protocol
+g = np.random.default_rng(0)
+v0 = g.uniform(-1, 1, (50, 3))
+o = np.zeros((20, 3))
+d = g.normal(size=(20, 3))
+t, prim, u, v = cpu_ref.intersect_closest(v0, v0 + 0.5, v0 - 0.5 * d[:1],
+                                          o, d)
+assert prim.dtype == np.int32 and t.shape == (20,)
+cornell = os.path.join(%r, "assets", "cornell_proxy.obj")
+os.chdir(tempfile.mkdtemp())
+run_protocol.SIZE = 8
+run_protocol.SCENES = [("cornell", cornell, None, True, 1)]
+summary = run_protocol.main(["--duration", "0.05", "--device", "cpu"])
+assert summary[0]["scene"] == "cornell"
+assert os.path.exists("out/protocol_summary.txt")
+leaked = [m for m in sys.modules
+          if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+assert not leaked, leaked
+print("SWEEP-OK")
+'''
+
+
+def test_protocol_sweep_and_oracle_stand_alone():
+    """scripts/run_protocol.py (a sweep on the CPU) and accel/cpu_ref.py
+    run with jax, PIL and fluctus_tpu unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _SWEEP_CHILD % (BLOCKED, REPO, REPO)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SWEEP-OK" in proc.stdout

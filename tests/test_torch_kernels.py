@@ -3,8 +3,9 @@
 one launch and the per-launch kernel), K4
 (csrc/traverse_packet.cu) and the probes P1 and P2 (csrc/probes.cu) against
 their plain versions, the launch helper (launch.py), the streaming
-wavefront against the lockstep integrator through K1, env-lit frames, and
-PLY, PBRT, cached and NumPy-built scenes through K1 and K2, on the card. These
+wavefront against the lockstep integrator through K1, the octant ray sort
+around K1, env-lit frames, and PLY, PBRT, cached and NumPy-built scenes
+through K1 and K2, on the card. These
 need an NVIDIA card with nvcc, so they carry the `cuda` marker and skip
 elsewhere; the file imports no JAX, so it runs on the card with
 
@@ -68,6 +69,25 @@ def test_k1_any_equals_plain(card, kitchen):
     k = ts.traverse_kernel(w, o, d, t, any_hit=True)
     _, p = ts.traverse_plain(w, o, d, t, any_hit=True)
     assert torch.equal(k, p)
+
+
+def test_k1_octant_sorted_equals_unsorted(card, kitchen, monkeypatch):
+    """FLUCTUS_TRAV_SORT=octant around K1: 65,536 kitchen rays under a
+    per-lane t_max, sorted by direction octant, walked and unsorted, give
+    every field of the unsorted walk bit for bit, through one launch."""
+    from fluctus_tpu_torch.core.types import RenderConfig
+    from fluctus_tpu_torch.integrators import common
+    host, w = kitchen
+    o, d, t = _rays(host, 1 << 16, 7, card)
+    scene = host.to_device(card)
+    monkeypatch.delenv("FLUCTUS_TRAV_SORT", raising=False)
+    want = common._closest_tr(scene, RenderConfig(), o, d, t)
+    monkeypatch.setenv("FLUCTUS_TRAV_SORT", "octant")
+    ts.reset_counts()
+    got = common._closest_tr(scene, RenderConfig(), o, d, t)
+    assert ts.LAUNCHES["closest"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_k1_all_miss_at_f32_max(card, kitchen):

@@ -19,7 +19,12 @@ identifies; a well-formed file in a format the port does not decode
 (WebP) loads in the JAX pool and raises UnsupportedImage in the port's,
 so the gap stays visible. DDS (uncompressed layouts and BC1-BC5, BC7
 through native/bcn.cpp), ICO and CUR equal PIL on files PIL writes and
-on DDS files of seeded blocks (`fixtures.dds_bytes`)."""
+on DDS files of seeded blocks (`fixtures.dds_bytes`). PIL's simple
+plugins (XPM, XV thumbnail, IM, IMT, SPIDER, PIXAR, McIdas, FTEX, GBR,
+FITS, BLP, ICNS) are held on files PIL writes and on hand-built ones, with
+the variants PIL fails on (-1 in both) and those the port does not decode
+(IM YCC, ICNS RLE and JPEG 2000 members); EPS follows PIL's Ghostscript
+lookup."""
 import io
 import struct
 import zlib
@@ -1220,38 +1225,401 @@ def _raster_cases():
     cases["DCX, one frame"] = (struct.pack("<II", 0x3ADE68B1, 12)
                                + struct.pack("<I", 0) + frame)
     for fmt in fixtures.RASTER_FORMATS:
+        w, h = (32, 32) if fmt == "icns" else (37, 23)   # an icon's size
         cases[f"fixtures.raster_bytes {fmt}"] = fixtures.raster_bytes(
-            fmt, 37, 23, seed=5)
+            fmt, w, h, seed=5)
     cases["DCX, two frames"] = (
         struct.pack("<III", 0x3ADE68B1, 16, 16 + len(frame))
         + struct.pack("<I", 0) + frame + _pil_bytes(grey, "PCX"))
     return cases
 
 
-RASTER_CASES = _raster_cases()
+# ------------------------------------------------------------ PIL's simple
+# raster plugins: XPM, XV thumbnail, IM, IMT, SPIDER, PIXAR, McIdas, FTEX,
+# GBR, FITS, BLP and ICNS (PNG members)
+
+def _xpm(g, w, h, n, cpp, none=None, pixels_comment=True):
+    """An XPM of n seeded colours, keys of cpp characters; `none`: a
+    "None" key that is unused ("unused") or used by one pixel ("used")."""
+    alphabet = b".#abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123"
+    keys = [bytes(alphabet[(i // len(alphabet) ** j) % len(alphabet)]
+                  for j in range(cpp)) for i in range(n)]
+    out = [b"/* XPM */", b"static char *t[] = {",
+           b"/* columns rows colors chars-per-pixel */",
+           b'"%d %d %d %d",' % (w, h, n + (none is not None), cpp)]
+    out += [b'"%s c #%06X",' % (k, c)
+            for k, c in zip(keys, g.integers(0, 1 << 24, n))]
+    if none is not None:
+        out.append(b'"%s c None",' % (b"~" * cpp))
+    if pixels_comment:
+        out.append(b"/* pixels */")
+    rows = [[keys[i] for i in r] for r in g.integers(0, n, (h, w))]
+    if none == "used":
+        rows[0][0] = b"~" * cpp
+    out += [b'"' + b"".join(r) + b'",' for r in rows]
+    return b"\n".join(out + [b"};", b""])
+
+
+def _xv(g, w, h, comments=True):
+    return (b"P7 332\n"
+            + (b"#XVVERSION:Version 2.28\n#END_OF_COMMENTS\n" if comments
+               else b"")
+            + b"%d %d 255\n" % (w, h)
+            + g.integers(0, 256, w * h, dtype=np.uint8).tobytes())
+
+
+def _pixar(g, w, h, codes=(14, 2)):
+    head = bytearray(1024)
+    head[:4] = b"\200\350\000\000"
+    struct.pack_into("<HHxxxxHH", head, 416, h, w, *codes)
+    return bytes(head) + g.integers(0, 256, 3 * w * h,
+                                    dtype=np.uint8).tobytes()
+
+
+def _mcidas(g, w, h, b, pad=3, elems=1, tail=0):
+    """A McIdas area: w[11] = b bytes a sample, rows of pad + w * b *
+    elems bytes."""
+    words = [0] * 65
+    for k, v in {2: 4, 9: h, 10: w, 11: b, 14: elems, 15: pad,
+                 34: 256}.items():
+        words[k] = v
+    stride = pad + w * b * elems
+    return struct.pack(">64i", *words[1:]) + g.integers(
+        0, 256, stride * h + tail, dtype=np.uint8).tobytes()
+
+
+def _ftex(g, w, h, fmt):
+    n = ((w + 3) // 4) * ((h + 3) // 4) * 8 if fmt == 0 else 3 * w * h
+    body = g.integers(0, 256, n, dtype=np.uint8).tobytes()
+    return (b"FTEX" + struct.pack("<7i", 1, w, h, 1, 1, fmt, 32)
+            + struct.pack("<i", len(body)) + body)
+
+
+def _gbr(g, w, h, depth, version):
+    comment = b"brush\0"
+    head = struct.pack(">5I", (20 if version == 1 else 28) + len(comment),
+                       version, w, h, depth)
+    if version == 2:
+        head += b"GIMP" + struct.pack(">I", 10)
+    return head + comment + g.integers(0, 256, w * h * depth,
+                                       dtype=np.uint8).tobytes()
+
+
+def _card(k, v=None):
+    return (k.ljust(8).encode() + (b"" if v is None else
+                                   b"= " + str(v).rjust(20).encode())
+            ).ljust(80)
+
+
+def _fits_unit(cards):
+    head = b"".join(_card(*c) for c in cards) + b"END".ljust(80)
+    return head + b" " * (-len(head) % 2880)
+
+
+def _fits(g, w, h, bitpix, naxis=2, extra=()):
+    cards = [("SIMPLE", "T"), ("BITPIX", bitpix), ("NAXIS", naxis),
+             ("NAXIS1", w)] + ([("NAXIS2", h)] if naxis == 2 else [])
+    if bitpix < 0:
+        body = g.normal(100, 90, w * h).astype(f">f{-bitpix // 8}")
+    else:
+        nb = bitpix // 8
+        body = g.integers(0, 256 ** nb, w * h, dtype=np.uint64).astype(
+            {1: "u1", 2: ">u2", 4: ">u4"}[nb])
+    body = body.tobytes()
+    return (_fits_unit(cards + list(extra)) + body
+            + b"\0" * (-len(body) % 2880))
+
+
+def _fits_gzip(g, w, h, zbitpix):
+    """A tile-compressed FITS: a BINTABLE whose table PIL skips, then
+    one gzip stream of 4-byte words."""
+    words = g.integers(0, 1 << 32, w * h, dtype=np.uint64).astype(">u4")
+    ext = [("XTENSION", "'BINTABLE'"), ("BITPIX", 8), ("NAXIS", 2),
+           ("NAXIS1", 8), ("NAXIS2", h), ("ZIMAGE", "T"),
+           ("ZCMPTYPE", "'GZIP_1  '"), ("ZBITPIX", zbitpix), ("ZNAXIS", 2),
+           ("ZNAXIS1", w), ("ZNAXIS2", h)]
+    return (_fits_unit([("SIMPLE", "T"), ("BITPIX", 8), ("NAXIS", 0)])
+            + _fits_unit(ext) + bytes(8 * h)
+            + zlib.compress(words.tobytes(), wbits=31))
+
+
+def _blp2_dxt(g, w, h, alpha_enc, alpha):
+    """A BLP2 of DXT blocks (alpha encoding 0, 1 or 7: DXT1, DXT3,
+    DXT5); half the DXT1 blocks in 3-colour order."""
+    n = ((w + 3) // 4) * ((h + 3) // 4)
+    blocks = g.integers(0, 256, (n, 8 if alpha_enc == 0 else 16),
+                        dtype=np.uint8)
+    if alpha_enc == 0:
+        c = blocks[:, :4].copy().view("<u2")
+        swap = g.random(n) < 0.5
+        c[swap] = c[swap][:, ::-1]
+        blocks[:, :4] = c.view(np.uint8)
+    body = blocks.tobytes()
+    head = (b"BLP2" + struct.pack("<i", 1)
+            + struct.pack("<bbbb", 2, alpha, alpha_enc, 0)
+            + struct.pack("<II", w, h))
+    return (head + struct.pack("<16I", 1172, *[0] * 15)
+            + struct.pack("<16I", len(body), *[0] * 15)
+            + g.integers(0, 256, 1024, dtype=np.uint8).tobytes() + body)
+
+
+def _blp1_jpeg(w, h, alpha, grey=False, picture=None):
+    """A BLP1 of JPEG compression: the JPEG's tables as the shared
+    header, its scans as the mip, 10 bytes apart."""
+    im = Image.fromarray(smooth(*(picture or (h, w))))
+    j = _pil_bytes(im.convert("L") if grey else im, "JPEG", quality=90)
+    cut = j.index(b"\xff\xda")
+    header, body = j[:cut], j[cut:]
+    off = 160 + len(header) + 10
+    return (b"BLP1" + struct.pack("<iIIIii", 0, alpha, w, h, 5, 0)
+            + struct.pack("<16I", off, *[0] * 15)
+            + struct.pack("<16I", len(body), *[0] * 15)
+            + struct.pack("<I", len(header)) + header + bytes(10) + body)
+
+
+def _icns(members):
+    body = b"".join(code + struct.pack(">I", len(b) + 8) + b
+                    for code, b in members)
+    return b"icns" + struct.pack(">I", len(body) + 8) + body
+
+
+def _spider_stack(data):
+    """PIL's SPIDER file as the first image of a stack: the stack flag
+    set and a second header before the pixels (PIL skips both)."""
+    words = np.frombuffer(data, ">f4").copy()
+    hdr = int(words[21])
+    words[23], words[25] = 1, 1
+    head = words[:hdr // 4].tobytes()
+    return head + head + data[hdr:]
+
+
+def _tier1_cases():
+    g = np.random.default_rng(31)
+    cases = {}
+    pic = Image.fromarray(smooth(13, 9))
+    rgba = np.asarray(pic.convert("RGBA")).copy()
+    rgba[..., 3] = g.integers(0, 256, (13, 9))
+    cases["XPM 20 colours 1 char 11x7"] = _xpm(g, 11, 7, 20, 1)
+    cases["XPM 200 colours 2 chars 11x7"] = _xpm(g, 11, 7, 200, 2)
+    cases["XPM 300 colours (RGB) 9x8"] = _xpm(g, 9, 8, 300, 2)
+    cases["XPM unused None key 6x5"] = _xpm(g, 6, 5, 9, 1, "unused")
+    cases["XPM no pixels comment 9x8"] = _xpm(g, 9, 8, 30, 1,
+                                              pixels_comment=False)
+    cases["XV thumbnail 13x7"] = _xv(g, 13, 7)
+    cases["XV thumbnail no comments 5x9"] = _xv(g, 5, 9, False)
+    ims = {"1": pic.convert("1"), "L": pic.convert("L"),
+           "LA": Image.fromarray(rgba).convert("LA"), "P": pic.quantize(20),
+           "PA": pic.quantize(20).convert("PA"),
+           "I": Image.fromarray(smooth(13, 9)[..., 0].astype(np.int32) * 3
+                                - 100),
+           "I;16": pic.convert("L").convert("I;16"),
+           "F": Image.fromarray(smooth(13, 9)[..., 0].astype(np.float32)
+                                * 1.7 - 50.3),
+           "RGB": pic, "RGBA": Image.fromarray(rgba),
+           "RGBX": pic.convert("RGBX"), "CMYK": pic.convert("CMYK")}
+    for mode, im in ims.items():
+        cases[f"IM {mode} 9x13"] = _pil_bytes(im, "IM")
+    ramp = Image.fromarray(np.arange(256, dtype=np.uint8).reshape(16, 16))
+    cases["IM P, grey palette"] = _pil_bytes(ramp.convert("P"), "IM")
+    cases["IM L 16B"] = cases["IM I;16 9x13"].replace(b"L 16 image",
+                                                      b"L 16B image")
+    head = b"Image type: X 24 image\r\nImage size (x*y): 9*13\r\n"
+    cases["IM X 24"] = (head + b"\0" * (511 - len(head)) + b"\x1a"
+                        + smooth(13, 9).tobytes())
+    cases["IMT 9x7"] = (b"width 9\nheight 7\n* a comment\npixel n8\n\x0c"
+                        + g.integers(0, 256, 63, dtype=np.uint8).tobytes())
+    spider = _pil_bytes(ims["F"], "SPIDER")
+    cases["SPIDER F 9x13"] = spider
+    cases["SPIDER from L 9x13"] = _pil_bytes(ims["L"], "SPIDER")
+    cases["SPIDER little-endian"] = np.frombuffer(spider, ">f4").astype(
+        "<f4").tobytes()
+    cases["SPIDER stack"] = _spider_stack(spider)
+    cases["PIXAR 7x5"] = _pixar(g, 7, 5)
+    for b in (1, 2, 4):
+        cases[f"McIdas {8 * b}-bit 9x6"] = _mcidas(g, 9, 6, b)
+    cases["McIdas 8-bit, rows overlapping"] = _mcidas(g, 9, 6, 1, 3, 0, 50)
+    for fmt, tag in ((0, "DXT1"), (1, "RGB")):
+        for w, h in ((16, 8), (13, 7)):
+            cases[f"FTEX {tag} {w}x{h}"] = _ftex(g, w, h, fmt)
+    for depth in (1, 4):
+        for version in (1, 2):
+            cases[f"GBR depth {depth} v{version} 7x9"] = _gbr(g, 7, 9, depth,
+                                                             version)
+    for bitpix in (8, 16, 32, -32, -64):
+        cases[f"FITS BITPIX {bitpix} 11x7"] = _fits(g, 11, 7, bitpix)
+    cases["FITS one axis"] = _fits(g, 11, 1, 8, naxis=1)
+    cases["FITS BZERO ignored"] = _fits(g, 11, 7, 16,
+                                        extra=[("BZERO", 32768)])
+    for zbitpix in (8, 16, 32):
+        cases[f"FITS gzip tiles {zbitpix}"] = _fits_gzip(g, 9, 7, zbitpix)
+    pal = pic.quantize(50)
+    trans = pic.quantize(50)
+    trans.info["transparency"] = 3
+    for version in ("BLP1", "BLP2"):
+        cases[f"BLP {version} palette"] = _pil_bytes(pal, "BLP",
+                                                     blp_version=version)
+        cases[f"BLP {version} palette, alpha"] = _pil_bytes(
+            trans, "BLP", blp_version=version)
+    for enc, tag in ((0, "DXT1"), (1, "DXT3"), (7, "DXT5")):
+        for alpha in (0, 8):
+            for w, h in ((16, 12), (13, 7)):
+                cases[f"BLP2 {tag} alpha {alpha} {w}x{h}"] = _blp2_dxt(
+                    g, w, h, enc, alpha)
+    for alpha in (0, 8):
+        cases[f"BLP1 JPEG alpha {alpha}"] = _blp1_jpeg(16, 12, alpha)
+        cases[f"BLP1 JPEG grey alpha {alpha}"] = _blp1_jpeg(13, 9, alpha,
+                                                           grey=True)
+    cases["BLP1 JPEG narrower than its picture"] = _blp1_jpeg(
+        10, 12, 0, picture=(12, 16))
+    cases["ICNS written by PIL"] = _pil_bytes(Image.fromarray(
+        smooth(16, 16)), "ICNS")
+    big = Image.fromarray(np.asarray(Image.fromarray(smooth(32, 32))
+                                     .convert("RGBA")))
+    for mode in ("RGBA", "RGB", "P", "L", "LA"):
+        src = {"P": big.convert("RGB").quantize(30)}.get(mode) or \
+            big.convert(mode)
+        cases[f"ICNS icp5 PNG {mode}"] = _icns([(b"icp5",
+                                                 _pil_bytes(src, "PNG"))])
+    cases["ICNS two PNG members"] = _icns([
+        (b"icp4", _pil_bytes(Image.fromarray(smooth(16, 16)), "PNG")),
+        (b"ic08", _pil_bytes(Image.fromarray(smooth(256, 256)), "PNG"))])
+    return cases
+
+
+def _tier1_damage():
+    """Files of these plugins that PIL fails on: -1 in both pools."""
+    g = np.random.default_rng(32)
+    png = _pil_bytes(Image.fromarray(smooth(24, 24)), "PNG")
+    gbr = bytearray(_gbr(g, 7, 9, 4, 2))
+    gbr[3] = 24                           # a version-2 header under 28
+    blp = bytearray(_blp2_dxt(g, 8, 8, 0, 0))
+    blp[8] = 3                            # "raw BGRA", which PIL refuses
+    return {
+        "XPM pixel of the None key": _xpm(g, 6, 5, 9, 1, "used"),
+        "XPM 300 colours with a None key": _xpm(g, 9, 8, 300, 2, "unused"),
+        "PIXAR channel codes other than 14, 2": _pixar(g, 7, 5, (14, 3)),
+        "McIdas stride 0": _mcidas(g, 9, 6, 1, 0, 0, 50),
+        "McIdas 32-bit rows overlapping": _mcidas(g, 9, 6, 4, 3, 0, 50),
+        "FITS gzip tiles of floats": _fits_gzip(g, 9, 7, -32),
+        "FITS without an image": _fits_unit([("SIMPLE", "T"),
+                                             ("BITPIX", 8), ("NAXIS", 0)])
+        + bytes(2880),
+        "GBR version 2, short header": bytes(gbr),
+        "BLP2 raw BGRA": bytes(blp),
+        "ICNS member of a size no icon has": _icns([(b"ic12", png)]),
+        "ICNS member neither PNG nor JPEG 2000": _icns([(b"icp5",
+                                                         b"junk" * 20)]),
+    }
+
+
+def _tier1_raising():
+    """Files of these plugins that PIL reads and the port does not
+    decode: they load in the JAX pool and raise in the port's."""
+    pic = Image.fromarray(smooth(16, 16))
+    return {
+        "IM YCC": _pil_bytes(pic.convert("YCbCr"), "IM"),
+        "ICNS RLE RGB member": _icns([(b"is32", bytes(16 * 16 * 3)),
+                                      (b"icp4", _pil_bytes(pic, "PNG"))]),
+        "ICNS JPEG 2000 member": _icns([(b"icp4", _pil_bytes(
+            pic, "JPEG2000"))]),
+    }
+
+
+TIER1_CASES = _tier1_cases()
+RASTER_CASES = {**_raster_cases(), **TIER1_CASES}
 
 
 @pytest.mark.parametrize("name", list(RASTER_CASES))
 def test_raster_formats_equal_pil(tmp_path, name):
     """DIB, PCX, DCX, QOI, SGI (raw and RLE, 8 and 16 bits), PSD (raw and
     PackBits), Sun raster (raw and RLE, with and without a colour map),
-    MSP (versions 1 and 2) and XBM: the port's RGBA equals PIL's byte for
-    byte."""
+    MSP (versions 1 and 2), XBM, and PIL's simple plugins: XPM (P and
+    RGB), XV thumbnails, IM (every mode PIL writes but YCC), IMT, SPIDER,
+    PIXAR, McIdas, FTEX, GBR, FITS (every BITPIX, gzip tiles), BLP
+    (palette, DXT1/3/5, JPEG) and ICNS PNG members: the port's RGBA
+    equals PIL's byte for byte."""
     path = tmp_path / "t.img"
     path.write_bytes(RASTER_CASES[name])
     assert_same(path)
 
 
-@pytest.mark.parametrize("name", ["PCX RGB 16x16", "QOI RGBA 16x16",
-                                  "SGI RLE RGB 8-bit 16x16",
-                                  "PSD RGB RLE 16x16",
-                                  "Sun 8-bit map RLE 16x16", "MSP 2 16x16",
-                                  "XBM 16x16", "DCX, one frame"])
+@pytest.mark.parametrize("name", [
+    "PCX RGB 16x16", "QOI RGBA 16x16", "SGI RLE RGB 8-bit 16x16",
+    "PSD RGB RLE 16x16", "Sun 8-bit map RLE 16x16", "MSP 2 16x16",
+    "XBM 16x16", "DCX, one frame", "XPM 200 colours 2 chars 11x7",
+    "XV thumbnail 13x7", "IM RGB 9x13", "IM P 9x13", "IM F 9x13",
+    "IMT 9x7", "SPIDER F 9x13", "PIXAR 7x5", "McIdas 16-bit 9x6",
+    "FTEX DXT1 16x8", "FTEX RGB 13x7", "GBR depth 4 v2 7x9",
+    "FITS gzip tiles 16", "BLP BLP1 palette",
+    "BLP BLP2 palette, alpha", "BLP2 DXT5 alpha 8 16x12",
+    "BLP1 JPEG alpha 0", "ICNS icp5 PNG RGBA"])
 def test_raster_formats_truncated_are_minus_one(tmp_path, name):
     data = RASTER_CASES[name]
     path = tmp_path / "t.img"
     path.write_bytes(data[:len(data) * 2 // 3])
     assert both(path) == [-1, -1]
+
+
+@pytest.mark.parametrize("name", list(_tier1_damage()))
+def test_simple_raster_damage_is_minus_one(tmp_path, name):
+    """Variants PIL opens and then fails on (a pixel of XPM's "None"
+    key, PIXAR channels other than RGB, McIdas strides PIL refuses, FITS
+    gzip floats, an icon member of a size no icon has, ...): -1 in both
+    pools."""
+    path = tmp_path / "t.img"
+    path.write_bytes(_tier1_damage()[name])
+    assert both(path) == [-1, -1]
+
+
+@pytest.mark.parametrize("name", list(_tier1_raising()))
+def test_simple_raster_variants_the_port_does_not_decode(tmp_path, name):
+    """IM's YCC type and ICNS icons whose chosen member is RLE RGB or
+    JPEG 2000: the JAX pool loads them, the port's raises
+    UnsupportedImage naming the format."""
+    path = tmp_path / "t.img"
+    path.write_bytes(_tier1_raising()[name])
+    assert JaxPool().try_import(str(path), "t") == 0
+    with pytest.raises(UnsupportedImage, match=name.split()[0]):
+        TexturePool().try_import(str(path), "t")
+
+
+@pytest.mark.parametrize("found", [False, True],
+                         ids=["no Ghostscript", "Ghostscript"])
+def test_eps_follows_ghostscript(tmp_path, monkeypatch, found):
+    """EPS: PIL rasterises through Ghostscript at load. Without it the
+    JAX pool gives -1 and so does the port's; with it the port raises
+    UnsupportedImage, since PIL would render the page."""
+    import shutil
+
+    from PIL import EpsImagePlugin
+    path = tmp_path / "t.eps"
+    Image.fromarray(smooth(8, 8)).save(path, "EPS")
+    monkeypatch.setattr(shutil, "which",
+                        lambda name, *a, **k: "/bin/gs" if found else None)
+    if not found:
+        monkeypatch.setattr(EpsImagePlugin, "gs_binary", False)
+        assert both(path) == [-1, -1]
+        return
+    with pytest.raises(UnsupportedImage, match="EPS"):
+        TexturePool().try_import(str(path), "t")
+
+
+@pytest.mark.parametrize("platform,binary,found", [
+    ("linux", "gs", True), ("linux", "gswin64c", False),
+    ("linux", None, False), ("win32", "gswin32c", True),
+    ("win32", "gswin64c", True), ("win32", "gs", True),
+    ("win32", None, False)])
+def test_ghostscript_names_as_pil(monkeypatch, platform, binary, found):
+    """The port's Ghostscript check looks for PIL's names: "gs" away
+    from Windows, "gswin32c", "gswin64c" or "gs" on it."""
+    import shutil
+    import sys
+
+    from fluctus_tpu_torch.scene import eps
+    monkeypatch.setattr(sys, "platform", platform)
+    monkeypatch.setattr(shutil, "which", lambda name, *a, **k:
+                        f"/bin/{name}" if name == binary else None)
+    assert eps.has_ghostscript() is found
 
 
 @pytest.mark.parametrize("rle", [False, True], ids=["raw", "packbits"])
@@ -1294,7 +1662,10 @@ def _unported():
              "qoi": ("qoi", dict(format="QOI"), True),
              "sgi": ("sgi", dict(format="SGI"), True),
              "jpeg in tiff": ("tif", dict(format="TIFF",
-                                          compression="jpeg"), True)}
+                                          compression="jpeg"), True),
+             "im": ("im", dict(format="IM"), True),
+             "spider": ("spi", dict(format="SPIDER"), True),
+             "icns": ("icns", dict(format="ICNS"), True)}
     if features.check("webp"):
         cases["webp"] = ("webp", dict(format="WEBP", lossless=True), False)
     return cases
