@@ -118,7 +118,14 @@ in-process 2-shard mesh (parallel-ranks). The octant sort: the kitchen
 frame again under FLUCTUS_TRAV_SORT=octant, through K1 only and
 bit-equal to the unsorted frame (octant), and K1 on 65,536 bounce rays
 octant-sorted beside the same rays as given, with the sort and the
-unsort timed (octant-time). Last, the reference-protocol sweep, `python3
+unsort timed (octant-time). WebP: the committed files of tests/data/webp
+decoded by scene/native/webp.cpp (built with g++ first) and held against
+their recorded SHA-256, then the kitchen loaded from a temporary MTL that
+names the lossless WebP copies of its maps, with the camera and light of
+data/states/state_c68e332cfae81cc6.json applied explicitly: its atlas
+byte-equal to the PNG kitchen's and its 512x512 16 spp frame through K1
+only, bit-equal to the PNG frame (webp). Last, the reference-protocol
+sweep, `python3
 -m fluctus_tpu_torch.scripts.run_protocol --duration 2` in a child
 process: the kitchen through K1 and the conference through K2, both
 integrators at 1024x1024, its CSV headers, summary keys, launches, the
@@ -2249,9 +2256,11 @@ def phase_formats(card: str) -> dict:
 
 def phase_dds() -> float:
     """One 2048x2048 BC7 texture (fixtures.dds_bytes: 262,144 seeded
-    blocks, the first nine in BC7 modes 0-7 and the reserved mode 8)
-    through the texture dispatch and scene/native/bcn.cpp (built with g++
-    first). Returns the decode seconds."""
+    blocks, the first nine in BC7 modes 0-7 and the reserved mode 8) and
+    one BC6H texture each unsigned and signed (the first 18 blocks in its
+    14 modes and 4 reserved ones) through the texture dispatch and
+    scene/native/bcn.cpp (built with g++ first). Returns the BC7 decode
+    seconds."""
     import numpy as np
     from fluctus_tpu_torch.fixtures import dds_bytes
     from fluctus_tpu_torch.scene import dds, imageformat
@@ -2269,8 +2278,21 @@ def phase_dds() -> float:
     check(bool((rgba[0:4, 32:36] == np.array([0, 0, 0, 255],
                                               np.uint8)).all()),
           "the reserved-mode block (the ninth) is not opaque black")
+    bc6 = {}
+    for fmt in ("BC6H", "BC6HS"):
+        d6 = dds_bytes(fmt, 2048, 2048, seed=7)
+        t1 = time.perf_counter()
+        rgba6 = imageformat.decode(d6, imageformat.sniff(d6))
+        bc6[fmt] = time.perf_counter() - t1
+        check(rgba6.shape == (2048, 2048, 4) and rgba6[..., :3].std() > 0
+              and bool((rgba6[..., 3] == 255).all()),
+              f"the {fmt} texture did not decode")
+        check(bool((rgba6[0:4, 56:72] == np.array([0, 0, 0, 255],
+                                                   np.uint8)).all()),
+              f"the {fmt} reserved-mode blocks (15-18) are not black")
     say("dds", t0, f"BC7 2048x2048 ({len(data)} bytes): g++ build "
-        f"{t_build:.2f} s, decode {secs:.3f} s")
+        f"{t_build:.2f} s, decode {secs:.3f} s; BC6H 2048x2048 unsigned "
+        f"{bc6['BC6H']:.3f} s, signed {bc6['BC6HS']:.3f} s")
     return secs
 
 
@@ -2946,13 +2968,15 @@ def phase_cli(card: str, device: str = "cuda", size: int = 512,
 
 def phase_raster_formats() -> dict:
     """One 512x512 file of each of the raster formats PCX, DCX, QOI, SGI,
-    MSP, XBM, DIB, XPM, XV thumbnail, IM, IMT, SPIDER, PIXAR, McIdas,
-    FTEX, GBR, FITS, BLP, ICNS (fixtures.RASTER_FORMATS), PSD (RGB, RGBA,
-    CMYK, Lab), Sun raster and the TIFF
-    layouts planar, BigTIFF CMYK and float (fixtures.raster_bytes,
-    psd_bytes, sun_raster_bytes, tiff_bytes; the card's machine has no
-    PIL, so equality with PIL is the CPU tests' part) through the texture
-    dispatch. Returns {format: decode seconds}."""
+    MSP, XBM, DIB, XPM, XV thumbnail, IM (RGB and YCC), IMT, SPIDER,
+    PIXAR, McIdas, FTEX, GBR, FITS, BLP, ICNS, FLC and IPTC
+    (fixtures.RASTER_FORMATS), PSD (RGB, RGBA, CMYK, Lab), Sun raster, the
+    TIFF layouts planar, BigTIFF CMYK and float, Photo CD (its 768x512
+    base image, upright and turned) and a 128x128 ICNS of RLE members
+    (fixtures.raster_bytes, psd_bytes, sun_raster_bytes, tiff_bytes,
+    pcd_bytes, icns_rle_bytes; the card's machine has no PIL, so equality
+    with PIL is the CPU tests' part) through the texture dispatch.
+    Returns {format: decode seconds}."""
     from fluctus_tpu_torch import fixtures
     from fluctus_tpu_torch.scene import imageformat
 
@@ -2978,15 +3002,21 @@ def phase_raster_formats() -> dict:
     files["sun"] = fixtures.sun_raster_bytes(24, 512, 512, False, seed=3)
     files["sun-rle"] = fixtures.sun_raster_bytes(8, 512, 512, True, seed=3,
                                                  colors=256)
+    files["pcd"] = fixtures.pcd_bytes(seed=3)
+    files["pcd-turned"] = fixtures.pcd_bytes(seed=3, orientation=1)
+    files["icns-rle"] = fixtures.icns_rle_bytes(128, seed=3)
+    shapes = {"pcd": (512, 768, 4), "pcd-turned": (768, 512, 4),
+              "icns-rle": (128, 128, 4)}
     secs = {}
     for name, data in files.items():
         t = time.perf_counter()
         rgba = imageformat.decode(data, imageformat.sniff(data))
         secs[name] = time.perf_counter() - t
-        check(rgba.shape == (512, 512, 4) and rgba.std() > 0,
-              f"the {name} texture did not decode")
-    say("formats", t0, "512x512 decodes: " + ", ".join(
-        f"{k} {v:.3f} s" for k, v in secs.items()))
+        check(rgba.shape == shapes.get(name, (512, 512, 4))
+              and rgba.std() > 0, f"the {name} texture did not decode")
+    say("formats", t0, "512x512 decodes (PCD its 768x512 base image, "
+        "ICNS RLE its largest, 128x128): " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in secs.items()))
     return secs
 
 
@@ -3479,6 +3509,86 @@ def phase_octant(sess, plain_img, secs_plain: float, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ WebP
+
+WEBP_DATA = os.path.join(REPO, "tests", "data", "webp")
+KITCHEN_STATE = "c68e332cfae81cc6"     # data/states/state_<this>.json
+
+
+def phase_webp(sess, plain_img, secs_plain: float, card: str) -> dict:
+    """WebP textures: scene/native/webp.cpp built with g++; each file of
+    tests/data/webp (the kitchen's maps lossless and lossy, a lossy map
+    with alpha, a 2-frame animation, the libwebp option files) decoded
+    through the texture dispatch and held against the SHA-256 of PIL's
+    RGBA recorded in webp.json; then the kitchen from a temporary MTL
+    naming the lossless copies (the OBJ linked beside it), the camera and
+    light of state_c68e332cfae81cc6.json applied explicitly: atlas
+    byte-equal to the PNG kitchen's, and its lockstep frame (512x512, 8
+    bounces, 16 spp) through K1 only, both forms, bit-equal to the PNG
+    kitchen's frame `plain_img`. Returns the frame's K1 launches and
+    seconds and the decode seconds."""
+    import hashlib
+    import torch
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.render.state import load_state
+    from fluctus_tpu_torch.scene import imageformat, webp
+
+    t0 = time.perf_counter()
+    webp.load_library()
+    t_build = time.perf_counter() - t0
+    with open(os.path.join(WEBP_DATA, "webp.json")) as f:
+        record = json.load(f)
+    decode = {}
+    for name, rec in sorted(record["files"].items()):
+        with open(os.path.join(WEBP_DATA, name), "rb") as f:
+            data = f.read()
+        t = time.perf_counter()
+        rgba = imageformat.decode(data, imageformat.sniff(data))
+        decode[name] = time.perf_counter() - t
+        check(list(rgba.shape) == rec["shape"] and hashlib.sha256(
+            rgba.tobytes()).hexdigest() == rec["sha256"],
+              f"WebP {name}: the RGBA differs from PIL {record['pil']} / "
+              f"libwebp {record['libwebp']}'s")
+    say("webp", t0, f"g++ build {t_build:.2f} s; {len(decode)} files equal "
+        f"to their recorded SHA-256 (PIL {record['pil']}, libwebp "
+        f"{record['libwebp']}): " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in decode.items()))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, os.path.basename(KITCHEN))
+        os.symlink(KITCHEN, obj)
+        with open(os.path.splitext(KITCHEN)[0] + ".mtl") as f:
+            mtl = f.read()
+        for name in ("kitchen_floor_n", "kitchen_floor", "kitchen_wood"):
+            mtl = mtl.replace(f" {name}.png", " " + os.path.join(
+                WEBP_DATA, f"{name}.lossless.webp"))
+        check(".png" not in mtl, "a PNG map is left in the WebP MTL")
+        with open(os.path.splitext(obj)[0] + ".mtl", "w") as f:
+            f.write(mtl)
+        wsess = driver.create_session(obj, cfg=sess.cfg, state_dir=None,
+                                      auto_frame=False, cache_dir=None,
+                                      device="cuda")
+    wsess.params = load_state(wsess.params, KITCHEN_STATE,
+                              state_dir=STATES)
+    t_session = time.perf_counter() - t0
+    a, b = wsess.scene.atlas, sess.scene.atlas
+    check(all(torch.equal(getattr(a, k), getattr(b, k))
+              for k in ("data", "offset", "width", "height")),
+          "the WebP kitchen's atlas differs from the PNG kitchen's")
+    keep: dict = {}
+    secs, mine = phase_frame_only(wsess, 16, card, "webp", "K1",
+                                  "kitchen from lossless WebP,", keep)
+    check(torch.equal(keep["img"], plain_img),
+          "the WebP kitchen's frame differs from the PNG kitchen's")
+    say("webp", t0, f"kitchen from lossless WebP maps: session "
+        f"{t_session:.2f} s, atlas {a.data.numel()} bytes equal to the PNG "
+        f"kitchen's; frame {secs:.3f} s (PNG frame {secs_plain:.3f} s), "
+        f"bit-equal to the PNG frame, K1 launches {mine}, on {card}")
+    del wsess
+    return {"launches": mine, "secs": secs, "decode": decode}
+
+
 # ------------------------------------------------------------ protocol sweep
 
 PROTOCOL_SECS = 2        # --duration of the sweep
@@ -3834,7 +3944,10 @@ def main() -> int:
     kept: dict = {}
     secs, launches = phase_frame_only(sess, 16, card, "frame", "K1",
                                       "kitchen", kept)
-    octant = phase_octant(sess, kept.pop("img"), secs, card)
+    plain_img = kept.pop("img")
+    octant = phase_octant(sess, plain_img, secs, card)
+    webp_out = phase_webp(sess, plain_img, secs, card)
+    del plain_img
     gold = golden_sessions("cuda")
     for name, (gs, spp) in gold.items():
         phase_golden_only(gs, name, spp, "K1")
@@ -4044,6 +4157,17 @@ def main() -> int:
             "source": "fluctus_tpu_torch/csrc/traverse_stack.cu",
             "replaces": "fluctus_tpu/ops/traverse_mxu.py:97",
             "launches": k1_grad[form],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    for form, label in (("closest", "closest"), ("any", "any-hit")):
+        r = ktimes[form]
+        kernels.append({
+            "name": f"K1 traverse_stack {label}, WebP kitchen path",
+            "route": "cuda",
+            "source": "fluctus_tpu_torch/csrc/traverse_stack.cu",
+            "replaces": "fluctus_tpu/ops/traverse_mxu.py:97",
+            "launches": webp_out["launches"][form],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})

@@ -1,8 +1,10 @@
 """Synthetic inputs: scenes written to disk in the formats the loaders
 read (`sphere_grid_ply`, `scene_pbrt`), an HDR sky (`sky_env`), DDS
-textures over seeded blocks (`dds_bytes`), PSD, Sun raster, SGI, MSP
-and the other simple raster formats (`psd_bytes`, `sun_raster_bytes`,
-`sgi_bytes`, `msp_bytes`, `raster_bytes`), the gradient tests' plane
+textures over seeded blocks (`dds_bytes`, BC6H among them), PSD, Sun
+raster, SGI, MSP, FLI / FLC, Photo CD, IPTC, ICNS RLE icons and the other
+simple raster formats (`psd_bytes`, `sun_raster_bytes`, `sgi_bytes`,
+`msp_bytes`, `fli_bytes`, `pcd_bytes`, `iptc_bytes`, `icns_rle_bytes`,
+`raster_bytes`), the gradient tests' plane
 (`plane_session`), a binary hierarchy deeper than the JAX walks' stacks
 (`binary_chain_bvh`), and inputs that pin the traversal kernels' tie
 rules.
@@ -666,6 +668,8 @@ _DDS_FORMATS = {
     "BC4": (0x4, b"DX10", 0, (), 80, 8, True),
     "BC5": (0x4, b"DX10", 0, (), 83, 16, True),
     "BC5_SNORM": (0x4, b"DX10", 0, (), 84, 16, True),
+    "BC6H": (0x4, b"DX10", 0, (), 95, 16, True),
+    "BC6HS": (0x4, b"DX10", 0, (), 96, 16, True),
     "BC7": (0x4, b"DX10", 0, (), 98, 16, True),
     "BC7_SRGB": (0x4, b"DX10", 0, (), 99, 16, True),
     "RGBA8": (0x4, b"DX10", 0, (), 28, 4, False),
@@ -689,7 +693,8 @@ def dds_bytes(fmt: str, width: int, height: int, seed: int = 0) -> bytes:
     seeded random bytes: any 8 or 16 random bytes are a valid block.
     For BC7 the first nine blocks are forced into modes 0-7 and the
     reserved mode 8 (a first byte of zero), since random first bytes reach
-    mode 7 and mode 8 only once in 256 blocks."""
+    mode 7 and mode 8 only once in 256 blocks; for BC6H (unsigned) and
+    BC6HS (signed) the first 18 into its 14 modes and 4 reserved ones."""
     flags, fourcc, bits, masks, dxgi, unit, blocks = _DDS_FORMATS[fmt]
     g = np.random.default_rng(seed)
     if blocks:
@@ -702,6 +707,13 @@ def dds_bytes(fmt: str, width: int, height: int, seed: int = 0) -> bytes:
             hi = int(g.integers(0, 256))
             body[mode, 0] = 0 if mode == 8 else ((hi << (mode + 1))
                                                  | (1 << mode)) & 0xFF
+    if fmt.startswith("BC6H"):
+        # mode bits: 2 for modes 0-1, 5 for 2-13 and the reserved 14-17
+        for mode in range(min(18, n)):
+            low = (mode if mode < 2 else ((mode - 2) << 2) | 2 if mode < 10
+                   else ((mode - 10) << 2) | 3)
+            keep = 0xFC if mode < 2 else 0xE0
+            body[mode, 0] = (body[mode, 0] & keep) | low
     masks = tuple(masks) + (0,) * (4 - len(masks))
     header = (b"DDS " + (124).to_bytes(4, "little")
               + np.array([0x1007 | (0x80000 if blocks else 0), height,
@@ -962,11 +974,13 @@ def raster_bytes(fmt: str, width: int, height: int, seed: int = 0) -> bytes:
     RGBA, RGB and run ops), "sgi" and "sgi-rle" (RGB, 8-bit, raw or RLE),
     "msp" and "msp-rle" (1-bit, versions 1 and 2), "xbm" and "dib"
     (24-bit BGR, a BMP without its file header); and "xpm" (64 colours,
-    2 characters a pixel), "xvthumb", "im" (RGB), "imt", "spider",
+    2 characters a pixel), "xvthumb", "im" (RGB) and "im-ycc" (its YCC
+    type: the same planes read as Y, Cb, Cr), "imt", "spider",
     "pixar", "mcidas" (16-bit, padded rows), "ftex" (DXT1), "gbr"
-    (version 2, RGBA), "fits" (16-bit), "blp" (BLP2 DXT5 with alpha) and
+    (version 2, RGBA), "fits" (16-bit), "blp" (BLP2 DXT5 with alpha),
     "icns" (one 512x512 PNG member: PIL opens it only where the picture's
-    size is one an icon may have, square powers of two among them)."""
+    size is one an icon may have, square powers of two among them), "fli"
+    (an FLC, `fli_bytes`) and "iptc" (raw grey, `iptc_bytes`)."""
     g = np.random.default_rng(seed)
     rgb = np.stack([_runs_picture(g, height, width, 256) for _ in range(3)],
                    -1).astype(np.uint8)
@@ -1057,11 +1071,16 @@ def _raster_bytes_t1(fmt: str, rgb: np.ndarray, g) -> bytes:
     if fmt == "xvthumb":
         return (b"P7 332\n#END_OF_COMMENTS\n%d %d 255\n" % (w, h)
                 + grey.astype(np.uint8).tobytes())
-    if fmt == "im":
-        head = (b"Image type: RGB image\r\nImage size (x*y): %d*%d\r\n"
-                b"File size (no of images): 1\r\n" % (w, h))
+    if fmt in ("im", "im-ycc"):
+        kind = b"YCC" if fmt == "im-ycc" else b"RGB"
+        head = (b"Image type: %s image\r\nImage size (x*y): %d*%d\r\n"
+                b"File size (no of images): 1\r\n" % (kind, w, h))
         head += b"\0" * (511 - len(head)) + b"\x1a"
         return head + rgb[::-1].transpose(0, 2, 1).tobytes()
+    if fmt == "fli":
+        return fli_bytes(w, h, seed=int(g.integers(1 << 30)))
+    if fmt == "iptc":
+        return iptc_bytes(w, h, seed=int(g.integers(1 << 30)))
     if fmt == "imt":
         return (b"width %d\nheight %d\npixel n8\n\x0c" % (w, h)
                 + grey.astype(np.uint8).tobytes())
@@ -1116,8 +1135,213 @@ def _raster_bytes_t1(fmt: str, rgb: np.ndarray, g) -> bytes:
 
 
 RASTER_FORMATS = ("pcx", "dcx", "qoi", "sgi", "sgi-rle", "msp", "msp-rle",
-                  "xbm", "dib", "xpm", "xvthumb", "im", "imt", "spider",
-                  "pixar", "mcidas", "ftex", "gbr", "fits", "blp", "icns")
+                  "xbm", "dib", "xpm", "xvthumb", "im", "im-ycc", "imt",
+                  "spider", "pixar", "mcidas", "ftex", "gbr", "fits", "blp",
+                  "icns", "fli", "iptc")
+
+
+def _icns_rle(band: bytes) -> bytes:
+    """ICNS's run-length code: runs of 3 to 130 equal bytes as n + 125
+    and the byte, the rest as literals of up to 128 bytes (n - 1)."""
+    out = bytearray()
+    i, n = 0, len(band)
+    lit = bytearray()
+    while i < n:
+        j = i
+        while j < n and j - i < 130 and band[j] == band[i]:
+            j += 1
+        if j - i >= 3:
+            if lit:
+                out += bytes([len(lit) - 1]) + lit
+                lit = bytearray()
+            out += bytes([j - i + 125, band[i]])
+            i = j
+            continue
+        lit.append(band[i])
+        i += 1
+        if len(lit) == 128:
+            out += bytes([127]) + lit
+            lit = bytearray()
+    if lit:
+        out += bytes([len(lit) - 1]) + lit
+    return bytes(out)
+
+
+# icon size -> (RGB member, mask member)
+ICNS_RLE_MEMBERS = {16: (b"is32", b"s8mk"), 32: (b"il32", b"l8mk"),
+                    48: (b"ih32", b"h8mk"), 128: (b"it32", b"t8mk")}
+
+
+def icns_rle_bytes(size: int, seed: int = 0, mask: bool = True,
+                   rle: bool = True) -> bytes:
+    """An ICNS file with the RGB member of a `size` icon (16: is32, 32:
+    il32, 48: ih32, 128: it32 with its four zero bytes), each band
+    run-length coded (or, `rle` False, 3 * size^2 interleaved bytes), and
+    with `mask` its alpha member (s8mk, l8mk, h8mk, t8mk)."""
+    g = np.random.default_rng(seed)
+    rgb = np.stack([_runs_picture(g, size, size, 256) for _ in range(3)],
+                   -1).astype(np.uint8)
+    code, mcode = ICNS_RLE_MEMBERS[size]
+    if rle:
+        body = b"".join(_icns_rle(rgb[..., k].tobytes()) for k in range(3))
+    else:
+        body = rgb.tobytes()
+    if code == b"it32":
+        body = bytes(4) + body
+    members = [(code, body)]
+    if mask:
+        members.append((mcode, _runs_picture(g, size, size, 256)
+                        .astype(np.uint8).tobytes()))
+    out = b"".join(c + struct.pack(">I", len(b) + 8) + b for c, b in members)
+    return b"icns" + struct.pack(">I", len(out) + 8) + out
+
+
+def _fli_chunk(kind: int, payload: bytes) -> bytes:
+    payload += bytes(len(payload) % 2)
+    return struct.pack("<IH", len(payload) + 6, kind) + payload
+
+
+def _fli_brun(idx: np.ndarray) -> bytes:
+    """BRUN rows: a packet count byte, then runs (n < 128: n copies of
+    the next byte) and literals (256 - n: n bytes)."""
+    out = bytearray()
+    for row in idx:
+        out.append(0)
+        x, w = 0, len(row)
+        while x < w:
+            j = x
+            while j < w and j - x < 127 and row[j] == row[x]:
+                j += 1
+            if j - x >= 2:
+                out += bytes([j - x, row[x]])
+            else:
+                j = min(x + 64, w)
+                out += bytes([256 - (j - x)]) + bytes(row[x:j])
+            x = j
+    return bytes(out)
+
+
+def fli_bytes(width: int, height: int, seed: int = 0, flc: bool = True,
+              colour64: bool = False, first: str = "brun") -> bytes:
+    """An FLC (or, `flc` False, FLI) animation of two frames, at least
+    8 x 2, over a
+    seeded run-rich picture. The first frame holds a COLOR_256 chunk (or,
+    `colour64`, a COLOR_64 one of 6-bit values), a PSTAMP chunk, the
+    picture as BRUN (`first` "brun"), COPY ("copy") or BLACK then LC
+    ("lc") rows, and an LC and an SS2 chunk that change a few rows; the
+    second frame (which PIL does not read for the first) one LC chunk."""
+    g = np.random.default_rng(seed)
+    idx = _runs_picture(g, height, width, 256).astype(np.uint8)
+    pal = g.integers(0, 64 if colour64 else 256, (256, 3), dtype=np.uint8)
+    # two packets: skip 0, 200 entries; skip 0 (from 200), 56 entries
+    colour = (struct.pack("<H", 2) + bytes([0, 200]) + pal[:200].tobytes()
+              + bytes([0, 56]) + pal[200:].tobytes())
+    chunks = [_fli_chunk(11 if colour64 else 4, colour),
+              _fli_chunk(18, bytes(24))]
+    pic = idx.copy()
+    if first == "brun":
+        chunks.append(_fli_chunk(15, _fli_brun(idx)))
+    elif first == "copy":
+        chunks.append(_fli_chunk(16, idx.tobytes()))
+    else:
+        chunks.append(_fli_chunk(13, b""))
+        pic[:] = 0
+        lc = struct.pack("<HH", 0, height)
+        for row in idx:
+            segs = [(x, row[x:x + 100]) for x in range(0, width, 100)]
+            lc += bytes([len(segs)])
+            last = 0
+            for x, seg in segs:
+                lc += bytes([x - last, len(seg)]) + seg.tobytes()
+                last = x + len(seg)
+        chunks.append(_fli_chunk(12, lc))
+        pic[:] = idx
+    # LC: rows 1..2 get a run and a literal after a skip of 3
+    y0, n = min(1, height - 1), min(2, height - 1)
+    lc = struct.pack("<HH", y0, n)
+    for y in range(y0, y0 + n):
+        k = min(4, (width - 3) // 2)
+        lit = g.integers(0, 256, k, dtype=np.uint8)
+        lc += bytes([2, 3, 256 - k, int(lit[0]), 0, k]) + lit.tobytes()
+        pic[y, 3:3 + k] = lit[0]
+        pic[y, 3 + k:3 + 2 * k] = lit
+    chunks.append(_fli_chunk(12, lc))
+    # SS2: one line skipped, a last-byte word, then a word run and words
+    ss2 = struct.pack("<H", 1) + struct.pack("<H", 0x10000 - 1)
+    ss2 += struct.pack("<H", 0x8000 | 7) + struct.pack("<H", 2)
+    k = max(1, min(3, (width - 2) // 4))
+    words = g.integers(0, 256, 2 * k, dtype=np.uint8)
+    ss2 += bytes([0, 256 - k]) + words[:2].tobytes()
+    ss2 += bytes([0, k]) + words.tobytes()
+    y = min(1, height - 1)
+    pic[y, width - 1] = 7
+    pic[y, :2 * k] = np.tile(words[:2], k)
+    pic[y, 2 * k:4 * k] = words
+    chunks.append(_fli_chunk(7, ss2))
+    frame1 = b"".join(chunks)
+    frame1 = struct.pack("<IHH8x", 16 + len(frame1), 0xF1FA,
+                         len(chunks)) + frame1
+    lc2 = _fli_chunk(12, struct.pack("<HH", 0, 1) + bytes([1, 0, 1, 9]))
+    frame2 = struct.pack("<IHH8x", 16 + len(lc2), 0xF1FA, 1) + lc2
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHH", head, 0, 128 + len(frame1) + len(frame2),
+                     0xAF12 if flc else 0xAF11, 2, width, height, 8, 3)
+    struct.pack_into("<I", head, 16, 5)
+    struct.pack_into("<II", head, 80, 128, 128 + len(frame1))
+    return bytes(head) + frame1 + frame2
+
+
+def pcd_bytes(seed: int = 0, orientation: int = 0) -> bytes:
+    """A Photo CD file: the "PCD_" header sector with `orientation` in
+    byte 1538's low bits and the 768x512 base image at sector 96 (pairs
+    of luma rows, then the pair's two half-width chroma rows) of seeded
+    run-rich PhotoYCC samples."""
+    g = np.random.default_rng(seed)
+    out = bytearray(96 * 2048)
+    out[2048:2052] = b"PCD_"
+    out[2048 + 1538] = orientation
+    luma = _runs_picture(g, 512, 768, 256).astype(np.uint8)
+    chroma = _runs_picture(g, 512, 384, 256).astype(np.uint8)
+    pairs = np.concatenate([luma.reshape(256, 1536),
+                            chroma.reshape(256, 768)], 1)
+    return bytes(out) + pairs.tobytes()
+
+
+def _iptc_record(rec: int, ds: int, value: bytes) -> bytes:
+    """A dataset as PIL reads one: a 15-bit length, or past that 0x84
+    and, after the fifth header byte (PIL reads 5 and ignores it), a
+    4-byte length."""
+    if len(value) < 0x8000:
+        return bytes([0x1C, rec, ds]) + struct.pack(">H", len(value)) + value
+    return (bytes([0x1C, rec, ds, 0x84, 0]) + struct.pack(">I", len(value))
+            + value)
+
+
+def iptc_bytes(width: int, height: int, seed: int = 0, layers: int = 1,
+               band: int | None = None, payload: bytes | None = None,
+               record: int = 30000) -> bytes:
+    """An IPTC/NAA file: a caption, the picture records ((3, 60) layers
+    and the component flag, set when `band` is given, (3, 65) band + 1,
+    (3, 20) / (3, 30) the size, (3, 120) 1 raw or 5 JPEG) and the image
+    in (8, 10) records of at most `record` bytes (the long length form
+    when `record` is 32768 or more): seeded run-rich grey
+    bytes, raw, or `payload` (a JPEG file) when given."""
+    g = np.random.default_rng(seed)
+    if payload is None:
+        body = _runs_picture(g, height, width, 256).astype(np.uint8)
+        body = body.tobytes()
+    else:
+        body = payload
+    recs = [_iptc_record(2, 120, b"a seeded test picture"),
+            _iptc_record(3, 60, bytes([layers, 0 if band is None else 1]))]
+    if band is not None:
+        recs.append(_iptc_record(3, 65, bytes([band + 1])))
+    recs += [_iptc_record(3, 20, struct.pack(">H", width)),
+             _iptc_record(3, 30, struct.pack(">H", height)),
+             _iptc_record(3, 120, bytes([1 if payload is None else 5]))]
+    recs += [_iptc_record(8, 10, body[i:i + record])
+             for i in range(0, len(body), record)]
+    return b"".join(recs)
 
 
 def plane_session(device="cuda", size: int = 24, max_bounces: int = 1,

@@ -10,14 +10,14 @@ first mip level only.
 - Luminance (8-bit L, 16-bit L+A), 8-bit palette (1,024-byte RGBA
   palette) and DX10 R8G8B8A8: raw bytes.
 - Block-compressed: BC1/DXT1, BC2/DXT3, BC3/DXT5, BC4/ATI1, BC5/ATI2 (and
-  signed BC5), BC7, decoded by `native/bcn.cpp` (g++ at first use,
-  PIL's arithmetic), since Python over the 262,144 blocks of a 2048^2
-  texture would take minutes.
+  signed BC5), BC6H (unsigned and signed, DXGI 95 and 96: PIL's half
+  floats scaled to 8 bits by truncation, values above 1 at 255) and BC7,
+  decoded by `native/bcn.cpp` (g++ at first use, PIL's arithmetic), since
+  Python over the 262,144 blocks of a 2048^2 texture would take minutes.
 
 The pixels follow the header (128 bytes, 148 with the DX10 extension,
 and the palette after it): PIL's `load_seek` ignores the tile offset.
-BC6H, which PIL reads, raises UnsupportedImage; pixel formats PIL does
-not read are damage.
+Pixel formats PIL does not read are damage.
 """
 from __future__ import annotations
 
@@ -28,7 +28,6 @@ import struct
 import numpy as np
 
 from fluctus_tpu_torch.build import build_shared
-from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
                     "bcn.cpp")
@@ -47,9 +46,9 @@ _FOURCC = {_fourcc(b"DXT1"): 1, _fourcc(b"DXT3"): 2, _fourcc(b"DXT5"): 3,
            _fourcc(b"BC4U"): 4, _fourcc(b"ATI1"): 4, _fourcc(b"BC5S"): -5,
            _fourcc(b"BC5U"): 5, _fourcc(b"ATI2"): 5}
 DX10 = _fourcc(b"DX10")
-# DXGI format -> BCn number; 0: raw RGBA; 6: BC6H
+# DXGI format -> BCn number; 0: raw RGBA; 6 / -6: BC6H unsigned / signed
 _DXGI = {70: 1, 71: 1, 73: 2, 74: 2, 76: 3, 77: 3, 79: 4, 80: 4, 82: 5,
-         83: 5, 84: -5, 95: 6, 96: 6, 97: 7, 98: 7, 99: 7, 27: 0, 28: 0,
+         83: 5, 84: -5, 95: 6, 96: -6, 97: 7, 98: 7, 99: 7, 27: 0, 28: 0,
          29: 0}
 
 
@@ -155,8 +154,6 @@ def decode_dds(data: bytes) -> np.ndarray:
         fmt = _FOURCC.get(fourcc)
     if fmt is None:
         raise ValueError("DDS: a pixel format PIL does not read")
-    if fmt == 6:
-        raise UnsupportedImage("DDS: BC6H is not decoded by the port")
     if fmt == 0:
         return _raw(data, pos, w, h, 4).copy()
     return decode_bcn(data[pos:], fmt, w, h)

@@ -10,10 +10,11 @@ grey turns "L" into "P" and "LA" into "PA" through it, a grey one is
 ignored, as PIL ignores the lookup tables it keeps. Rows are stored
 bottom row first; the first frame is read.
 
-Decoded: the types PIL writes (its SAVE table) but YCC: "0 1", "L 1"
-and "B1" (1-bit rows), "Greyscale"/"Grayscale" (L or P), "LA" and "PA"
-(LA or PA, line-interleaved), "RGB", "RGBA", "RGBX", "CMYK" (one plane
-of each band a row), "X 24" (interleaved RGB), "L 32S" (int32), "L 16",
+Decoded: the types PIL writes (its SAVE table): "0 1", "L 1" and "B1"
+(1-bit rows), "Greyscale"/"Grayscale" (L or P), "LA" and "PA" (LA or
+PA, line-interleaved), "RGB", "RGBA", "RGBX", "CMYK" and "YCC" (one
+plane of each band a row; YCC through PIL's own YCbCr -> RGB, see
+scene/pilmodes.py), "X 24" (interleaved RGB), "L 32S" (int32), "L 16",
 "L 16L" and "L 16B" (16-bit), "L 32F" (float32); any other type PIL
 reads raises UnsupportedImage.
 """
@@ -57,7 +58,8 @@ for _j in range(2, 33):
 _MODES = {m for m, _ in _OPEN.values()}
 # (mode, line-interleaved raw mode) -> bands stored a row
 _LINE = {("LA", "LA;L"): 2, ("PA", "PA;L"): 2, ("RGB", "RGB;L"): 3,
-         ("RGBA", "RGBA;L"): 4, ("RGB", "RGBX;L"): 4, ("CMYK", "CMYK;L"): 4}
+         ("RGBA", "RGBA;L"): 4, ("RGB", "RGBX;L"): 4, ("CMYK", "CMYK;L"): 4,
+         ("YCbCr", "YCbCr;L"): 3}
 # raw mode of one word a pixel -> its numpy type
 _WORDS = {"I;16": "<u2", "I;16L": "<u2", "I;16B": ">u2", "I;32S": "<i4",
           "F;32F": "<f4"}

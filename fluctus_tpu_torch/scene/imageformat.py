@@ -19,12 +19,14 @@ header tests of its `_open`), with one of three outcomes:
   (scene/xbm.py), XPM (scene/xpm.py), XV thumbnails (scene/xvthumb.py),
   IM (scene/im.py), IMT (scene/imt.py), SPIDER (scene/spider.py), PIXAR
   (scene/pixar.py), McIdas (scene/mcidas.py), FTEX (scene/ftex.py), GBR
-  (scene/gbr.py), FITS (scene/fits.py), BLP (scene/blp.py) and ICNS
-  with a PNG member (scene/icns.py); EPS goes to scene/eps.py, which
-  gives -1 or raises as PIL's Ghostscript lookup decides;
-- a format PIL reads and the port does not decode raises
-  `UnsupportedImage` naming it, so a map the JAX package would load is
-  never dropped without notice;
+  (scene/gbr.py), FITS (scene/fits.py), BLP (scene/blp.py), ICNS with
+  PNG or RLE members (scene/icns.py), WebP (scene/webp.py), FLI and FLC
+  (scene/fli.py), Photo CD (scene/pcd.py) and IPTC (scene/iptc.py); EPS
+  goes to scene/eps.py, which gives -1 or raises as PIL's Ghostscript
+  lookup decides;
+- a format PIL reads and the port does not decode (AVIF, JPEG 2000)
+  raises `UnsupportedImage` naming it, so a map the JAX package would
+  load is never dropped without notice;
 - bytes no plugin accepts, and formats PIL names but has no decoder for
   (its stub plugins), give None: the texture slot stays -1, as in the
   JAX package (an OpenEXR file, for instance, is not a PIL format).
@@ -157,7 +159,7 @@ _PLUGINS = (
      "eps"),
     ("FITS", lambda d: d.startswith(b"SIMPLE"), "fits"),
     ("FLI", lambda d: len(d) >= 16 and _i16(d, 4) in (0xAF11, 0xAF12)
-     and _i16(d, 14) in (0, 3), "raise"),
+     and _i16(d, 14) in (0, 3), "fli"),
     ("FTEX", lambda d: d.startswith(b"FTEX"), "ftex"),
     ("GBR", _gbr, "gbr"),
     ("GRIB", lambda d: len(d) >= 8 and d.startswith(b"GRIB") and d[7] == 1,
@@ -171,7 +173,7 @@ _PLUGINS = (
      "ico"),
     ("IM", _im, "im"),
     ("IMT", _imt, "imt"),
-    ("IPTC", _iptc, "raise"),
+    ("IPTC", _iptc, "iptc"),
     ("MCIDAS", lambda d: d.startswith(b"\0\0\0\0\0\0\0\4"), "mcidas"),
     ("MPEG", lambda d: d.startswith(b"\0\0\1\xb3"), None),
     ("TIFF", lambda d: d.startswith((b"MM\x00*", b"II*\x00", b"MM*\x00",
@@ -179,7 +181,7 @@ _PLUGINS = (
      "tiff"),
     ("MSP", lambda d: d.startswith((b"DanM", b"LinS")), "msp"),
     ("PCD", lambda d: d[2048:2052] == b"PCD_" and len(d) >= 2048 + 1539,
-     "raise"),
+     "pcd"),
     ("PIXAR", lambda d: d.startswith(b"\200\350\000\000"), "pixar"),
     ("PSD", lambda d: d.startswith(b"8BPS"), "psd"),
     ("QOI", lambda d: d.startswith(b"qoif"), "qoi"),
@@ -189,7 +191,7 @@ _PLUGINS = (
     ("SUN", lambda d: len(d) >= 4 and struct.unpack_from(">I", d)[0]
      == 0x59A66A95, "sun"),
     ("TGA", _tga, "tga"),
-    ("WEBP", _webp, "raise"),
+    ("WEBP", _webp, "webp"),
     ("WMF", lambda d: d.startswith((b"\xd7\xcd\xc6\x9a\x00\x00",
                                     b"\x01\x00\x00\x00")), None),
     ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), "xbm"),
@@ -235,7 +237,9 @@ _DECODERS = {
     "mcidas": ("mcidas", "decode_mcidas"), "ftex": ("ftex", "decode_ftex"),
     "gbr": ("gbr", "decode_gbr"), "fits": ("fits", "decode_fits"),
     "blp": ("blp", "decode_blp"), "icns": ("icns", "decode_icns"),
-    "eps": ("eps", "decode_eps"),
+    "eps": ("eps", "decode_eps"), "webp": ("webp", "decode_webp"),
+    "fli": ("fli", "decode_fli"), "pcd": ("pcd", "decode_pcd"),
+    "iptc": ("iptc", "decode_iptc"),
 }
 
 

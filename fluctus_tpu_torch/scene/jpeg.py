@@ -52,14 +52,21 @@ def _check(lib, rc: int) -> None:
     raise ValueError(f"JPEG: {msg}")
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W, 4) uint8 RGBA, top row first."""
+def decode_jpeg_samples(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 1) grey or (H, W, 3) RGB uint8, top row
+    first."""
     lib = load_library()
     w, h, nc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     _check(lib, lib.jpeg_info(data, len(data), ctypes.byref(w),
                               ctypes.byref(h), ctypes.byref(nc)))
     out = np.empty((h.value, w.value, nc.value), np.uint8)
     _check(lib, lib.jpeg_decode(data, len(data), out.ctypes.data))
-    rgba = np.full((h.value, w.value, 4), 255, np.uint8)
+    return out
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 4) uint8 RGBA, top row first."""
+    out = decode_jpeg_samples(data)
+    rgba = np.full(out.shape[:2] + (4,), 255, np.uint8)
     rgba[..., :3] = out           # grey broadcasts to R, G and B
     return rgba

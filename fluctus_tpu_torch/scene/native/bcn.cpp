@@ -1,11 +1,14 @@
-// Block-compressed texture decoding (BC1-BC5 and BC7) that gives the bytes
-// PIL 12's "bcn" decoder gives: its colour and alpha interpolation in
-// integer arithmetic with truncating division, its BC7 mode table, anchor
+// Block-compressed texture decoding (BC1-BC7) that gives the bytes PIL 12's
+// "bcn" decoder gives: its colour and alpha interpolation in integer
+// arithmetic with truncating division, its BC7 mode table, anchor
 // indices, weights and rotations, and its black opaque block for the
-// reserved BC7 mode (a first byte of zero).
+// reserved BC7 mode (a first byte of zero); for BC6H its endpoint layouts,
+// unquantisation, interpolation and half-float finish, scaled to 8 bits
+// by truncation (black for the reserved modes).
 //
-// One entry point, bcn_decode(src, n, fmt, w, h, out): fmt 1-5 and 7 is
-// PIL's BCn number (5 unsigned; -5 BC5 signed), out is w * h RGBA bytes,
+// One entry point, bcn_decode(src, n, fmt, w, h, out): fmt 1-7 is PIL's
+// BCn number (5 unsigned; -5 BC5 signed; 6 BC6H unsigned, -6 signed), out
+// is w * h RGBA bytes,
 // rows top first; BC4 gives grey in R, G and B, BC5 red and green with
 // blue 0 (128 when signed), and both alpha 255, as PIL's convert("RGBA") of its L and RGB
 // images. Returns 0, or 1 when src holds fewer bytes than the blocks need.
@@ -281,6 +284,229 @@ void decode_bc7_block(rgba* col, const uint8_t* src) {
   }
 }
 
+
+// ------------------------------------------------------------------ BC6H
+
+// the bit layout of each mode's endpoints (the format's table, as PIL
+// encodes it): bit i of the block after the mode bits goes to bit
+// (v & 15) of endpoint value (v >> 4), values ordered r0 g0 b0 r1 g1 b1 r2
+// g2 b2 r3 g3 b3
+const uint8_t bc6_bit_packings[1050] = {
+    116, 132, 180, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22,
+    23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 52,
+    164, 112, 113, 114, 115, 64, 65, 66, 67, 68, 176, 160, 161, 162, 163,
+    80, 81, 82, 83, 84, 177, 128, 129, 130, 131, 96, 97, 98, 99, 100, 178,
+    144, 145, 146, 147, 148, 179, 117, 164, 165, 0, 1, 2, 3, 4, 5, 6, 176,
+    177, 132, 16, 17, 18, 19, 20, 21, 22, 133, 178, 116, 32, 33, 34, 35, 36,
+    37, 38, 179, 181, 180, 48, 49, 50, 51, 52, 53, 112, 113, 114, 115, 64,
+    65, 66, 67, 68, 69, 160, 161, 162, 163, 80, 81, 82, 83, 84, 85, 128,
+    129, 130, 131, 96, 97, 98, 99, 100, 101, 144, 145, 146, 147, 148, 149,
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25,
+    32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 52, 10, 112,
+    113, 114, 115, 64, 65, 66, 67, 26, 176, 160, 161, 162, 163, 80, 81, 82,
+    83, 42, 177, 128, 129, 130, 131, 96, 97, 98, 99, 100, 178, 144, 145,
+    146, 147, 148, 179, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18,
+    19, 20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48,
+    49, 50, 51, 10, 164, 112, 113, 114, 115, 64, 65, 66, 67, 68, 26, 160,
+    161, 162, 163, 80, 81, 82, 83, 42, 177, 128, 129, 130, 131, 96, 97, 98,
+    99, 176, 178, 144, 145, 146, 147, 116, 179, 0, 0, 0, 0, 1, 2, 3, 4, 5,
+    6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36,
+    37, 38, 39, 40, 41, 48, 49, 50, 51, 10, 132, 112, 113, 114, 115, 64, 65,
+    66, 67, 26, 176, 160, 161, 162, 163, 80, 81, 82, 83, 84, 42, 128, 129,
+    130, 131, 96, 97, 98, 99, 177, 178, 144, 145, 146, 147, 180, 179, 0, 0,
+    0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 132, 16, 17, 18, 19, 20, 21, 22, 23, 24,
+    116, 32, 33, 34, 35, 36, 37, 38, 39, 40, 180, 48, 49, 50, 51, 52, 164,
+    112, 113, 114, 115, 64, 65, 66, 67, 68, 176, 160, 161, 162, 163, 80, 81,
+    82, 83, 84, 177, 128, 129, 130, 131, 96, 97, 98, 99, 100, 178, 144, 145,
+    146, 147, 148, 179, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 164, 132, 16, 17,
+    18, 19, 20, 21, 22, 23, 178, 116, 32, 33, 34, 35, 36, 37, 38, 39, 179,
+    180, 48, 49, 50, 51, 52, 53, 112, 113, 114, 115, 64, 65, 66, 67, 68,
+    176, 160, 161, 162, 163, 80, 81, 82, 83, 84, 177, 128, 129, 130, 131,
+    96, 97, 98, 99, 100, 101, 144, 145, 146, 147, 148, 149, 0, 0, 0, 0, 1,
+    2, 3, 4, 5, 6, 7, 176, 132, 16, 17, 18, 19, 20, 21, 22, 23, 117, 116,
+    32, 33, 34, 35, 36, 37, 38, 39, 165, 180, 48, 49, 50, 51, 52, 164, 112,
+    113, 114, 115, 64, 65, 66, 67, 68, 69, 160, 161, 162, 163, 80, 81, 82,
+    83, 84, 177, 128, 129, 130, 131, 96, 97, 98, 99, 100, 178, 144, 145,
+    146, 147, 148, 179, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 177, 132, 16, 17,
+    18, 19, 20, 21, 22, 23, 133, 116, 32, 33, 34, 35, 36, 37, 38, 39, 181,
+    180, 48, 49, 50, 51, 52, 164, 112, 113, 114, 115, 64, 65, 66, 67, 68,
+    176, 160, 161, 162, 163, 80, 81, 82, 83, 84, 85, 128, 129, 130, 131, 96,
+    97, 98, 99, 100, 178, 144, 145, 146, 147, 148, 179, 0, 0, 0, 0, 1, 2, 3,
+    4, 5, 164, 176, 177, 132, 16, 17, 18, 19, 20, 21, 117, 133, 178, 116,
+    32, 33, 34, 35, 36, 37, 165, 179, 181, 180, 48, 49, 50, 51, 52, 53, 112,
+    113, 114, 115, 64, 65, 66, 67, 68, 69, 160, 161, 162, 163, 80, 81, 82,
+    83, 84, 85, 128, 129, 130, 131, 96, 97, 98, 99, 100, 101, 144, 145, 146,
+    147, 148, 149, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19,
+    20, 21, 22, 23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49,
+    50, 51, 52, 53, 54, 55, 56, 57, 64, 65, 66, 67, 68, 69, 70, 71, 72, 73,
+    80, 81, 82, 83, 84, 85, 86, 87, 88, 89, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22,
+    23, 24, 25, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 52,
+    53, 54, 55, 56, 10, 64, 65, 66, 67, 68, 69, 70, 71, 72, 26, 80, 81, 82,
+    83, 84, 85, 86, 87, 88, 42, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25,
+    32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 52, 53, 54, 55,
+    11, 10, 64, 65, 66, 67, 68, 69, 70, 71, 27, 26, 80, 81, 82, 83, 84, 85,
+    86, 87, 43, 42, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 2, 3,
+    4, 5, 6, 7, 8, 9, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 32, 33, 34,
+    35, 36, 37, 38, 39, 40, 41, 48, 49, 50, 51, 15, 14, 13, 12, 11, 10, 64,
+    65, 66, 67, 31, 30, 29, 28, 27, 26, 80, 81, 82, 83, 47, 46, 45, 44, 43,
+    42, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+// per mode: subsets, transformed, partition bits, endpoint bits, delta
+// bits of red, green and blue
+const uint8_t bc6_modes[98] = {
+    2, 1, 5, 10, 5, 5, 5, 2, 1, 5, 7, 6, 6, 6, 2, 1, 5, 11, 5, 4, 4, 2, 1,
+    5, 11, 4, 5, 4, 2, 1, 5, 11, 4, 4, 5, 2, 1, 5, 9, 5, 5, 5, 2, 1, 5, 8,
+    6, 5, 5, 2, 1, 5, 8, 5, 6, 5, 2, 1, 5, 8, 5, 5, 6, 2, 0, 5, 6, 6, 6, 6,
+    1, 0, 0, 10, 10, 10, 10, 1, 1, 0, 11, 9, 9, 9, 1, 1, 0, 12, 8, 8, 8, 1,
+    1, 0, 16, 4, 4, 4};
+
+int get_bit(const uint8_t* src, int bit) {
+  return (src[bit >> 3] >> (bit & 7)) & 1;
+}
+
+void bc6_sign_extend(uint16_t* v, int prec) {
+  int x = *v;
+  if (x & (1 << (prec - 1))) x |= -1 << prec;
+  *v = uint16_t(x);
+}
+
+int bc6_unquantize(uint16_t v, int bits, int sign) {
+  if (!sign) {
+    if (bits >= 15) return v;
+    if (!v) return 0;
+    if (v == ((1 << bits) - 1)) return 0xffff;
+    return ((v << 16) + 0x8000) >> bits;
+  }
+  int x = int16_t(v), s = 0;
+  if (bits >= 16) return x;
+  if (x < 0) {
+    s = 1;
+    x = -x;
+  }
+  if (x != 0) {
+    if (x >= ((1 << (bits - 1)) - 1))
+      x = 0x7fff;
+    else
+      x = ((x << 15) + 0x4000) >> (bits - 1);
+  }
+  return s ? -x : x;
+}
+
+float half_to_float(uint16_t h) {
+  union {
+    uint32_t u;
+    float f;
+  } o, m;
+  m.u = 0x77800000;
+  o.u = uint32_t(h & 0x7fff) << 13;
+  o.f *= m.f;
+  m.u = 0x47800000;
+  if (o.f >= m.f) o.u |= 255u << 23;
+  o.u |= uint32_t(h & 0x8000) << 16;
+  return o.f;
+}
+
+float bc6_finalize(int v, int sign) {
+  if (sign) {
+    if (v < 0) {
+      v = ((-v) * 31) / 32;
+      return half_to_float(uint16_t(0x8000 | v));
+    }
+    return half_to_float(uint16_t((v * 31) / 32));
+  }
+  return half_to_float(uint16_t((v * 31) / 64));
+}
+
+uint8_t bc6_clamp(float value) {
+  if (value < 0.0f) return 0;
+  if (value > 1.0f) return 255;
+  return uint8_t(value * 255.0f);
+}
+
+void bc6_lerp(rgba* col, const int* e0, const int* e1, int s, int sign) {
+  int t = 64 - s;
+  int r = (e0[0] * t + e1[0] * s) >> 6;
+  int g = (e0[1] * t + e1[1] * s) >> 6;
+  int b = (e0[2] * t + e1[2] * s) >> 6;
+  col->r = bc6_clamp(bc6_finalize(r, sign));
+  col->g = bc6_clamp(bc6_finalize(g, sign));
+  col->b = bc6_clamp(bc6_finalize(b, sign));
+  col->a = 255;
+}
+
+void decode_bc6_block(rgba* col, const uint8_t* src, int sign) {
+  uint16_t endpoints[12];
+  int ueps[12];
+  int bit = 5, epbits = 75, ib = 3;
+  int mode = src[0] & 0x1f;
+  if ((mode & 3) == 0 || (mode & 3) == 1) {
+    mode &= 3;
+    bit = 2;
+  } else if ((mode & 3) == 2) {
+    mode = 2 + (mode >> 2);
+    epbits = 72;
+  } else {
+    mode = 10 + (mode >> 2);
+    epbits = 60;
+    ib = 4;
+  }
+  if (mode >= 14) {   // reserved mode: PIL writes black
+    for (int i = 0; i < 16; i++) col[i] = {0, 0, 0, 255};
+    return;
+  }
+  const uint8_t* info = &bc6_modes[mode * 7];
+  const int ns = info[0], tr = info[1], pb = info[2], epb = info[3];
+  const int rb = info[4], gb = info[5], bb = info[6];
+  const uint8_t* cw = bc7_get_weights(ib);
+  const int numep = ns == 2 ? 12 : 6;
+  for (int i = 0; i < 12; i++) endpoints[i] = 0;
+  for (int i = 0; i < epbits; i++) {
+    int di = bc6_bit_packings[mode * 75 + i];
+    int dw = di >> 4;
+    di &= 15;
+    endpoints[dw] |= uint16_t(get_bit(src, bit + i) << di);
+  }
+  bit += epbits;
+  int partition = get_bits(src, bit, pb);
+  bit += pb;
+  const int mask = (1 << epb) - 1;
+  if (sign) {
+    bc6_sign_extend(&endpoints[0], epb);
+    bc6_sign_extend(&endpoints[1], epb);
+    bc6_sign_extend(&endpoints[2], epb);
+  }
+  if (sign || tr) {
+    for (int i = 3; i < numep; i += 3) {
+      bc6_sign_extend(&endpoints[i], rb);
+      bc6_sign_extend(&endpoints[i + 1], gb);
+      bc6_sign_extend(&endpoints[i + 2], bb);
+    }
+  }
+  if (tr) {   // deltas: masked to the endpoint width and, as in PIL, not
+              // sign-extended again when signed
+    for (int i = 3; i < numep; i += 3) {
+      endpoints[i] = uint16_t((endpoints[i] + endpoints[0]) & mask);
+      endpoints[i + 1] = uint16_t((endpoints[i + 1] + endpoints[1]) & mask);
+      endpoints[i + 2] = uint16_t((endpoints[i + 2] + endpoints[2]) & mask);
+    }
+  }
+  for (int i = 0; i < numep; i++)
+    ueps[i] = bc6_unquantize(endpoints[i], epb, sign);
+  for (int i = 0; i < 16; i++) {
+    int s = bc7_get_subset(ns, partition, i) * 6;
+    int ib2 = ib;
+    if (i == 0) {
+      ib2--;
+    } else if (ns == 2 && i == bc7_ai0[partition]) {
+      ib2--;
+    }
+    int i0 = get_bits(src, bit, ib2);
+    bit += ib2;
+    bc6_lerp(&col[i], &ueps[s], &ueps[s + 3], cw[i0], sign);
+  }
+}
+
 }  // namespace
 
 extern "C" int bcn_decode(const uint8_t* src, long long n, int fmt, int w,
@@ -326,6 +552,10 @@ extern "C" int bcn_decode(const uint8_t* src, long long n, int fmt, int w,
             col[k].b = fmt < 0 ? 128 : 0;   // a signed zero, as PIL stores
             col[k].a = 255;
           }
+          break;
+        case 6:
+        case -6:
+          decode_bc6_block(col, p, fmt < 0);
           break;
         case 7:
           decode_bc7_block(col, p);

@@ -10,7 +10,14 @@ a file that ends early is damage, as PIL's "image file is truncated".
 `to_rgba` copies PIL's conversions to RGBA: "1" as 0 or 255; "I;16",
 "I;16B" and "I" clipped to 0..255; "F" clipped and truncated (NaN and
 -inf to 0, +inf to 255); "P" and "PA" through a palette; "CMYK" by PIL's
-cmyk2rgb (TIFF and PSD convert through it too).
+cmyk2rgb (TIFF and PSD convert through it too); "YCbCr" by `ycbcr_to_rgb`.
+
+`ycbcr_to_rgb` is PIL's own YCbCr -> RGB (ConvertYCbCr.c: 6-bit
+fixed-point tables, not libjpeg's), which IM's YCC type converts through;
+`photoycc_to_rgb` is its unpacker of Kodak PhotoYCC ("YCC;P",
+UnpackYCC.c), which Photo CD images go through. Both tables are built
+from the formulas below, which give PIL's entry for entry (checked on
+all 2^24 inputs).
 """
 from __future__ import annotations
 
@@ -76,6 +83,8 @@ def to_rgba(mode: str, px: np.ndarray,
     elif mode in ("RGB", "RGBA"):
         out[..., :px.shape[2] if mode == "RGBA" else 3] = \
             px[..., :4 if mode == "RGBA" else 3]
+    elif mode == "YCbCr":
+        out[..., :3] = ycbcr_to_rgb(px[..., :3])
     elif mode == "CMYK":
         c = px[..., :4].astype(np.int64)
         nk = 255 - c[..., 3:4]
@@ -84,3 +93,42 @@ def to_rgba(mode: str, px: np.ndarray,
     else:
         raise ValueError(f"no RGBA conversion for mode {mode}")
     return out
+
+
+def _table(c: float, centre: int) -> np.ndarray:
+    """PIL's fixed-point table: trunc(c * (i - centre) + 0.5) as C
+    rounds, the truncation toward zero included."""
+    return np.trunc(c * (np.arange(256) - centre) + 0.5).astype(np.int64)
+
+
+# ConvertYCbCr.c (SCALE 6): R = Y + R_Cr >> 6, G = Y + (G_Cb + G_Cr) >> 6,
+# B = Y + B_Cb >> 6
+_R_CR = _table(1.40200 * 64, 128)
+_G_CB = _table(-0.34414 * 64, 128)
+_G_CR = _table(-0.71414 * 64, 128)
+_B_CB = _table(1.77200 * 64, 128)
+# UnpackYCC.c: R = L + CR, G = L + GB + GR, B = L + CB
+_L = _table(1.3584, 0)
+_CB = _table(2.2179, 156)
+_GB = _table(-0.4303, 156)
+_CR = _table(1.8215, 137)
+_GR = _table(-0.9271, 137)
+
+
+def ycbcr_to_rgb(px: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 Y, Cb, Cr -> (..., 3) uint8 RGB as PIL converts."""
+    y = px[..., 0].astype(np.int64)
+    cb, cr = px[..., 1], px[..., 2]
+    rgb = np.stack([y + (_R_CR[cr] >> 6), y + ((_G_CB[cb] + _G_CR[cr]) >> 6),
+                    y + (_B_CB[cb] >> 6)], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def photoycc_to_rgb(px: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 PhotoYCC Y, C1, C2 -> (..., 3) uint8 RGB as PIL's
+    "YCC;P" unpacker gives."""
+    lum = _L[px[..., 0]]
+    c1, c2 = px[..., 1], px[..., 2]
+    rgb = np.stack([lum + _CR[c2], lum + _GR[c2] + _GB[c1], lum + _CB[c1]],
+                   -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)

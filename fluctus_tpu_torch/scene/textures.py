@@ -11,6 +11,7 @@ map the JAX package would load is dropped without notice.
 """
 from __future__ import annotations
 
+import importlib
 import os
 import struct
 import zlib
@@ -51,9 +52,9 @@ class TexturePool:
             raise imageformat.UnsupportedImage(f"{path}: {e}") from None
         if kind is None:
             return -1
-        if kind == "jpeg":
-            from fluctus_tpu_torch.scene import jpeg
-            jpeg.load_library()       # a failed build raises, never -1
+        if kind in ("jpeg", "webp"):   # native decoders: a failed build
+            importlib.import_module(   # raises, never -1
+                f"fluctus_tpu_torch.scene.{kind}").load_library()
         try:
             rgba = imageformat.decode(data, kind)
         except imageformat.UnsupportedImage as e:

@@ -226,9 +226,10 @@ print("DECODED-OK")
 def test_port_decodes_textures_without_pil(tmp_path):
     """The image decoders (PNG, JPEG baseline and progressive with its g++
     build, BMP, TGA, GIF, TIFF (LZW, JPEG, CMYK), PPM, DDS with its g++
-    build, ICO, PCX, QOI, SGI, DIB, MSP, XBM, PSD CMYK and Lab, IM,
-    SPIDER, BLP, ICNS) run with PIL unimportable and give the rows PIL
-    gives."""
+    build (DXT5, BC6H unsigned and signed), ICO, PCX, QOI, SGI, DIB, MSP,
+    XBM, PSD CMYK and Lab, IM (RGB and YCC), SPIDER, BLP, ICNS, and WebP
+    lossless, lossy and lossy with alpha from tests/data/webp with its
+    g++ build) run with PIL unimportable and give the rows PIL gives."""
     import numpy as np
     from PIL import Image
     g = np.random.default_rng(0)
@@ -264,9 +265,19 @@ def test_port_decodes_textures_without_pil(tmp_path):
         np.save(tmp_path / f"{name}.npy", np.ascontiguousarray(rgba[::-1]))
         names.append(name)
     from fluctus_tpu_torch import fixtures
-    for mode in ("CMYK", "LAB"):
-        name = f"s{mode}.psd"
-        (tmp_path / name).write_bytes(fixtures.psd_bytes(mode, 13, 9, True))
+    img.convert("YCbCr").save(tmp_path / "w.im")
+    files = {f"s{mode}.psd": fixtures.psd_bytes(mode, 13, 9, True)
+             for mode in ("CMYK", "LAB")}
+    files["x.dds"] = fixtures.dds_bytes("BC6H", 12, 8, seed=2)
+    files["y.dds"] = fixtures.dds_bytes("BC6HS", 12, 8, seed=3)
+    for name in ("kitchen_wood.lossless.webp", "kitchen_floor.q80.webp",
+                 "wood_alpha.q80.webp"):
+        with open(os.path.join(REPO, "tests", "data", "webp", name),
+                  "rb") as f:
+            files[name] = f.read()
+    for name, data in files.items():
+        (tmp_path / name).write_bytes(data)
+    for name in ("w.im", *files):
         rgba = np.asarray(Image.open(tmp_path / name).convert("RGBA"))
         np.save(tmp_path / f"{name}.npy", np.ascontiguousarray(rgba[::-1]))
         names.append(name)

@@ -16,15 +16,19 @@ port's decoder makes libjpeg-turbo's choices (islow IDCT, fancy
 upsampling, its YCbCr tables), so its RGBA equals PIL's exactly. A
 truncated file is -1 in both pools, and so are bytes no PIL plugin
 identifies; a well-formed file in a format the port does not decode
-(WebP) loads in the JAX pool and raises UnsupportedImage in the port's,
-so the gap stays visible. DDS (uncompressed layouts and BC1-BC5, BC7
-through native/bcn.cpp), ICO and CUR equal PIL on files PIL writes and
-on DDS files of seeded blocks (`fixtures.dds_bytes`). PIL's simple
-plugins (XPM, XV thumbnail, IM, IMT, SPIDER, PIXAR, McIdas, FTEX, GBR,
-FITS, BLP, ICNS) are held on files PIL writes and on hand-built ones, with
-the variants PIL fails on (-1 in both) and those the port does not decode
-(IM YCC, ICNS RLE and JPEG 2000 members); EPS follows PIL's Ghostscript
-lookup."""
+(AVIF, JPEG 2000) loads in the JAX pool and raises UnsupportedImage in
+the port's, so the gap stays visible. DDS (uncompressed layouts and
+BC1-BC7 through native/bcn.cpp, BC6H unsigned and signed), ICO and CUR
+equal PIL on files PIL writes and on DDS files of seeded blocks
+(`fixtures.dds_bytes`). PIL's simple plugins (XPM, XV thumbnail, IM with
+its YCC type, IMT, SPIDER, PIXAR, McIdas, FTEX, GBR, FITS, BLP, ICNS with
+PNG and RLE members, FLI / FLC, Photo CD, IPTC) are held on files PIL
+writes and on hand-built ones (`fixtures.fli_bytes`, `pcd_bytes`,
+`iptc_bytes`, `icns_rle_bytes`), with the variants PIL fails on (-1 in
+both) and the one the port does not decode (ICNS JPEG 2000 members); EPS
+follows PIL's Ghostscript lookup. WebP has tests/test_torch_webp.py;
+here it is one of the formats PIL writes, and the textured-plane render
+takes a lossy WebP diffuse map beside the JPEG one."""
 import io
 import struct
 import zlib
@@ -1030,20 +1034,18 @@ def test_dds_written_by_pil(tmp_path, mode, pf):
 
 def test_dds_bc7_2048_and_damage(tmp_path):
     """A 2048^2 BC7 texture (262,144 blocks) decodes as PIL does, a
-    truncated block stream is -1 in both, and BC6H, which PIL reads,
-    raises in the port."""
+    truncated block stream is -1 in both, and BC6H, unsigned (DXGI 95)
+    and signed (96), decodes as PIL does on seeded blocks of its 14 modes
+    and 4 reserved ones."""
     path = tmp_path / "t.dds"
     data = fixtures.dds_bytes("BC7", 2048, 2048, seed=7)
     path.write_bytes(data)
     assert_same(path)
     path.write_bytes(data[:len(data) // 2])
     assert both(path) == [-1, -1]
-    bc6 = bytearray(fixtures.dds_bytes("BC7", 8, 8, seed=1))
-    bc6[128:132] = (95).to_bytes(4, "little")      # DXGI BC6H_UF16
-    path.write_bytes(bytes(bc6))
-    assert JaxPool().try_import(str(path), "t") == 0
-    with pytest.raises(UnsupportedImage, match="BC6H"):
-        TexturePool().try_import(str(path), "t")
+    for fmt in ("BC6H", "BC6HS"):
+        path.write_bytes(fixtures.dds_bytes(fmt, 64, 36, seed=1))
+        assert_same(path)
 
 
 def _ico_cases():
@@ -1517,15 +1519,54 @@ def _tier1_raising():
     decode: they load in the JAX pool and raise in the port's."""
     pic = Image.fromarray(smooth(16, 16))
     return {
-        "IM YCC": _pil_bytes(pic.convert("YCbCr"), "IM"),
-        "ICNS RLE RGB member": _icns([(b"is32", bytes(16 * 16 * 3)),
-                                      (b"icp4", _pil_bytes(pic, "PNG"))]),
         "ICNS JPEG 2000 member": _icns([(b"icp4", _pil_bytes(
             pic, "JPEG2000"))]),
     }
 
 
-TIER1_CASES = _tier1_cases()
+def _tier1_decoded():
+    """IM's YCC type, ICNS RLE members, FLI / FLC, Photo CD and IPTC
+    (files PIL reads that the port decodes since it gained their
+    decoders)."""
+    pic = Image.fromarray(smooth(16, 16))
+    cases = {
+        "IM YCC": _pil_bytes(pic.convert("YCbCr"), "IM"),
+        "ICNS RLE RGB member": _icns([(b"is32", bytes(16 * 16 * 3)),
+                                      (b"icp4", _pil_bytes(pic, "PNG"))]),
+    }
+    for size in sorted(fixtures.ICNS_RLE_MEMBERS):
+        cases[f"ICNS RLE {size} with mask"] = fixtures.icns_rle_bytes(
+            size, seed=size)
+    cases["ICNS RLE 32 without mask"] = fixtures.icns_rle_bytes(
+        32, seed=3, mask=False)
+    cases["ICNS raw RGB 48 with mask"] = fixtures.icns_rle_bytes(
+        48, seed=4, rle=False)
+    for first in ("brun", "copy", "lc"):
+        cases[f"FLC {first} 37x21"] = fixtures.fli_bytes(37, 21, seed=5,
+                                                         first=first)
+    cases["FLI COLOR_64 brun 20x9"] = fixtures.fli_bytes(
+        20, 9, seed=6, flc=False, colour64=True)
+    for o in (0, 1, 2, 3):
+        cases[f"PCD orientation {o}"] = fixtures.pcd_bytes(seed=o,
+                                                           orientation=o)
+    cases["IPTC raw one band 17x13"] = fixtures.iptc_bytes(17, 13, seed=7)
+    cases["IPTC raw, long records 200x180"] = fixtures.iptc_bytes(
+        200, 180, seed=8, record=40000)
+    for layers, band in ((3, 0), (3, 2), (4, 3), (3, -1)):
+        cases[f"IPTC raw band {band} of {layers}"] = fixtures.iptc_bytes(
+            17, 13, seed=9, layers=layers, band=band)
+    for mode in ("L", "RGB"):
+        jpg = _pil_bytes(Image.fromarray(smooth(13, 17)).convert(mode),
+                         "JPEG", quality=85)
+        cases[f"IPTC JPEG {mode}"] = fixtures.iptc_bytes(17, 13,
+                                                         payload=jpg)
+    jpg = _pil_bytes(Image.fromarray(smooth(13, 17)).convert("L"), "JPEG")
+    cases["IPTC JPEG band 1 of 3"] = fixtures.iptc_bytes(
+        17, 13, layers=3, band=1, payload=jpg)
+    return cases
+
+
+TIER1_CASES = {**_tier1_cases(), **_tier1_decoded()}
 RASTER_CASES = {**_raster_cases(), **TIER1_CASES}
 
 
@@ -1534,10 +1575,13 @@ def test_raster_formats_equal_pil(tmp_path, name):
     """DIB, PCX, DCX, QOI, SGI (raw and RLE, 8 and 16 bits), PSD (raw and
     PackBits), Sun raster (raw and RLE, with and without a colour map),
     MSP (versions 1 and 2), XBM, and PIL's simple plugins: XPM (P and
-    RGB), XV thumbnails, IM (every mode PIL writes but YCC), IMT, SPIDER,
-    PIXAR, McIdas, FTEX, GBR, FITS (every BITPIX, gzip tiles), BLP
-    (palette, DXT1/3/5, JPEG) and ICNS PNG members: the port's RGBA
-    equals PIL's byte for byte."""
+    RGB), XV thumbnails, IM (every mode PIL writes, YCC included), IMT,
+    SPIDER, PIXAR, McIdas, FTEX, GBR, FITS (every BITPIX, gzip tiles),
+    BLP (palette, DXT1/3/5, JPEG), ICNS PNG, RLE and raw RGB members with
+    their masks, FLI / FLC (BRUN, COPY, BLACK and LC, SS2, COLOR_256 and
+    COLOR_64), Photo CD in each orientation and IPTC (raw one band, a
+    band of RGB or CMYK, JPEG): the port's RGBA equals PIL's byte for
+    byte."""
     path = tmp_path / "t.img"
     path.write_bytes(RASTER_CASES[name])
     assert_same(path)
@@ -1552,7 +1596,9 @@ def test_raster_formats_equal_pil(tmp_path, name):
     "FTEX DXT1 16x8", "FTEX RGB 13x7", "GBR depth 4 v2 7x9",
     "FITS gzip tiles 16", "BLP BLP1 palette",
     "BLP BLP2 palette, alpha", "BLP2 DXT5 alpha 8 16x12",
-    "BLP1 JPEG alpha 0", "ICNS icp5 PNG RGBA"])
+    "BLP1 JPEG alpha 0", "ICNS icp5 PNG RGBA", "ICNS RLE 16 with mask",
+    "FLC brun 37x21", "PCD orientation 1", "IPTC raw one band 17x13",
+    "IPTC JPEG RGB"])
 def test_raster_formats_truncated_are_minus_one(tmp_path, name):
     data = RASTER_CASES[name]
     path = tmp_path / "t.img"
@@ -1573,9 +1619,8 @@ def test_simple_raster_damage_is_minus_one(tmp_path, name):
 
 @pytest.mark.parametrize("name", list(_tier1_raising()))
 def test_simple_raster_variants_the_port_does_not_decode(tmp_path, name):
-    """IM's YCC type and ICNS icons whose chosen member is RLE RGB or
-    JPEG 2000: the JAX pool loads them, the port's raises
-    UnsupportedImage naming the format."""
+    """ICNS icons whose chosen member is JPEG 2000: the JAX pool loads
+    them, the port's raises UnsupportedImage naming the format."""
     path = tmp_path / "t.img"
     path.write_bytes(_tier1_raising()[name])
     assert JaxPool().try_import(str(path), "t") == 0
@@ -1667,7 +1712,7 @@ def _unported():
              "spider": ("spi", dict(format="SPIDER"), True),
              "icns": ("icns", dict(format="ICNS"), True)}
     if features.check("webp"):
-        cases["webp"] = ("webp", dict(format="WEBP", lossless=True), False)
+        cases["webp"] = ("webp", dict(format="WEBP", lossless=True), True)
     return cases
 
 
@@ -1775,6 +1820,18 @@ def test_jpeg_and_grey_bump_map_render_like_jax(tmp_path):
     """An MTL naming a .jpg diffuse map and a grey PNG bump map: the port's
     lockstep (plain K1) renders what the JAX package's does, under its
     area light, at the goldens' RTOL 1e-3 / ATOL 1e-4 on every pixel."""
+    _render_like_jax(tmp_path, "kd.jpg", dict(quality=80))
+
+
+def test_lossy_webp_and_grey_bump_map_render_like_jax(tmp_path):
+    """The same scene with a lossy WebP diffuse map (quality 70): the
+    atlas is byte-equal to the JAX package's and the frame within RTOL
+    1e-3 / ATOL 1e-4 on every pixel (same shapes, so JAX's compile of the
+    JPEG case is reused in the process)."""
+    _render_like_jax(tmp_path, "kd.webp", dict(quality=70))
+
+
+def _render_like_jax(tmp_path, kd_name, save_kw):
     import dataclasses
 
     import jax.numpy as jnp
@@ -1785,10 +1842,11 @@ def test_jpeg_and_grey_bump_map_render_like_jax(tmp_path):
     from fluctus_tpu.render import driver as jax_driver
     from fluctus_tpu_torch.core.types import RenderConfig
     from fluctus_tpu_torch.render import driver
-    Image.fromarray(smooth(32, 48)).save(tmp_path / "kd.jpg", quality=80)
+    Image.fromarray(smooth(32, 48)).save(tmp_path / kd_name, **save_kw)
     Image.fromarray(smooth(16, 16)[..., 1]).save(tmp_path / "bump.png")
     (tmp_path / "s.mtl").write_text(
-        "newmtl m\nKd 0.8 0.8 0.8\nmap_Kd kd.jpg\nmap_bump bump.png\n")
+        f"newmtl m\nKd 0.8 0.8 0.8\nmap_Kd {kd_name}\n"
+        "map_bump bump.png\n")
     (tmp_path / "s.obj").write_text(
         "mtllib s.mtl\nv -1 -1 0\nv 1 -1 0\nv 1 1 0\nv -1 1 0\n"
         "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\nvn 0 0 1\nusemtl m\n"
