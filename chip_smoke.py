@@ -124,7 +124,13 @@ their recorded SHA-256, then the kitchen loaded from a temporary MTL that
 names the lossless WebP copies of its maps, with the camera and light of
 data/states/state_c68e332cfae81cc6.json applied explicitly: its atlas
 byte-equal to the PNG kitchen's and its 512x512 16 spp frame through K1
-only, bit-equal to the PNG frame (webp). Last, the reference-protocol
+only, bit-equal to the PNG frame, with K1 held against its plain version
+on the first closest and any-hit rays of that frame (webp). JPEG 2000:
+the same for the committed files of tests/data/j2k (scene/native/j2k.cpp,
+with the TIFF codecs' zstd.cpp and ccitt.cpp built beside it) and the
+kitchen from the reversible JP2 copies of its maps (j2k); the committed
+TIFF files of tests/data/tiff are held against their SHA-256 in the
+formats block. Last, the reference-protocol
 sweep, `python3
 -m fluctus_tpu_torch.scripts.run_protocol --duration 2` in a child
 process: the kitchen through K1 and the conference through K2, both
@@ -196,6 +202,32 @@ def say(phase: str, t_start: float, msg: str) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def time_once(fn) -> float:
+    """Milliseconds of one call of `fn` between CUDA events, with no
+    warm-up: for plain versions, which take up to seconds a call."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def summed_ms(fn, acc: dict, key):
+    """`fn` wrapped so that each call's milliseconds (time_once) add up in
+    acc[key]: a plain version timed where a check runs it anyway."""
+    acc.setdefault(key, 0.0)
+
+    def run(*a, **kw):
+        out = []
+        acc[key] += time_once(lambda: out.append(fn(*a, **kw)))
+        return out[0]
+    return run
 
 
 def larger(t_bytes, t_ops):
@@ -841,17 +873,16 @@ def phase_brute_time(bf, rays, sched, wbvh_full):
             st: dict = {}
             plain(*args, stats=st)
             stats_list.append(st)
-        p1 = sum(time_launches(lambda: plain(*a), 1, 1) for a in rec.calls)
+        p_ms = sum(time_once(lambda: plain(*a)) for a in rec.calls)
         k1 = sum(time_launches(lambda: kern(*a), 10, 1) for a in rec.calls)
         k2 = sum(time_launches(lambda: kern(*a), 10, 1) for a in rec.calls)
-        p2 = sum(time_launches(lambda: plain(*a), 1, 1) for a in rec.calls)
         b_ms, b_by = brute_bound(sched, rec.calls, stats_list)
         k1_ms = time_launches(
             lambda: ts.traverse_kernel(wbvh_full, ro, rd, rt, anyh), 10, 1)
         n = ro.shape[0]
         slab = sum(s["slab_tests"] for s in stats_list)
         tri = sum(s["tri_tests"] for s in stats_list)
-        out[form] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+        out[form] = dict(ms=(k1 + k2) / 2, plain_ms=p_ms,
                          bound_ms=b_ms, bound_by=b_by,
                          launches_per_call=len(rec.calls), call_ms=call_ms,
                          k1_ms=k1_ms)
@@ -1010,12 +1041,10 @@ def phase_packet_time(sess, tile=1 << 16):
             ts.traverse_plain(bvh, ro, rd, rt, anyh, stats=ray_stats)
             run_k = lambda: tp.packet_kernel(*a, bvh, anyh)
             run_p = lambda: tp.packet_plain(*a, bvh, anyh)
-            p1 = time_launches(run_p, 1, 1)
             k1 = time_launches(run_k, 10, 1)
             k2 = time_launches(run_k, 10, 1)
-            p2 = time_launches(run_p, 1, 1)
             k_ms += (k1 + k2) / 2
-            p_ms += (p1 + p2) / 2
+            p_ms += time_once(run_p)
             k1_ms += time_launches(
                 lambda: ts.traverse_kernel(bvh, ro, rd, rt, anyh), 10, 1)
         n = len(rays)
@@ -1102,7 +1131,9 @@ def phase_forest_check(ft, wbvh, rays):
     the entry point, and on the rays sorted by octant and Morton code)
     against queue_plain, and the per-launch kernel (launch_kernel) against
     launch_plain through the same scheduler, the round loop and the
-    passes; and K5 against K1 over the session's own full hierarchy."""
+    passes; and K5 against K1 over the session's own full hierarchy.
+    Returns ({mode: (max abs t error, flag mismatches)}, {(mode, form):
+    the plain version's ms in this check, summed over its calls})."""
     import torch
     from fluctus_tpu_torch.ops import traverse_forest as tf
     from fluctus_tpu_torch.ops import traverse_stack as ts
@@ -1110,17 +1141,19 @@ def phase_forest_check(ft, wbvh, rays):
     o, d, t_c, o_s, d_s, t_s = rays
     k1c = ts.traverse_kernel(wbvh, o, d, t_c, any_hit=False)
     k1a = ts.traverse_kernel(wbvh, o_s, d_s, t_s, any_hit=True)
-    err = {}
+    err, plain_ms = {}, {}
     for mode in ("queue",) + tf.MODES:
         t0 = time.perf_counter()
+        plain = tf.queue_plain if mode == "queue" else tf.launch_plain
+        pl_c = summed_ms(plain, plain_ms, (mode, "closest"))
+        pl_a = summed_ms(plain, plain_ms, (mode, "any"))
         if mode == "queue":
             kc2 = queue_sorted(ft, o, d, t_c, False)
             ka2 = queue_sorted(ft, o_s, d_s, t_s, True).prim > 0
             kc = tf.traverse_closest(ft, o, d, t_c)
             ka = tf.traverse_any(ft, o_s, d_s, t_s)
-            pc = ts.Traversal(*tf.queue_plain(ft, *queue_rays(o, d, t_c),
-                                           False))
-            pa = tf.queue_plain(ft, *queue_rays(o_s, d_s, t_s), True)[1] > 0
+            pc = ts.Traversal(*pl_c(ft, *queue_rays(o, d, t_c), False))
+            pa = pl_a(ft, *queue_rays(o_s, d_s, t_s), True)[1] > 0
             other = bool(all(torch.equal(getattr(kc, f), getattr(kc2, f))
                              for f in ("prim", "t", "u", "v"))
                          and torch.equal(ka, ka2))
@@ -1129,12 +1162,10 @@ def phase_forest_check(ft, wbvh, rays):
         else:
             kc = tf.traverse_closest(ft, o, d, t_c, mode=mode,
                                      launch=tf.launch_kernel)
-            pc = tf.traverse_closest(ft, o, d, t_c, mode=mode,
-                                     launch=tf.launch_plain)
+            pc = tf.traverse_closest(ft, o, d, t_c, mode=mode, launch=pl_c)
             ka = tf.traverse_any(ft, o_s, d_s, t_s, mode=mode,
                                  launch=tf.launch_kernel)
-            pa = tf.traverse_any(ft, o_s, d_s, t_s, mode=mode,
-                                 launch=tf.launch_plain)
+            pa = tf.traverse_any(ft, o_s, d_s, t_s, mode=mode, launch=pl_a)
             other = True
             what = (f"the per-launch kernel ({mode}) vs its plain version "
                     f"through the same scheduler")
@@ -1164,10 +1195,10 @@ def phase_forest_check(ft, wbvh, rays):
         check(k1_mis == 0 and k1_rel <= T_REL_TOL and k1_flag == 0,
               f"K5 ({mode}) and K1 disagree on the conference")
         err[mode] = (t_abs, flag_mis)
-    return err
+    return err, plain_ms
 
 
-def phase_forest_time(ft, wbvh, rays):
+def phase_forest_time(ft, wbvh, rays, plain_ms: dict):
     """Per 65,536-ray call, both forms: the work queue's kernel
     (queue_kernel: its one launch on the rays as given and sorted by
     octant and Morton code, the whole call through the entry point and
@@ -1176,7 +1207,7 @@ def phase_forest_time(ft, wbvh, rays):
     passes (K5's time summed over the call's launches, replayed on the
     recorded inputs, launches per call, the whole call with the
     scheduler's PyTorch work, the plain version's time on the same
-    inputs); the bound (the same walks, so one per form) and K1 on the
+    inputs, `plain_ms` from phase_forest_check); the bound (the same walks, so one per form) and K1 on the
     same rays over the session's hierarchy. One call of each form runs
     under sync-debug mode "error": the queue's call reads nothing back."""
     import torch
@@ -1206,11 +1237,6 @@ def phase_forest_time(ft, wbvh, rays):
                 st: dict = {}
                 tf.launch_plain(*args, stats=st)
                 stats_list.append(st)
-            # the plain per-launch version once (it takes tens of seconds
-            # a call; these designs' plain times are not in the kernels
-            # line), the kernel twice
-            p1 = sum(time_launches(lambda: tf.launch_plain(*a), 1, 1)
-                     for a in rec.calls)
             k1 = sum(time_launches(lambda: tf.launch_kernel(*a), 10, 1)
                      for a in rec.calls)
             k2 = sum(time_launches(lambda: tf.launch_kernel(*a), 10, 1)
@@ -1220,8 +1246,9 @@ def phase_forest_time(ft, wbvh, rays):
             child = sum(s["child_tests"] for s in stats_list)
             tri = sum(s["tri_tests"] for s in stats_list)
             out[(mode, form)] = dict(
-                ms=(k1 + k2) / 2, plain_ms=p1, bound_ms=b_ms,
-                bound_by=b_by, launches_per_call=len(rec.calls),
+                ms=(k1 + k2) / 2, plain_ms=plain_ms[(mode, form)],
+                bound_ms=b_ms, bound_by=b_by,
+                launches_per_call=len(rec.calls),
                 call_ms=call_ms, k1_ms=k1_ms)
             r = out[(mode, form)]
             unit = ("rounds (the per-round design)" if mode == "workqueue"
@@ -1262,7 +1289,7 @@ def phase_forest_time(ft, wbvh, rays):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         launches = tf.LAUNCHES[form]
-        p1 = time_launches(lambda: tf.queue_plain(ft, qo, qd, qt, anyh), 1, 1)
+        p1 = plain_ms[("queue", form)]
         wq = out[("workqueue", form)]
         out[("queue", form)] = dict(
             ms=(k1 + k2) / 2, plain_ms=p1, bound_ms=wq["bound_ms"],
@@ -2975,8 +3002,10 @@ def phase_raster_formats() -> dict:
     base image, upright and turned) and a 128x128 ICNS of RLE members
     (fixtures.raster_bytes, psd_bytes, sun_raster_bytes, tiff_bytes,
     pcd_bytes, icns_rle_bytes; the card's machine has no PIL, so equality
-    with PIL is the CPU tests' part) through the texture dispatch.
-    Returns {format: decode seconds}."""
+    with PIL is the CPU tests' part) through the texture dispatch; then
+    each TIFF file of tests/data/tiff held against the SHA-256 of PIL's
+    RGBA recorded in tiff.json. Returns {format or file: decode
+    seconds}."""
     from fluctus_tpu_torch import fixtures
     from fluctus_tpu_torch.scene import imageformat
 
@@ -3017,6 +3046,14 @@ def phase_raster_formats() -> dict:
     say("formats", t0, "512x512 decodes (PCD its 768x512 base image, "
         "ICNS RLE its largest, 128x128): " + ", ".join(
             f"{k} {v:.3f} s" for k, v in secs.items()))
+    t0 = time.perf_counter()
+    tiff = check_recorded(TIFF_DATA, "tiff.json", "formats",
+                          "PIL {pil} / libtiff {libtiff}")
+    say("formats", t0, f"{len(tiff)} TIFF files of tests/data/tiff (CCITT, "
+        "LZMA, Zstandard, old-style JPEG and LZW, ThunderScan, YCbCr, "
+        "12-bit, PA, 1-bit tiles, planar Lab) equal to their recorded "
+        "SHA-256: " + ", ".join(f"{k} {v:.4f} s" for k, v in tiff.items()))
+    secs.update(tiff)
     return secs
 
 
@@ -3515,44 +3552,44 @@ WEBP_DATA = os.path.join(REPO, "tests", "data", "webp")
 KITCHEN_STATE = "c68e332cfae81cc6"     # data/states/state_<this>.json
 
 
-def phase_webp(sess, plain_img, secs_plain: float, card: str) -> dict:
-    """WebP textures: scene/native/webp.cpp built with g++; each file of
-    tests/data/webp (the kitchen's maps lossless and lossy, a lossy map
-    with alpha, a 2-frame animation, the libwebp option files) decoded
-    through the texture dispatch and held against the SHA-256 of PIL's
-    RGBA recorded in webp.json; then the kitchen from a temporary MTL
-    naming the lossless copies (the OBJ linked beside it), the camera and
-    light of state_c68e332cfae81cc6.json applied explicitly: atlas
-    byte-equal to the PNG kitchen's, and its lockstep frame (512x512, 8
-    bounces, 16 spp) through K1 only, both forms, bit-equal to the PNG
-    kitchen's frame `plain_img`. Returns the frame's K1 launches and
-    seconds and the decode seconds."""
+def check_recorded(data_dir: str, record_name: str, phase: str,
+                   versions: str) -> dict:
+    """Each file of a tests/data directory decoded through the texture
+    dispatch and held against the SHA-256 of PIL's RGBA recorded beside it
+    (the card's machine has no PIL). Returns {file: decode seconds}."""
     import hashlib
-    import torch
-    from fluctus_tpu_torch.render import driver
-    from fluctus_tpu_torch.render.state import load_state
-    from fluctus_tpu_torch.scene import imageformat, webp
+    from fluctus_tpu_torch.scene import imageformat
 
-    t0 = time.perf_counter()
-    webp.load_library()
-    t_build = time.perf_counter() - t0
-    with open(os.path.join(WEBP_DATA, "webp.json")) as f:
+    with open(os.path.join(data_dir, record_name)) as f:
         record = json.load(f)
     decode = {}
     for name, rec in sorted(record["files"].items()):
-        with open(os.path.join(WEBP_DATA, name), "rb") as f:
+        with open(os.path.join(data_dir, name), "rb") as f:
             data = f.read()
         t = time.perf_counter()
         rgba = imageformat.decode(data, imageformat.sniff(data))
         decode[name] = time.perf_counter() - t
         check(list(rgba.shape) == rec["shape"] and hashlib.sha256(
             rgba.tobytes()).hexdigest() == rec["sha256"],
-              f"WebP {name}: the RGBA differs from PIL {record['pil']} / "
-              f"libwebp {record['libwebp']}'s")
-    say("webp", t0, f"g++ build {t_build:.2f} s; {len(decode)} files equal "
-        f"to their recorded SHA-256 (PIL {record['pil']}, libwebp "
-        f"{record['libwebp']}): " + ", ".join(
-            f"{k} {v:.4f} s" for k, v in decode.items()))
+              f"{name}: the RGBA differs from {versions.format(**record)}'s")
+    return decode
+
+
+def phase_kitchen_maps(sess, plain_img, secs_plain: float, card: str,
+                       phase: str, label: str, maps: dict) -> dict:
+    """The kitchen from a temporary MTL naming other files for its maps
+    ({PNG stem: path}), the OBJ linked beside it, the camera and light of
+    state_c68e332cfae81cc6.json applied explicitly: its atlas byte-equal
+    to the PNG kitchen's, and its lockstep frame (8 bounces, 16 spp)
+    through K1 only, both forms, bit-equal to the PNG kitchen's
+    frame `plain_img`; then K1 held against its plain version and timed
+    on the frame's first closest and any-hit rays that launched it
+    (time_k1_call). Returns the frame's K1 launches and seconds, the
+    session's seconds and {form: K1's numbers on those rays}."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.render.state import load_state
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3560,33 +3597,141 @@ def phase_webp(sess, plain_img, secs_plain: float, card: str) -> dict:
         os.symlink(KITCHEN, obj)
         with open(os.path.splitext(KITCHEN)[0] + ".mtl") as f:
             mtl = f.read()
-        for name in ("kitchen_floor_n", "kitchen_floor", "kitchen_wood"):
-            mtl = mtl.replace(f" {name}.png", " " + os.path.join(
-                WEBP_DATA, f"{name}.lossless.webp"))
-        check(".png" not in mtl, "a PNG map is left in the WebP MTL")
+        for name, path in maps.items():
+            mtl = mtl.replace(f" {name}.png", " " + path)
+        check(".png" not in mtl, f"a PNG map is left in the {label} MTL")
         with open(os.path.splitext(obj)[0] + ".mtl", "w") as f:
             f.write(mtl)
-        wsess = driver.create_session(obj, cfg=sess.cfg, state_dir=None,
+        msess = driver.create_session(obj, cfg=sess.cfg, state_dir=None,
                                       auto_frame=False, cache_dir=None,
                                       device="cuda")
-    wsess.params = load_state(wsess.params, KITCHEN_STATE,
+    msess.params = load_state(msess.params, KITCHEN_STATE,
                               state_dir=STATES)
     t_session = time.perf_counter() - t0
-    a, b = wsess.scene.atlas, sess.scene.atlas
+    a, b = msess.scene.atlas, sess.scene.atlas
     check(all(torch.equal(getattr(a, k), getattr(b, k))
               for k in ("data", "offset", "width", "height")),
-          "the WebP kitchen's atlas differs from the PNG kitchen's")
+          f"the {label} kitchen's atlas differs from the PNG kitchen's")
     keep: dict = {}
-    secs, mine = phase_frame_only(wsess, 16, card, "webp", "K1",
-                                  "kitchen from lossless WebP,", keep)
+    with first_rays(ts) as rays:
+        secs, mine = phase_frame_only(msess, 16, card, phase, "K1",
+                                      f"kitchen from {label} maps,", keep)
     check(torch.equal(keep["img"], plain_img),
-          "the WebP kitchen's frame differs from the PNG kitchen's")
-    say("webp", t0, f"kitchen from lossless WebP maps: session "
-        f"{t_session:.2f} s, atlas {a.data.numel()} bytes equal to the PNG "
-        f"kitchen's; frame {secs:.3f} s (PNG frame {secs_plain:.3f} s), "
-        f"bit-equal to the PNG frame, K1 launches {mine}, on {card}")
-    del wsess
-    return {"launches": mine, "secs": secs, "decode": decode}
+          f"the {label} kitchen's frame differs from the PNG kitchen's")
+    say(phase, t0, f"kitchen from {label} maps: session {t_session:.2f} s, "
+        f"atlas {a.data.numel()} bytes equal to the PNG kitchen's; frame "
+        f"{secs:.3f} s (PNG frame {secs_plain:.3f} s), bit-equal to the "
+        f"PNG frame, K1 launches {mine}, on {card}")
+    k1 = {}
+    for form in ("closest", "any"):
+        t0 = time.perf_counter()
+        check(form in rays, f"the {label} kitchen's frame made no launching "
+              f"K1 {form} call")
+        r = k1[form] = time_k1_call(*rays[form], form == "any",
+                                    f"the {label} kitchen's rays")
+        say(phase, t0, f"K1 {form} on the frame's first launching {form} "
+            f"call ({r['rays']} rays): {r['ms']:.4f} ms against plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; bit-equal, on {card}")
+    del msess
+    return {"launches": mine, "secs": secs, "session": t_session, "k1": k1}
+
+
+@contextlib.contextmanager
+def first_rays(mod):
+    """{form: (table, orig, dir, t_max)}: the rays of the first call of
+    each of `mod`'s traversal entry points inside the block that launched
+    its kernel (the module's attributes wrapped for its duration)."""
+    import torch
+    got: dict = {}
+    old = {f: getattr(mod, f"traverse_{f}") for f in ("closest", "any")}
+
+    def wrap(form, fn):
+        def wrapped(table, o, d, t, *a, **kw):
+            if form in got:
+                return fn(table, o, d, t, *a, **kw)
+            rays = (table, o.clone(), d.clone(),
+                    t.clone() if isinstance(t, torch.Tensor) else t)
+            before = sum(mod.LAUNCHES.values())
+            out = fn(table, o, d, t, *a, **kw)
+            if sum(mod.LAUNCHES.values()) > before:
+                got[form] = rays
+            return out
+        return wrapped
+    for form, fn in old.items():
+        setattr(mod, f"traverse_{form}", wrap(form, fn))
+    try:
+        yield got
+    finally:
+        for form, fn in old.items():
+            setattr(mod, f"traverse_{form}", fn)
+
+
+def phase_webp(sess, plain_img, secs_plain: float, card: str) -> dict:
+    """WebP textures: scene/native/webp.cpp built with g++; each file of
+    tests/data/webp (the kitchen's maps lossless and lossy, a lossy map
+    with alpha, a 2-frame animation, the libwebp option files) decoded
+    through the texture dispatch and held against the SHA-256 of PIL's
+    RGBA recorded in webp.json; then the kitchen from the lossless copies
+    of its maps (phase_kitchen_maps), against the PNG
+    kitchen's frame `plain_img`."""
+    from fluctus_tpu_torch.scene import webp
+
+    t0 = time.perf_counter()
+    webp.load_library()
+    t_build = time.perf_counter() - t0
+    decode = check_recorded(WEBP_DATA, "webp.json", "webp",
+                            "PIL {pil} / libwebp {libwebp}")
+    say("webp", t0, f"g++ build {t_build:.2f} s; {len(decode)} files equal "
+        "to their recorded SHA-256: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in decode.items()))
+    out = phase_kitchen_maps(sess, plain_img, secs_plain, card, "webp",
+                             "lossless WebP", {
+                                 n: os.path.join(WEBP_DATA,
+                                                 f"{n}.lossless.webp")
+                                 for n in KITCHEN_MAPS})
+    return dict(out, decode=decode)
+
+
+J2K_DATA = os.path.join(REPO, "tests", "data", "j2k")
+TIFF_DATA = os.path.join(REPO, "tests", "data", "tiff")
+KITCHEN_MAPS = ("kitchen_floor_n", "kitchen_floor", "kitchen_wood")
+
+
+def phase_j2k(sess, plain_img, secs_plain: float, card: str) -> dict:
+    """JPEG 2000 textures: scene/native/j2k.cpp (and the TIFF codecs'
+    zstd.cpp and ccitt.cpp) built with g++ at once; each file of
+    tests/data/j2k (the kitchen's maps reversible and irreversible, raw
+    codestreams, 16-bit grey, tiles, progression orders, layers, a
+    palette, every code-block style, POC, SOP/EPH, RGN, tile-parts,
+    subsampled, 12-bit and signed components) decoded through the texture
+    dispatch and held against the SHA-256 of PIL's RGBA recorded in
+    j2k.json; then the kitchen from the reversible JP2 copies of its maps
+    (phase_kitchen_maps)."""
+    from fluctus_tpu_torch.scene import ccitt, jpeg2000, zstd
+
+    t0 = time.perf_counter()
+    builds = {}
+
+    def build(mod):
+        t = time.perf_counter()
+        mod.load_library()
+        builds[mod.__name__.rsplit(".", 1)[-1]] = time.perf_counter() - t
+
+    with ThreadPoolExecutor(3) as pool:     # one g++ per source
+        for f in [pool.submit(build, m) for m in (jpeg2000, zstd, ccitt)]:
+            f.result()
+    decode = check_recorded(J2K_DATA, "j2k.json", "j2k",
+                            "PIL {pil} / OpenJPEG {openjpeg}")
+    say("j2k", t0, "g++ builds " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in builds.items()) + f"; {len(decode)} "
+        "files equal to their recorded SHA-256: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in decode.items()))
+    out = phase_kitchen_maps(sess, plain_img, secs_plain, card, "j2k",
+                             "reversible JP2", {
+                                 n: os.path.join(J2K_DATA, f"{n}.jp2")
+                                 for n in KITCHEN_MAPS})
+    return dict(out, decode=decode, builds=builds)
 
 
 # ------------------------------------------------------------ protocol sweep
@@ -3666,11 +3811,12 @@ print("PROTOCOL-TIMES " + json.dumps(
 """
 
 
-def time_k1_call(bvh, o, d, t, any_hit: bool) -> dict:
-    """K1 against its plain version on one traversal call's rays, bit for
-    bit, then timed in turns (plain, kernel, kernel, plain). Returns ms
-    and plain_ms per launch, the bound from these rays' visits, bound_by,
-    max_abs_err and the rays."""
+def time_k1_call(bvh, o, d, t, any_hit: bool,
+                 what: str = "the sweep's rays") -> dict:
+    """K1 against its plain version on one traversal call's rays (`what`),
+    bit for bit, then timed in turns (plain, kernel, kernel, plain).
+    Returns ms and plain_ms per launch, the bound from these rays' visits,
+    bound_by, max_abs_err and the rays."""
     import torch
     from fluctus_tpu_torch.ops import traverse_stack as ts
     from fluctus_tpu_torch.timing import time_launches
@@ -3681,12 +3827,12 @@ def time_k1_call(bvh, o, d, t, any_hit: bool) -> dict:
     torch.cuda.synchronize()
     if any_hit:
         check(torch.equal(k, pa), "K1 any-hit flags differ from the plain "
-              "version on the sweep's rays")
+              f"version on {what}")
         err = float(bool((k != pa).any()))
     else:
         check(all(torch.equal(getattr(k, f), getattr(pc, f))
                   for f in ("prim", "t", "u", "v")),
-              "K1 differs from its plain version on the sweep's rays")
+              f"K1 differs from its plain version on {what}")
         hit = k.prim >= 0
         err = float((k.t - pc.t)[hit].abs().max()) if bool(hit.any()) \
             else 0.0
@@ -3735,12 +3881,11 @@ def time_k2_call(bf, o, d, t, any_hit: bool) -> dict:
         st: dict = {}
         plain(*args, stats=st)
         stats_list.append(st)
-    p1 = sum(time_launches(lambda: plain(*a), 1, 1) for a in rec.calls)
+    p_ms = sum(time_once(lambda: plain(*a)) for a in rec.calls)
     k1 = sum(time_launches(lambda: kern(*a), 10, 1) for a in rec.calls)
     k2 = sum(time_launches(lambda: kern(*a), 10, 1) for a in rec.calls)
-    p2 = sum(time_launches(lambda: plain(*a), 1, 1) for a in rec.calls)
     b_ms, b_by = brute_bound("vlist", rec.calls, stats_list)
-    return dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+    return dict(ms=(k1 + k2) / 2, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=err, rays=o.shape[0],
                 launches_per_call=len(rec.calls))
 
@@ -3947,6 +4092,7 @@ def main() -> int:
     plain_img = kept.pop("img")
     octant = phase_octant(sess, plain_img, secs, card)
     webp_out = phase_webp(sess, plain_img, secs, card)
+    j2k_out = phase_j2k(sess, plain_img, secs, card)
     del plain_img
     gold = golden_sessions("cuda")
     for name, (gs, spp) in gold.items():
@@ -4108,8 +4254,8 @@ def main() -> int:
         f"{ft.lvl}, {(ft.nodes.numel() + ft.leaves.numel()) * 4 / 1e6:.1f} "
         f"MB")
     trays = brute_rays(tsess, 1 << 16, seed=11)
-    k5_err = phase_forest_check(ft, tw, trays)
-    ftimes = phase_forest_time(ft, tw, trays)
+    k5_err, k5_plain = phase_forest_check(ft, tw, trays)
+    ftimes = phase_forest_time(ft, tw, trays, k5_plain)
     t0 = time.perf_counter()
     driver.render(dataclasses.replace(tsess, cfg=tsess.cfg.replace(
         width=64, height=64)), 1, integrator="lockstep")
@@ -4160,17 +4306,18 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
-    for form, label in (("closest", "closest"), ("any", "any-hit")):
-        r = ktimes[form]
-        kernels.append({
-            "name": f"K1 traverse_stack {label}, WebP kitchen path",
-            "route": "cuda",
-            "source": "fluctus_tpu_torch/csrc/traverse_stack.cu",
-            "replaces": "fluctus_tpu/ops/traverse_mxu.py:97",
-            "launches": webp_out["launches"][form],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+    for maps, kept_out in (("WebP", webp_out), ("JPEG 2000", j2k_out)):
+        for form, label in (("closest", "closest"), ("any", "any-hit")):
+            r = kept_out["k1"][form]
+            kernels.append({
+                "name": f"K1 traverse_stack {label}, {maps} kitchen path",
+                "route": "cuda",
+                "source": "fluctus_tpu_torch/csrc/traverse_stack.cu",
+                "replaces": "fluctus_tpu/ops/traverse_mxu.py:97",
+                "launches": kept_out["launches"][form],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None})
     kernels.append({
         "name": "K1 traverse_stack closest, octant path "
                 "(FLUCTUS_TRAV_SORT=octant)", "route": "cuda",

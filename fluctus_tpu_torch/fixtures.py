@@ -775,14 +775,15 @@ PSD_MODES = {"1": (0, 1, 1), "L": (1, 8, 1), "P": (2, 8, 1),
 
 
 def psd_bytes(mode: str, width: int, height: int, rle: bool,
-              seed: int = 0) -> bytes:
+              seed: int = 0, palette_bytes: int = 768) -> bytes:
     """A PSD file (Adobe's layout: header, colour-mode data, image
     resources, layer section, merged composite) of seeded pixels in mode
     "1" (bitmap), "L", "P" (a seeded 256-colour palette), "RGB",
     "RGBA", "CMYK" or "LAB", the composite raw or PackBits-coded a row
-    (`rle`). The
-    resources hold one entry and the layer section 8 bytes, which a
-    reader skips. PIL reads PSD and writes none."""
+    (`rle`); an indexed file's colour-mode data holds `palette_bytes`
+    seeded bytes (768 for a palette PIL reads). The resources hold one
+    entry and the layer section 8 bytes, which a reader skips. PIL reads
+    PSD and writes none."""
     g = np.random.default_rng(seed)
     cmode, depth, chans = PSD_MODES[mode]
     levels = 2 if mode == "1" else 256
@@ -791,6 +792,7 @@ def psd_bytes(mode: str, width: int, height: int, rle: bool,
                                           width, depth, cmode))
     if mode == "P":
         pal = g.integers(0, 256, (3, 256), dtype=np.uint8).tobytes()
+        pal = (pal * 2)[:palette_bytes]
         out += struct.pack(">I", len(pal)) + pal
     else:
         out += struct.pack(">I", 0)
@@ -1486,25 +1488,30 @@ def rank_worker(rank: int, world: int, init_url: str, out_path: str,
         dist.destroy_process_group()
 
 
-_TIFF_FMT = {3: "H", 4: "I", 7: "B", 16: "Q"}
+_TIFF_FMT = {3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}
 
 
 def tiff_bytes(w: int, h: int, bits, spp: int, photo: int, chunks,
                comp: int = 1, tile=None, rps=None, extra=None, pred: int = 1,
                bo: str = "<", cmap=None, planar: int = 1, fill: int = 1,
                fmt=None, bigtiff: bool = False, tables: bytes | None = None,
-               subsampling=None) -> bytes:
+               subsampling=None, tags=(), magic: bytes | None = None,
+               lead: bytes = b"") -> bytes:
     """A TIFF of pre-encoded strips (rps rows each) or tiles (`tile` = (w,
     h)), in the chunk order the file lists (all planes of a planar file,
     plane after plane). `bits` is one depth for every sample or a tuple;
     the tags written: PlanarConfiguration `planar`, FillOrder `fill`,
     SampleFormat `fmt` (a value per sample), ExtraSamples `extra`,
     Predictor `pred`, ColorMap `cmap`, JPEGTables `tables`,
-    YCbCrSubSampling `subsampling`. Classic TIFF, or BigTIFF (version 43,
-    8-byte offsets and counts, 20-byte entries) with `bigtiff`. PIL
-    writes none of planar, fill order 2, predictor 3 or BigTIFF."""
+    YCbCrSubSampling `subsampling`, and any (tag, type, values) of
+    `tags`. Classic TIFF, or BigTIFF (version 43, 8-byte offsets and
+    counts, 20-byte entries) with `bigtiff`; `magic` replaces the first
+    four bytes (the mixed byte-order headers); `lead` goes before the
+    first chunk (to move the chunks' offsets). PIL writes none of planar,
+    fill order 2, predictor 3 or BigTIFF."""
     bits = tuple(bits) if isinstance(bits, (tuple, list)) else (bits,) * spp
     off_type = 16 if bigtiff else 4
+    extra_tags, head4 = tags, magic
     tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, list(bits)),
             (259, 3, [comp]), (262, 3, [photo]), (277, 3, [spp])]
     for tag, typ, vals in ((266, 3, None if fill == 1 else [fill]),
@@ -1516,12 +1523,13 @@ def tiff_bytes(w: int, h: int, bits, spp: int, photo: int, chunks,
                             else list(tables))):
         if vals is not None:
             tags.append((tag, typ, list(vals)))
-    head = 16 if bigtiff else 8
+    head = (16 if bigtiff else 8) + len(lead)
     offs, o = [], head
     for c in chunks:
         offs.append(o)
         o += len(c)
     counts = [len(c) for c in chunks]
+    tags += [(t, typ, list(v)) for t, typ, v in extra_tags]
     if tile:
         tags += [(322, 4, [tile[0]]), (323, 4, [tile[1]]),
                  (324, off_type, offs), (325, off_type, counts)]
@@ -1536,17 +1544,243 @@ def tiff_bytes(w: int, h: int, bits, spp: int, photo: int, chunks,
     for tag, typ, vals in tags:
         raw = struct.pack(bo + _TIFF_FMT[typ] * len(vals), *vals)
         cnt = "Q" if bigtiff else "I"
+        n = len(vals) // 2 if typ == 5 else len(vals)   # RATIONAL: pairs
         if len(raw) <= inline:
-            ifd += struct.pack(bo + "HH" + cnt, tag, typ, len(vals)) + \
+            ifd += struct.pack(bo + "HH" + cnt, tag, typ, n) + \
                 raw.ljust(inline, b"\0")
         else:
-            ifd += struct.pack(bo + "HH" + cnt + cnt, tag, typ, len(vals),
+            ifd += struct.pack(bo + "HH" + cnt + cnt, tag, typ, n,
                                ext_off + len(ext))
             ext += raw + b"\0" * (len(raw) % 2)
     magic = b"II" if bo == "<" else b"MM"
     if bigtiff:
         header = magic + struct.pack(bo + "HHHQ", 43, 8, 0, ifd_off)
     else:
-        header = magic + struct.pack(bo + "HI", 42, ifd_off)
-    return (header + b"".join(chunks) + b"\0" * (o % 2) + ifd
+        header = (magic + struct.pack(bo + "H", 42) if head4 is None
+                  else head4) + struct.pack(bo + "I", ifd_off)
+    return (header + lead + b"".join(chunks) + b"\0" * (o % 2) + ifd
             + b"\0" * inline + ext)
+
+
+def jp2_box(kind: bytes, body: bytes) -> bytes:
+    """A JP2 box: its length, its type, its body."""
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2_bytes(codestream: bytes, width: int, height: int, nc: int,
+              bpc: int = 7, colr=(1, 16), pclr=None, cmap=None, cdef=None,
+              jp2h_extra: bytes = b"") -> bytes:
+    """A JP2 file around a raw codestream: the signature and file-type
+    boxes, a header box (ihdr of `nc` components of `bpc` (precision - 1,
+    +128 when signed); a colr box (1, enumerated space) or (2, ICC
+    profile bytes), or none with `colr=None`; optional pclr ((n, 3 or 4)
+    uint8 entries), cmap ([(component, type, palette column)]) and cdef
+    ([(channel, type, association)]) boxes, then `jp2h_extra`) and the
+    codestream box. PIL writes no palette, ICC or channel boxes."""
+    head = jp2_box(b"ihdr", struct.pack(">IIHBBBB", height, width, nc, bpc, 7,
+                                     0, 0))
+    if colr is not None:
+        meth, v = colr
+        head += jp2_box(b"colr", bytes([meth, 0, 0]) + (
+            struct.pack(">I", v) if meth == 1 else bytes(v)))
+    if pclr is not None:
+        pclr = np.asarray(pclr, np.uint8)
+        head += jp2_box(b"pclr", struct.pack(">HB", len(pclr), pclr.shape[1])
+                     + bytes([7] * pclr.shape[1]) + pclr.tobytes())
+    if cmap is not None:
+        head += jp2_box(b"cmap", b"".join(struct.pack(">HBB", *m)
+                                       for m in cmap))
+    if cdef is not None:
+        head += jp2_box(b"cdef", struct.pack(">H", len(cdef)) + b"".join(
+            struct.pack(">HHH", *d) for d in cdef))
+    return (jp2_box(b"jP  ", b"\r\n\x87\n")
+            + jp2_box(b"ftyp", b"jp2 " + b"\0\0\0\0" + b"jp2 ")
+            + jp2_box(b"jp2h", head + jp2h_extra)
+            + jp2_box(b"jp2c", codestream))
+
+
+def lzw_compat_bytes(data: bytes) -> bytes:
+    """Old-style TIFF LZW (libtiff's LZWDecodeCompat reads it): codes
+    LSB-first, a clear code first, the code width growing once the table
+    fills its width (no early change), an end code last."""
+    table = {bytes([i]): i for i in range(256)}
+    out, acc, nbits, width = bytearray(), 0, 0, 9
+    nxt = 258
+
+    def put(code):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    put(256)
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        if nxt < 4094:
+            table[wc] = nxt
+            nxt += 1
+            if nxt > (1 << width) and width < 12:   # the decoder's table
+                width += 1                           # lags one code
+        else:                          # full: start again
+            put(256)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        w = bytes([c])
+    if w:
+        put(table[w])
+    put(257)
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def thunderscan_bytes(v: np.ndarray) -> bytes:
+    """ThunderScan 4-bit rows ((h, w) values 0-15): runs of a repeated
+    pixel, 2-bit and 3-bit deltas where they fit, raw pixels otherwise,
+    as libtiff's ThunderDecode reads them."""
+    out = bytearray()
+    for row in np.asarray(v, np.int64):
+        last, i, w = 0, 0, len(row)
+        while i < w:
+            run = 0
+            while i + run < w and row[i + run] == last and run < 63:
+                run += 1
+            if run >= 2:
+                out.append(run)
+                i += run
+                continue
+            d = [int(x) - last for x in row[i:i + 3]]
+            if len(d) == 3 and all(-1 <= x <= 1 for x in (
+                    d[0], d[1] - d[0], d[2] - d[1])):
+                code = {0: 0, 1: 1, -1: 3}
+                steps = (d[0], d[1] - d[0], d[2] - d[1])
+                out.append(0x40 | code[steps[0]] << 4 | code[steps[1]] << 2
+                           | code[steps[2]])
+                last = int(row[i + 2])
+                i += 3
+                continue
+            if i + 1 < w and -3 <= d[0] <= 3 and len(d) > 1 and \
+                    -3 <= d[1] - d[0] <= 3:
+                code = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+                out.append(0x80 | code[d[0]] << 3 | code[d[1] - d[0]])
+                last = int(row[i + 1])
+                i += 2
+                continue
+            out.append(0xC0 | int(row[i]))
+            last = int(row[i])
+            i += 1
+    return bytes(out)
+
+
+def ycbcr_blocks(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int,
+                 vs: int) -> bytes:
+    """libtiff's chunky subsampled YCbCr layout for one strip or tile:
+    for each hs x vs block, its Y values row by row, then one Cb and one
+    Cr (`cb`, `cr` of the block grid); edge blocks padded by repeating the
+    last row and column."""
+    h, w = y.shape
+    bh, bw = -(-h // vs), -(-w // hs)
+    yy = np.pad(y, ((0, bh * vs - h), (0, bw * hs - w)), mode="edge")
+    blocks = yy.reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3).reshape(
+        bh, bw, vs * hs)
+    return np.concatenate([blocks, cb[:bh, :bw, None], cr[:bh, :bw, None]],
+                          -1).astype(np.uint8).tobytes()
+
+
+def _jpeg_parts(jpeg: bytes) -> dict:
+    """A baseline JPEG's quantization tables {id: 64 bytes}, Huffman
+    tables {(class, id): counts + values}, frame and scan component table
+    ids, restart interval and entropy-coded data (SOS to EOI)."""
+    parts = {"dqt": {}, "dht": {}, "sof": [], "sos": [], "dri": 0}
+    i = 2
+    while i < len(jpeg):
+        m = jpeg[i + 1]
+        (n,) = struct.unpack_from(">H", jpeg, i + 2)
+        body = jpeg[i + 4:i + 2 + n]
+        if m == 0xDB:
+            k = 0
+            while k < len(body):
+                parts["dqt"][body[k] & 15] = body[k + 1:k + 65]
+                k += 65
+        elif m == 0xC4:
+            k = 0
+            while k < len(body):
+                total = sum(body[k + 1:k + 17])
+                parts["dht"][(body[k] >> 4, body[k] & 15)] = \
+                    body[k + 1:k + 17 + total]
+                k += 17 + total
+        elif m == 0xC0:
+            parts["sof"] = [(body[6 + 3 * c], body[7 + 3 * c],
+                             body[8 + 3 * c]) for c in range(body[5])]
+        elif m == 0xDD:
+            parts["dri"] = struct.unpack_from(">H", body)[0]
+        elif m == 0xDA:
+            parts["sos"] = [(body[1 + 2 * c], body[2 + 2 * c])
+                            for c in range(body[0])]
+            parts["data"] = jpeg[i + 2 + n:]
+            return parts
+        i += 2 + n
+    raise ValueError("no scan")
+
+
+def ojpeg_tiff_bytes(jpeg: bytes, width: int, height: int, layout: str,
+                     subsampling=None, photo: int = 6) -> bytes:
+    """An old-style JPEG TIFF (compression 6; nothing writes these now)
+    around a baseline JPEG stream, one strip: layout "jif", the whole
+    stream at JPEGInterchangeFormat (513 / 514) with the strip pointing
+    at it; or "tables", JPEGProc 1 and the stream's quantization and
+    Huffman tables at JPEGQTables / JPEGDCTables / JPEGACTables (519-521,
+    one offset a component) with JPEGRestartInterval (515), the strip
+    holding only the entropy-coded data. YCbCrSubSampling is written when
+    `subsampling` is given."""
+    p = _jpeg_parts(jpeg)
+    ncomp = len(p["sof"])
+    blobs, tags = [], [(256, 4, [width]), (257, 4, [height]),
+                       (258, 3, [8] * ncomp), (259, 3, [6]),
+                       (262, 3, [photo]), (277, 3, [ncomp]),
+                       (278, 4, [height])]
+    if subsampling is not None:
+        tags.append((530, 3, list(subsampling)))
+    o = 8
+    if layout == "jif":
+        blobs.append(jpeg)
+        tags += [(273, 4, [o]), (279, 4, [len(jpeg)]), (513, 4, [o]),
+                 (514, 4, [len(jpeg)])]
+    else:
+        q, dc, ac = [], [], []
+        for (cid, _, tq), (_, tt) in zip(p["sof"], p["sos"]):
+            for table, lst in ((p["dqt"][tq], q), (p["dht"][(0, tt >> 4)],
+                                                   dc),
+                               (p["dht"][(1, tt & 15)], ac)):
+                lst.append(o)
+                blobs.append(table)
+                o += len(table)
+        data = p["data"]
+        blobs.append(data)
+        tags += [(273, 4, [o]), (279, 4, [len(data)]), (512, 3, [1]),
+                 (515, 3, [p["dri"]]), (519, 4, q), (520, 4, dc),
+                 (521, 4, ac)]
+    body = b"".join(blobs)
+    tags.sort()
+    ifd_off = 8 + len(body) + len(body) % 2
+    ext_off = ifd_off + 2 + 12 * len(tags) + 4
+    ifd, ext = struct.pack("<H", len(tags)), b""
+    for tag, typ, vals in tags:
+        raw = struct.pack("<" + _TIFF_FMT[typ] * len(vals), *vals)
+        if len(raw) <= 4:
+            ifd += struct.pack("<HHI", tag, typ, len(vals)) + \
+                raw.ljust(4, b"\0")
+        else:
+            ifd += struct.pack("<HHII", tag, typ, len(vals),
+                               ext_off + len(ext))
+            ext += raw
+    return (b"II*\0" + struct.pack("<I", ifd_off) + body
+            + b"\0" * (len(body) % 2) + ifd + b"\0" * 4 + ext)

@@ -53,7 +53,7 @@ from fluctus_tpu_torch.launch import (CSRC, check, check_aligned, launch,
                                       load_library)
 from fluctus_tpu_torch.ops import traverse_stack
 from fluctus_tpu_torch.ops.traverse_stack import (
-    TRI_EPS, WALK_HEADER, Traversal, _inv_dir as _safe_inv)
+    WALK_HEADER, Traversal, _inv_dir as _safe_inv, _moller, _pick_first_min)
 
 BLK = 512          # rays per packet (threads per CUDA block)
 MAX_LEAF_WIDTH = 32   # kMaxW of the CUDA source
@@ -143,7 +143,6 @@ def packet_plain(orig, dir, t_vec, bvh: WideBVH, any_hit: bool,
     d = dir.reshape(npk, BLK, 3)
     inv = _safe_inv(d)
     ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
-    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
     ix, iy, iz = inv[..., 0], inv[..., 1], inv[..., 2]
     best_t = t_vec.reshape(npk, BLK).clone()
     best_prim = torch.full((npk, BLK), -1, dtype=torch.int32, device=dev)
@@ -165,7 +164,6 @@ def packet_plain(orig, dir, t_vec, bvh: WideBVH, any_hit: bool,
         pk_nodes = torch.zeros(npk, dtype=torch.int64, device=dev)
         pk_leaves = torch.zeros(npk, dtype=torch.int64, device=dev)
     pk_all = torch.arange(npk, device=dev)
-    slots = torch.arange(8, device=dev)
 
     while True:
         act = sp > 0
@@ -204,17 +202,18 @@ def packet_plain(orig, dir, t_vec, bvh: WideBVH, any_hit: bool,
                 lane_hit &= ~blocked[pi][:, None, :]
             key = torch.where(lane_hit, tmin, BIG).amin(2)
             ks = torch.where(lane_hit.any(2), key, NEG_INF)   # (n, 8)
+            # push the hit children far to near; the stable sort keeps the
+            # first slot first among equal keys, as the kernel's repeated
+            # first-maximum pick does, and the hit ones lead
+            ks, order = torch.sort(ks, stable=True, dim=1, descending=True)
+            kref = refs.gather(1, order)
+            valid = ks > NEG_INF
             spi = sp[pi]
-            for _ in range(8):
-                far = torch.argmax(ks, 1)                  # first maximum
-                fk = ks.gather(1, far[:, None])[:, 0]
-                valid = fk > NEG_INF
-                ref = refs.gather(1, far[:, None])[:, 0]
-                pos = spi.clamp(max=cap - 1)
-                stack[pi, pos] = torch.where(valid, ref, stack[pi, pos])
-                spi = spi + valid.long()
-                ks = torch.where(slots == far[:, None], NEG_INF, ks)
-            sp[pi] = spi
+            for r in range(8):
+                pos = (spi + r).clamp(max=cap - 1)
+                stack[pi, pos] = torch.where(valid[:, r], kref[:, r],
+                                             stack[pi, pos])
+            sp[pi] = spi + valid.sum(1)
             if stats is not None:
                 stats["node_visits"] += int(pi.numel())
                 pk_nodes[pi] += 1
@@ -223,44 +222,23 @@ def packet_plain(orig, dir, t_vec, bvh: WideBVH, any_hit: bool,
         if not bool(inner.all()):
             pl_ = pk[~inner]
             leaf = ~enc[~inner]
-            row = leaves[leaf][..., None]                  # (n, W, 10, 1)
-            oxl, oyl, ozl = ox[pl_], oy[pl_], oz[pl_]
-            dxl, dyl, dzl = dx[pl_], dy[pl_], dz[pl_]
-            bt, bp = best_t[pl_], best_prim[pl_]
-            bu, bv, blk_ = best_u[pl_], best_v[pl_], blocked[pl_]
-            for slot in range(w):
-                ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (
-                    row[:, slot, k] for k in range(9))
-                tid = row[:, slot, 9].contiguous().view(torch.int32)
-                px = dyl * e2z - dzl * e2y
-                py = dzl * e2x - dxl * e2z
-                pz = dxl * e2y - dyl * e2x
-                det = e1x * px + e1y * py + e1z * pz
-                ok = torch.abs(det) >= TRI_EPS
-                idet = 1.0 / torch.where(ok, det, 1.0)
-                tvx = oxl - ax
-                tvy = oyl - ay
-                tvz = ozl - az
-                u = (tvx * px + tvy * py + tvz * pz) * idet
-                qx = tvy * e1z - tvz * e1y
-                qy = tvz * e1x - tvx * e1z
-                qz = tvx * e1y - tvy * e1x
-                v = (dxl * qx + dyl * qy + dzl * qz) * idet
-                t = (e2x * qx + e2y * qy + e2z * qz) * idet
-                ok = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) \
-                    & (u + v <= 1.0) & (t >= 0.0) & (t < bt) & (tid >= 0)
-                if any_hit:
-                    blk_ = blk_ | ok
-                else:
-                    bt = torch.where(ok, t, bt)
-                    bp = torch.where(ok, tid.expand_as(bp), bp)
-                    bu = torch.where(ok, u, bu)
-                    bv = torch.where(ok, v, bv)
+            n, sh = pl_.numel(), (-1, BLK)
+            # every lane of each packet against every slot of its leaf at
+            # once, op for op as K1's plain walk tests a leaf; the first
+            # slot at the least t is what the kernel's fold under t < best
+            # keeps
+            rows = leaves[leaf][:, None].expand(n, BLK, w, 10)
+            t, u, v, ids, ok = _moller(
+                rows.reshape(n * BLK, w, 10), o[pl_].reshape(-1, 3),
+                d[pl_].reshape(-1, 3), best_t[pl_].reshape(-1))
             if any_hit:
-                blocked[pl_] = blk_
+                blocked[pl_] = blocked[pl_] | ok.any(1).view(sh)
             else:
-                best_t[pl_], best_prim[pl_] = bt, bp
-                best_u[pl_], best_v[pl_] = bu, bv
+                got, pt, pu, pv, pid = _pick_first_min(t, u, v, ids, ok)
+                got = got.view(sh)
+                for best, new in ((best_t, pt), (best_prim, pid),
+                                  (best_u, pu), (best_v, pv)):
+                    best[pl_] = torch.where(got, new.view(sh), best[pl_])
             if stats is not None:
                 stats["leaf_visits"] += int(pl_.numel())
                 pk_leaves[pl_] += 1

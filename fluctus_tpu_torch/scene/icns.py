@@ -17,8 +17,11 @@ table, and reads every member of that size in the table's order:
   read_32 reads the file;
 - a mask member (s8mk, l8mk, h8mk, t8mk) holds w * h alpha bytes.
 
-A JPEG 2000 member raises UnsupportedImage; a member that is neither PNG
-nor JPEG 2000, and RLE bands that overrun or end early, are damage.
+A JPEG 2000 member (codes as PNG's; a raw codestream or a JP2 file, the
+member's bytes read alone) is decoded by scene/jpeg2000.py and held to
+the same size check; a member that is neither PNG nor JPEG 2000 (the bare
+"\r\n\x87\n" signature PIL accepts and then cannot open among them), and
+RLE bands that overrun or end early, are damage.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import struct
 
 import numpy as np
 
-from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
+from fluctus_tpu_torch.scene.jpeg2000 import decode_jpeg2000
 from fluctus_tpu_torch.scene.png import decode_png
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
@@ -72,7 +75,7 @@ def decode_icns(data: bytes) -> np.ndarray:
         if code not in dct:
             continue
         if code in _PNG_CODES:
-            channels["RGBA"] = _png_member(data, dct[code][0], sizes)
+            channels["RGBA"] = _png_member(data, *dct[code], sizes)
         elif code.endswith(b"mk"):
             channels["A"] = _mask(data, dct[code][0], best)
         else:
@@ -143,15 +146,15 @@ def _mask(data: bytes, start: int, size) -> np.ndarray:
     return np.frombuffer(raw, np.uint8).reshape(h, w)
 
 
-def _png_member(data: bytes, start: int, sizes) -> np.ndarray:
+def _png_member(data: bytes, start: int, length: int, sizes) -> np.ndarray:
     """PIL's read_png_or_jpeg2000 and its icon size check."""
     sig = data[start:start + 12]
-    if sig[:8] != PNG_MAGIC:
-        if sig.startswith(_J2K[:2]) or sig == _J2K[2]:
-            raise UnsupportedImage("ICNS JPEG 2000 members are not decoded "
-                                   "by the port")
+    if sig[:8] == PNG_MAGIC:
+        rgba = decode_png(data[start:], transparency=False)
+    elif sig.startswith(_J2K[:2]) or sig == _J2K[2]:
+        rgba = decode_jpeg2000(data[start:start + length])
+    else:
         raise ValueError("ICNS: unsupported icon subimage format")
-    rgba = decode_png(data[start:], transparency=False)
     h, w = rgba.shape[:2]
     for s in sizes:                  # PIL's size setter
         sw, sh = s[0] * s[2], s[1] * s[2]

@@ -20,13 +20,14 @@ header tests of its `_open`), with one of three outcomes:
   IM (scene/im.py), IMT (scene/imt.py), SPIDER (scene/spider.py), PIXAR
   (scene/pixar.py), McIdas (scene/mcidas.py), FTEX (scene/ftex.py), GBR
   (scene/gbr.py), FITS (scene/fits.py), BLP (scene/blp.py), ICNS with
-  PNG or RLE members (scene/icns.py), WebP (scene/webp.py), FLI and FLC
-  (scene/fli.py), Photo CD (scene/pcd.py) and IPTC (scene/iptc.py); EPS
-  goes to scene/eps.py, which gives -1 or raises as PIL's Ghostscript
-  lookup decides;
-- a format PIL reads and the port does not decode (AVIF, JPEG 2000)
-  raises `UnsupportedImage` naming it, so a map the JAX package would
-  load is never dropped without notice;
+  PNG, JPEG 2000 or RLE members (scene/icns.py), WebP (scene/webp.py),
+  FLI and FLC (scene/fli.py), Photo CD (scene/pcd.py), IPTC
+  (scene/iptc.py) and JPEG 2000, JP2 or a raw codestream
+  (scene/jpeg2000.py); EPS goes to scene/eps.py, which gives -1 or raises
+  as PIL's Ghostscript lookup decides;
+- a format PIL reads and the port does not decode (AVIF) raises
+  `UnsupportedImage` naming it, so a map the JAX package would load is
+  never dropped without notice;
 - bytes no plugin accepts, and formats PIL names but has no decoder for
   (its stub plugins), give None: the texture slot stays -1, as in the
   JAX package (an OpenEXR file, for instance, is not a PIL format).
@@ -167,7 +168,7 @@ _PLUGINS = (
     ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"), None),
     ("JPEG2000", lambda d: d.startswith(
         (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")),
-     "raise"),
+     "jpeg2000"),
     ("ICNS", lambda d: d.startswith(b"icns"), "icns"),
     ("ICO", lambda d: d.startswith(b"\0\0\1\0") and _i16(d, 4) > 0,
      "ico"),
@@ -240,6 +241,7 @@ _DECODERS = {
     "eps": ("eps", "decode_eps"), "webp": ("webp", "decode_webp"),
     "fli": ("fli", "decode_fli"), "pcd": ("pcd", "decode_pcd"),
     "iptc": ("iptc", "decode_iptc"),
+    "jpeg2000": ("jpeg2000", "decode_jpeg2000"),
 }
 
 

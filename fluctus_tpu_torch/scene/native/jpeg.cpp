@@ -21,13 +21,16 @@
 //
 // C interface, called through ctypes (scene/jpeg.py):
 //   jpeg_info(data, n, &w, &h, &nc): parses the headers.
-//   jpeg_decode(data, n, out): out is h * w * nc bytes (nc 1 or 3).
-// Both return 0, 1 for a corrupt or truncated file, 2 for a variant this
-// decoder does not handle (arithmetic, lossless or hierarchical coding,
-// 12-bit samples, other than 1 or 3 components, fractional sampling
-// ratios, and a progressive file whose scans leave a low-frequency
-// coefficient unrefined, which libjpeg block-smooths); jpeg_last_error()
-// names the reason.
+//   jpeg_planes(data, n, dims, cap, out): the components before upsampling.
+//   jpeg_decode(data, n, out): out is h * w * nc bytes (nc 1, 3 or 4; four
+//   components are CMYK as stored, or YCCK converted to CMYK by jdcolor.c's
+//   ycck_cmyk_convert under an Adobe transform 2).
+// Both return 0, 1 for a corrupt or truncated file or one PIL fails on
+// (other than 8-bit samples, hierarchical coding, 2 or more than 4
+// components), 2 for a variant this decoder does not handle (arithmetic
+// or lossless coding, fractional sampling ratios, and a progressive file
+// whose scans leave a low-frequency coefficient unrefined, which libjpeg
+// block-smooths); jpeg_last_error() names the reason.
 
 #include <stdint.h>
 #include <string.h>
@@ -311,24 +314,23 @@ struct Decoder {
   int u16(size_t p) const { return (u8(p) << 8) | u8(p + 1); }
 
   void frame(size_t p, int len, int sof) {
-    if (sof == 6 || sof == 14)
-      throw Fail{2, "hierarchical JPEG is not decoded by the port"};
-    if (sof == 3 || sof == 7 || sof == 11 || sof == 15)
+    // PIL's SOF handler refuses other than 8-bit samples, whatever the
+    // process; libjpeg-turbo refuses the hierarchical (differential) ones
+    if (u8(p) != 8) throw Fail{1, "PIL reads only 8-bit JPEG samples"};
+    if (sof == 5 || sof == 6 || sof == 7 || sof >= 13)
+      throw Fail{1, "libjpeg refuses hierarchical JPEG"};
+    if (sof == 3 || sof == 11)
       throw Fail{2, "lossless JPEG is not decoded by the port"};
     if (sof >= 9) throw Fail{2, "arithmetic-coded JPEG is not decoded by "
                                 "the port"};
-    if (sof == 5) throw Fail{2, "hierarchical JPEG is not decoded by the "
-                                "port"};
     if (have_frame) throw Fail{1, "two frames"};
     progressive = sof == 2;
-    if (u8(p) != 8) throw Fail{2, "12-bit JPEG is not decoded by the port"};
     height = u16(p + 1);
     width = u16(p + 3);
     ncomp = u8(p + 5);
     if (width <= 0 || height <= 0) throw Fail{1, "bad JPEG size"};
-    if (ncomp != 1 && ncomp != 3)
-      throw Fail{2, "JPEG with other than 1 or 3 components is not decoded "
-                    "by the port"};
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      throw Fail{1, "PIL reads JPEG of 1, 3 or 4 components"};
     if (len < 8 + 3 * ncomp) throw Fail{1, "short SOF"};
     for (int i = 0; i < ncomp; ++i) {
       Comp c;
@@ -633,6 +635,8 @@ struct Decoder {
         tables_h(body, len);
       } else if (m == 0xCC) {
         throw Fail{2, "arithmetic-coded JPEG is not decoded by the port"};
+      } else if (m == 0xC8) {
+        throw Fail{1, "libjpeg refuses the JPG marker"};
       } else if (m == 0xDB) {
         tables_q(body, len);
       } else if (m == 0xDD) {
@@ -753,6 +757,15 @@ struct Decoder {
       memcpy(out, y.data(), y.size());
       return;
     }
+    if (ncomp == 4) {   // CMYK, or YCCK under an Adobe transform 2
+      std::vector<uint8_t> p[4];
+      for (int c = 0; c < 4; ++c) p[c] = upsample(comps[c]);
+      const size_t np = (size_t)width * height;
+      for (size_t i = 0; i < np; ++i)
+        for (int c = 0; c < 4; ++c) out[4 * i + c] = p[c][i];
+      if (adobe && adobe_transform == 2) ycck(out, np);
+      return;
+    }
     std::vector<uint8_t> p0 = upsample(comps[0]), p1 = upsample(comps[1]),
                          p2 = upsample(comps[2]);
     const size_t np = (size_t)width * height;
@@ -764,6 +777,27 @@ struct Decoder {
       }
       return;
     }
+    ycc_rgb(out, p0, p1, p2, np, false);
+  }
+
+  // jdcolor.c ycck_cmyk_convert: the YCC part as RGB, subtracted from 255
+  void ycck(uint8_t* out, size_t np) const {
+    std::vector<uint8_t> y(np), cb(np), cr(np);
+    for (size_t i = 0; i < np; ++i) {
+      y[i] = out[4 * i];
+      cb[i] = out[4 * i + 1];
+      cr[i] = out[4 * i + 2];
+    }
+    std::vector<uint8_t> rgb(3 * np);
+    ycc_rgb(rgb.data(), y, cb, cr, np, true);
+    for (size_t i = 0; i < np; ++i)
+      for (int c = 0; c < 3; ++c) out[4 * i + c] = rgb[3 * i + c];
+  }
+
+  void ycc_rgb(uint8_t* out, const std::vector<uint8_t>& p0,
+               const std::vector<uint8_t>& p1,
+               const std::vector<uint8_t>& p2, size_t np,
+               bool inverted) const {
     // jdcolor.c build_ycc_rgb_table, SCALEBITS 16
     const int64_t one_half = (int64_t)1 << 15;
     auto fix = [](double x) { return (int64_t)(x * 65536.0 + 0.5); };
@@ -778,11 +812,13 @@ struct Decoder {
     }
     auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255
                                                                    : v)); };
+    const int m = inverted ? 255 : 0, sgn = inverted ? -1 : 1;
     for (size_t i = 0; i < np; ++i) {
       const int y = p0[i], cb = p1[i], cr = p2[i];
-      out[3 * i] = clamp(y + cr_r[cr]);
-      out[3 * i + 1] = clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
-      out[3 * i + 2] = clamp(y + cb_b[cb]);
+      out[3 * i] = clamp(m + sgn * (y + cr_r[cr]));
+      out[3 * i + 1] = clamp(m + sgn * (y + (int)((cb_g[cb] + cr_g[cr]) >>
+                                                  16)));
+      out[3 * i + 2] = clamp(m + sgn * (y + cb_b[cb]));
     }
   }
 };
@@ -805,6 +841,42 @@ extern "C" int jpeg_info(const uint8_t* data, long long n, int* w, int* h,
   } catch (const Fail& f) {
     g_error = f.what;
     return f.code;
+  }
+}
+
+// The components after the IDCT, before upsampling and colour conversion
+// (libjpeg's raw data, which libtiff's old-style JPEG reads): dims gets
+// the component count, then each component's h and v sampling factors
+// and its plane's width and height (whole MCUs); out (when not null) the
+// planes in turn.
+extern "C" int jpeg_planes(const uint8_t* data, long long n, int* dims,
+                           int cap, uint8_t* out) {
+  try {
+    Decoder dec{data, (size_t)n};
+    dec.headers_only = out == nullptr;
+    dec.parse();
+    if (!dec.have_frame) throw Fail{1, "no frame"};
+    if (cap < 1 + 4 * dec.ncomp) throw Fail{1, "dims buffer too small"};
+    dims[0] = dec.ncomp;
+    size_t off = 0;
+    for (int i = 0; i < dec.ncomp; ++i) {
+      const Comp& c = dec.comps[i];
+      dims[1 + 4 * i] = c.h;
+      dims[2 + 4 * i] = c.v;
+      dims[3 + 4 * i] = c.bw * 8;
+      dims[4 + 4 * i] = c.bh * 8;
+      if (out) {
+        memcpy(out + off, c.plane.data(), c.plane.size());
+        off += c.plane.size();
+      }
+    }
+    return 0;
+  } catch (const Fail& f) {
+    g_error = f.what;
+    return f.code;
+  } catch (...) {
+    g_error = "out of memory";
+    return 1;
   }
 }
 

@@ -4,7 +4,8 @@ PsdImagePlugin reads it.
 
 A 26-byte header (8BPS, version 1, channels, height, width, depth,
 colour mode), the colour-mode data (for an indexed image a 768-byte
-palette stored as 256 reds, 256 greens, 256 blues), the image resources
+palette stored as 256 reds, 256 greens, 256 blues; colour-mode data of
+any other size leaves PIL's palette black), the image resources
 and the layer section (skipped), then the composite: compression 0 (one
 plane a channel) or 1 (PackBits, after a table of each row's byte count;
 each channel's stream decoded on from where the counts put it). Modes:
@@ -22,7 +23,6 @@ import struct
 
 import numpy as np
 
-from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 from fluctus_tpu_torch.scene.lab import lab_to_rgb
 from fluctus_tpu_torch.scene.pilmodes import to_rgba
 
@@ -93,9 +93,6 @@ def decode_psd(data: bytes) -> np.ndarray:
         return body
 
     mode_data = section()
-    if mode == "P" and len(mode_data) != 768:
-        raise UnsupportedImage("PSD indexed images without a 768-byte "
-                               "palette are not decoded by the port")
     section()                                   # image resources
     section()                                   # layer and mask info
     if pos + 2 > len(data):
@@ -129,8 +126,13 @@ def decode_psd(data: bytes) -> np.ndarray:
     elif mode == "L":
         rgba[..., :3] = planes[0][..., None]
     elif mode == "P":
-        pal = np.frombuffer(mode_data, np.uint8).reshape(3, 256).T
-        rgba[..., :3] = pal[planes[0]]
+        # PIL takes the colour-mode data as the palette only at 768 bytes;
+        # without it the image keeps an all-black palette
+        if len(mode_data) == 768:
+            pal = np.frombuffer(mode_data, np.uint8).reshape(3, 256).T
+            rgba[..., :3] = pal[planes[0]]
+        else:
+            rgba[..., :3] = 0
     elif mode == "CMYK":
         # PIL reads each plane inverted (raw mode "C;I" ...), then CMYK to
         # RGB

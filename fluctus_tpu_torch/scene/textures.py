@@ -12,6 +12,7 @@ map the JAX package would load is dropped without notice.
 from __future__ import annotations
 
 import importlib
+import lzma
 import os
 import struct
 import zlib
@@ -52,14 +53,17 @@ class TexturePool:
             raise imageformat.UnsupportedImage(f"{path}: {e}") from None
         if kind is None:
             return -1
-        if kind in ("jpeg", "webp"):   # native decoders: a failed build
-            importlib.import_module(   # raises, never -1
+        # native decoders: a failed build raises, never -1 (the codecs
+        # inside TIFF and ICNS build where they are first called)
+        if kind in ("jpeg", "webp", "jpeg2000"):
+            importlib.import_module(
                 f"fluctus_tpu_torch.scene.{kind}").load_library()
         try:
             rgba = imageformat.decode(data, kind)
         except imageformat.UnsupportedImage as e:
             raise imageformat.UnsupportedImage(f"{path}: {e}") from None
-        except (ValueError, IndexError, EOFError, struct.error, zlib.error):
+        except (ValueError, IndexError, EOFError, struct.error, zlib.error,
+                lzma.LZMAError):
             return -1                 # damaged or truncated, as PIL fails
         # uv (0, 0) is the bottom-left texel (the reference loads with
         # IL_ORIGIN_LOWER_LEFT), so flip the top-first rows

@@ -1,5 +1,5 @@
-"""The port stands alone: with jax, flax, optax, orbax, xxhash, PIL and
-fluctus_tpu made unimportable, fluctus_tpu_torch (the stream, the
+"""The port stands alone: with jax, flax, optax, orbax, xxhash, PIL,
+zstandard and fluctus_tpu made unimportable, fluctus_tpu_torch (the stream, the
 benchmark harness, the bench, the probes and their scripts included) and
 chip_smoke.py import, the kitchen renders on the CPU with its textures
 through the lockstep and the stream, the luxball renders env-lit from an
@@ -9,7 +9,10 @@ under both of their schedulers, a packet call (backend "pallas") runs,
 a 2-shard mesh renders through both integrators, the packet forest
 builds and traverses through both of its walks,
 the denoised, progressive and preview renders, picking, the saved state,
-the XLA backends ("jnp", "packed", "wide") and the command line run. The machine with the card has none of those packages."""
+the XLA backends ("jnp", "packed", "wide") and the command line run, and
+the texture decoders (JPEG 2000, the TIFF codecs) read their files. The
+native decoders include only the C++ standard library. The machine with
+the card has none of those packages."""
 import os
 import re
 import subprocess
@@ -18,7 +21,7 @@ import sys
 from torch_common import REPO
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "xxhash", "PIL",
-           "fluctus_tpu")
+           "zstandard", "fluctus_tpu")
 
 _CHILD = r'''
 import importlib, pkgutil, sys
@@ -179,7 +182,7 @@ def test_port_imports_and_renders_without_jax_stack():
 
 _IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|orbax|xxhash|PIL|"
-    r"fluctus_tpu)\b"
+    r"zstandard|fluctus_tpu)\b"
     r"(?!_torch)", re.M)
 
 
@@ -195,6 +198,22 @@ def test_sources_name_no_jax_stack_import():
         if hits:
             bad[os.path.relpath(path, REPO)] = hits
     assert not bad, bad
+
+
+def test_native_decoders_use_the_standard_library_only():
+    """The C++ decoders (JPEG, WebP, BCn, JPEG 2000, Zstandard, CCITT, the
+    scene hash) include no header but the C++ standard library's: no
+    OpenJPEG, libzstd, libtiff or libjpeg is linked."""
+    native = os.path.join(REPO, "fluctus_tpu_torch", "scene", "native")
+    names = sorted(os.listdir(native))
+    for want in ("j2k.cpp", "zstd.cpp", "ccitt.cpp"):
+        assert want in names
+    allowed = re.compile(r"<(c[a-z]+|[a-z_]+|stdint\.h|string\.h|"
+                         r"stdlib\.h|math\.h)>")
+    for name in names:
+        with open(os.path.join(native, name)) as f:
+            incs = re.findall(r"^#include\s+(\S+)", f.read(), re.M)
+        assert incs and all(allowed.fullmatch(i) for i in incs), (name, incs)
 
 
 _TEX_CHILD = r'''
@@ -227,9 +246,13 @@ def test_port_decodes_textures_without_pil(tmp_path):
     """The image decoders (PNG, JPEG baseline and progressive with its g++
     build, BMP, TGA, GIF, TIFF (LZW, JPEG, CMYK), PPM, DDS with its g++
     build (DXT5, BC6H unsigned and signed), ICO, PCX, QOI, SGI, DIB, MSP,
-    XBM, PSD CMYK and Lab, IM (RGB and YCC), SPIDER, BLP, ICNS, and WebP
+    XBM, PSD CMYK and Lab, IM (RGB and YCC), SPIDER, BLP, ICNS, WebP
     lossless, lossy and lossy with alpha from tests/data/webp with its
-    g++ build) run with PIL unimportable and give the rows PIL gives."""
+    g++ build, JPEG 2000 reversible, irreversible, with every code-block
+    style and with a palette from tests/data/j2k, and TIFF G4, G3 2D,
+    Zstandard, LZMA, old-style JPEG and YCbCr from tests/data/tiff, with
+    their g++ builds) run with PIL and zstandard unimportable and give the
+    rows PIL gives."""
     import numpy as np
     from PIL import Image
     g = np.random.default_rng(0)
@@ -270,9 +293,17 @@ def test_port_decodes_textures_without_pil(tmp_path):
              for mode in ("CMYK", "LAB")}
     files["x.dds"] = fixtures.dds_bytes("BC6H", 12, 8, seed=2)
     files["y.dds"] = fixtures.dds_bytes("BC6HS", 12, 8, seed=3)
-    for name in ("kitchen_wood.lossless.webp", "kitchen_floor.q80.webp",
-                 "wood_alpha.q80.webp"):
-        with open(os.path.join(REPO, "tests", "data", "webp", name),
+    for sub, name in (("webp", "kitchen_wood.lossless.webp"),
+                      ("webp", "kitchen_floor.q80.webp"),
+                      ("webp", "wood_alpha.q80.webp"),
+                      ("j2k", "kitchen_floor_n.jp2"),
+                      ("j2k", "kitchen_wood.irr20.jp2"),
+                      ("j2k", "opj_all.j2k"), ("j2k", "palette.jp2"),
+                      ("tiff", "ccitt_g4.tif"), ("tiff", "ccitt_g3_2d.tif"),
+                      ("tiff", "zstd.tif"), ("tiff", "lzma_pred2.tif"),
+                      ("tiff", "ojpeg_tables.tif"),
+                      ("tiff", "ycbcr22_deflate.tif")):
+        with open(os.path.join(REPO, "tests", "data", sub, name),
                   "rb") as f:
             files[name] = f.read()
     for name, data in files.items():

@@ -16,17 +16,23 @@ port's decoder makes libjpeg-turbo's choices (islow IDCT, fancy
 upsampling, its YCbCr tables), so its RGBA equals PIL's exactly. A
 truncated file is -1 in both pools, and so are bytes no PIL plugin
 identifies; a well-formed file in a format the port does not decode
-(AVIF, JPEG 2000) loads in the JAX pool and raises UnsupportedImage in
-the port's, so the gap stays visible. DDS (uncompressed layouts and
+(AVIF) loads in the JAX pool and raises UnsupportedImage in the port's,
+so the gap stays visible. DDS (uncompressed layouts and
 BC1-BC7 through native/bcn.cpp, BC6H unsigned and signed), ICO and CUR
 equal PIL on files PIL writes and on DDS files of seeded blocks
 (`fixtures.dds_bytes`). PIL's simple plugins (XPM, XV thumbnail, IM with
 its YCC type, IMT, SPIDER, PIXAR, McIdas, FTEX, GBR, FITS, BLP, ICNS with
 PNG and RLE members, FLI / FLC, Photo CD, IPTC) are held on files PIL
 writes and on hand-built ones (`fixtures.fli_bytes`, `pcd_bytes`,
-`iptc_bytes`, `icns_rle_bytes`), with the variants PIL fails on (-1 in
-both) and the one the port does not decode (ICNS JPEG 2000 members); EPS
-follows PIL's Ghostscript lookup. WebP has tests/test_torch_webp.py;
+`iptc_bytes`, `icns_rle_bytes`) and ICNS JPEG 2000 members, with the
+variants PIL fails on (-1 in both); EPS follows PIL's Ghostscript
+lookup. The TIFF compressions and modes libtiff decodes for PIL (CCITT,
+LZMA, Zstandard, ThunderScan, old-style LZW and JPEG, YCbCr through
+libtiff's RGBA reader, 12-bit grey, palettes with extra samples, tiles
+below 8 bits, planar layouts) are held on files PIL writes and on
+fixtures, with the files of tests/data/tiff; the TIFF, JPEG and PSD
+layouts PIL fails on are -1 in both. JPEG 2000 has
+tests/test_torch_jpeg2000.py. WebP has tests/test_torch_webp.py;
 here it is one of the formats PIL writes, and the textured-plane render
 takes a lossy WebP diffuse map beside the JPEG one."""
 import io
@@ -1514,22 +1520,17 @@ def _tier1_damage():
     }
 
 
-def _tier1_raising():
-    """Files of these plugins that PIL reads and the port does not
-    decode: they load in the JAX pool and raise in the port's."""
-    pic = Image.fromarray(smooth(16, 16))
-    return {
-        "ICNS JPEG 2000 member": _icns([(b"icp4", _pil_bytes(
-            pic, "JPEG2000"))]),
-    }
-
-
 def _tier1_decoded():
-    """IM's YCC type, ICNS RLE members, FLI / FLC, Photo CD and IPTC
-    (files PIL reads that the port decodes since it gained their
-    decoders)."""
+    """IM's YCC type, ICNS RLE and JPEG 2000 members, FLI / FLC, Photo
+    CD and IPTC (files PIL reads that the port decodes since it gained
+    their decoders)."""
     pic = Image.fromarray(smooth(16, 16))
     cases = {
+        "ICNS JPEG 2000 member": _icns([(b"icp4", _pil_bytes(
+            pic, "JPEG2000"))]),
+        "ICNS JPEG 2000 raw codestream member": _icns([(b"ic07", _pil_bytes(
+            Image.fromarray(smooth(128, 128)), "JPEG2000", no_jp2=True,
+            irreversible=True))]),
         "IM YCC": _pil_bytes(pic.convert("YCbCr"), "IM"),
         "ICNS RLE RGB member": _icns([(b"is32", bytes(16 * 16 * 3)),
                                       (b"icp4", _pil_bytes(pic, "PNG"))]),
@@ -1577,9 +1578,9 @@ def test_raster_formats_equal_pil(tmp_path, name):
     MSP (versions 1 and 2), XBM, and PIL's simple plugins: XPM (P and
     RGB), XV thumbnails, IM (every mode PIL writes, YCC included), IMT,
     SPIDER, PIXAR, McIdas, FTEX, GBR, FITS (every BITPIX, gzip tiles),
-    BLP (palette, DXT1/3/5, JPEG), ICNS PNG, RLE and raw RGB members with
-    their masks, FLI / FLC (BRUN, COPY, BLACK and LC, SS2, COLOR_256 and
-    COLOR_64), Photo CD in each orientation and IPTC (raw one band, a
+    BLP (palette, DXT1/3/5, JPEG), ICNS PNG, JPEG 2000, RLE and raw RGB
+    members with their masks, FLI / FLC (BRUN, COPY, BLACK and LC, SS2,
+    COLOR_256 and COLOR_64), Photo CD in each orientation and IPTC (raw one band, a
     band of RGB or CMYK, JPEG): the port's RGBA equals PIL's byte for
     byte."""
     path = tmp_path / "t.img"
@@ -1615,17 +1616,6 @@ def test_simple_raster_damage_is_minus_one(tmp_path, name):
     path = tmp_path / "t.img"
     path.write_bytes(_tier1_damage()[name])
     assert both(path) == [-1, -1]
-
-
-@pytest.mark.parametrize("name", list(_tier1_raising()))
-def test_simple_raster_variants_the_port_does_not_decode(tmp_path, name):
-    """ICNS icons whose chosen member is JPEG 2000: the JAX pool loads
-    them, the port's raises UnsupportedImage naming the format."""
-    path = tmp_path / "t.img"
-    path.write_bytes(_tier1_raising()[name])
-    assert JaxPool().try_import(str(path), "t") == 0
-    with pytest.raises(UnsupportedImage, match=name.split()[0]):
-        TexturePool().try_import(str(path), "t")
 
 
 @pytest.mark.parametrize("found", [False, True],
@@ -1676,6 +1666,445 @@ def test_psd_cmyk_loads_in_jax_and_port(tmp_path, rle):
     data[24:26] = struct.pack(">H", 4)
     path = tmp_path / "t.psd"
     path.write_bytes(bytes(data))
+    assert_same(path)
+
+
+# ------------------------------------------------------------ TIFF leftovers
+
+def _bits_tiles(v, tile, bits):
+    """(h, w) values of `bits` bits as packed tiles of `tile` pixels."""
+    h, w = v.shape
+    out = []
+    for ty in range(0, h, tile):
+        for tx in range(0, w, tile):
+            t = np.zeros((tile, tile), np.uint8)
+            part = v[ty:ty + tile, tx:tx + tile]
+            t[:part.shape[0], :part.shape[1]] = part
+            out.append(np.packbits(np.unpackbits(
+                t[..., None], axis=2)[..., 8 - bits:].reshape(tile, -1),
+                axis=1).tobytes())
+    return out
+
+
+def _strip(data: bytes) -> bytes:
+    """The single strip of a TIFF PIL wrote."""
+    im = Image.open(io.BytesIO(data))
+    off, n = im.tag_v2[273][0], im.tag_v2[279][0]
+    return data[off:off + n]
+
+
+def _tiff_leftover_cases():
+    """{name: (bytes, whether PIL reads it)}: the compressions and modes
+    the port gained, written by PIL where it writes them and by
+    fixtures.tiff_bytes, ojpeg_tiff_bytes, lzw_compat_bytes,
+    thunderscan_bytes and ycbcr_blocks otherwise."""
+    import lzma
+    tb = fixtures.tiff_bytes
+    g = np.random.default_rng(18)
+    pic = smooth(29, 37)
+    w, h = 37, 29
+    bw = Image.fromarray(pic).convert("1")
+    cases = {}
+    for comp in ("tiff_ccitt", "tiff_raw_16", "group3", "group4"):
+        cases[f"PIL {comp}"] = (_pil_bytes(bw, "TIFF", compression=comp),
+                                True)
+    cases["PIL group3 2D"] = (_pil_bytes(bw, "TIFF", compression="group3",
+                                         tiffinfo={292: 1}), True)
+    cases["PIL group3 2D, byte-aligned EOLs"] = (_pil_bytes(
+        bw, "TIFF", compression="group3", tiffinfo={292: 5}), True)
+    wide = np.full((6, 2700), 255, np.uint8)
+    for r, (a, b) in enumerate(((1, 1900), (63, 2600), (64, 1729),
+                                (1791, 2559), (0, 5), (2047, 2112))):
+        wide[r, a:b] = 0
+    for comp in ("tiff_ccitt", "group3", "group4"):
+        cases[f"PIL {comp} long runs"] = (_pil_bytes(
+            Image.fromarray(wide).convert("1"), "TIFF", compression=comp),
+            True)
+    g4 = _pil_bytes(bw, "TIFF", compression="group4")
+    rev = bytes(int(f"{x:08b}"[::-1], 2) for x in _strip(g4))
+    cases["G4 fill order 2"] = (tb(w, h, 1, 1, 1, [rev], comp=4, fill=2),
+                                True)
+    cases["G4 min-is-white"] = (tb(w, h, 1, 1, 0, [_strip(g4)], comp=4),
+                                True)
+    rlew = _strip(_pil_bytes(bw, "TIFF", compression="tiff_raw_16"))
+    cases["32771 at an odd offset"] = (tb(w, h, 1, 1, 1, [rlew],
+                                          comp=32771, lead=b"\0"), True)
+    tiles = []
+    for ty in range(0, 48, 32):
+        for tx in range(0, 64, 32):
+            t = np.full((32, 32), 255, np.uint8)
+            part = np.asarray(bw, np.uint8)[ty:ty + 32, tx:tx + 32] * 255
+            t[:part.shape[0], :part.shape[1]] = part
+            tiles.append(_strip(_pil_bytes(Image.fromarray(t).convert("1"),
+                                           "TIFF", compression="group4")))
+    cases["G4 tiles 32x32"] = (tb(w, h, 1, 1, 1, tiles, comp=4,
+                                  tile=(32, 32)), True)
+    damaged = bytearray(_strip(_pil_bytes(bw, "TIFF",
+                                          compression="group3")))
+    damaged[len(damaged) // 3] ^= 0x5A
+    cases["G3 with a damaged row"] = (tb(w, h, 1, 1, 1, [bytes(damaged)],
+                                         comp=3), True)
+    raw = pic.tobytes()
+    cases["LZMA"] = (tb(w, h, 8, 3, 2, [lzma.compress(raw)], comp=34925),
+                     True)
+    d16 = np.concatenate([pic[:, :1], np.diff(pic.astype(np.int16), axis=1)
+                          .astype(np.uint8)], 1)
+    cases["LZMA, predictor"] = (tb(w, h, 8, 3, 2, [lzma.compress(
+        d16.tobytes())], comp=34925, pred=2), True)
+    cases["LZMA strips"] = (tb(w, h, 8, 3, 2, [lzma.compress(
+        pic[r:r + 8].tobytes()) for r in range(0, h, 8)], comp=34925,
+        rps=8), True)
+    try:
+        import zstandard
+    except ImportError:
+        zstandard = None
+    if zstandard is not None:
+        for level in (1, 19):
+            cases[f"Zstandard level {level}"] = (tb(w, h, 8, 3, 2, [
+                zstandard.ZstdCompressor(level=level).compress(raw)],
+                comp=50000), True)
+        g16 = (pic[..., 0].astype(np.uint16) * 251).astype("<u2")
+        cases["Zstandard 16-bit grey with checksum"] = (tb(w, h, 16, 1, 1, [
+            zstandard.ZstdCompressor(level=3, write_checksum=True)
+            .compress(g16.tobytes())], comp=50000), True)
+    for layout in ("jif", "tables"):
+        for sub, tag in ((2, (2, 2)), (2, None), (0, (1, 1)), (1, (2, 1))):
+            j = _pil_bytes(Image.fromarray(pic), "JPEG", quality=85,
+                           subsampling=sub)
+            cases[f"OJPEG {layout} {sub} {tag}"] = (
+                fixtures.ojpeg_tiff_bytes(j, w, h, layout, subsampling=tag),
+                True)
+        j = _pil_bytes(Image.fromarray(pic), "JPEG", subsampling=2,
+                       restart_marker_blocks=3)
+        cases[f"OJPEG {layout} restarts"] = (fixtures.ojpeg_tiff_bytes(
+            j, w, h, layout), True)
+        j = _pil_bytes(Image.fromarray(pic).convert("L"), "JPEG")
+        cases[f"OJPEG {layout} grey"] = (fixtures.ojpeg_tiff_bytes(
+            j, w, h, layout, photo=1), True)
+    big = np.tile(pic, (5, 4, 1))
+    cases["old-style LZW"] = (tb(148, 145, 8, 3, 2, [
+        fixtures.lzw_compat_bytes(big.tobytes())], comp=5), True)
+    v4 = pic[..., 1] >> 4
+    cases["ThunderScan 4-bit"] = (tb(w, h, 4, 1, 1, [
+        fixtures.thunderscan_bytes(v4)], comp=32809), True)
+    cases["ThunderScan 4-bit strips"] = (tb(w, h, 4, 1, 1, [
+        fixtures.thunderscan_bytes(v4[r:r + 10]) for r in range(0, h, 10)],
+        comp=32809, rps=10), True)
+    y = pic[..., 0]
+    for hs, vs in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2), (4, 4),
+                   (2, 4)):
+        cb = g.integers(0, 256, (-(-h // vs), -(-w // hs)))
+        cr = g.integers(0, 256, cb.shape)
+        cases[f"YCbCr {hs}x{vs} Deflate"] = (tb(w, h, 8, 3, 6, [
+            zlib.compress(fixtures.ycbcr_blocks(y, cb, cr, hs, vs))],
+            comp=8, subsampling=[hs, vs]), (hs, vs) != (2, 4))
+    cb = g.integers(0, 256, (15, 19))
+    cr = g.integers(0, 256, (15, 19))
+    blocks = zlib.compress(fixtures.ycbcr_blocks(y, cb, cr, 2, 2))
+    cases["YCbCr default subsampling"] = (tb(w, h, 8, 3, 6, [blocks],
+                                             comp=8), True)
+    cases["YCbCr ReferenceBlackWhite"] = (tb(
+        w, h, 8, 3, 6, [blocks], comp=8, tags=[(532, 5, [
+            16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])]), True)
+    cases["YCbCr coefficients"] = (tb(w, h, 8, 3, 6, [blocks], comp=8,
+                                      tags=[(529, 5, [2126, 10000, 7152,
+                                                      10000, 722, 10000])]),
+                                   True)
+    cases["YCbCr strips of 4 rows"] = (tb(w, h, 8, 3, 6, [
+        zlib.compress(fixtures.ycbcr_blocks(
+            y[r:r + 4], cb[r // 2:r // 2 + 2], cr[r // 2:r // 2 + 2], 2, 2))
+        for r in range(0, h, 4)], comp=8, rps=4), True)
+    cases["YCbCr planar 1x1"] = (tb(w, h, 8, 3, 6, [
+        zlib.compress(pic[..., k].tobytes()) for k in range(3)], comp=8,
+        planar=2, subsampling=[1, 1]), True)
+    cases["YCbCr planar 2x2"] = (tb(w, h, 8, 3, 6, [
+        zlib.compress(pic[..., k].tobytes()) for k in range(3)], comp=8,
+        planar=2), False)
+    cases["YCbCr LZMA 1x1"] = (tb(w, h, 8, 3, 6, [lzma.compress(raw)],
+                                  comp=34925, subsampling=[1, 1]), True)
+    cases["YCbCr one sample"] = (tb(w, h, 8, 1, 6, [zlib.compress(
+        y.tobytes())], comp=8), False)
+    v12 = (pic[..., 0].astype(np.uint16) * 16 + pic[..., 1] % 16)
+    bits = np.unpackbits(v12.astype(">u2").view(np.uint8).reshape(
+        h, w, 2), axis=2)[..., 4:].reshape(h, -1)
+    p12 = np.packbits(bits, axis=1).tobytes()
+    cases["12-bit grey"] = (tb(w, h, 12, 1, 1, [p12]), True)
+    cases["12-bit grey Deflate"] = (tb(w, h, 12, 1, 1, [zlib.compress(p12)],
+                                       comp=8), True)
+    cases["12-bit grey, predictor"] = (tb(w, h, 12, 1, 1, [
+        zlib.compress(p12)], comp=8, pred=2), False)
+    cmap = list(g.integers(0, 65536, 768))
+    two = pic[..., :2].tobytes()
+    for name, extra in (("PX", 0), ("PA", 2)):
+        cases[f"{name} raw"] = (tb(w, h, 8, 2, 3, [two], extra=[extra],
+                                   cmap=cmap), True)
+        cases[f"{name} Deflate"] = (tb(w, h, 8, 2, 3, [zlib.compress(two)],
+                                       comp=8, extra=[extra], cmap=cmap),
+                                    True)
+    pa = Image.fromarray(pic[..., 0]).convert("P").convert("PA")
+    cases["PIL PA"] = (_pil_bytes(pa, "TIFF"), True)
+    for bits in (1, 2, 4):
+        v = g.integers(0, 1 << bits, (40, 45)).astype(np.uint8)
+        t = _bits_tiles(v, 16, bits)
+        cases[f"{bits}-bit tiles raw"] = (tb(45, 40, bits, 1, 1, t,
+                                             tile=(16, 16)), True)
+        cases[f"{bits}-bit tiles Deflate"] = (tb(45, 40, bits, 1, 1, [
+            zlib.compress(x) for x in t], comp=8, tile=(16, 16)), True)
+        cases[f"{bits}-bit palette tiles Deflate"] = (tb(
+            45, 40, bits, 1, 3, [zlib.compress(x) for x in t], comp=8,
+            tile=(16, 16), cmap=list(g.integers(0, 65536, 3 << bits))),
+            True)
+        cases[f"{bits}-bit strips, predictor"] = (tb(
+            48, 40, bits, 1, 1, [zlib.compress(b"".join(_bits_tiles(
+                v[:, :45], 48, bits)[:1]))], comp=8, pred=2), False)
+    planes8 = [np.ascontiguousarray(pic[..., k]).tobytes() for k in range(3)]
+    cmyk16 = g.integers(0, 65536, (h, w, 4)).astype("<u2")
+    planes16 = [np.ascontiguousarray(cmyk16[..., k]).tobytes()
+                for k in range(4)]
+    cases["planar CMYK 8-bit Deflate"] = (tb(w, h, 8, 4, 5, [
+        zlib.compress(p) for p in planes8 + planes8[:1]], comp=8, planar=2),
+        True)
+    cases["planar CMYK 16-bit raw"] = (tb(w, h, 16, 4, 5, planes16,
+                                          planar=2), True)
+    cases["planar CMYK 16-bit Deflate"] = (tb(w, h, 16, 4, 5, [
+        zlib.compress(p) for p in planes16], comp=8, planar=2), True)
+    for comp in (1, 8):
+        ps = planes8 if comp == 1 else [zlib.compress(p) for p in planes8]
+        cases[f"planar LAB comp {comp}"] = (tb(w, h, 8, 3, 8, ps, comp=comp,
+                                               planar=2), True)
+        cases[f"planar PA comp {comp}"] = (tb(w, h, 8, 2, 3, ps[:2],
+                                              comp=comp, planar=2,
+                                              extra=[2], cmap=cmap),
+                                           comp == 8)
+        cases[f"planar PX comp {comp}"] = (tb(w, h, 8, 2, 3, ps[:2],
+                                              comp=comp, planar=2,
+                                              extra=[0], cmap=cmap), False)
+    for bits, photo, fmt in ((1, 1, 1), (4, 1, 1), (4, 3, 1), (32, 1, 3),
+                             (32, 1, 2), (2, 0, 1), (16, 1, 1)):
+        if bits < 8:
+            v = g.integers(0, 1 << bits, (h, 16)).astype(np.uint8)
+            data = b"".join(_bits_tiles(v, 16, bits)[:1] + _bits_tiles(
+                v[16:], 16, bits)[:1])
+            ww = 16
+        else:
+            dt = {16: "<u2", 32: "<f4" if fmt == 3 else "<i4"}[bits]
+            data = (g.random((h, w)) * 300).astype(dt).tobytes()
+            ww = w
+        cases[f"planar single {bits}-bit photometric {photo} format "
+              f"{fmt}"] = (tb(ww, h, bits, 1, photo, [data], planar=2,
+                              fmt=[fmt], cmap=list(g.integers(
+                                  0, 65536, 3 << bits)) if photo == 3
+                              else None), (bits, photo) not in (
+                                  (2, 0), (4, 1), (16, 1)))
+    cases["planar JPEG RGB"] = (tb(w, h, 8, 3, 2, [
+        _pil_bytes(Image.fromarray(pic[..., k]), "JPEG") for k in range(3)],
+        comp=7, planar=2), True)
+    cases["planar JPEG YCbCr 1x1"] = (tb(w, h, 8, 3, 6, [
+        _pil_bytes(Image.fromarray(pic[..., k]), "JPEG") for k in range(3)],
+        comp=7, planar=2, subsampling=[1, 1]), True)
+    cases["PIL CMYK JPEG"] = (_pil_bytes(Image.fromarray(pic).convert(
+        "CMYK"), "TIFF", compression="jpeg"), True)
+    cases["grey JPEG"] = (tb(w, h, 8, 1, 1, [_pil_bytes(
+        Image.fromarray(pic[..., 0]), "JPEG")], comp=7), True)
+    cases["mixed header MM*0 raw"] = (tb(w, h, 8, 3, 2, [raw], bo=">",
+                                         magic=b"MM*\x00"), True)
+    cases["mixed header II0* raw"] = (tb(w, h, 8, 3, 2, [raw],
+                                         magic=b"II\x00*"), True)
+    cases["mixed header with Deflate"] = (tb(w, h, 8, 3, 2, [
+        zlib.compress(raw)], comp=8, bo=">", magic=b"MM*\x00"), False)
+    cases["CCITT at 8 bits"] = (tb(w, h, 8, 1, 1, [raw[:w * h]], comp=4),
+                                False)
+    return cases
+
+
+TIFF_LEFTOVERS = _tiff_leftover_cases()
+
+
+@pytest.mark.parametrize("name", list(TIFF_LEFTOVERS))
+def test_tiff_leftovers(tmp_path, name):
+    """CCITT (modified Huffman, 32771 with libtiff's word alignment, T.4
+    1D and 2D, T.6; long runs, fill order 2, min-is-white, tiles, a
+    damaged row, data cut short), LZMA, Zstandard, old-style JPEG in both
+    layouts, old-style LZW, ThunderScan, YCbCr through libtiff's RGBA
+    reader, 12-bit grey, PX and PA, tiles below 8 bits, planar CMYK, Lab,
+    PA and single-sample planes, planar and CMYK JPEG, the mixed byte-
+    order headers: the port's RGBA equals PIL's byte for byte, and what
+    PIL fails on is -1 in both pools."""
+    data, reads = TIFF_LEFTOVERS[name]
+    path = tmp_path / "t.tif"
+    path.write_bytes(data)
+    if reads:
+        assert_same(path)
+    else:
+        assert both(path) == [-1, -1]
+
+
+@pytest.mark.parametrize("comp", ["group3", "group4"])
+def test_fax_data_that_ends_early_raises(tmp_path, comp):
+    """T.4 or T.6 data cut after its first rows: libtiff decodes those,
+    then leaves the rest of PIL's strip buffer as it was (T.6) or
+    recovers in its own way (T.4), so PIL's rows after them are not the
+    file's alone; the port raises UnsupportedImage rather than guess."""
+    bw = Image.fromarray(smooth(29, 37)).convert("1")
+    data = _strip(_pil_bytes(bw, "TIFF", compression=comp))
+    path = tmp_path / "t.tif"
+    path.write_bytes(fixtures.tiff_bytes(
+        37, 29, 1, 1, 1, [data[:len(data) // 2]], comp=3 if comp == "group3"
+        else 4))
+    with pytest.raises(UnsupportedImage, match="T.4" if comp == "group3"
+                       else "T.6"):
+        TexturePool().try_import(str(path), "t")
+
+
+def _libtiff_strip(data: bytes, tmp_path) -> tuple:
+    """libtiff's own decode of a one-strip TIFF (PIL's bundled libtiff,
+    called through ctypes, which PIL has loaded): (return value, strip
+    bytes)."""
+    import ctypes
+    import glob
+    import os
+    libs = os.path.join(os.path.dirname(os.path.dirname(Image.__file__)),
+                        "pillow.libs")
+    lt = ctypes.CDLL(glob.glob(os.path.join(libs, "libtiff-*"))[0])
+    lt.TIFFOpen.restype = ctypes.c_void_p
+    lt.TIFFOpen.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lt.TIFFStripSize.restype = ctypes.c_ssize_t
+    lt.TIFFStripSize.argtypes = [ctypes.c_void_p]
+    lt.TIFFReadEncodedStrip.restype = ctypes.c_ssize_t
+    lt.TIFFReadEncodedStrip.argtypes = [ctypes.c_void_p, ctypes.c_uint32,
+                                        ctypes.c_void_p, ctypes.c_ssize_t]
+    lt.TIFFClose.argtypes = [ctypes.c_void_p]
+    path = tmp_path / "strip.tif"
+    path.write_bytes(data)
+    tif = lt.TIFFOpen(str(path).encode(), b"r")
+    buf = ctypes.create_string_buffer(lt.TIFFStripSize(tif))
+    rc = lt.TIFFReadEncodedStrip(tif, 0, buf, -1)
+    lt.TIFFClose(tif)
+    return rc, buf.raw
+
+
+@pytest.mark.parametrize("name", ["ccitt_mh.tif", "ccitt_rlew.tif",
+                                  "ccitt_g3_1d.tif", "ccitt_g3_2d.tif",
+                                  "ccitt_g4.tif"])
+def test_fax_strips_equal_libtiff(tmp_path, name):
+    """Seeded damaged and cut copies of a committed fax strip, decoded by
+    scene/ccitt.py and by libtiff itself: the same rows where libtiff
+    succeeds, ValueError where it fails (PIL's -1); data that ends before
+    the last row may raise UnsupportedImage instead (see
+    test_fax_data_that_ends_early_raises)."""
+    import os
+    from fluctus_tpu_torch.scene import ccitt
+    d, _ = _tiff_record()
+    data = open(os.path.join(d, name), "rb").read()
+    im = Image.open(io.BytesIO(data))
+    strip = _strip(data)
+    comp, t4 = im.tag_v2[259], im.tag_v2.get(292, 0)
+    w, h = im.size
+    g = np.random.default_rng(len(name))
+    variants = [strip[:cut] for cut in (7, len(strip) // 2,
+                                        len(strip) - 3)]
+    for _ in range(21):
+        b = bytearray(strip)
+        for _ in range(int(g.integers(1, 4))):
+            b[int(g.integers(0, len(b)))] = int(g.integers(0, 256))
+        variants.append(bytes(b))
+    for v in variants:
+        tags = [(292, 4, [t4])] if t4 else []
+        rc, want = _libtiff_strip(fixtures.tiff_bytes(
+            w, h, 1, 1, 1, [v], comp=comp, tags=tags), tmp_path)
+        try:
+            got = ccitt.decode(v, comp, w, h, t4, 0)
+        except UnsupportedImage:
+            continue
+        except ValueError:
+            assert rc < 0, "the port failed where libtiff decodes"
+            continue
+        assert rc > 0, "the port decoded where libtiff fails"
+        assert got == want
+
+
+def _repair_cases():
+    """The layouts the port refused where PIL gives -1 (compressions PIL
+    does not name or libtiff lacks, codecs that refuse the layout,
+    uncompressed YCbCr, hierarchical and 12-bit JPEG)."""
+    tb = fixtures.tiff_bytes
+    pic = smooth(13, 17)
+    raw = pic.tobytes()
+    jpg = _pil_bytes(Image.fromarray(pic), "JPEG")
+    sof = jpg.index(b"\xff\xc0")
+
+    def with_sof(marker, precision=8):
+        b = bytearray(jpg)
+        b[sof + 1] = marker
+        b[sof + 4] = precision
+        return bytes(b)
+
+    return {
+        "TIFF compression 99": tb(17, 13, 8, 3, 2, [raw], comp=99),
+        "TIFF SGILog on RGB": tb(17, 13, 8, 3, 2, [raw], comp=34676),
+        "TIFF SGILog with LogLuv photometric": tb(
+            17, 13, 16, 3, 32845, [raw * 2], comp=34676),
+        "TIFF WebP": tb(17, 13, 8, 3, 2, [raw], comp=50001),
+        "TIFF ThunderScan at 8 bits": tb(17, 13, 8, 1, 1, [raw[:221]],
+                                         comp=32809),
+        "TIFF uncompressed YCbCr": _pil_bytes(Image.fromarray(pic).convert(
+            "YCbCr"), "TIFF"),
+        "JPEG SOF5 (hierarchical)": with_sof(0xC5),
+        "JPEG SOF1 at 12 bits": with_sof(0xC1, 12),
+    }
+
+
+@pytest.mark.parametrize("name", list(_repair_cases()))
+def test_files_pil_fails_on_are_minus_one_in_both(tmp_path, name):
+    path = tmp_path / "t.img"
+    path.write_bytes(_repair_cases()[name])
+    assert both(path) == [-1, -1]
+
+
+def _tiff_record():
+    import json
+    import os
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                     "tiff")
+    with open(os.path.join(d, "tiff.json")) as f:
+        return d, json.load(f)
+
+
+@pytest.mark.parametrize("name", sorted(_tiff_record()[1]["files"]))
+def test_committed_tiff_files(name):
+    """tests/data/tiff: the port's RGBA equals PIL's and the SHA-256
+    recorded beside the file (what chip_smoke.py checks on the card)."""
+    import hashlib
+    import os
+    d, rec = _tiff_record()
+    path = os.path.join(d, name)
+    assert_same(path)
+    pool = TexturePool()
+    assert pool.try_import(path, name) == 0
+    rgba = np.ascontiguousarray(pool.textures[0].rgba[::-1])
+    assert list(rgba.shape) == rec["files"][name]["shape"]
+    assert hashlib.sha256(rgba.tobytes()).hexdigest() == \
+        rec["files"][name]["sha256"]
+
+
+@pytest.mark.parametrize("size", [0, 100, 767, 769, 1536])
+@pytest.mark.parametrize("rle", [False, True], ids=["raw", "rle"])
+def test_psd_indexed_without_a_768_byte_palette(tmp_path, size, rle):
+    """PIL takes an indexed PSD's colour-mode data as its palette only at
+    768 bytes, and otherwise keeps a black one."""
+    path = tmp_path / "t.psd"
+    path.write_bytes(fixtures.psd_bytes("P", 17, 13, rle, seed=size,
+                                        palette_bytes=size))
+    assert_same(path)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(quality=95, subsampling=0),
+                                dict(progressive=True)],
+                         ids=["default", "q95 4:4:4", "progressive"])
+def test_cmyk_jpeg(tmp_path, kw):
+    """Four-component JPEG: PIL reads it as Adobe's inverted CMYK."""
+    path = tmp_path / "t.jpg"
+    Image.fromarray(smooth(21, 19)).convert("CMYK").save(path, "JPEG", **kw)
     assert_same(path)
 
 
