@@ -128,7 +128,10 @@ only, bit-equal to the PNG frame, with K1 held against its plain version
 on the first closest and any-hit rays of that frame (webp). JPEG 2000:
 the same for the committed files of tests/data/j2k (scene/native/j2k.cpp,
 with the TIFF codecs' zstd.cpp and ccitt.cpp built beside it) and the
-kitchen from the reversible JP2 copies of its maps (j2k); the committed
+kitchen from the reversible JP2 copies of its maps (j2k); JPEG: the same
+for tests/data/jpeg (scene/native/jpeg.cpp: arithmetic, lossless,
+block-smoothed and damaged streams) and the kitchen from the lossless
+JPEG copies of its maps (jpeg); the committed
 TIFF files of tests/data/tiff are held against their SHA-256 in the
 formats block. Last, the reference-protocol
 sweep, `python3
@@ -439,6 +442,53 @@ def phase_wide_ties(kernel: str):
               "flags differ from the plain version on the tie hierarchy")
 
 
+# the builds that run beside the first phases (background_builds):
+# {"k1" / "k4" / "g++": future of {library: build seconds}}
+BACKGROUND: dict = {}
+
+
+def background_builds() -> None:
+    """Start, on one worker beside the first phases, the design probe's K1
+    builds, then the texture decoders' g++ builds, then the K4 builds; the
+    phases that need them wait for them (design_steps, gxx_build)."""
+    from fluctus_tpu_torch.scene import (ccitt, dds, jpeg, jpeg2000, webp,
+                                         zstd)
+    from fluctus_tpu_torch.scripts import probe_walk_design as probe
+
+    def designs(kernel):
+        t = time.perf_counter()
+        probe.build(kernel, {n: (None, c, False)
+                             for n, c in probe.VARIANTS[kernel].items()})
+        return {kernel.upper(): time.perf_counter() - t}
+
+    def gxx():
+        secs = {}
+        for mod in (webp, jpeg2000, zstd, ccitt, jpeg, dds):
+            t = time.perf_counter()
+            mod.load_library()
+            secs[mod.__name__.rsplit(".", 1)[-1]] = time.perf_counter() - t
+        return secs
+    pool = ThreadPoolExecutor(1)
+    BACKGROUND["k1"] = pool.submit(designs, "k1")
+    BACKGROUND["g++"] = pool.submit(gxx)
+    BACKGROUND["k4"] = pool.submit(designs, "k4")
+    pool.shutdown(wait=False)
+
+
+def gxx_build(mod) -> float:
+    """`mod`'s g++ library loaded, and its build's seconds (the background
+    build's, where it ran)."""
+    name = mod.__name__.rsplit(".", 1)[-1]
+    if "g++" in BACKGROUND:
+        done = BACKGROUND["g++"].result()
+        if name in done:
+            mod.load_library()
+            return done[name]
+    t = time.perf_counter()
+    mod.load_library()
+    return time.perf_counter() - t
+
+
 def design_steps(kernel: str, sess, phase: str) -> None:
     """The design probe's builds of `kernel` (and, with FLUCTUS_PARENT_TREE
     set to another checkout's root, that checkout's kernel) timed on the
@@ -446,6 +496,10 @@ def design_steps(kernel: str, sess, phase: str) -> None:
     plain version."""
     from fluctus_tpu_torch.scripts import probe_walk_design as probe
     t0 = time.perf_counter()
+    if kernel in BACKGROUND:
+        secs = BACKGROUND[kernel].result()[kernel.upper()]
+        say(phase, t0, f"{kernel.upper()}'s designs were built beside the "
+            f"earlier phases in {secs:.1f} s")
     out = probe.design_steps(kernel, sess,
                              parent=os.environ.get("FLUCTUS_PARENT_TREE"),
                              say=lambda m: say(phase, t0, m))
@@ -552,6 +606,102 @@ def phase_session_env(tmp_dir: str):
     return sess, path
 
 
+# the CPU references of golden, golden-env, golden-ply and pbf, computed
+# by a child process beside the card's phases (start_cpu_references):
+# {"dir": its output directory, "proc": the child}
+CPU_REFS: dict = {}
+CPU_REF_CHILD = r"""
+import sys
+import chip_smoke
+chip_smoke.cpu_references(sys.argv[1])
+"""
+
+
+def cpu_references(out_dir: str) -> None:
+    """The renders on this host's CPU (the plain versions) that golden,
+    golden-env, golden-ply and pbf hold the card's against, each saved as
+    out_dir/<name>.npy, from the same seeded inputs those phases make: the
+    goldens' stream, the env-lit sessions' lockstep and stream under the
+    seeded sky, the grid-3 PLY's lockstep and the PBRT kitchen's and its
+    PBF's stream without implicit light hits. Three threads, so that the
+    card's phases keep the host's other cores."""
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.fixtures import scene_pbrt, sky_env, \
+        sphere_grid_ply
+    from fluctus_tpu_torch.io.hdr import write_hdr
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.scene.loaders.pbf import convert_pbrt_to_pbf
+
+    torch.set_num_threads(3)
+
+    def save(name, img):
+        np.save(os.path.join(out_dir, name + ".npy"), img)
+    for name, (gs, spp) in golden_sessions("cpu").items():
+        save(f"golden_{name}", driver.render(gs, spp,
+                                             integrator="stream").numpy())
+    sky = os.path.join(out_dir, "sky.hdr")
+    write_hdr(sky, sky_env(1024, 512, seed=ENV_SEED))
+    for name, cs in env_sessions(sky, "cpu").items():
+        save(f"env_{name}_lockstep",
+             driver.render(cs, 8, integrator="lockstep").numpy())
+        save(f"env_{name}_stream",
+             driver.render(cs, 8, integrator="stream").numpy())
+    with working_dir(out_dir):     # the PBRT parse cache lands here
+        grid = os.path.join(out_dir, "grid3.ply")
+        sphere_grid_ply(grid, 3, 3, seed=0)
+        save("ply_grid3", driver.render(driver.create_session(
+            grid, sky, ply_cfg(64, 64), cache_dir=None, state_dir=None,
+            device="cpu"), PLY_SPP, integrator="lockstep").numpy())
+        with open(os.path.join(STATES, "state_c68e332cfae81cc6.json")) as f:
+            state = json.load(f)
+        path = scene_pbrt(KITCHEN, out_dir, state["area_light"])
+        pbf = os.path.splitext(path)[0] + ".pbf"
+        convert_pbrt_to_pbf(path, pbf)
+        for src in (path, pbf):
+            s = pbrt_session(src, state, 64, 64, "cpu")
+            s = dataclasses.replace(s, cfg=s.cfg.replace(sample_impl=False))
+            save(f"pbrt_{os.path.basename(src)}",
+                 driver.render(s, 4, integrator="stream").numpy())
+
+
+def start_cpu_references() -> None:
+    """cpu_references in a child process; at exit the child is stopped if
+    still running and its directory removed."""
+    import atexit
+    import shutil
+    import subprocess
+    out_dir = tempfile.mkdtemp(prefix="cpu_refs_")
+    log = open(os.path.join(out_dir, "log.txt"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", CPU_REF_CHILD, out_dir],
+                            cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    CPU_REFS.update(dir=out_dir, proc=proc)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    atexit.register(stop)
+
+
+def cpu_ref(name: str, compute):
+    """The CPU reference `name`: from the child where it was started (its
+    seconds beside the card's phases; raises where it failed), else
+    computed now by `compute`. Returns (image, what to say of it)."""
+    import numpy as np
+    if not CPU_REFS:
+        return compute(), "computed here"
+    proc = CPU_REFS["proc"]
+    if proc.wait() != 0:
+        with open(os.path.join(CPU_REFS["dir"], "log.txt")) as f:
+            tail = f.read()[-2000:]
+        raise RuntimeError(f"the CPU references failed:\n{tail}")
+    return (np.load(os.path.join(CPU_REFS["dir"], name + ".npy")),
+            "computed beside the earlier phases in a child process")
+
+
 def phase_golden_env(path, card: str):
     """64x64 env-lit renders on the card (the luxball and the cornell with
     env and area light; 8 spp) held at GOLDEN_LIMITS against the same
@@ -564,14 +714,17 @@ def phase_golden_env(path, card: str):
     from fluctus_tpu_torch.render import driver
 
     spp = 8
-    cpu = env_sessions(path, "cpu")
     out = {}
-    for name, cs in cpu.items():
+    for name in ("luxball_env", "cornell_env"):
         t0 = time.perf_counter()
-        ref_l = driver.render(cs, spp, integrator="lockstep").numpy()
-        ref_s = driver.render(cs, spp, integrator="stream").numpy()
+        ref_l, how = cpu_ref(f"env_{name}_lockstep", lambda: driver.render(
+            env_sessions(path, "cpu")[name], spp,
+            integrator="lockstep").numpy())
+        ref_s, _ = cpu_ref(f"env_{name}_stream", lambda: driver.render(
+            env_sessions(path, "cpu")[name], spp,
+            integrator="stream").numpy())
         say("golden-env", t0, f"{name}: lockstep and stream on this host's "
-            f"CPU (plain versions), the references")
+            f"CPU (plain versions), the references, {how}")
         out[name] = {}
         for backend, kernel in (("auto", "K1"), ("pallas", "K4")):
             gs = env_sessions(path, "cuda", backend)[name]
@@ -1133,7 +1286,9 @@ def phase_forest_check(ft, wbvh, rays):
     launch_plain through the same scheduler, the round loop and the
     passes; and K5 against K1 over the session's own full hierarchy.
     Returns ({mode: (max abs t error, flag mismatches)}, {(mode, form):
-    the plain version's ms in this check, summed over its calls})."""
+    the plain version's ms in this check, summed over its calls},
+    {(mode, form): the visit counts of each of the per-launch plain
+    version's calls}, which phase_forest_time's bounds read)."""
     import torch
     from fluctus_tpu_torch.ops import traverse_forest as tf
     from fluctus_tpu_torch.ops import traverse_stack as ts
@@ -1141,12 +1296,26 @@ def phase_forest_check(ft, wbvh, rays):
     o, d, t_c, o_s, d_s, t_s = rays
     k1c = ts.traverse_kernel(wbvh, o, d, t_c, any_hit=False)
     k1a = ts.traverse_kernel(wbvh, o_s, d_s, t_s, any_hit=True)
-    err, plain_ms = {}, {}
+    err, plain_ms, visits = {}, {}, {}
+
+    def counted(key):
+        """launch_plain keeping each call's visit counts in visits[key]"""
+        calls = visits.setdefault(key, [])
+
+        def run(*a, **kw):
+            calls.append({})
+            return tf.launch_plain(*a, stats=calls[-1], **kw)
+        return run
     for mode in ("queue",) + tf.MODES:
         t0 = time.perf_counter()
-        plain = tf.queue_plain if mode == "queue" else tf.launch_plain
-        pl_c = summed_ms(plain, plain_ms, (mode, "closest"))
-        pl_a = summed_ms(plain, plain_ms, (mode, "any"))
+        if mode == "queue":
+            pl_c = summed_ms(tf.queue_plain, plain_ms, (mode, "closest"))
+            pl_a = summed_ms(tf.queue_plain, plain_ms, (mode, "any"))
+        else:
+            pl_c = summed_ms(counted((mode, "closest")), plain_ms,
+                             (mode, "closest"))
+            pl_a = summed_ms(counted((mode, "any")), plain_ms,
+                             (mode, "any"))
         if mode == "queue":
             kc2 = queue_sorted(ft, o, d, t_c, False)
             ka2 = queue_sorted(ft, o_s, d_s, t_s, True).prim > 0
@@ -1195,10 +1364,10 @@ def phase_forest_check(ft, wbvh, rays):
         check(k1_mis == 0 and k1_rel <= T_REL_TOL and k1_flag == 0,
               f"K5 ({mode}) and K1 disagree on the conference")
         err[mode] = (t_abs, flag_mis)
-    return err, plain_ms
+    return err, plain_ms, visits
 
 
-def phase_forest_time(ft, wbvh, rays, plain_ms: dict):
+def phase_forest_time(ft, wbvh, rays, plain_ms: dict, visits: dict):
     """Per 65,536-ray call, both forms: the work queue's kernel
     (queue_kernel: its one launch on the rays as given and sorted by
     octant and Morton code, the whole call through the entry point and
@@ -1207,7 +1376,10 @@ def phase_forest_time(ft, wbvh, rays, plain_ms: dict):
     passes (K5's time summed over the call's launches, replayed on the
     recorded inputs, launches per call, the whole call with the
     scheduler's PyTorch work, the plain version's time on the same
-    inputs, `plain_ms` from phase_forest_check); the bound (the same walks, so one per form) and K1 on the
+    inputs, `plain_ms` from phase_forest_check); the bound (from the plain
+    version's visit counts in phase_forest_check, `visits`: the same
+    launches, the kernel being bit-equal; the work queue's the round
+    loop's, the same walks) and K1 on the
     same rays over the session's hierarchy. One call of each form runs
     under sync-debug mode "error": the queue's call reads nothing back."""
     import torch
@@ -1232,11 +1404,9 @@ def phase_forest_time(ft, wbvh, rays, plain_ms: dict):
             call_ms = time_launches(
                 lambda: trav(ft, ro, rd, rt, mode=mode,
                              launch=tf.launch_kernel), 3, 1)
-            stats_list = []
-            for args in rec.calls:
-                st: dict = {}
-                tf.launch_plain(*args, stats=st)
-                stats_list.append(st)
+            stats_list = visits[(mode, form)]
+            check(len(stats_list) == len(rec.calls),
+                  f"K5 ({mode}) made other launches than its plain version")
             k1 = sum(time_launches(lambda: tf.launch_kernel(*a), 10, 1)
                      for a in rec.calls)
             k2 = sum(time_launches(lambda: tf.launch_kernel(*a), 10, 1)
@@ -1985,9 +2155,10 @@ def phase_golden_ply(tmp_dir: str, sky: str):
     t0 = time.perf_counter()
     path = os.path.join(tmp_dir, "grid3.ply")
     sphere_grid_ply(path, 3, 3, seed=0)
-    ref = driver.render(driver.create_session(
-        path, sky, ply_cfg(64, 64), cache_dir=None, state_dir=None,
-        device="cpu"), PLY_SPP, integrator="lockstep").numpy()
+    ref, how = cpu_ref("ply_grid3", lambda: driver.render(
+        driver.create_session(path, sky, ply_cfg(64, 64), cache_dir=None,
+                              state_dir=None, device="cpu"), PLY_SPP,
+        integrator="lockstep").numpy())
     gs = driver.create_session(path, sky, ply_cfg(64, 64), cache_dir=None,
                                state_dir=None, device="cuda")
     reset_counts()
@@ -1995,7 +2166,7 @@ def phase_golden_ply(tmp_dir: str, sky: str):
     torch.cuda.synchronize()
     mine = traced_only("K1", "golden-ply")
     golden_check("ply_grid3", img, ref, t0,
-                 f"K1 only ({mine}), against the CPU render")
+                 f"K1 only ({mine}), against the CPU render ({how})")
 
 
 def pbrt_cfg(width, height):
@@ -2115,11 +2286,11 @@ def phase_pbf(path, state, pbrt_sess):
     for src in (path, pbf):
         name = os.path.basename(src)
         t0 = time.perf_counter()
-        ref = driver.render(golden(src, "cpu"), 4,
-                            integrator="stream").numpy()
+        ref, how = cpu_ref(f"pbrt_{name}", lambda: driver.render(
+            golden(src, "cpu"), 4, integrator="stream").numpy())
         say("golden-pbrt", t0, f"{name} at 64x64, 8 bounces, 4 spp, the "
             "stream without implicit light hits on this host's CPU (plain "
-            "versions), the reference")
+            f"versions), the reference, {how}")
         for backend, kernel in (("auto", "K1"), ("pallas", "K4")):
             gs = golden(src, "cuda", backend)
             t0 = time.perf_counter()
@@ -2293,8 +2464,7 @@ def phase_dds() -> float:
     from fluctus_tpu_torch.scene import dds, imageformat
 
     t0 = time.perf_counter()
-    dds.load_library()
-    t_build = time.perf_counter() - t0
+    t_build = gxx_build(dds)
     data = dds_bytes("BC7", 2048, 2048, seed=7)
     t1 = time.perf_counter()
     kind = imageformat.sniff(data)
@@ -3678,8 +3848,7 @@ def phase_webp(sess, plain_img, secs_plain: float, card: str) -> dict:
     from fluctus_tpu_torch.scene import webp
 
     t0 = time.perf_counter()
-    webp.load_library()
-    t_build = time.perf_counter() - t0
+    t_build = gxx_build(webp)
     decode = check_recorded(WEBP_DATA, "webp.json", "webp",
                             "PIL {pil} / libwebp {libwebp}")
     say("webp", t0, f"g++ build {t_build:.2f} s; {len(decode)} files equal "
@@ -3711,16 +3880,8 @@ def phase_j2k(sess, plain_img, secs_plain: float, card: str) -> dict:
     from fluctus_tpu_torch.scene import ccitt, jpeg2000, zstd
 
     t0 = time.perf_counter()
-    builds = {}
-
-    def build(mod):
-        t = time.perf_counter()
-        mod.load_library()
-        builds[mod.__name__.rsplit(".", 1)[-1]] = time.perf_counter() - t
-
-    with ThreadPoolExecutor(3) as pool:     # one g++ per source
-        for f in [pool.submit(build, m) for m in (jpeg2000, zstd, ccitt)]:
-            f.result()
+    builds = {m.__name__.rsplit(".", 1)[-1]: gxx_build(m)
+              for m in (jpeg2000, zstd, ccitt)}
     decode = check_recorded(J2K_DATA, "j2k.json", "j2k",
                             "PIL {pil} / OpenJPEG {openjpeg}")
     say("j2k", t0, "g++ builds " + ", ".join(
@@ -3732,6 +3893,35 @@ def phase_j2k(sess, plain_img, secs_plain: float, card: str) -> dict:
                                  n: os.path.join(J2K_DATA, f"{n}.jp2")
                                  for n in KITCHEN_MAPS})
     return dict(out, decode=decode, builds=builds)
+
+
+JPEG_DATA = os.path.join(REPO, "tests", "data", "jpeg")
+
+
+def phase_jpeg(sess, plain_img, secs_plain: float, card: str) -> dict:
+    """JPEG textures: scene/native/jpeg.cpp built with g++; each file of
+    tests/data/jpeg (arithmetic-coded SOF9 and SOF10 with DAC tables and
+    restarts, lossless SOF3 with every predictor and a point transform,
+    block-smoothed progressive files cut after a scan, damaged streams
+    libjpeg recovers from, and the kitchen's maps as lossless JPEG)
+    decoded through the texture dispatch and held against the SHA-256 of
+    PIL's RGBA recorded in jpeg.json; then the kitchen from the lossless
+    JPEG copies of its maps (phase_kitchen_maps)."""
+    from fluctus_tpu_torch.scene import jpeg
+
+    t0 = time.perf_counter()
+    t_build = gxx_build(jpeg)
+    decode = check_recorded(JPEG_DATA, "jpeg.json", "jpeg",
+                            "PIL {pil} / libjpeg-turbo {libjpeg_turbo}")
+    say("jpeg", t0, f"g++ build {t_build:.2f} s; {len(decode)} files equal "
+        "to their recorded SHA-256: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in decode.items()))
+    out = phase_kitchen_maps(sess, plain_img, secs_plain, card, "jpeg",
+                             "lossless JPEG", {
+                                 n: os.path.join(JPEG_DATA,
+                                                 f"{n}.lossless.jpg")
+                                 for n in KITCHEN_MAPS})
+    return dict(out, decode=decode, build=t_build)
 
 
 # ------------------------------------------------------------ protocol sweep
@@ -4055,6 +4245,8 @@ def main() -> int:
     with ThreadPoolExecutor(len(mods)) as pool:   # one nvcc per source
         for f in [pool.submit(m.load_kernel) for m in mods]:
             f.result()
+    background_builds()
+    start_cpu_references()
     for name, info in (("K1", ts.BUILD_INFO), ("K2+K3", tb.BUILD_INFO),
                        ("K5", tf.BUILD_INFO), ("K4", tp.BUILD_INFO),
                        ("P1+P2", probes.BUILD_INFO)):
@@ -4093,6 +4285,7 @@ def main() -> int:
     octant = phase_octant(sess, plain_img, secs, card)
     webp_out = phase_webp(sess, plain_img, secs, card)
     j2k_out = phase_j2k(sess, plain_img, secs, card)
+    jpeg_out = phase_jpeg(sess, plain_img, secs, card)
     del plain_img
     gold = golden_sessions("cuda")
     for name, (gs, spp) in gold.items():
@@ -4101,16 +4294,16 @@ def main() -> int:
     # the streaming wavefront through K1 (fused extension + shadow calls)
     phase_stream_check(sess)
     secs_s, launches_s = phase_frame_stream(sess, 4, card)
-    cpu_golden = golden_sessions("cpu")
     for name, (gs, spp) in gold.items():
         t0 = time.perf_counter()
-        ref = driver.render(cpu_golden[name][0], spp,
-                            integrator="stream").numpy()
+        ref, how = cpu_ref(f"golden_{name}", lambda: driver.render(
+            golden_sessions("cpu")[name][0], spp,
+            integrator="stream").numpy())
         say("golden", t0, f"{name}: the stream on this host's CPU (plain "
-            f"versions), the reference for the card's stream")
+            f"versions), the reference for the card's stream, {how}")
         phase_golden_stream(gs, name, spp, "K1", ref,
                             "the same stream on this host's CPU")
-    del cpu_golden, gold
+    del gold
     bench = phase_bench(sess)
 
     # the packet path (K4): backend="pallas" on the same kitchen session
@@ -4254,8 +4447,8 @@ def main() -> int:
         f"{ft.lvl}, {(ft.nodes.numel() + ft.leaves.numel()) * 4 / 1e6:.1f} "
         f"MB")
     trays = brute_rays(tsess, 1 << 16, seed=11)
-    k5_err, k5_plain = phase_forest_check(ft, tw, trays)
-    ftimes = phase_forest_time(ft, tw, trays, k5_plain)
+    k5_err, k5_plain, k5_visits = phase_forest_check(ft, tw, trays)
+    ftimes = phase_forest_time(ft, tw, trays, k5_plain, k5_visits)
     t0 = time.perf_counter()
     driver.render(dataclasses.replace(tsess, cfg=tsess.cfg.replace(
         width=64, height=64)), 1, integrator="lockstep")
@@ -4306,7 +4499,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
-    for maps, kept_out in (("WebP", webp_out), ("JPEG 2000", j2k_out)):
+    for maps, kept_out in (("WebP", webp_out), ("JPEG 2000", j2k_out),
+                           ("lossless JPEG", jpeg_out)):
         for form, label in (("closest", "closest"), ("any", "any-hit")):
             r = kept_out["k1"][form]
             kernels.append({

@@ -30,6 +30,7 @@ def load_library():
         lib.ccitt_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
                                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int),
                                      ctypes.c_void_p]
         lib.ccitt_decode.restype = ctypes.c_int
         _lib = lib
@@ -37,23 +38,23 @@ def load_library():
 
 
 def decode(data: bytes, comp: int, width: int, rows: int, t_options: int,
-           odd: int) -> bytes:
+           odd: int, state: dict | None = None) -> bytes:
     """`rows` rows of `width` pixels, 1 bits black (libtiff's fill), each
     row (width + 7) // 8 bytes; ValueError where libtiff's read fails,
     UnsupportedImage where PIL's pixels are not the file's (T.6 data that
-    ends early) or libtiff's recovery is not reproduced (T.4 data that
-    ends early). `odd` is the parity of the chunk's offset in the file."""
+    ends early). `odd` is the parity of the chunk's offset in the file;
+    `state` carries libtiff's codec mode from one chunk of an image to the
+    next (T.4 data retried without EOLs stays so)."""
     lib = load_library()
     out = np.zeros(((width + 7) // 8) * rows, np.uint8)
+    state = {} if state is None else state
+    noeol = ctypes.c_int(state.get("noeol", 0))
     rc = lib.ccitt_decode(data, len(data), comp, width, rows, t_options, odd,
-                          out.ctypes.data)
+                          ctypes.byref(noeol), out.ctypes.data)
+    state["noeol"] = noeol.value
     if rc < 0:
         raise ValueError("TIFF: the fax data ends before its rows")
     if rc == 2:
         raise UnsupportedImage("TIFF: T.6 data that ends before its last "
                                "row leaves PIL's rows after it undefined")
-    if rc == 3:
-        raise UnsupportedImage("TIFF: T.4 data that ends before its last "
-                               "row is not decoded by the port (libtiff's "
-                               "recovery there is not reproduced)")
     return out.tobytes()

@@ -11,15 +11,17 @@
 // ends the row there, white after it, and decoding goes on.
 //
 // C interface:
-//   ccitt_decode(data, n, mode, width, rows, t_options, odd, out)
-//   -> 1 on success, -1 where libtiff's decoder returns -1 (modified
-//   Huffman data that ends before its rows do, which fails the whole read
-//   in PIL), 2 where T.6 data ends after its first row and before its last
+//   ccitt_decode(data, n, mode, width, rows, t_options, odd, noeol, out)
+//   -> 1 on success, -1 where libtiff's decoder returns -1 (Huffman or
+//   T.4 data that ends before its rows do, which fails the whole read in
+//   PIL), 2 where T.6 data ends after its first row and before its last
 //   (libtiff leaves the rest of PIL's buffer as it was, which the file does
-//   not decide), 3 where T.4 data ends before its last row (libtiff's
-//   recovery there is not reproduced). `odd`: the
-//   parity of the chunk's offset in the file, which decides libtiff's word
-//   alignment for 32771.
+//   not decide). `odd`: the parity of the chunk's offset in the file, which
+//   decides libtiff's word alignment for 32771. `noeol`: libtiff 4.7's
+//   FAXMODE_NOEOL, in and out: T.4 data whose row finds no EOL before the
+//   end of the chunk is decoded again from the chunk's start without EOLs
+//   (tryG3WithoutEOL), and the codec keeps that mode for the image's later
+//   chunks.
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -221,24 +223,35 @@ struct Dec {
         ClrBits(ent->width);
         return true;
     }
-    // SYNC_EOL: false at the end of the data
-    bool sync_eol() {
+    // SYNC_EOL: 0 synchronized, 1 the end of the data while looking for
+    // the EOL's zeros (libtiff's EOF label), 2 no 1 bit after them before
+    // the end (libtiff 4.7's noEOLFound: the data is retried as G3
+    // without EOLs)
+    int sync_eol() {
         if (EOLcnt == 0) {
             for (;;) {
-                if (!NeedBits16(11)) return false;
+                if (!NeedBits16(11)) return 1;
                 if (GetBits(11) == 0) break;
                 ClrBits(1);
             }
         }
         for (;;) {
-            if (!NeedBits8(8)) return false;
+            if (!NeedBits8(8)) return 2;
             if (GetBits(8)) break;
             ClrBits(8);
         }
         while (GetBits(1) == 0) ClrBits(1);
         ClrBits(1);
         EOLcnt = 0;
-        return true;
+        return 0;
+    }
+    // tryG3WithoutEOL: the state libtiff's decoder cached when the call
+    // began (the chunk's first byte, an empty bit accumulator)
+    void rewind() {
+        cp = start;
+        BitAcc = 0;
+        BitsAvail = 0;
+        EOLcnt = 0;
     }
     // one colour's run (make-up codes, then a terminating code): 0 done,
     // 1 bad code or EOL (row ends), 2 end of data
@@ -384,7 +397,7 @@ void fillruns(uint8_t* buf, uint32_t* runs, uint32_t* erun, uint32_t lastx) {
 
 extern "C" int ccitt_decode(const uint8_t* data, long long n, int mode,
                             int width, int rows, int t_options, int odd,
-                            uint8_t* out) {
+                            int* noeol, uint8_t* out) {
     Dec d;
     d.start = d.cp = data;
     d.ep = data + n;
@@ -417,23 +430,45 @@ extern "C" int ccitt_decode(const uint8_t* data, long long n, int mode,
             continue;
         }
         if (mode == 3 && !two_d) {
-            // T.4 data that ends before its last row: libtiff recovers
-            // and goes on, in a way this decoder does not reproduce
-            if (!d.sync_eol()) return 3;
+            // Fax3Decode1D; a row that finds no EOL sends the whole chunk
+            // through again from its start, without EOLs, from this row on
+            if (!*noeol) {
+                const int sync = d.sync_eol();
+                if (sync == 2) {
+                    *noeol = 1;
+                    d.rewind();
+                    --y;
+                    continue;
+                }
+                if (sync == 1) {
+                    d.CLEANUP_RUNS();
+                    return -1;
+                }
+            }
             bool ok = d.expand1d();
             fillruns(buf, d.thisrun, d.pa, d.lastx);
-            if (!ok) return 3;
+            if (!ok) return -1;
             continue;
         }
         d.pb = d.refruns;
-        if (mode == 3) {
-            if (!d.sync_eol() || !d.NeedBits8(1)) return 3;
+        if (mode == 3) {                             // Fax3Decode2D
+            if (!*noeol) {
+                const int sync = d.sync_eol();
+                if (sync == 2) {
+                    *noeol = 1;
+                    d.rewind();
+                    --y;
+                    continue;
+                }
+                if (sync == 1) return -1;
+            }
+            if (!d.NeedBits8(1)) return -1;
             int is1d = d.GetBits(1);
             d.ClrBits(1);
             d.b1 = (int)*d.pb++;
             bool ok = is1d ? d.expand1d() : d.expand2d();
             fillruns(buf, d.thisrun, d.pa, d.lastx);
-            if (!ok) return 3;
+            if (!ok) return -1;
             if (d.pa < d.thisrun + nruns) d.SETVALUE(0);
         } else {                                     // T.6
             d.b1 = (int)*d.pb++;

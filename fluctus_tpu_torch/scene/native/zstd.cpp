@@ -1,13 +1,19 @@
 // A Zstandard decoder (RFC 8878 frames) for TIFF strips and tiles
-// compressed with libtiff's ZSTD codec: skippable frames skipped; raw, RLE
-// and compressed blocks; literals raw, RLE or Huffman-coded (1 or 4
-// streams, the tree given or repeated); sequences with predefined, RLE,
-// FSE-compressed and repeated tables, and the three repeat offsets. The
-// content checksum is skipped; dictionaries are not supported.
+// compressed with libtiff's ZSTD codec, which reads one frame through
+// libzstd's streaming decoder into the strip buffer: raw, RLE and
+// compressed blocks; literals raw, RLE or Huffman-coded (1 or 4 streams,
+// the tree given or repeated); sequences with predefined, RLE,
+// FSE-compressed and repeated tables, and the three repeat offsets; the
+// content size and XXH64 checksum checked where libzstd checks them;
+// dictionaries are not supported. Damaged or cut data gives what the
+// streaming decoder had written when it stopped or failed (see frame()).
 //
 // C interface:
-//   zstd_decode(src, n, dst, cap) -> bytes written, or -1 on damaged data
-//   (the message in zstd_last_error).
+//   zstd_decode(src, n, dst, cap, partial) -> bytes written (at most cap),
+//   or -1 where libzstd reports an error (the message in zstd_last_error;
+//   *partial the bytes its streaming decoder had written into dst by then,
+//   or -1 where it decoded in one pass).
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <stdexcept>
@@ -138,23 +144,72 @@ struct FSE {
     }
 };
 
+// libzstd's BIT_DStream_t: a 64-bit container over the 8 bytes at ptr,
+// read from its top; lookFast wraps its shift as the C code does, which
+// decides the symbols read past a stream's start
+struct ZBits {
+    const uint8_t* start;
+    const uint8_t* ptr;
+    uint64_t c = 0;
+    unsigned bc = 0;
+    bool overflow = false;
+    static uint64_t le64(const uint8_t* q) { uint64_t v; std::memcpy(&v, q, 8); return v; }
+    ZBits(const uint8_t* s, size_t n) : start(s), ptr(s) {
+        if (n == 0 || s[n - 1] == 0) throw Bad("bad bit stream padding");
+        if (n >= 8) {
+            ptr = s + n - 8;
+            c = le64(ptr);
+        } else {
+            for (size_t i = 0; i < n; i++) c |= (uint64_t)s[i] << (8 * i);
+            bc = (unsigned)(8 - n) * 8;
+        }
+        bc += 8 - (unsigned)highbit(s[n - 1]);
+    }
+    void reload() {
+        if (bc > 64) { overflow = true; return; }
+        if (ptr >= start + 8) {
+            ptr -= bc >> 3;
+            bc &= 7;
+            c = le64(ptr);
+            return;
+        }
+        if (ptr == start) return;
+        size_t nb = bc >> 3;
+        if ((size_t)(ptr - start) < nb) nb = (size_t)(ptr - start);
+        ptr -= nb;
+        bc -= (unsigned)nb * 8;
+        c = le64(ptr);
+    }
+    // HUF_initRemainingDStream: the state the fast loop hands on, read back
+    // as far as the first stream's jump table
+    ZBits(const uint8_t* s, const uint8_t* p, unsigned consumed)
+        : start(s), ptr(p), c(le64(p)), bc(consumed) {}
+    uint32_t look(int nb) const { return (uint32_t)((c << (bc & 63)) >> ((64 - nb) & 63)); }
+    bool done() const { return !overflow && ptr == start && bc == 64; }
+};
+
 struct Huffman {
     int max_bits = 0;
+    int x2 = 0;                 // libzstd's table type: 0 single, 1 double symbol
     std::vector<uint8_t> sym, bits;
     bool ready = false;
     void build(const std::vector<uint8_t>& w) {
+        // HUF_readStats
         uint32_t total = 0;
         for (uint8_t x : w) {
-            if (x > 11) throw Bad("bad Huffman weight");
+            if (x > 12) throw Bad("bad Huffman weight");
             if (x) total += 1u << (x - 1);
         }
         if (total == 0) throw Bad("bad Huffman weights");
         max_bits = highbit(total) + 1;
+        if (max_bits > 12) throw Bad("Huffman codes too long");
         uint32_t rest = (1u << max_bits) - total;
         if (rest & (rest - 1)) throw Bad("bad Huffman weights");
         std::vector<uint8_t> all = w;
         all.push_back((uint8_t)(highbit(rest) + 1));
-        if (max_bits > 11) throw Bad("Huffman codes too long");
+        int ones = 0;
+        for (uint8_t x : all) ones += x == 1;
+        if (ones < 2 || (ones & 1)) throw Bad("bad Huffman weights");
         std::vector<int> nbits(all.size()), count(max_bits + 2, 0);
         for (size_t i = 0; i < all.size(); i++) {
             nbits[i] = all[i] ? max_bits + 1 - all[i] : 0;
@@ -196,11 +251,13 @@ struct Huffman {
         if (used > head) throw Bad("bad Huffman weights");
         Backward bs(p + 1 + used, head - used);
         uint32_t s1 = bs.read(t.log), s2 = bs.read(t.log);
+        // FSE_decompress's tail: at most 255 weights
         for (;;) {
-            if (w.size() >= 255) throw Bad("too many Huffman weights");
+            if (w.size() > 253) throw Bad("too many Huffman weights");
             w.push_back(t.sym[s1]);
             s1 = t.base[s1] + bs.read(t.bits[s1]);
             if (bs.off < 0) { w.push_back(t.sym[s2]); break; }
+            if (w.size() > 253) throw Bad("too many Huffman weights");
             w.push_back(t.sym[s2]);
             s2 = t.base[s2] + bs.read(t.bits[s2]);
             if (bs.off < 0) { w.push_back(t.sym[s1]); break; }
@@ -208,15 +265,164 @@ struct Huffman {
         build(w);
         return 1 + head;
     }
-    void stream(const uint8_t* p, size_t n, uint8_t* out, size_t count) {
-        Backward bs(p, n);
-        uint32_t mask = (1u << max_bits) - 1;
-        uint32_t state = bs.read(max_bits);
-        for (size_t i = 0; i < count; i++) {
-            out[i] = sym[state];
-            int b = bits[state];
-            state = ((state << b) + bs.read(b)) & mask;
+    // HUF_selectDecoder: libzstd's choice of the double-symbol decoder for
+    // 4-stream literals with a new tree
+    static int select(size_t dst, size_t src) {
+        static const uint32_t t[16][4] = {
+            {0, 0, 1, 1}, {0, 0, 1, 1}, {150, 216, 381, 119},
+            {170, 205, 514, 112}, {177, 199, 539, 110}, {197, 194, 644, 107},
+            {221, 192, 735, 107}, {256, 189, 881, 106}, {359, 188, 1167, 109},
+            {582, 187, 1570, 114}, {688, 187, 1712, 122}, {825, 186, 1965, 136},
+            {976, 185, 2131, 150}, {1180, 186, 2070, 175}, {1377, 185, 1731, 202},
+            {1412, 185, 1695, 202}};
+        const uint32_t q = src >= dst ? 15 : (uint32_t)(src * 16 / dst);
+        const uint32_t d256 = (uint32_t)(dst >> 8);
+        const uint32_t t0 = t[q][0] + t[q][1] * d256;
+        uint32_t t1 = t[q][2] + t[q][3] * d256;
+        t1 += t1 >> 5;
+        return t1 < t0;
+    }
+    int dlog() const { return max_bits > 11 ? max_bits : 11; }
+    int min_bits() const {
+        int m = max_bits;
+        for (uint8_t b : bits) m = b && b < m ? b : m;
+        return m;
+    }
+    // a double-symbol table entry at window v: the first symbol, and a
+    // second where its whole code fits in the rest of the window
+    void entry(uint32_t v, int minb, int& len, int& nb, uint8_t* o) const {
+        const int dl = dlog(), shift = dl - max_bits;
+        const uint32_t i1 = v >> shift;
+        const int l1 = bits[i1];
+        o[0] = sym[i1];
+        len = 1;
+        nb = l1;
+        const int r = dl - l1;
+        if (r < minb) return;
+        const uint32_t low = v & ((1u << r) - 1);
+        const uint32_t i2 = r >= max_bits ? low >> (r - max_bits)
+                                          : low << (max_bits - r);
+        if (bits[i2] <= r) {
+            o[1] = sym[i2];
+            len = 2;
+            nb = l1 + bits[i2];
         }
+    }
+    // HUF_decodeStreamX1 / X2 from state b: `count` symbols; the double
+    // symbol decoder's last symbol may take its bits from past the end
+    // (its clamp of the bits consumed)
+    void tail(ZBits& b, uint8_t* out, size_t count) const {
+        const int dl = dlog(), shift = dl - max_bits, minb = min_bits();
+        if (!x2) {
+            for (size_t i = 0; i < count; i++) {
+                b.reload();
+                const uint32_t v = b.look(dl) >> shift;
+                out[i] = sym[v];
+                b.bc += bits[v];
+            }
+            return;
+        }
+        size_t i = 0;
+        uint8_t two[2];
+        int len, nb;
+        while (i + 2 <= count) {
+            b.reload();
+            entry(b.look(dl), minb, len, nb, two);
+            out[i] = two[0];
+            if (len == 2) out[i + 1] = two[1];
+            i += len;
+            b.bc += nb;
+        }
+        if (i < count) {
+            b.reload();
+            entry(b.look(dl), minb, len, nb, two);
+            out[i] = two[0];
+            if (len == 1) {
+                b.bc += nb;
+            } else if (b.bc < 64) {
+                b.bc += nb;
+                if (b.bc > 64) b.bc = 64;
+            }
+        }
+    }
+    // One stream on its own (HUF_decompress1X* and the 4-stream decoder's
+    // fallback): its bits must end exactly at its start
+    void stream(const uint8_t* p, size_t n, uint8_t* out, size_t count) const {
+        ZBits b(p, n);
+        tail(b, out, count);
+        if (!b.done()) throw Bad("Huffman stream does not end at its start");
+    }
+    // HUF_decompress4X*_usingDTable_internal_fast: where the table is 11
+    // bits deep and each stream holds 8 bytes or more, libzstd decodes the
+    // four streams in lock step (5 table lookups a stream a round) reading
+    // each back through the bytes before it, then each stream's rest from
+    // the state the loop left, and checks only the counts. Returns false
+    // where libzstd takes the fallback.
+    bool fast4(const uint8_t* q, size_t qn, uint8_t* out, size_t regen) const {
+        if (dlog() != 11) return false;
+        size_t len[4] = {(size_t)(q[0] | q[1] << 8), (size_t)(q[2] | q[3] << 8),
+                         (size_t)(q[4] | q[5] << 8), 0};
+        len[3] = qn - 6 - len[0] - len[1] - len[2];
+        for (size_t l : len)
+            if (l < 8) return false;
+        const size_t seg = (regen + 3) / 4;
+        if (3 * seg >= regen) return false;
+        size_t beg[4], fin[4], op[4], oend[4];
+        long long ip[4];
+        unsigned cons[4];
+        for (int k = 0; k < 4; k++) {
+            beg[k] = k ? fin[k - 1] : 6;
+            fin[k] = beg[k] + len[k];
+            op[k] = k * seg;
+            oend[k] = k < 3 ? (k + 1) * seg : regen;
+            ip[k] = (long long)fin[k] - 8;
+            const uint8_t last = q[fin[k] - 1];
+            cons[k] = last ? 8 - highbit(last) : 0;
+        }
+        const int minb = min_bits();
+        for (;;) {
+            size_t iters = (size_t)ip[0] / 7;
+            size_t olimit;
+            if (!x2) {
+                iters = std::min(iters, (regen - op[3]) / 5);
+            } else {
+                for (int k = 0; k < 4; k++) iters = std::min(iters, (oend[k] - op[k]) / 10);
+            }
+            olimit = op[3] + iters * 5;
+            if (op[3] == olimit) break;
+            bool crossed = false;
+            for (int k = 1; k < 4; k++) crossed = crossed || ip[k] < ip[k - 1];
+            if (crossed) break;
+            do {
+                for (int k = 0; k < 4; k++) {
+                    uint64_t w = ZBits::le64(q + ip[k]);
+                    for (int j = 0; j < 5; j++) {
+                        const uint32_t v = (uint32_t)((w << cons[k]) >> (64 - 11));
+                        if (!x2) {
+                            out[op[k]++] = sym[v >> (11 - max_bits)];
+                            cons[k] += bits[v >> (11 - max_bits)];
+                        } else {
+                            uint8_t two[2];
+                            int l, nb;
+                            entry(v, minb, l, nb, two);
+                            out[op[k]] = two[0];
+                            if (l == 2) out[op[k] + 1] = two[1];
+                            op[k] += l;
+                            cons[k] += nb;
+                        }
+                    }
+                    ip[k] -= cons[k] >> 3;
+                    cons[k] &= 7;
+                }
+            } while (op[3] < olimit);
+        }
+        for (int k = 0; k < 4; k++) {
+            if (op[k] > oend[k] || ip[k] < (long long)beg[k] - 8)
+                throw Bad("Huffman stream overruns its neighbour");
+            ZBits b(q, q + ip[k], cons[k]);
+            tail(b, out + op[k], oend[k] - op[k]);
+        }
+        return true;
     }
 };
 
@@ -254,22 +460,29 @@ struct Frame {
 };
 
 struct Out {
-    uint8_t* p;
-    size_t cap, n = 0;
+    std::vector<uint8_t> buf;
+    uint8_t* p = nullptr;
+    size_t n = 0;
     size_t frame_start = 0;
+    size_t flushed = 0;        // bytes of the blocks finished so far
+    bool one_pass = false;     // libzstd decodes into the caller's buffer
+    void grow(size_t k) {
+        if (n + k > buf.size()) buf.resize((n + k) * 2);
+        p = buf.data();
+    }
     void put(const uint8_t* s, size_t k) {
-        if (n + k > cap) throw Bad("output larger than expected");
+        grow(k);
         std::memcpy(p + n, s, k);
         n += k;
     }
     void fill(uint8_t v, size_t k) {
-        if (n + k > cap) throw Bad("output larger than expected");
+        grow(k);
         std::memset(p + n, v, k);
         n += k;
     }
     void match(size_t off, size_t len) {
         if (off == 0 || off > n - frame_start) throw Bad("match offset too far");
-        if (n + len > cap) throw Bad("output larger than expected");
+        grow(len);
         for (size_t i = 0; i < len; i++, n++) p[n] = p[n - off];
     }
 };
@@ -310,8 +523,10 @@ size_t literals(Frame& f, const uint8_t* p, size_t n, std::vector<uint8_t>& lit)
     if (hs + comp > n) throw Bad("truncated compressed literals");
     const uint8_t* q = p + hs;
     size_t qn = comp;
+    if (streams == 4 && regen < 6) throw Bad("too few literals for 4 streams");
     if (type == 2) {
         size_t used = f.huf.read(q, qn);
+        f.huf.x2 = streams == 4 ? Huffman::select(regen, comp) : 0;
         q += used;
         qn -= used;
     } else if (!f.huf.ready) {
@@ -321,13 +536,14 @@ size_t literals(Frame& f, const uint8_t* p, size_t n, std::vector<uint8_t>& lit)
     if (streams == 1) {
         f.huf.stream(q, qn, lit.data(), regen);
     } else {
-        if (qn < 6) throw Bad("truncated jump table");
+        if (qn < 10) throw Bad("truncated jump table");
         size_t s1 = q[0] | (q[1] << 8), s2 = q[2] | (q[3] << 8),
                s3 = q[4] | (q[5] << 8);
         if (6 + s1 + s2 + s3 > qn) throw Bad("bad jump table");
         size_t s4 = qn - 6 - s1 - s2 - s3;
         size_t each = (regen + 3) / 4;
         if (each * 3 > regen) throw Bad("bad literal count");
+        if (f.huf.fast4(q, qn, lit.data(), regen)) return hs + comp;
         const uint8_t* b = q + 6;
         f.huf.stream(b, s1, lit.data(), each);
         f.huf.stream(b + s1, s2, lit.data() + each, each);
@@ -442,58 +658,143 @@ void block(Frame& f, const uint8_t* p, size_t n, Out& out) {
     out.put(lit.data() + lp, lit.size() - lp);
 }
 
-size_t frame(const uint8_t* p, size_t n, Out& out) {
-    uint32_t magic = p[0] | (p[1] << 8) | (p[2] << 16) | ((uint32_t)p[3] << 24);
-    if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) {
-        if (n < 8) throw Bad("truncated skippable frame");
-        uint32_t size = p[4] | (p[5] << 8) | (p[6] << 16) | ((uint32_t)p[7] << 24);
-        if (8 + (size_t)size > n) throw Bad("truncated skippable frame");
-        return 8 + size;
+// XXH64 of a buffer, seed 0 (the frame's content checksum is its low 32
+// bits)
+uint64_t xxh64(const uint8_t* p, size_t n) {
+    const uint64_t P1 = 0x9E3779B185EBCA87ULL, P2 = 0xC2B2AE3D27D4EB4FULL,
+                   P3 = 0x165667B19E3779F9ULL, P4 = 0x85EBCA77C2B2AE63ULL,
+                   P5 = 0x27D4EB2F165667C5ULL;
+    auto rotl = [](uint64_t x, int r) { return (x << r) | (x >> (64 - r)); };
+    auto rd64 = [](const uint8_t* q) { uint64_t v; std::memcpy(&v, q, 8); return v; };
+    auto rd32 = [](const uint8_t* q) { uint32_t v; std::memcpy(&v, q, 4); return v; };
+    auto round = [&](uint64_t acc, uint64_t lane) {
+        return rotl(acc + lane * P2, 31) * P1;
+    };
+    const uint8_t* e = p + n;
+    uint64_t h;
+    if (n >= 32) {
+        uint64_t v[4] = {P1 + P2, P2, 0, 0 - P1};
+        for (; p + 32 <= e; p += 32)
+            for (int i = 0; i < 4; ++i) v[i] = round(v[i], rd64(p + 8 * i));
+        h = rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12) + rotl(v[3], 18);
+        for (int i = 0; i < 4; ++i) h = (h ^ round(0, v[i])) * P1 + P4;
+    } else {
+        h = P5;
     }
+    h += n;
+    for (; p + 8 <= e; p += 8) h = rotl(h ^ round(0, rd64(p)), 27) * P1 + P4;
+    if (p + 4 <= e) {
+        h = rotl(h ^ (rd32(p) * P1), 23) * P2 + P3;
+        p += 4;
+    }
+    for (; p < e; ++p) h = rotl(h ^ (*p * P5), 11) * P1;
+    h ^= h >> 33;
+    h *= P2;
+    h ^= h >> 29;
+    h *= P3;
+    return h ^ (h >> 32);
+}
+
+// The first frame of p as libtiff's ZSTDDecode reads it: ZSTD_decompressStream
+// called until the frame ends, the input is used up or the strip buffer
+// (cap bytes) is full. A compressed block is decoded once all of it has
+// arrived, a raw block as far as its bytes go; the decoder goes on to the
+// next block (or the checksum) when a block's output ends exactly at the
+// buffer's end, and stops when it runs past it. Where the frame header
+// names its content size, the buffer can hold it and the whole frame is
+// present, libzstd decodes in one pass instead (and fails where the
+// content outgrows the buffer). Returns quietly where libzstd waits for
+// input or output space; throws Bad where it reports an error.
+void frame(const uint8_t* p, size_t n, Out& out, size_t cap) {
+    if (n < 4) return;
+    uint32_t magic = p[0] | (p[1] << 8) | (p[2] << 16) | ((uint32_t)p[3] << 24);
+    if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) return;   // a skippable frame
     if (magic != 0xFD2FB528u) throw Bad("not a Zstandard frame");
-    size_t pos = 4;
-    if (pos >= n) throw Bad("truncated frame header");
-    uint8_t d = p[pos++];
+    if (n < 5) return;
+    uint8_t d = p[4];
     int fcs_flag = d >> 6, single = (d >> 5) & 1, checksum = (d >> 2) & 1,
         dict = d & 3;
-    if (d & 8) throw Bad("reserved frame header bit");
-    if (!single) pos++;                               // window descriptor
     static const int dsize[4] = {0, 1, 2, 4};
-    uint32_t dict_id = 0;
-    for (int i = 0; i < dsize[dict]; i++) {
-        if (pos >= n) throw Bad("truncated frame header");
-        dict_id |= (uint32_t)p[pos++] << (8 * i);
-    }
-    if (dict_id) throw Bad("Zstandard dictionaries are not supported");
     static const int fsize[4] = {0, 2, 4, 8};
-    pos += fcs_flag == 0 ? (single ? 1 : 0) : fsize[fcs_flag];
-    if (pos > n) throw Bad("truncated frame header");
+    const int fcs_bytes = fcs_flag == 0 ? (single ? 1 : 0) : fsize[fcs_flag];
+    size_t pos = 5 + (single ? 0 : 1) + dsize[dict] + fcs_bytes;
+    if (pos > n) return;
+    if (d & 8) throw Bad("reserved frame header bit");
+    uint64_t window = 0;
+    if (!single) {
+        const int wlog = 10 + (p[5] >> 3);
+        window = ((uint64_t)1 << wlog) + (((uint64_t)1 << wlog) >> 3) * (p[5] & 7);
+    }
+    size_t q = 5 + (single ? 0 : 1);
+    uint32_t dict_id = 0;
+    for (int i = 0; i < dsize[dict]; i++) dict_id |= (uint32_t)p[q++] << (8 * i);
+    uint64_t fcs = 0;
+    for (int i = 0; i < fcs_bytes; i++) fcs |= (uint64_t)p[q++] << (8 * i);
+    if (fcs_flag == 1) fcs += 256;
+    const bool has_fcs = fcs_flag != 0 || single;
+    if (single) window = fcs;
+    if (dict_id) throw Bad("Zstandard dictionaries are not supported");
+    if (window > ((uint64_t)1 << 27) + 1) throw Bad("frame window too large");
+    const size_t block_max = window < 131072 ? (size_t)window : 131072;
+    // ZSTD_findFrameCompressedSize: the one-pass shortcut wants the whole
+    // frame
+    bool whole = false;
+    if (has_fcs && fcs <= cap) {
+        size_t r = pos;
+        for (;;) {
+            if (r + 3 > n) break;
+            uint32_t h = p[r] | (p[r + 1] << 8) | (p[r + 2] << 16);
+            int type = (h >> 1) & 3;
+            if (type == 3) break;
+            r += 3 + (type == 1 ? 1 : (h >> 3));
+            if (h & 1) {
+                whole = r + (checksum ? 4 : 0) <= n;
+                break;
+            }
+        }
+    }
     Frame f;
     out.frame_start = out.n;
+    out.one_pass = whole;
     for (;;) {
-        if (pos + 3 > n) throw Bad("truncated block header");
+        if (pos + 3 > n) return;
         uint32_t h = p[pos] | (p[pos + 1] << 8) | (p[pos + 2] << 16);
         pos += 3;
         int last = h & 1, type = (h >> 1) & 3;
         size_t size = h >> 3;
+        if (type == 3) throw Bad("reserved block type");
+        if (size > block_max) throw Bad("block larger than the window");
         if (type == 1) {
-            if (pos + 1 > n) throw Bad("truncated RLE block");
+            if (pos + 1 > n) return;
             out.fill(p[pos], size);
             pos += 1;
+        } else if (type == 0) {
+            const size_t k = pos + size > n ? n - pos : size;
+            out.put(p + pos, k);
+            out.flushed = out.n;
+            if (k < size) return;
+            pos += size;
         } else {
-            if (pos + size > n) throw Bad("truncated block");
-            if (type == 0) out.put(p + pos, size);
-            else if (type == 2) block(f, p + pos, size, out);
-            else throw Bad("reserved block type");
+            if (pos + size > n) return;
+            block(f, p + pos, size, out);
             pos += size;
         }
+        out.flushed = out.n;
+        if (whole && out.n > cap) throw Bad("content larger than the buffer");
         if (last) break;
+        if (!whole && out.n > cap) return;
     }
+    if (has_fcs && out.n - out.frame_start != fcs)
+        throw Bad("content size differs from the frame header's");
+    if (!whole && out.n > cap) return;
     if (checksum) {
-        if (pos + 4 > n) throw Bad("truncated checksum");
-        pos += 4;
+        if (pos + 4 > n) return;
+        const uint32_t want = p[pos] | (p[pos + 1] << 8) | (p[pos + 2] << 16) |
+                              ((uint32_t)p[pos + 3] << 24);
+        if ((uint32_t)xxh64(out.p + out.frame_start, out.n - out.frame_start) !=
+            want)
+            throw Bad("content checksum differs");
     }
-    return pos;
 }
 
 }  // namespace
@@ -503,21 +804,30 @@ extern "C" {
 const char* zstd_last_error() { return g_err.c_str(); }
 
 long long zstd_decode(const uint8_t* src, long long n, uint8_t* dst,
-                      long long cap) {
+                      long long cap, long long* partial) {
+    Out out;
     try {
-        Out out{dst, (size_t)cap};
-        size_t pos = 0;
-        if (n < 4) throw Bad("not a Zstandard frame");
-        while (pos + 4 <= (size_t)n)
-            pos += frame(src + pos, (size_t)n - pos, out);
-        return (long long)out.n;
+        frame(src, (size_t)n, out, (size_t)cap);
+        const size_t k = out.n < (size_t)cap ? out.n : (size_t)cap;
+        if (k) std::memcpy(dst, out.p, k);
+        return (long long)k;
     } catch (const Bad& e) {
         g_err = e.what();
-        return -1;
     } catch (const std::bad_alloc&) {
         g_err = "out of memory";
+    }
+    // what the streaming decoder had handed over when it failed: every
+    // block before the failing one (a raw block as far as it went); in one
+    // pass libzstd also leaves the failing block's partial output and its
+    // literals in the buffer, which this decoder does not reproduce (-1)
+    if (out.one_pass) {
+        *partial = -1;
         return -1;
     }
+    const size_t k = out.flushed < (size_t)cap ? out.flushed : (size_t)cap;
+    if (k) std::memcpy(dst, out.p, k);
+    *partial = (long long)k;
+    return -1;
 }
 
 }  // extern "C"

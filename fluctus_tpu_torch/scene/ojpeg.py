@@ -70,6 +70,44 @@ def _tables_stream(data: bytes, s) -> bytes:
     return out + b"\xff\xd9"
 
 
+# the markers libtiff's own reading of the stream's header takes
+# (OJPEGReadHeaderInfoSec): SOI, APPn, COM, DRI, DQT, DHT, SOF0/1/3, SOS
+_HEADER_MARKERS = {0xD8, 0xFE, 0xDD, 0xDB, 0xC4, 0xC0, 0xC1, 0xC3} | set(
+    range(0xE0, 0xF0))
+
+
+def _check_markers(j: bytes, s) -> None:
+    """libtiff parses the header of the stream at JPEGInterchangeFormat
+    itself, up to SOS, and fails where a marker does not follow the last
+    segment at once or is one it does not know, and where the frame is
+    not 8-bit, narrower or shorter than the image, wider than the strip,
+    or of another sample count (OJPEGReadHeaderInfoSecStreamSof)."""
+    pos = 2
+    while True:
+        if pos >= len(j) or j[pos] != 0xFF:
+            raise ValueError("OJPEG: missing SOF or SOS marker")
+        while pos < len(j) and j[pos] == 0xFF:
+            pos += 1
+        if pos + 2 >= len(j):
+            raise ValueError("OJPEG: truncated JPEG header")
+        m = j[pos]
+        pos += 1
+        if m == 0xDA:
+            return
+        if m not in _HEADER_MARKERS:
+            raise ValueError(f"OJPEG: unknown marker type {m} in JPEG data")
+        if m in (0xC0, 0xC1, 0xC3):
+            if len(j) < pos + 8:
+                raise ValueError("OJPEG: truncated SOF marker")
+            bits, fh, fw, nc = struct.unpack(">BHHB", j[pos + 2:pos + 8])
+            if bits != 8 or fh < s["h"] or fw < s["w"] or fw > s["w"] or \
+                    nc != s["spp"]:
+                raise ValueError("OJPEG: the JPEG frame disagrees with the "
+                                 "image")
+        if m != 0xD8:
+            pos += struct.unpack(">H", j[pos:pos + 2])[0]
+
+
 def _stream(data: bytes, s) -> tuple[bytes, bool]:
     """(the JPEG stream libjpeg reads, whether it is the file's own)."""
     t = s["t"]
@@ -79,6 +117,7 @@ def _stream(data: bytes, s) -> tuple[bytes, bool]:
         j = data[off:off + n]
         if j[:2] != b"\xff\xd8":
             raise ValueError("OJPEG: no JPEG stream at JPEGInterchangeFormat")
+        _check_markers(j, s)
         return j, True
     return _tables_stream(data, s), False
 
@@ -86,14 +125,23 @@ def _stream(data: bytes, s) -> tuple[bytes, bool]:
 def decode_ojpeg(data: bytes, s) -> np.ndarray:
     """(H, W, 4) uint8 RGBA of an old-style JPEG TIFF, `s` being
     tiff._setup's reading of it."""
-    from fluctus_tpu_torch.scene.jpeg import decode_jpeg_planes
+    from fluctus_tpu_torch.scene.jpeg import JpegDataError, decode_jpeg_planes
     from fluctus_tpu_torch.scene import tiff
     t, w, h = s["t"], s["w"], s["h"]
     photo = (t.get(262) or (0,))[0]
     if s["bits"][0] != 8:
         raise ValueError("OJPEG: 8-bit samples only")
     stream, own = _stream(data, s)
-    planes = decode_jpeg_planes(stream)
+    try:
+        planes = decode_jpeg_planes(stream)
+    except JpegDataError:
+        if photo != 6:
+            raise
+        # libtiff's RGBA reader, PIL's path for YCbCr, ignores a strip that
+        # fails to read and converts the buffer it zeroed
+        zero = np.zeros((h, w), np.uint8)
+        return tiff._to_rgba(tiff.ycbcr_to_rgb_libtiff(
+            zero, zero, zero, _ycbcr_tables(t)))
     if photo in (0, 1) and s["spp"] == 1:
         y = planes[0][2]
         if y.shape[0] < h or y.shape[1] < w:
@@ -112,8 +160,12 @@ def decode_ojpeg(data: bytes, s) -> np.ndarray:
         raise ValueError("OJPEG: the stream is smaller than the image")
     yy = np.arange(h)[:, None] // vs
     xx = np.arange(w)[None] // hs
-    tabs = tiff.ycbcr_tables(tiff._rational(t, 529, (0.299, 0.587, 0.114)),
+    return tiff._to_rgba(tiff.ycbcr_to_rgb_libtiff(
+        y[:h, :w], cb[yy, xx], cr[yy, xx], _ycbcr_tables(t)))
+
+
+def _ycbcr_tables(t):
+    from fluctus_tpu_torch.scene import tiff
+    return tiff.ycbcr_tables(tiff._rational(t, 529, (0.299, 0.587, 0.114)),
                              tiff._rational(t, 532, (0, 255, 128, 255, 128,
                                                      255)))
-    return tiff._to_rgba(tiff.ycbcr_to_rgb_libtiff(
-        y[:h, :w], cb[yy, xx], cr[yy, xx], tabs))

@@ -61,15 +61,15 @@ uncompressed data ignores the predictor and the strip byte counts.
 Layouts PIL cannot read, and damaged or truncated data, raise
 ValueError. This module refuses no layout PIL reads; the codecs it calls
 refuse, as unsupported, only what PIL's pixels do not follow from the
-file alone (fax data that ends before its last row, old-style JPEG of
-other photometric interpretations) and the JPEG processes scene/jpeg.py
-does not decode.
+file alone (T.6 data that ends before its last row, old-style JPEG of
+other photometric interpretations).
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import lzma
 import struct
-import zlib
 
 import numpy as np
 
@@ -370,24 +370,92 @@ def _unxz(raw: bytes, want: int) -> bytes:
 
 
 def _ccitt(raw: bytes, comp: int, width: int, rows: int, t_opts: int,
-           odd: int) -> bytes:
+           odd: int, state: dict | None = None) -> bytes:
     from fluctus_tpu_torch.scene.ccitt import decode
-    return decode(raw, comp, width, rows, t_opts, odd)
+    return decode(raw, comp, width, rows, t_opts, odd, state)
+
+
+class PartialData(ValueError):
+    """A codec failed part way; `partial` holds what it had written into
+    libtiff's strip buffer (which libtiff's RGBA reader keeps)."""
+
+    def __init__(self, msg: str, partial: bytes = b""):
+        super().__init__(msg)
+        self.partial = partial
+
+
+class _ZStream(ctypes.Structure):
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_uint),
+                ("total_in", ctypes.c_ulong), ("next_out", ctypes.c_void_p),
+                ("avail_out", ctypes.c_uint), ("total_out", ctypes.c_ulong),
+                ("msg", ctypes.c_char_p), ("state", ctypes.c_void_p),
+                ("zalloc", ctypes.c_void_p), ("zfree", ctypes.c_void_p),
+                ("opaque", ctypes.c_void_p), ("data_type", ctypes.c_int),
+                ("adler", ctypes.c_ulong), ("reserved", ctypes.c_ulong)]
+
+
+_libz = None
+
+
+def _zlib():
+    """The zlib the interpreter's own zlib module loads (its inflate keeps
+    what it wrote before an error, which Python's module drops)."""
+    global _libz
+    if _libz is None:
+        lib = ctypes.CDLL(ctypes.util.find_library("z") or "libz.so.1")
+        lib.zlibVersion.restype = ctypes.c_char_p
+        lib.inflateInit_.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                     ctypes.c_int]
+        lib.inflate.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.inflateEnd.argtypes = [ctypes.c_void_p]
+        _libz = lib
+    return _libz
+
+
+def _inflate(raw: bytes, want: int) -> bytes:
+    """libtiff's Deflate codec (tif_zip.c ZIPDecode): inflate with
+    Z_PARTIAL_FLUSH into the strip buffer until the stream ends or the
+    buffer is full; a data error (the checksum too, where inflate reaches
+    it) or too little data fails with PartialData, holding what inflate
+    had written."""
+    lib = _zlib()
+    out = ctypes.create_string_buffer(max(want, 1))
+    src = ctypes.create_string_buffer(raw, len(raw))
+    z = _ZStream()
+    if lib.inflateInit_(ctypes.byref(z), lib.zlibVersion(),
+                        ctypes.sizeof(z)) != 0:
+        raise ValueError("TIFF: zlib refuses to start")
+    z.next_in = ctypes.cast(src, ctypes.c_void_p)
+    z.avail_in = len(raw)
+    z.next_out = ctypes.cast(out, ctypes.c_void_p)
+    z.avail_out = want
+    try:
+        while True:
+            state = lib.inflate(ctypes.byref(z), 1)
+            if state == 1:                     # Z_STREAM_END
+                break
+            if state != 0:                     # data, buffer or other error
+                raise PartialData("TIFF: Deflate data error",
+                                  out.raw[:want - z.avail_out])
+            if z.avail_out == 0:
+                break
+    finally:
+        lib.inflateEnd(ctypes.byref(z))
+    return out.raw[:want - z.avail_out]
 
 
 def _decompress(raw: bytes, comp: int, want: int, geom) -> bytes:
     """One strip's or tile's bytes through libtiff's codec for `comp`:
     at least `want` bytes (what libtiff's strip or tile buffer holds), or
     ValueError where libtiff's read fails. `geom` = (row width in pixels,
-    rows, T4Options, file offset parity) for the codecs that need it."""
+    rows, T4Options, file offset parity[, the fax codec's state]) for the
+    codecs that need it."""
     if comp == 32773:
         out = _packbits(raw)
     elif comp == 5:
         out = _lzw(raw, want)
     elif comp in (8, 32946):
-        # libtiff stops inflating once the strip is full: a bad checksum
-        # or damage past that point goes unseen
-        out = zlib.decompressobj().decompress(raw, max_length=want)
+        out = _inflate(raw, want)
     elif comp == 34925:
         out = _unxz(raw, want)
     elif comp == 50000:
@@ -400,7 +468,7 @@ def _decompress(raw: bytes, comp: int, want: int, geom) -> bytes:
     else:                                       # 1: none
         out = raw
     if len(out) < want:
-        raise ValueError("TIFF: short image data")
+        raise PartialData("TIFF: short image data", out)
     return out[:want]
 
 
@@ -413,12 +481,15 @@ def _jpeg_chunk(raw: bytes, tables, photo: int, planar: int) -> np.ndarray:
     from fluctus_tpu_torch.scene.jpeg import decode_jpeg_samples
     if raw[:2] != b"\xff\xd8":
         raise ValueError("TIFF: JPEG chunk without SOI")
-    head = bytes(tables[:-2]) if tables else b"\xff\xd8"
+    # libtiff reads the tables as a stream of their own, ended by their EOI
+    # or by the fake EOI its source gives past their last byte
+    head = bytes(tables) if tables else b"\xff\xd8"
+    head = head[:-2] if head[-2:] == b"\xff\xd9" else head
     if photo in (2, 5, 6) or planar == 2:
         ycc = photo == 6 and planar == 1
         head = head[:2] + b"\xff\xee" + struct.pack(
             ">H5sHHHB", 14, b"Adobe", 100, 0, 0, 1 if ycc else 0) + head[2:]
-    return decode_jpeg_samples(head + raw[2:])
+    return decode_jpeg_samples(head + raw[2:], "libtiff")
 
 
 def _fp_predictor(c: np.ndarray, spp: int) -> np.ndarray:
@@ -666,6 +737,7 @@ def _samples(data, s, comp, pred, quirk16, rawmode):
         img = np.zeros((h, w, spp), dt)
         row_bytes = cw * per * b // 8
     t4 = (t.get(292) or t.get(293) or (0,))[0]
+    fax: dict = {}    # libtiff's fax codec mode, kept from chunk to chunk
     fill = s["fill"]
     k = 0
     for plane in range(planes):
@@ -700,7 +772,7 @@ def _samples(data, s, comp, pred, quirk16, rawmode):
                     if fill == 2:
                         raw = _REV[np.frombuffer(raw, np.uint8)].tobytes()
                     raw = _decompress(raw, comp, want,
-                                      (cw, rows, t4, off & 1))
+                                      (cw, rows, t4, off & 1, fax))
                 k += 1
                 if packed:
                     xb = x0 * b * per // 8
@@ -844,8 +916,14 @@ def _ycbcr(data: bytes, s) -> np.ndarray:
                 raise ValueError("TIFF: truncated image data")
             if s["fill"] == 2:
                 raw = _REV[np.frombuffer(raw, np.uint8)].tobytes()
-            raw = _decompress(raw, comp, bh * bw * unit,
-                              (cw, rows, t4, offs[k] & 1))
+            try:
+                raw = _decompress(raw, comp, bh * bw * unit,
+                                  (cw, rows, t4, offs[k] & 1))
+            except PartialData as e:
+                # libtiff's RGBA reader ignores the failed read and converts
+                # the buffer it zeroed for the chunk, as far as the codec
+                # filled it
+                raw = e.partial[:bh * bw * unit].ljust(bh * bw * unit, b"\0")
             k += 1
             blocks = np.frombuffer(raw, np.uint8).reshape(bh, bw, unit)
             yy = blocks[..., :hs * vs].reshape(bh, bw, vs, hs).transpose(

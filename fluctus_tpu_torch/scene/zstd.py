@@ -27,7 +27,8 @@ def load_library():
             _SRC, "zstd", ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"])
         lib = ctypes.CDLL(path)
         lib.zstd_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
-                                    ctypes.c_void_p, ctypes.c_longlong]
+                                    ctypes.c_void_p, ctypes.c_longlong,
+                                    ctypes.POINTER(ctypes.c_longlong)]
         lib.zstd_decode.restype = ctypes.c_longlong
         lib.zstd_last_error.argtypes = []
         lib.zstd_last_error.restype = ctypes.c_char_p
@@ -36,10 +37,20 @@ def load_library():
 
 
 def decompress(data: bytes, size: int) -> bytes:
-    """The frames of `data`, at most `size` bytes of them."""
+    """The first frame of `data` as libtiff reads it through libzstd's
+    streaming decoder: at most `size` bytes (fewer where the data ends
+    early, which the caller refuses); where libzstd fails, tiff.PartialData
+    with what its streaming decoder had written, or ValueError where it
+    decoded the frame in one pass."""
+    from fluctus_tpu_torch.scene.tiff import PartialData
     lib = load_library()
     out = np.empty(max(size, 1), np.uint8)
-    n = lib.zstd_decode(data, len(data), out.ctypes.data, size)
+    partial = ctypes.c_longlong(0)
+    n = lib.zstd_decode(data, len(data), out.ctypes.data, size,
+                        ctypes.byref(partial))
     if n < 0:
-        raise ValueError(f"Zstandard: {lib.zstd_last_error().decode()}")
+        msg = f"Zstandard: {lib.zstd_last_error().decode()}"
+        if partial.value < 0:
+            raise ValueError(msg)
+        raise PartialData(msg, out[:partial.value].tobytes())
     return out[:n].tobytes()

@@ -188,14 +188,24 @@ def source_text(kernel: str, tree: str | None, consts: dict,
     return src
 
 
+_BUILT: dict = {}   # build's libraries of this process, by job
+
+
 def build(kernel: str, jobs: dict):
     """{name: (library, registers)} for jobs {name: (tree, consts,
-    instrument)}, built in parallel into the build directory."""
+    instrument)}, built in parallel into the build directory (a job
+    built before in this process is not built again)."""
     from fluctus_tpu_torch import launch
     from fluctus_tpu_torch.build import build_dir
 
     def one(item):
         name, (tree, consts, instrument) = item
+        key = (kernel, name, tree, tuple(sorted(consts.items())), instrument)
+        if key not in _BUILT:
+            _BUILT[key] = compile_one(name, tree, consts, instrument)
+        return name, _BUILT[key]
+
+    def compile_one(name, tree, consts, instrument):
         stem = (f"{kernel}_variant_" + re.sub(r"\W+", "_", name)
                 + ("_clock" if instrument else ""))
         path = os.path.join(build_dir(), stem + ".cu")
@@ -206,7 +216,7 @@ def build(kernel: str, jobs: dict):
             entries["k4_prof_copy"] = "K4 counters"
         info: dict = {}
         lib = launch.load_library(path, stem, entries, info=info)
-        return name, (lib, registers(info["log"], KERNEL_FN[kernel]))
+        return lib, registers(info["log"], KERNEL_FN[kernel])
     with ThreadPoolExecutor(max(1, len(jobs))) as pool:
         return dict(pool.map(one, jobs.items()))
 

@@ -1941,18 +1941,22 @@ def test_tiff_leftovers(tmp_path, name):
 
 @pytest.mark.parametrize("comp", ["group3", "group4"])
 def test_fax_data_that_ends_early_raises(tmp_path, comp):
-    """T.4 or T.6 data cut after its first rows: libtiff decodes those,
-    then leaves the rest of PIL's strip buffer as it was (T.6) or
-    recovers in its own way (T.4), so PIL's rows after them are not the
-    file's alone; the port raises UnsupportedImage rather than guess."""
+    """T.4 or T.6 data cut after its first rows: libtiff decodes those.
+    After them it leaves the rest of PIL's strip buffer as it was for T.6,
+    so PIL's rows there are not the file's alone and the port raises
+    UnsupportedImage rather than guess; for T.4 it decodes the strip again
+    from its start without EOLs (libtiff 4.7's tryG3WithoutEOL), which the
+    port reproduces: the same RGBA as PIL."""
     bw = Image.fromarray(smooth(29, 37)).convert("1")
     data = _strip(_pil_bytes(bw, "TIFF", compression=comp))
     path = tmp_path / "t.tif"
     path.write_bytes(fixtures.tiff_bytes(
         37, 29, 1, 1, 1, [data[:len(data) // 2]], comp=3 if comp == "group3"
         else 4))
-    with pytest.raises(UnsupportedImage, match="T.4" if comp == "group3"
-                       else "T.6"):
+    if comp == "group3":
+        assert_same(path)
+        return
+    with pytest.raises(UnsupportedImage, match="T.6"):
         TexturePool().try_import(str(path), "t")
 
 
@@ -1989,8 +1993,8 @@ def _libtiff_strip(data: bytes, tmp_path) -> tuple:
 def test_fax_strips_equal_libtiff(tmp_path, name):
     """Seeded damaged and cut copies of a committed fax strip, decoded by
     scene/ccitt.py and by libtiff itself: the same rows where libtiff
-    succeeds, ValueError where it fails (PIL's -1); data that ends before
-    the last row may raise UnsupportedImage instead (see
+    succeeds, ValueError where it fails (PIL's -1); T.6 data that ends
+    before the last row may raise UnsupportedImage instead (see
     test_fax_data_that_ends_early_raises)."""
     import os
     from fluctus_tpu_torch.scene import ccitt
