@@ -451,8 +451,8 @@ def background_builds() -> None:
     """Start, on one worker beside the first phases, the design probe's K1
     builds, then the texture decoders' g++ builds, then the K4 builds; the
     phases that need them wait for them (design_steps, gxx_build)."""
-    from fluctus_tpu_torch.scene import (ccitt, dds, jpeg, jpeg2000, webp,
-                                         zstd)
+    from fluctus_tpu_torch.scene import (avif, ccitt, dds, jpeg, jpeg2000,
+                                         webp, zstd)
     from fluctus_tpu_torch.scripts import probe_walk_design as probe
 
     def designs(kernel):
@@ -463,7 +463,7 @@ def background_builds() -> None:
 
     def gxx():
         secs = {}
-        for mod in (webp, jpeg2000, zstd, ccitt, jpeg, dds):
+        for mod in (avif, webp, jpeg2000, zstd, ccitt, jpeg, dds):
             t = time.perf_counter()
             mod.load_library()
             secs[mod.__name__.rsplit(".", 1)[-1]] = time.perf_counter() - t
@@ -618,13 +618,14 @@ chip_smoke.cpu_references(sys.argv[1])
 
 
 def cpu_references(out_dir: str) -> None:
-    """The renders on this host's CPU (the plain versions) that golden,
-    golden-env, golden-ply and pbf hold the card's against, each saved as
-    out_dir/<name>.npy, from the same seeded inputs those phases make: the
-    goldens' stream, the env-lit sessions' lockstep and stream under the
-    seeded sky, the grid-3 PLY's lockstep and the PBRT kitchen's and its
-    PBF's stream without implicit light hits. Three threads, so that the
-    card's phases keep the host's other cores."""
+    """The renders on this host's CPU (the plain versions) that avif,
+    golden, golden-env, golden-ply and pbf hold the card's against, each
+    saved as out_dir/<name>.npy, from the same inputs those phases make:
+    the AVIF kitchen's 64x64 lockstep (first, as phase avif comes early),
+    the goldens' stream, the env-lit sessions' lockstep and stream under
+    the seeded sky, the grid-3 PLY's lockstep and the PBRT kitchen's and
+    its PBF's stream without implicit light hits. Three threads, so that
+    the card's phases keep the host's other cores."""
     import numpy as np
     import torch
     from fluctus_tpu_torch.fixtures import scene_pbrt, sky_env, \
@@ -635,8 +636,13 @@ def cpu_references(out_dir: str) -> None:
 
     torch.set_num_threads(3)
 
-    def save(name, img):
-        np.save(os.path.join(out_dir, name + ".npy"), img)
+    def save(name, img):     # whole files only: cpu_ref reads early
+        np.save(os.path.join(out_dir, name + ".tmp.npy"), img)
+        os.replace(os.path.join(out_dir, name + ".tmp.npy"),
+                   os.path.join(out_dir, name + ".npy"))
+    save(AVIF_REF, driver.render(kitchen_from_maps(
+        avif_maps(), kitchen_cfg(64, 64), "AVIF", "cpu"), AVIF_REF_SPP,
+        integrator="lockstep").numpy())
     for name, (gs, spp) in golden_sessions("cpu").items():
         save(f"golden_{name}", driver.render(gs, spp,
                                              integrator="stream").numpy())
@@ -687,19 +693,24 @@ def start_cpu_references() -> None:
 
 
 def cpu_ref(name: str, compute):
-    """The CPU reference `name`: from the child where it was started (its
-    seconds beside the card's phases; raises where it failed), else
-    computed now by `compute`. Returns (image, what to say of it)."""
+    """The CPU reference `name`: from the child where it was started,
+    as soon as the child has written it (its seconds beside the card's
+    phases; raises where the child failed first), else computed now by
+    `compute`. Returns (image, what to say of it)."""
     import numpy as np
     if not CPU_REFS:
         return compute(), "computed here"
-    proc = CPU_REFS["proc"]
-    if proc.wait() != 0:
-        with open(os.path.join(CPU_REFS["dir"], "log.txt")) as f:
-            tail = f.read()[-2000:]
-        raise RuntimeError(f"the CPU references failed:\n{tail}")
-    return (np.load(os.path.join(CPU_REFS["dir"], name + ".npy")),
-            "computed beside the earlier phases in a child process")
+    path = os.path.join(CPU_REFS["dir"], name + ".npy")
+    while not os.path.exists(path):
+        rc = CPU_REFS["proc"].poll()
+        if rc is not None and not os.path.exists(path):
+            with open(os.path.join(CPU_REFS["dir"], "log.txt")) as f:
+                tail = f.read()[-2000:]
+            raise RuntimeError(f"the CPU references ended (exit {rc}) "
+                               f"without {name}:\n{tail}")
+        time.sleep(0.5)
+    return (np.load(path), "computed beside the earlier phases in a child "
+            "process")
 
 
 def phase_golden_env(path, card: str):
@@ -3720,13 +3731,17 @@ def phase_octant(sess, plain_img, secs_plain: float, card: str) -> dict:
 
 WEBP_DATA = os.path.join(REPO, "tests", "data", "webp")
 KITCHEN_STATE = "c68e332cfae81cc6"     # data/states/state_<this>.json
+MAP_KITCHEN_SPP = 4      # the WebP, JPEG 2000 and lossless-JPEG kitchens
 
 
 def check_recorded(data_dir: str, record_name: str, phase: str,
                    versions: str) -> dict:
-    """Each file of a tests/data directory decoded through the texture
-    dispatch and held against the SHA-256 of PIL's RGBA recorded beside it
-    (the card's machine has no PIL). Returns {file: decode seconds}."""
+    """Each file of a tests/data directory (of the recorded length, where
+    the record gives it) decoded through the texture dispatch and held
+    against the SHA-256 of PIL's RGBA recorded beside it (the card's
+    machine has no PIL), or, where the record says it `raises`, refused
+    with an UnsupportedImage naming that tool. Returns {file: decode
+    seconds}."""
     import hashlib
     from fluctus_tpu_torch.scene import imageformat
 
@@ -3736,32 +3751,35 @@ def check_recorded(data_dir: str, record_name: str, phase: str,
     for name, rec in sorted(record["files"].items()):
         with open(os.path.join(data_dir, name), "rb") as f:
             data = f.read()
+        check(len(data) == rec.get("bytes", len(data)),
+              f"{name}: not the recorded file")
         t = time.perf_counter()
-        rgba = imageformat.decode(data, imageformat.sniff(data))
+        kind = imageformat.sniff(data)
+        if "raises" in rec:
+            try:
+                imageformat.decode(data, kind)
+                check(False, f"{name}: decoded, though its frame needs "
+                      f"{rec['raises']}")
+            except imageformat.UnsupportedImage as e:
+                check(rec["raises"] in str(e), f"{name}: refused without "
+                      f"naming {rec['raises']}: {e}")
+        else:
+            rgba = imageformat.decode(data, kind)
+            check(list(rgba.shape) == rec["shape"] and hashlib.sha256(
+                rgba.tobytes()).hexdigest() == rec["sha256"],
+                  f"{name}: the RGBA differs from "
+                  f"{versions.format(**record)}'s")
         decode[name] = time.perf_counter() - t
-        check(list(rgba.shape) == rec["shape"] and hashlib.sha256(
-            rgba.tobytes()).hexdigest() == rec["sha256"],
-              f"{name}: the RGBA differs from {versions.format(**record)}'s")
     return decode
 
 
-def phase_kitchen_maps(sess, plain_img, secs_plain: float, card: str,
-                       phase: str, label: str, maps: dict) -> dict:
-    """The kitchen from a temporary MTL naming other files for its maps
-    ({PNG stem: path}), the OBJ linked beside it, the camera and light of
-    state_c68e332cfae81cc6.json applied explicitly: its atlas byte-equal
-    to the PNG kitchen's, and its lockstep frame (8 bounces, 16 spp)
-    through K1 only, both forms, bit-equal to the PNG kitchen's
-    frame `plain_img`; then K1 held against its plain version and timed
-    on the frame's first closest and any-hit rays that launched it
-    (time_k1_call). Returns the frame's K1 launches and seconds, the
-    session's seconds and {form: K1's numbers on those rays}."""
-    import torch
-    from fluctus_tpu_torch.ops import traverse_stack as ts
+def kitchen_from_maps(maps: dict, cfg, label: str, device: str = "cuda"):
+    """The kitchen session from a temporary MTL naming other files for its
+    maps ({PNG stem: path}), the OBJ linked beside it, the camera and
+    light of state_c68e332cfae81cc6.json applied explicitly."""
     from fluctus_tpu_torch.render import driver
     from fluctus_tpu_torch.render.state import load_state
 
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         obj = os.path.join(tmp, os.path.basename(KITCHEN))
         os.symlink(KITCHEN, obj)
@@ -3772,26 +3790,17 @@ def phase_kitchen_maps(sess, plain_img, secs_plain: float, card: str,
         check(".png" not in mtl, f"a PNG map is left in the {label} MTL")
         with open(os.path.splitext(obj)[0] + ".mtl", "w") as f:
             f.write(mtl)
-        msess = driver.create_session(obj, cfg=sess.cfg, state_dir=None,
+        msess = driver.create_session(obj, cfg=cfg, state_dir=None,
                                       auto_frame=False, cache_dir=None,
-                                      device="cuda")
+                                      device=device)
     msess.params = load_state(msess.params, KITCHEN_STATE,
                               state_dir=STATES)
-    t_session = time.perf_counter() - t0
-    a, b = msess.scene.atlas, sess.scene.atlas
-    check(all(torch.equal(getattr(a, k), getattr(b, k))
-              for k in ("data", "offset", "width", "height")),
-          f"the {label} kitchen's atlas differs from the PNG kitchen's")
-    keep: dict = {}
-    with first_rays(ts) as rays:
-        secs, mine = phase_frame_only(msess, 16, card, phase, "K1",
-                                      f"kitchen from {label} maps,", keep)
-    check(torch.equal(keep["img"], plain_img),
-          f"the {label} kitchen's frame differs from the PNG kitchen's")
-    say(phase, t0, f"kitchen from {label} maps: session {t_session:.2f} s, "
-        f"atlas {a.data.numel()} bytes equal to the PNG kitchen's; frame "
-        f"{secs:.3f} s (PNG frame {secs_plain:.3f} s), bit-equal to the "
-        f"PNG frame, K1 launches {mine}, on {card}")
+    return msess
+
+
+def k1_on_first_rays(rays: dict, phase: str, label: str, card: str) -> dict:
+    """K1 held against its plain version and timed on a frame's first
+    closest and any-hit rays that launched it (time_k1_call)."""
     k1 = {}
     for form in ("closest", "any"):
         t0 = time.perf_counter()
@@ -3803,6 +3812,43 @@ def phase_kitchen_maps(sess, plain_img, secs_plain: float, card: str,
             f"call ({r['rays']} rays): {r['ms']:.4f} ms against plain "
             f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}; bit-equal, on {card}")
+    return k1
+
+
+def phase_kitchen_maps(sess, plain_img, secs_plain: float, card: str,
+                       phase: str, label: str, maps: dict) -> dict:
+    """The kitchen from a temporary MTL naming other files for its maps
+    (kitchen_from_maps): its atlas byte-equal to the PNG kitchen's, and
+    its lockstep frame (8 bounces, MAP_KITCHEN_SPP spp) through K1 only,
+    both forms, bit-equal to the PNG kitchen's frame `plain_img` at that
+    spp; then K1
+    held against its plain version and timed on the frame's first closest
+    and any-hit rays that launched it (k1_on_first_rays). Returns the
+    frame's K1 launches and seconds, the session's seconds and {form:
+    K1's numbers on those rays}."""
+    import torch
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+
+    t0 = time.perf_counter()
+    msess = kitchen_from_maps(maps, sess.cfg, label)
+    t_session = time.perf_counter() - t0
+    a, b = msess.scene.atlas, sess.scene.atlas
+    check(all(torch.equal(getattr(a, k), getattr(b, k))
+              for k in ("data", "offset", "width", "height")),
+          f"the {label} kitchen's atlas differs from the PNG kitchen's")
+    keep: dict = {}
+    with first_rays(ts) as rays:
+        secs, mine = phase_frame_only(
+            msess, MAP_KITCHEN_SPP, card, phase, "K1",
+            f"kitchen from {label} maps,", keep)
+    check(torch.equal(keep["img"], plain_img),
+          f"the {label} kitchen's frame differs from the PNG kitchen's")
+    say(phase, t0, f"kitchen from {label} maps: session {t_session:.2f} s, "
+        f"atlas {a.data.numel()} bytes equal to the PNG kitchen's; frame "
+        f"{secs:.3f} s (PNG frame at {MAP_KITCHEN_SPP} spp "
+        f"{secs_plain:.3f} s), bit-equal to the PNG frame, K1 launches "
+        f"{mine}, on {card}")
+    k1 = k1_on_first_rays(rays, phase, label, card)
     del msess
     return {"launches": mine, "secs": secs, "session": t_session, "k1": k1}
 
@@ -3922,6 +3968,95 @@ def phase_jpeg(sess, plain_img, secs_plain: float, card: str) -> dict:
                                                  f"{n}.lossless.jpg")
                                  for n in KITCHEN_MAPS})
     return dict(out, decode=decode, build=t_build)
+
+
+AVIF_DATA = os.path.join(REPO, "tests", "data", "avif")
+AVIF_REF = "avif_kitchen_64"   # the CPU reference of phase avif
+AVIF_REF_SPP = 4
+
+
+def avif_maps() -> dict:
+    return {n: os.path.join(AVIF_DATA, f"{n}.avif") for n in KITCHEN_MAPS}
+
+
+def phase_avif(sess, plain_img, secs_plain: float, card: str) -> dict:
+    """AVIF textures: scene/native/av1.cpp built with g++; each file of
+    tests/data/avif (the kitchen's maps lossless 4:4:4, lossless 4:2:0 and
+    lossy without in-loop filters, premultiplied alpha, screen content
+    with palette and intra block copy, limited-range grey, an avis
+    sequence) decoded through the texture dispatch and held against the
+    SHA-256 of PIL's RGBA recorded in avif.json, and the file whose frame
+    needs deblocking refused naming it; then the kitchen from the AVIF
+    maps (kitchen_from_maps): each map's slice of its atlas equal to the
+    recorded decode, its full-width lockstep frame (8 bounces, 16 spp)
+    through K1 only, both forms, its mean relative difference from the
+    PNG kitchen's frame `plain_img` printed (the maps differ from the PNGs
+    by the YUV round trip), K1 held against its plain version and timed on
+    the frame's first rays; and a 64x64 render of the AVIF kitchen
+    through K1 held against the same render on this host's CPU at
+    GOLDEN_LIMITS["kitchen_cfg3"]."""
+    import hashlib
+    import numpy as np
+    import torch
+    from fluctus_tpu_torch.ops import traverse_stack as ts
+    from fluctus_tpu_torch.render import driver
+    from fluctus_tpu_torch.scene import avif
+
+    t0 = time.perf_counter()
+    t_build = gxx_build(avif)
+    decode = check_recorded(AVIF_DATA, "avif.json", "avif",
+                            "PIL {pil} / libavif {libavif}")
+    with open(os.path.join(AVIF_DATA, "avif.json")) as f:
+        record = json.load(f)
+    say("avif", t0, f"g++ build {t_build:.2f} s; {len(decode)} files equal "
+        "to their recorded SHA-256 (filters_on.avif refused naming "
+        "deblocking): " + ", ".join(f"{k} {v:.4f} s"
+                                    for k, v in decode.items()))
+    t0 = time.perf_counter()
+    msess = kitchen_from_maps(avif_maps(), sess.cfg, "AVIF")
+    t_session = time.perf_counter() - t0
+    at = msess.scene.atlas
+    sums = set()
+    for k in range(int(at.width.numel())):
+        w, h, o = int(at.width[k]), int(at.height[k]), int(at.offset[k])
+        rows = at.data[o:o + w * h * 4].cpu().numpy().reshape(h, w, 4)
+        sums.add(hashlib.sha256(
+            np.ascontiguousarray(rows[::-1]).tobytes()).hexdigest())
+    want = {record["files"][f"{n}.avif"]["sha256"] for n in KITCHEN_MAPS}
+    check(sums == want, "the AVIF kitchen's atlas slices differ from the "
+          "recorded decodes")
+    keep: dict = {}
+    with first_rays(ts) as rays:
+        secs, mine = phase_frame_only(msess, 16, card, "avif", "K1",
+                                      "kitchen from AVIF maps,", keep)
+    img = keep.pop("img")
+    diff = float((img - plain_img).abs().mean() / plain_img.abs().mean())
+    say("avif", t0, f"kitchen from AVIF maps: session {t_session:.2f} s, "
+        f"{len(sums)} atlas slices equal to the recorded decodes; frame "
+        f"{secs:.3f} s (PNG frame {secs_plain:.3f} s), K1 launches {mine}; "
+        f"mean relative difference from the PNG kitchen's frame {diff:.6f} "
+        f"(for the record), on {card}")
+    k1 = k1_on_first_rays(rays, "avif", "AVIF", card)
+    del msess, img
+    t0 = time.perf_counter()
+    small = kitchen_from_maps(avif_maps(), kitchen_cfg(64, 64), "AVIF")
+    keep = {}
+    phase_frame_only(small, AVIF_REF_SPP, card, "avif", "K1",
+                     "64x64 kitchen from AVIF maps,", keep)
+    ref, how = cpu_ref(AVIF_REF, lambda: driver.render(
+        kitchen_from_maps(avif_maps(), kitchen_cfg(64, 64), "AVIF", "cpu"),
+        AVIF_REF_SPP, integrator="lockstep").numpy())
+    share, mean_rel = golden_share(keep["img"].cpu().numpy(), ref)
+    need_share, need_rel = GOLDEN_LIMITS["kitchen_cfg3"]
+    say("avif", t0, f"64x64 AVIF kitchen through K1 against the same "
+        f"render on this host's CPU ({how}): {share * 100:.3f}% of pixels "
+        f"within rtol {RTOL} / atol {ATOL} (need {need_share * 100:.1f}%), "
+        f"mean relative error {mean_rel:.3e} (need <= {need_rel:.0e})")
+    check(share >= need_share and mean_rel <= need_rel,
+          "the AVIF kitchen on the card is not held to its CPU render")
+    del small
+    return {"launches": mine, "secs": secs, "session": t_session,
+            "k1": k1, "decode": decode, "build": t_build, "diff": diff}
 
 
 # ------------------------------------------------------------ protocol sweep
@@ -4283,10 +4418,18 @@ def main() -> int:
                                       "kitchen", kept)
     plain_img = kept.pop("img")
     octant = phase_octant(sess, plain_img, secs, card)
-    webp_out = phase_webp(sess, plain_img, secs, card)
-    j2k_out = phase_j2k(sess, plain_img, secs, card)
-    jpeg_out = phase_jpeg(sess, plain_img, secs, card)
-    del plain_img
+    avif_out = phase_avif(sess, plain_img, secs, card)
+    # the kitchens from WebP, JPEG 2000 and lossless-JPEG maps render at
+    # MAP_KITCHEN_SPP against the PNG kitchen's frame at that spp
+    kept4: dict = {}
+    secs4, _ = phase_frame_only(sess, MAP_KITCHEN_SPP, card, "frame", "K1",
+                                "kitchen at 4 spp (for the map kitchens),",
+                                kept4)
+    plain4 = kept4.pop("img")
+    webp_out = phase_webp(sess, plain4, secs4, card)
+    j2k_out = phase_j2k(sess, plain4, secs4, card)
+    jpeg_out = phase_jpeg(sess, plain4, secs4, card)
+    del plain_img, plain4
     gold = golden_sessions("cuda")
     for name, (gs, spp) in gold.items():
         phase_golden_only(gs, name, spp, "K1")
@@ -4500,7 +4643,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
     for maps, kept_out in (("WebP", webp_out), ("JPEG 2000", j2k_out),
-                           ("lossless JPEG", jpeg_out)):
+                           ("lossless JPEG", jpeg_out), ("AVIF", avif_out)):
         for form, label in (("closest", "closest"), ("any", "any-hit")):
             r = kept_out["k1"][form]
             kernels.append({

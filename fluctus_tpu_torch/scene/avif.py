@@ -1,0 +1,742 @@
+"""AVIF decoding through the port's AV1 decoder (`native/av1.cpp`), with
+libavif 1.3.0's reading of the file around it, so the RGBA equals PIL
+12's `Image.open(...).convert("RGBA")`.
+
+PIL's side, copied here:
+
+- the container as libavif parses it: the `ftyp` brands (`avif` or `avis`
+  among the major and compatible brands), the `meta` box (`hdlr` of type
+  `pict`, `pitm`, `iloc` with construction methods 0 and 1 and any number
+  of extents, `iinf`/`infe`, `iref` and `iprp`/`ipco`/`ipma` with the
+  properties `ispe`, `pixi`, `av1C`, `colr`, `auxC`, `irot`, `imir`,
+  `clap`, `pasp`), and for a file whose major brand is `avis` the first
+  sample of its tracks (`moov`/`trak`/`mdia`/`minf`/`stbl`: `stsd`,
+  `stsz`, `stco`/`co64`, `stsc`);
+- the alpha item (an `auxl` reference with the alpha `auxC` type) and its
+  `prem` reference, which makes the colour premultiplied;
+- libavif's YUV to RGB step (scene/avif_rgb.py), and PIL's mode: RGBA
+  where the file has alpha, else RGB. PIL does not apply `irot`, `imir`
+  or `clap` to the pixels (it turns `irot`/`imir` into an EXIF
+  orientation), so neither does the port.
+
+AV1 frames that need an in-loop filter (deblocking, CDEF with a non-zero
+strength, loop restoration), superres or film grain, a bit depth above 8,
+grid or other derived items raise UnsupportedImage
+naming the tool; a file libavif or dav1d refuses raises ValueError, which
+the texture pool turns into -1 as PIL's failure does in the JAX package.
+
+The library is compiled with g++ at first use into the package build
+directory; a failed compile raises, it never turns into a missing texture.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import struct
+
+import numpy as np
+
+from fluctus_tpu_torch.build import build_shared
+from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
+                    "av1.cpp")
+_lib = None
+
+ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+              b"urn:mpeg:hevc:2015:auxid:1")
+
+
+def load_library():
+    """Build (at first use) and load the decoder."""
+    global _lib
+    if _lib is None:
+        path, _, _ = build_shared(
+            _SRC, "av1", ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"])
+        lib = ctypes.CDLL(path)
+        lib.av1_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
+                                   ctypes.c_void_p]
+        lib.av1_decode.restype = ctypes.c_int
+        lib.av1_planes.argtypes = [ctypes.c_void_p] * 3
+        lib.av1_planes.restype = ctypes.c_int
+        lib.av1_last_error.argtypes = []
+        lib.av1_last_error.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+class Frame:
+    """One decoded AV1 frame: its planes and the sequence header's colour
+    description."""
+
+    def __init__(self, info, planes):
+        (self.width, self.height, self.ss_x, self.ss_y, self.mono,
+         self.bitdepth, self.cp, self.tc, self.mc, self.full_range) = (
+            int(v) for v in info)
+        self.planes = planes
+
+
+def decode_av1(obus: bytes) -> Frame:
+    """The first shown frame of an AV1 OBU stream, as dav1d gives it."""
+    lib = load_library()
+    info = np.zeros(10, np.int32)
+    rc = lib.av1_decode(obus, len(obus), info.ctypes.data)
+    if rc:
+        msg = lib.av1_last_error().decode()
+        if rc == 2:
+            e = UnsupportedImage(f"AVIF images whose AV1 frame needs {msg} "
+                                 "are not decoded by the port")
+            # the refused frame's size and depth, where it was shown
+            e.frame = Frame(info, None) if info[0] else None
+            raise e
+        raise ValueError(f"AV1: {msg}")
+    w, h, sx, sy, mono = (int(v) for v in info[:5])
+    cw, ch = (w + sx) >> sx, (h + sy) >> sy
+    y = np.empty((h, w), np.uint8)
+    u = np.empty((ch, cw), np.uint8)
+    v = np.empty((ch, cw), np.uint8)
+    lib.av1_planes(y.ctypes.data, u.ctypes.data, v.ctypes.data)
+    return Frame(info, (y,) if mono else (y, u, v))
+
+
+# ------------------------------------------------------------------ boxes
+def _bad(what: str):
+    raise ValueError(f"AVIF: {what}")
+
+
+class _Stream:
+    """libavif's avifROStream over data[pos:end]: reads that run past the
+    end fail, as libavif's parse does."""
+
+    def __init__(self, data, pos, end):
+        self.d, self.p, self.e = data, pos, end
+
+    def left(self):
+        return self.e - self.p
+
+    def raw(self, n):
+        if n > self.e - self.p:
+            _bad("truncated box")
+        b = self.d[self.p:self.p + n]
+        self.p += n
+        return b
+
+    def u(self, n):
+        return int.from_bytes(self.raw(n), "big")
+
+    def version(self, enforce=None):
+        v, flags = self.u(1), self.u(3)
+        if enforce is not None and v != enforce:
+            _bad(f"box version {v}, not {enforce}")
+        return v, flags
+
+    def string(self):
+        i = self.d.find(b"\0", self.p, self.e)
+        if i < 0:
+            _bad("unterminated string")
+        out = self.d[self.p:i]
+        self.p = i + 1
+        return out
+
+    def box(self, top=False):
+        """(type, payload stream, size 0?) of the next box; a child box
+        must fit its parent (a top-level one is checked by the caller)."""
+        size, typ = self.u(4), self.raw(4)
+        hdr = 8
+        if size == 1:
+            size, hdr = self.u(8), 16
+        if typ == b"uuid":
+            self.raw(16)
+            hdr += 16
+        if size == 0:
+            if not top:
+                _bad("box of size 0 inside another")
+            return typ, _Stream(self.d, self.p, self.e), True
+        if size < hdr:
+            _bad(f"box {typ!r} smaller than its header")
+        n = size - hdr
+        if not top and n > self.left():
+            _bad(f"box {typ!r} runs past its parent")
+        sub = _Stream(self.d, self.p, min(self.e, self.p + n))
+        sub.want = n
+        self.p += n
+        return typ, sub, False
+
+
+def _prop(stream, typ):
+    """One property of `ipco` or of a sample entry: (type, value), the
+    value None for the properties libavif keeps as opaque."""
+    if typ == b"ispe":
+        stream.version(0)
+        return typ, (stream.u(4), stream.u(4))
+    if typ == b"av1C":
+        b0 = stream.u(1)
+        if b0 != 0x81:                      # marker 1, version 1
+            _bad("av1C marker or version")
+        stream.u(1)
+        b2 = stream.u(1)
+        stream.raw(1)
+        # the depth: high_bitdepth, then twelve_bit
+        return typ, 12 if b2 & 0x60 == 0x60 else 10 if b2 & 0x40 else 8
+    if typ == b"colr":
+        kind = stream.raw(4)
+        if kind == b"nclx":
+            cp, tc, mc, b = (stream.u(2), stream.u(2), stream.u(2),
+                             stream.u(1))
+            if b & 0x7F:
+                _bad("nclx reserved bits")
+            return typ, ("nclx", cp, tc, mc, b >> 7)
+        if kind in (b"rICC", b"prof"):
+            return typ, ("icc",)
+        return typ, ("other",)
+    if typ == b"auxC":
+        stream.version(0)
+        return typ, stream.string()
+    if typ == b"pixi":
+        stream.version(0)
+        n = stream.u(1)
+        if n < 1 or n > 4:
+            _bad("pixi channel count")
+        depths = [stream.u(1) for _ in range(n)]
+        if len(set(depths)) > 1:       # libavif: not implemented
+            _bad("pixi depths differ between planes")
+        return typ, depths
+    if typ == b"irot":
+        v = stream.u(1)
+        if v & 0xFC:
+            _bad("irot reserved bits")
+        return typ, v & 3
+    if typ == b"imir":
+        v = stream.u(1)
+        if v & 0xFE:
+            _bad("imir reserved bits")
+        return typ, v & 1
+    if typ == b"pasp":
+        return typ, (stream.u(4), stream.u(4))
+    if typ == b"clap":
+        return typ, tuple(stream.u(4) for _ in range(8))
+    if typ in (b"a1op", b"lsel", b"a1lx", b"clli"):
+        stream.raw(1)
+        return typ, True
+    return typ, None
+
+
+def _ipco(stream):
+    out = []
+    while stream.left() > 0:
+        typ, sub, _ = stream.box()
+        out.append(_prop(sub, typ))
+    return out
+
+
+class _Item:
+    def __init__(self):
+        self.type = None
+        self.extents = None
+        self.method = 0
+        self.props = []
+        self.unsupported_essential = False
+        self.refs = {}           # reference type -> ids
+        self.ipma = False
+
+    def prop(self, typ):
+        return next((v for t, v in self.props if t == typ), None)
+
+    def has(self, typ):
+        return any(t == typ for t, _ in self.props)
+
+
+def _item_id(v):
+    if v == 0:
+        _bad("item id 0")
+    return v
+
+
+def _meta(stream):
+    """avifParseMetaBox: {id: _Item}, the primary item id and idat."""
+    stream.version(0)
+    items, primary, idat, props = {}, None, b"", []
+    seen = set()
+    first = True
+
+    def item(iid):
+        return items.setdefault(iid, _Item())
+    ipma_data = []
+    while stream.left() > 0:
+        typ, sub, _ = stream.box()
+        if first:
+            if typ != b"hdlr":
+                _bad("meta does not start with hdlr")
+            first = False
+        if typ in seen and typ in (b"hdlr", b"iloc", b"pitm", b"idat",
+                                   b"iprp", b"iinf", b"iref"):
+            _bad(f"second {typ!r} box")
+        seen.add(typ)
+        if typ == b"hdlr":
+            sub.version(0)
+            if sub.u(4) != 0:
+                _bad("hdlr pre_defined")
+            if sub.raw(4) != b"pict":
+                _bad("meta handler is not pict")
+            sub.raw(12)
+            sub.string()
+        elif typ == b"pitm":
+            v, _ = sub.version()
+            primary = sub.u(2 if v == 0 else 4)
+        elif typ == b"idat":
+            idat = sub.raw(sub.left())
+        elif typ == b"iloc":
+            v, _ = sub.version()
+            if v > 2:
+                _bad("iloc version")
+            a, b = sub.u(1), sub.u(1)
+            off_sz, len_sz, base_sz = a >> 4, a & 15, b >> 4
+            idx_sz = b & 15 if v in (1, 2) else 0
+            if any(n not in (0, 4, 8) for n in (off_sz, len_sz, base_sz,
+                                                idx_sz)):
+                _bad("iloc field size")
+            for _ in range(sub.u(2 if v < 2 else 4)):
+                it = item(_item_id(sub.u(2 if v < 2 else 4)))
+                if it.extents:
+                    _bad("second iloc entry for an item")
+                method = 0
+                if v in (1, 2):
+                    method = sub.u(2) & 15
+                    if method not in (0, 1):
+                        _bad("iloc construction method")
+                sub.u(2)
+                base = sub.u(base_sz)
+                ext = []
+                for _ in range(sub.u(2)):
+                    if idx_sz:
+                        sub.u(idx_sz)
+                    ext.append((base + sub.u(off_sz), sub.u(len_sz)))
+                it.extents, it.method = ext, method
+        elif typ == b"iinf":
+            v, _ = sub.version()
+            if v > 1:
+                _bad("iinf version")
+            for _ in range(sub.u(2 if v == 0 else 4)):
+                etyp, e, _ = sub.box()
+                if etyp != b"infe":
+                    _bad("iinf holds a box that is not infe")
+                ev, _ = e.version()
+                if ev not in (2, 3):
+                    _bad("infe version")
+                it = item(_item_id(e.u(2 if ev == 2 else 4)))
+                e.u(2)
+                it.type = e.raw(4)
+                e.string()
+                if it.type == b"mime":
+                    e.string()
+        elif typ == b"iref":
+            v, _ = sub.version()
+            # libavif reads each reference's fields on from the iref box,
+            # past its own size, once its header has checked out; it skips
+            # the references of a version it does not know
+            while sub.left() > 0:
+                rtyp, child, _ = sub.box()
+                if v > 1:
+                    break
+                sub.p = child.p
+                frm = _item_id(sub.u(2 if v == 0 else 4))
+                for _k in range(sub.u(2)):
+                    to = _item_id(sub.u(2 if v == 0 else 4))
+                    item(frm).refs.setdefault(rtyp, []).append(to)
+        elif typ == b"iprp":
+            ptyp, pco, _ = sub.box()
+            if ptyp != b"ipco":
+                _bad("iprp does not start with ipco")
+            props = _ipco(pco)
+            versions = set()
+            while sub.left() > 0:
+                mtyp, m, _ = sub.box()
+                if mtyp != b"ipma":
+                    _bad("iprp holds a box that is not ipma")
+                v, flags = m.version()
+                if (v, flags) in versions:
+                    _bad("second ipma of one version and flags")
+                versions.add((v, flags))
+                ipma_data.append((v, flags, m))
+    if first:
+        _bad("empty meta box")
+    prev = 0
+    for v, flags, m in ipma_data:
+        prev = 0
+        for _ in range(m.u(4)):
+            iid = _item_id(m.u(2 if v < 1 else 4))
+            if iid <= prev:
+                _bad("ipma item ids out of order")
+            prev = iid
+            it = item(iid)
+            if it.ipma:
+                _bad("second ipma entry for an item")
+            it.ipma = True
+            for _ in range(m.u(1)):
+                x = m.u(2 if flags & 1 else 1)
+                essential = bool(x >> (15 if flags & 1 else 7))
+                k = x & (0x7FFF if flags & 1 else 0x7F)
+                if k == 0:
+                    continue
+                if k > len(props):
+                    _bad("property index out of range")
+                ptyp, val = props[k - 1]
+                if val is None:
+                    if essential:
+                        it.unsupported_essential = True
+                    continue
+                if essential and ptyp == b"a1lx":
+                    _bad("a1lx marked essential")
+                if not essential and ptyp in (b"a1op", b"lsel"):
+                    _bad(f"{ptyp!r} not marked essential")
+                it.props.append((ptyp, val))
+    return items, primary, idat
+
+
+def _item_data(data, it, idat):
+    if not it.extents:
+        _bad("item has no data")
+    src = idat if it.method == 1 else data
+    out = b""
+    for off, length in it.extents:
+        if off + length > len(src):
+            _bad("item data runs past the file")
+        out += src[off:off + length]
+    return out
+
+
+def _from_items(data, meta):
+    items, primary, idat = meta
+    color = items.get(primary)
+    if color is None or color.unsupported_essential or color.type is None:
+        _bad("no primary item")
+    if color.type in (b"grid", b"iovl", b"tmap"):
+        raise UnsupportedImage(f"AVIF {color.type.decode()} items are not "
+                               "decoded by the port")
+    if color.type != b"av01":
+        _bad("the primary item is not an AV1 image")
+    alpha = None
+    for iid, it in sorted(items.items()):
+        if iid == primary or it.unsupported_essential or \
+                not it.extents or it.type != b"av01":
+            continue
+        if it.prop(b"auxC") in ALPHA_URNS and primary in \
+                it.refs.get(b"auxl", []):
+            alpha = it
+            break
+    for it in (color, alpha):
+        if it is None:
+            continue
+        if it.type != b"av01":
+            _bad("the alpha item is not an AV1 image")
+        if not it.has(b"ispe") or not it.has(b"av1C"):
+            _bad("image item lacks ispe or av1C")
+        if any(d != it.prop(b"av1C") for d in it.prop(b"pixi") or []):
+            _bad("pixi depth differs from the AV1 configuration's")
+    prem = alpha is not None and any(
+        items.get(x) is alpha for x in color.refs.get(b"prem", []))
+    return (_item_data(data, color, idat), color.prop(b"colr"),
+            _item_data(data, alpha, idat) if alpha else None, prem,
+            color.prop(b"ispe"),
+            alpha.prop(b"ispe") if alpha else None)
+
+
+class _Track:
+    def __init__(self):
+        self.id = 0
+        self.size = (0, 0)
+        self.refs = {}
+        self.formats = []        # (sample entry type, properties)
+        self.chunks = []
+        self.sample_size = 0
+        self.sizes = []
+        self.stsc = []
+        self.timescale = 0       # mdhd's; PIL divides by the colour track's
+
+
+def _full(stream, enforce=None):
+    v, _ = stream.version()
+    if enforce is not None and v not in enforce:
+        _bad("box version")
+    return v
+
+
+def _stbl(stream, tr):
+    while stream.left() > 0:
+        typ, b, _ = stream.box()
+        if typ in (b"stco", b"co64"):
+            _full(b, (0,))
+            tr.chunks = [b.u(4 if typ == b"stco" else 8)
+                         for _ in range(b.u(4))]
+        elif typ == b"stsc":
+            _full(b, (0,))
+            tr.stsc = [(b.u(4), b.u(4), b.u(4)) for _ in range(b.u(4))]
+            firsts = [f for f, _, _ in tr.stsc]
+            if firsts and (firsts[0] != 1 or any(
+                    a >= b for a, b in zip(firsts, firsts[1:]))):
+                _bad("stsc chunks not increasing from 1")
+        elif typ == b"stsz":
+            _full(b, (0,))
+            tr.sample_size, n = b.u(4), b.u(4)
+            if tr.sample_size == 0:
+                tr.sizes = [b.u(4) for _ in range(n)]
+            else:
+                tr.sizes = [tr.sample_size] * n
+        elif typ == b"stss":
+            _full(b, (0,))
+            for _ in range(b.u(4)):
+                b.u(4)
+        elif typ == b"stts":
+            _full(b, (0,))
+            for _ in range(b.u(4)):
+                b.u(4), b.u(4)
+        elif typ == b"stsd":
+            _full(b, (0,))
+            for _ in range(b.u(4)):
+                ftyp, e, _ = b.box()
+                e.raw(78)                    # VisualSampleEntry fields
+                tr.formats.append((ftyp, _ipco(e) if ftyp == b"av01"
+                                   else []))
+
+
+def _moov(stream):
+    tracks = []
+    while stream.left() > 0:
+        typ, b, _ = stream.box()
+        if typ == b"trak":
+            tr = _Track()
+            while b.left() > 0:
+                ttyp, t, _ = b.box()
+                if ttyp == b"tkhd":
+                    v = _full(t, (0, 1))
+                    t.raw(16 if v == 1 else 8)
+                    tr.id = t.u(4)
+                    t.raw(4)
+                    t.raw(8 if v == 1 else 4)
+                    t.raw(52)
+                    tr.size = (t.u(4) >> 16, t.u(4) >> 16)
+                elif ttyp == b"tref":
+                    while t.left() > 0:
+                        rtyp, r, _ = t.box()
+                        while r.left() >= 4:
+                            tr.refs.setdefault(rtyp, []).append(r.u(4))
+                elif ttyp == b"edts":
+                    elst = False
+                    while t.left() > 0:
+                        etyp, e, _ = t.box()
+                        if etyp == b"elst":
+                            elst = True
+                            v, flags = e.version()
+                            if v > 1:
+                                _bad("elst version")
+                            if flags & 1:
+                                if e.u(4) != 1:
+                                    _bad("elst entry count")
+                                if e.u(8 if v == 1 else 4) == 0:
+                                    _bad("elst segment duration 0")
+                    if not elst:
+                        _bad("edts without elst")
+                elif ttyp == b"mdia":
+                    while t.left() > 0:
+                        mtyp, m, _ = t.box()
+                        if mtyp == b"mdhd":
+                            v = _full(m, (0, 1))
+                            m.raw(16 if v == 1 else 8)
+                            tr.timescale = m.u(4)
+                            if tr.timescale == 0:
+                                _bad("mdhd timescale 0")
+                        elif mtyp == b"hdlr":
+                            m.version(0)
+                            if m.u(4) != 0:
+                                _bad("hdlr pre_defined")
+                        elif mtyp == b"minf":
+                            while m.left() > 0:
+                                ntyp, n, _ = m.box()
+                                if ntyp == b"stbl":
+                                    _stbl(n, tr)
+            tracks.append(tr)
+    return tracks
+
+
+def _first_sample(data, tr):
+    """The track's first sample, after libavif's walk of every sample
+    (avifCodecDecodeInputFillFromSampleTable): each chunk's sample count
+    from stsc, each size from stsz, every sample within the file."""
+    samples, k = [], 0
+    for ci, off in enumerate(tr.chunks):
+        count = next((n for first, n, _ in reversed(tr.stsc)
+                      if first <= ci + 1), 0)
+        if count == 0:
+            _bad("a chunk without samples")
+        for _ in range(count):
+            if tr.sample_size:
+                size = tr.sample_size
+            elif k < len(tr.sizes):
+                size = tr.sizes[k]
+            else:
+                _bad("truncated sample table")
+            if off + size > len(data):
+                _bad("sample runs past the file")
+            samples.append((off, size))
+            off += size
+            k += 1
+    if not samples:
+        _bad("track without samples")
+    off, size = samples[0]
+    return data[off:off + size]
+
+
+def _from_tracks(data, tracks):
+    def ok(t):
+        return t.id and t.chunks and any(f == b"av01" for f, _ in t.formats)
+    color = next((t for t in tracks if ok(t) and not t.refs.get(b"auxl")),
+                 None)
+    if color is None:
+        _bad("no AV1 colour track")
+    if not color.timescale:      # PIL divides by it
+        _bad("colour track without mdhd")
+    alpha = next((t for t in tracks if ok(t) and color.id in
+                  t.refs.get(b"auxl", [])), None)
+    for t in (color, alpha):
+        if t is not None and not any(
+                any(k == b"av1C" for k, _ in p)
+                for f, p in t.formats if f == b"av01"):
+            _bad("AV1 track without av1C")
+    props = next(p for f, p in color.formats if f == b"av01")
+    colr = next((v for t, v in props if t == b"colr"), None)
+    prem = alpha is not None and alpha.id in color.refs.get(b"prem", [])
+    return (_first_sample(data, color), colr,
+            _first_sample(data, alpha) if alpha else None, prem,
+            color.size, alpha.size if alpha else None)
+
+
+def parse(data: bytes):
+    """(colour OBUs, colr property, alpha OBUs or None, premultiplied,
+    the colour and alpha sizes the container states) of the image PIL
+    loads as frame 0, as libavif 1.3.0's avifParse and avifDecoderReset
+    read it: the top-level boxes until those the brands need are parsed,
+    each of ftyp, meta and moov once and whole."""
+    s = _Stream(data, 0, len(data))
+    ftyp = meta = tracks = None
+    needs_meta = needs_moov = False
+    while s.left() > 0:
+        if s.left() < 8:
+            _bad("truncated box header")
+        typ, sub, size0 = s.box(top=True)
+        if typ in (b"ftyp", b"meta", b"moov"):
+            if size0 or sub.want > sub.left():
+                _bad(f"truncated {typ!r} box")
+        elif size0:
+            _bad("top-level box of size 0")
+        if s.p > len(data) and typ not in (b"ftyp", b"meta", b"moov"):
+            _bad("box runs past the file")
+        if typ == b"ftyp":
+            if ftyp is not None:
+                _bad("second ftyp")
+            if sub.left() < 8 or (sub.left() - 8) % 4:
+                _bad("ftyp size")
+            major = sub.raw(4)
+            sub.raw(4)
+            brands = {major} | {sub.raw(4) for _ in range(sub.left() // 4)}
+            if not {b"avif", b"avis"} & brands:
+                _bad("ftyp names no AVIF brand")
+            ftyp = major
+            needs_meta, needs_moov = b"avif" in brands, b"avis" in brands
+        elif typ == b"meta":
+            if meta is not None:
+                _bad("second meta")
+            meta = _meta(sub)
+        elif typ == b"moov":
+            if tracks is not None:
+                _bad("second moov")
+            tracks = _moov(sub)
+        if ftyp is not None and (not needs_meta or meta is not None) and \
+                (not needs_moov or tracks is not None):
+            break
+    if ftyp is None:
+        _bad("no ftyp")
+    if (needs_meta and meta is None) or (needs_moov and tracks is None):
+        _bad("truncated file")
+    if meta is not None:
+        _check_items(meta[0])
+    if ftyp == b"avis" or (ftyp != b"avif" and tracks):
+        return _from_tracks(data, tracks or [])
+    if meta is None:
+        _bad("no meta box")
+    return _from_items(data, meta)
+
+
+def _too_large(wh) -> bool:
+    """libavif's default size limits (avifDimensionsTooLarge)."""
+    return wh[0] > 32768 or wh[1] > 32768 or wh[0] * wh[1] > 16384 ** 2
+
+
+def _check_items(items):
+    """avifDecoderParse's check of every image item with data, whichever
+    source is decoded: each needs an ispe property of a size within the
+    limits."""
+    for it in items.values():
+        if it.unsupported_essential or it.type not in (b"av01", b"grid") \
+                or not it.extents:
+            continue
+        wh = it.prop(b"ispe")
+        if wh is None or not wh[0] or not wh[1] or _too_large(wh):
+            _bad("image item without a valid ispe")
+
+
+def _limited_to_full(plane: np.ndarray) -> np.ndarray:
+    """libavif's avifLimitedToFullY at 8 bits, which it applies to an
+    alpha plane coded in limited range (C division, toward zero)."""
+    x = (plane.astype(np.int32) - 16) * 255 + 109
+    q = np.where(x >= 0, x // 219, -(-x // 219))
+    return np.clip(q, 0, 255).astype(np.uint8)
+
+
+def _frame(obus: bytes, refused: list) -> Frame:
+    """decode_av1, where a refusal of a shown frame is added to `refused`
+    and the frame's size and depth returned without planes."""
+    try:
+        return decode_av1(obus)
+    except UnsupportedImage as e:
+        if e.frame is None:
+            raise
+        refused.append(e)
+        return e.frame
+
+
+def decode_avif(data: bytes) -> np.ndarray:
+    """AVIF bytes -> (H, W, 4) uint8 RGBA, top row first."""
+    from fluctus_tpu_torch.scene.avif_rgb import to_rgb
+    color_obus, colr, alpha_obus, prem, size, alpha_size = parse(data)
+    for wh in (size, alpha_size):     # libavif's default size limits
+        if wh is not None and (not wh[0] or not wh[1] or _too_large(wh)):
+            raise ValueError("AVIF: image size out of libavif's limits")
+    # what the port lacks is raised only once libavif's own failures are
+    # ruled out: it decodes both items, scales each to its stated size, then
+    # fails unless the alpha matches the colour in size and depth
+    refused: list = []
+    frame = _frame(color_obus, refused)
+    c_size = (frame.width, frame.height)
+    if size is not None and tuple(size) != c_size:
+        refused.append(UnsupportedImage(
+            "AVIF images whose stated size differs from their AV1 frame's "
+            "(libavif scales the frame) are not decoded by the port"))
+        c_size = tuple(size)
+    alpha = None
+    if alpha_obus is not None:
+        a = _frame(alpha_obus, refused)
+        a_size = (a.width, a.height)
+        if alpha_size is not None and tuple(alpha_size) != a_size:
+            refused.append(UnsupportedImage(
+                "AVIF images whose alpha frame differs from its stated size "
+                "(libavif scales the frame) are not decoded by the port"))
+            a_size = tuple(alpha_size)
+        if a_size != c_size or a.bitdepth != frame.bitdepth:
+            raise ValueError("AVIF: the alpha item differs from the colour "
+                             "item in size or depth")
+        alpha = a.planes[0] if a.planes else None
+        if alpha is not None and not a.full_range:
+            alpha = _limited_to_full(alpha)
+    if refused:
+        raise refused[0]
+    return to_rgb(frame, colr, alpha, prem)

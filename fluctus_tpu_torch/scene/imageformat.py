@@ -22,12 +22,15 @@ header tests of its `_open`), with one of three outcomes:
   (scene/gbr.py), FITS (scene/fits.py), BLP (scene/blp.py), ICNS with
   PNG, JPEG 2000 or RLE members (scene/icns.py), WebP (scene/webp.py),
   FLI and FLC (scene/fli.py), Photo CD (scene/pcd.py), IPTC
-  (scene/iptc.py) and JPEG 2000, JP2 or a raw codestream
-  (scene/jpeg2000.py); EPS goes to scene/eps.py, which gives -1 or raises
-  as PIL's Ghostscript lookup decides;
-- a format PIL reads and the port does not decode (AVIF) raises
-  `UnsupportedImage` naming it, so a map the JAX package would load is
-  never dropped without notice;
+  (scene/iptc.py), JPEG 2000, JP2 or a raw codestream
+  (scene/jpeg2000.py) and AVIF (scene/avif.py, which raises
+  `UnsupportedImage` naming the tool for an AV1 frame that needs an
+  in-loop filter, superres or film grain, a depth above 8 bits or a grid
+  item); EPS goes to scene/eps.py, which gives -1 or raises as PIL's
+  Ghostscript lookup decides;
+- a plugin whose outcome is "raise" (none is left) raises
+  `UnsupportedImage` naming the format, so a map the JAX package would
+  load is never dropped without notice;
 - bytes no plugin accepts, and formats PIL names but has no decoder for
   (its stub plugins), give None: the texture slot stays -1, as in the
   JAX package (an OpenEXR file, for instance, is not a PIL format).
@@ -147,7 +150,7 @@ _PLUGINS = (
     ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), "jpeg"),
     ("PPM", _pnm, "pnm"),
     ("PNG", lambda d: d.startswith(b"\x89PNG\r\n\x1a\n"), "png"),
-    ("AVIF", _avif, "raise"),
+    ("AVIF", _avif, "avif"),
     ("BLP", lambda d: d.startswith((b"BLP1", b"BLP2")), "blp"),
     ("BUFR", lambda d: d.startswith((b"BUFR", b"ZCZC")), None),
     ("CUR", lambda d: d.startswith(b"\0\0\2\0") and _i16(d, 4) > 0,
@@ -242,6 +245,7 @@ _DECODERS = {
     "fli": ("fli", "decode_fli"), "pcd": ("pcd", "decode_pcd"),
     "iptc": ("iptc", "decode_iptc"),
     "jpeg2000": ("jpeg2000", "decode_jpeg2000"),
+    "avif": ("avif", "decode_avif"),
 }
 
 

@@ -11,8 +11,8 @@
 // C interface:
 //   zstd_decode(src, n, dst, cap, partial) -> bytes written (at most cap),
 //   or -1 where libzstd reports an error (the message in zstd_last_error;
-//   *partial the bytes its streaming decoder had written into dst by then,
-//   or -1 where it decoded in one pass).
+//   *partial the bytes its streaming decoder had handed over by then, none
+//   where it decoded in one pass).
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
@@ -655,6 +655,7 @@ void block(Frame& f, const uint8_t* p, size_t n, Out& out) {
             so = f.of.base[so] + bs.read(f.of.bits[so]);
         }
     }
+    if (bs.off != 0) throw Bad("sequence bit stream not at its end");
     out.put(lit.data() + lp, lit.size() - lp);
 }
 
@@ -779,6 +780,10 @@ void frame(const uint8_t* p, size_t n, Out& out, size_t cap) {
             block(f, p + pos, size, out);
             pos += size;
         }
+        // libzstd checks the content size as it ends the last block, before
+        // its streaming decoder hands that block over
+        if (last && has_fcs && out.n - out.frame_start != fcs)
+            throw Bad("content size differs from the frame header's");
         out.flushed = out.n;
         if (whole && out.n > cap) throw Bad("content larger than the buffer");
         if (last) break;
@@ -817,14 +822,11 @@ long long zstd_decode(const uint8_t* src, long long n, uint8_t* dst,
         g_err = "out of memory";
     }
     // what the streaming decoder had handed over when it failed: every
-    // block before the failing one (a raw block as far as it went); in one
-    // pass libzstd also leaves the failing block's partial output and its
-    // literals in the buffer, which this decoder does not reproduce (-1)
-    if (out.one_pass) {
-        *partial = -1;
-        return -1;
-    }
-    const size_t k = out.flushed < (size_t)cap ? out.flushed : (size_t)cap;
+    // block before the failing one (a raw block as far as it went). In one
+    // pass libzstd reports no output at all, so libtiff, which zeroes its
+    // buffer past the output position on an error, keeps none of it
+    const size_t k = out.one_pass ? 0
+                     : out.flushed < (size_t)cap ? out.flushed : (size_t)cap;
     if (k) std::memcpy(dst, out.p, k);
     *partial = (long long)k;
     return -1;

@@ -55,7 +55,7 @@ class TexturePool:
             return -1
         # native decoders: a failed build raises, never -1 (the codecs
         # inside TIFF and ICNS build where they are first called)
-        if kind in ("jpeg", "webp", "jpeg2000"):
+        if kind in ("jpeg", "webp", "jpeg2000", "avif"):
             importlib.import_module(
                 f"fluctus_tpu_torch.scene.{kind}").load_library()
         try:

@@ -472,6 +472,35 @@ def _decompress(raw: bytes, comp: int, want: int, geom) -> bytes:
     return out[:want]
 
 
+def _tables_as_read(tables: bytes) -> bytes:
+    """The JPEGTables stream as libjpeg reads it through libtiff's source,
+    up to its EOI: past the field's last byte the source gives a fake EOI
+    (FF D9) at every refill, so a segment the field's count cuts is read
+    on through those bytes to its declared length."""
+    def at(i):
+        return tables[i] if i < len(tables) else (0xFF, 0xD9)[
+            (i - len(tables)) & 1]
+    if tables[:2] != b"\xff\xd8":
+        return tables
+    out, i = bytearray(b"\xff\xd8"), 2
+    while i < len(tables) + 4:
+        while at(i) != 0xFF:                 # libjpeg skips stray bytes
+            i += 1
+        while at(i) == 0xFF:
+            i += 1
+        m = at(i)
+        i += 1
+        if m == 0xD9:
+            break
+        if m == 0x01 or 0xD0 <= m <= 0xD7:
+            out += bytes((0xFF, m))
+            continue
+        n = at(i) << 8 | at(i + 1)
+        out += bytes((0xFF, m)) + bytes(at(i + k) for k in range(max(n, 2)))
+        i += max(n, 2)
+    return bytes(out)
+
+
 def _jpeg_chunk(raw: bytes, tables, photo: int, planar: int) -> np.ndarray:
     """One strip or tile of new-style JPEG: the JPEGTables stream (less
     its EOI) before the chunk's (less its SOI), and an Adobe marker that
@@ -483,8 +512,7 @@ def _jpeg_chunk(raw: bytes, tables, photo: int, planar: int) -> np.ndarray:
         raise ValueError("TIFF: JPEG chunk without SOI")
     # libtiff reads the tables as a stream of their own, ended by their EOI
     # or by the fake EOI its source gives past their last byte
-    head = bytes(tables) if tables else b"\xff\xd8"
-    head = head[:-2] if head[-2:] == b"\xff\xd9" else head
+    head = _tables_as_read(bytes(tables)) if tables else b"\xff\xd8"
     if photo in (2, 5, 6) or planar == 2:
         ycc = photo == 6 and planar == 1
         head = head[:2] + b"\xff\xee" + struct.pack(

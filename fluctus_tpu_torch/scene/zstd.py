@@ -40,8 +40,8 @@ def decompress(data: bytes, size: int) -> bytes:
     """The first frame of `data` as libtiff reads it through libzstd's
     streaming decoder: at most `size` bytes (fewer where the data ends
     early, which the caller refuses); where libzstd fails, tiff.PartialData
-    with what its streaming decoder had written, or ValueError where it
-    decoded the frame in one pass."""
+    with what its streaming decoder had handed over (nothing where it
+    decoded the frame in one pass)."""
     from fluctus_tpu_torch.scene.tiff import PartialData
     lib = load_library()
     out = np.empty(max(size, 1), np.uint8)
@@ -49,8 +49,6 @@ def decompress(data: bytes, size: int) -> bytes:
     n = lib.zstd_decode(data, len(data), out.ctypes.data, size,
                         ctypes.byref(partial))
     if n < 0:
-        msg = f"Zstandard: {lib.zstd_last_error().decode()}"
-        if partial.value < 0:
-            raise ValueError(msg)
-        raise PartialData(msg, out[:partial.value].tobytes())
+        raise PartialData(f"Zstandard: {lib.zstd_last_error().decode()}",
+                          out[:partial.value].tobytes())
     return out[:n].tobytes()

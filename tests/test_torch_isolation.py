@@ -10,7 +10,7 @@ a 2-shard mesh renders through both integrators, the packet forest
 builds and traverses through both of its walks,
 the denoised, progressive and preview renders, picking, the saved state,
 the XLA backends ("jnp", "packed", "wide") and the command line run, and
-the texture decoders (JPEG 2000, the TIFF codecs) read their files. The
+the texture decoders (JPEG 2000, the TIFF codecs, AVIF) read their files. The
 native decoders include only the C++ standard library. The machine with
 the card has none of those packages."""
 import os
@@ -201,12 +201,12 @@ def test_sources_name_no_jax_stack_import():
 
 
 def test_native_decoders_use_the_standard_library_only():
-    """The C++ decoders (JPEG, WebP, BCn, JPEG 2000, Zstandard, CCITT, the
-    scene hash) include no header but the C++ standard library's: no
-    OpenJPEG, libzstd, libtiff or libjpeg is linked."""
+    """The C++ decoders (JPEG, WebP, BCn, JPEG 2000, Zstandard, CCITT, AV1,
+    the scene hash) include no header but the C++ standard library's: no
+    OpenJPEG, libzstd, libtiff, libjpeg, dav1d or libavif is linked."""
     native = os.path.join(REPO, "fluctus_tpu_torch", "scene", "native")
     names = sorted(os.listdir(native))
-    for want in ("j2k.cpp", "zstd.cpp", "ccitt.cpp"):
+    for want in ("j2k.cpp", "zstd.cpp", "ccitt.cpp", "av1.cpp"):
         assert want in names
     allowed = re.compile(r"<(c[a-z]+|[a-z_]+|stdint\.h|string\.h|"
                          r"stdlib\.h|math\.h)>")
@@ -249,10 +249,12 @@ def test_port_decodes_textures_without_pil(tmp_path):
     XBM, PSD CMYK and Lab, IM (RGB and YCC), SPIDER, BLP, ICNS, WebP
     lossless, lossy and lossy with alpha from tests/data/webp with its
     g++ build, JPEG 2000 reversible, irreversible, with every code-block
-    style and with a palette from tests/data/j2k, and TIFF G4, G3 2D,
-    Zstandard, LZMA, old-style JPEG and YCbCr from tests/data/tiff, with
-    their g++ builds) run with PIL and zstandard unimportable and give the
-    rows PIL gives."""
+    style and with a palette from tests/data/j2k, TIFF G4, G3 2D,
+    Zstandard, LZMA, old-style JPEG and YCbCr from tests/data/tiff, and
+    AVIF (lossless 4:2:0, lossy, premultiplied alpha, screen content with
+    intra block copy, an avis sequence) from tests/data/avif, with their
+    g++ builds) run with PIL and zstandard unimportable and give the rows
+    PIL gives."""
     import numpy as np
     from PIL import Image
     g = np.random.default_rng(0)
@@ -302,7 +304,11 @@ def test_port_decodes_textures_without_pil(tmp_path):
                       ("tiff", "ccitt_g4.tif"), ("tiff", "ccitt_g3_2d.tif"),
                       ("tiff", "zstd.tif"), ("tiff", "lzma_pred2.tif"),
                       ("tiff", "ojpeg_tables.tif"),
-                      ("tiff", "ycbcr22_deflate.tif")):
+                      ("tiff", "ycbcr22_deflate.tif"),
+                      ("avif", "kitchen_wood.avif"),
+                      ("avif", "kitchen_floor_n.avif"),
+                      ("avif", "alpha_prem.avif"), ("avif", "screen.avif"),
+                      ("avif", "sequence.avif")):
         with open(os.path.join(REPO, "tests", "data", sub, name),
                   "rb") as f:
             files[name] = f.read()

@@ -625,6 +625,75 @@ def test_damaged_ycbcr_strips_agree_with_pil(tmp_path):
     assert not bad, f"cases {bad} differ from PIL"
 
 
+def test_one_pass_zstd_ycbcr_strips_agree_with_pil(tmp_path):
+    """YCbCr TIFFs whose Zstandard strip names its content size, so libzstd
+    decodes it in one pass, with seeded bit flips in the strip: where
+    libzstd fails in that pass it reports no output, and libtiff, which
+    zeroes its buffer past the output position, converts a zeroed strip
+    (the port used to give -1)."""
+    zstandard = pytest.importorskip("zstandard")
+    h, w = 37, 45
+    g = np.random.default_rng(31)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = ((xx * 5 + yy * 3) % 256).astype(np.uint8)
+    y[::7] = g.integers(0, 256, y[::7].shape)
+    cases = []
+    for hs, vs in ((2, 2), (2, 1), (1, 1)):
+        cb = np.add.outer(np.arange(-(-h // vs)) * 3,
+                          np.arange(-(-w // hs)) * 2) % 256
+        blk = fixtures.ycbcr_blocks(y, cb, (255 - cb) // 2, hs, vs)
+        cases.append(fixtures.tiff_bytes(
+            w, h, 8, 3, 6, [zstandard.ZstdCompressor(
+                level=3, write_content_size=True).compress(blk)],
+            comp=50000, subsampling=[hs, vs]))
+    bad, failed = [], 0
+    for c, b in enumerate(cases):
+        assert agree(tmp_path, b, ".tif")
+        im = Image.open(io.BytesIO(b))
+        off, count = im.tag_v2[273][0], im.tag_v2[279][0]
+        for t in range(40):
+            d = bytearray(b)
+            for _ in range(1 + int(g.integers(0, 2))):
+                d[int(g.integers(off + 6, off + count))] ^= \
+                    1 << int(g.integers(0, 8))
+            try:
+                zstd.decompress(bytes(d[off:off + count]), 1 << 20)
+            except ValueError:
+                failed += 1
+            if not agree(tmp_path, bytes(d), ".tif"):
+                bad.append((c, t))
+    assert failed >= 5, "too few damaged frames fail to test the repair"
+    assert not bad, f"cases {bad} differ from PIL"
+
+
+def test_cut_jpeg_tables_read_on_through_the_fake_eoi(tmp_path):
+    """New-style JPEG TIFFs whose JPEGTables count cuts the field at every
+    third byte: libtiff's source gives a fake EOI (FF D9) at each refill
+    past the field, so a cut segment is read on through those bytes to its
+    declared length and the tables end there. The port gives PIL's pixels,
+    or -1 where PIL fails (a bogus DQT index or Huffman table), for
+    both quality settings (it used to give -1 for every cut)."""
+    pic = MK.picture(32, 48, 5)
+    bad, read = [], 0
+    for q in (90, 50):
+        j = pil_jpeg(pic, quality=q, subsampling=0)
+        j = j[:2] + j[4 + struct.unpack(">H", j[4:6])[0]:]  # no JFIF: RGB
+        tables, strip = _jpeg_tables_split(j)
+        for k in range(4, len(tables) - 2, 3):
+            d = fixtures.tiff_bytes(48, 32, 8, 3, 2, [strip], comp=7,
+                                    tables=tables[:k])
+            want, got = both(tmp_path, d, ".tif")
+            read += not isinstance(want, int)
+            if isinstance(want, int) or isinstance(got, int):
+                ok = isinstance(want, int) and isinstance(got, int)
+            else:
+                ok = np.array_equal(want, got)
+            if not ok:
+                bad.append((q, k))
+    assert read >= 100, "too few cut tables that PIL reads"
+    assert not bad, f"cuts {bad} differ from PIL"
+
+
 # ------------------------------------------------------------ render
 
 def test_lossless_jpeg_kitchen_maps_equal_the_png_atlas():

@@ -8,6 +8,20 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# Under pytest-xdist every worker would size torch's intra-op pool (and
+# OpenMP's, in the child processes some tests start) to the whole
+# machine, so six workers run six times as many threads as there are
+# cores and the render tests slow down by an order of magnitude. Each
+# worker takes its share of the cores instead; the tests compute the same
+# numbers either way.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT") or 0)
+if _WORKERS > 1:
+    _SHARE = str(max(1, (os.cpu_count() or 1) // _WORKERS))
+    os.environ.setdefault("OMP_NUM_THREADS", _SHARE)
+    os.environ.setdefault("MKL_NUM_THREADS", _SHARE)
+    import torch
+    torch.set_num_threads(int(_SHARE))
+
 
 def scene_arrays(scene) -> dict:
     """JAX DeviceScene -> the dotted-key dict of NumPy arrays that
