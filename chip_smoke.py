@@ -621,7 +621,8 @@ def cpu_references(out_dir: str) -> None:
     """The renders on this host's CPU (the plain versions) that avif,
     golden, golden-env, golden-ply and pbf hold the card's against, each
     saved as out_dir/<name>.npy, from the same inputs those phases make:
-    the AVIF kitchen's 64x64 lockstep (first, as phase avif comes early),
+    the AVIF kitchens' 64x64 lockstep, free of filters and filtered
+    (first, as phase avif comes early),
     the goldens' stream, the env-lit sessions' lockstep and stream under
     the seeded sky, the grid-3 PLY's lockstep and the PBRT kitchen's and
     its PBF's stream without implicit light hits. Three threads, so that
@@ -640,9 +641,11 @@ def cpu_references(out_dir: str) -> None:
         np.save(os.path.join(out_dir, name + ".tmp.npy"), img)
         os.replace(os.path.join(out_dir, name + ".tmp.npy"),
                    os.path.join(out_dir, name + ".npy"))
-    save(AVIF_REF, driver.render(kitchen_from_maps(
-        avif_maps(), kitchen_cfg(64, 64), "AVIF", "cpu"), AVIF_REF_SPP,
-        integrator="lockstep").numpy())
+    for ref, maps in ((AVIF_REF, avif_maps()),
+                      (AVIF_FILTERED_REF, avif_maps("_filtered"))):
+        save(ref, driver.render(kitchen_from_maps(
+            maps, kitchen_cfg(64, 64), "AVIF", "cpu"), AVIF_REF_SPP,
+            integrator="lockstep").numpy())
     for name, (gs, spp) in golden_sessions("cpu").items():
         save(f"golden_{name}", driver.render(gs, spp,
                                              integrator="stream").numpy())
@@ -3731,7 +3734,7 @@ def phase_octant(sess, plain_img, secs_plain: float, card: str) -> dict:
 
 WEBP_DATA = os.path.join(REPO, "tests", "data", "webp")
 KITCHEN_STATE = "c68e332cfae81cc6"     # data/states/state_<this>.json
-MAP_KITCHEN_SPP = 4      # the WebP, JPEG 2000 and lossless-JPEG kitchens
+MAP_KITCHEN_SPP = 4   # the AVIF, WebP, JPEG 2000 and lossless-JPEG kitchens
 
 
 def check_recorded(data_dir: str, record_name: str, phase: str,
@@ -3739,9 +3742,7 @@ def check_recorded(data_dir: str, record_name: str, phase: str,
     """Each file of a tests/data directory (of the recorded length, where
     the record gives it) decoded through the texture dispatch and held
     against the SHA-256 of PIL's RGBA recorded beside it (the card's
-    machine has no PIL), or, where the record says it `raises`, refused
-    with an UnsupportedImage naming that tool. Returns {file: decode
-    seconds}."""
+    machine has no PIL). Returns {file: decode seconds}."""
     import hashlib
     from fluctus_tpu_torch.scene import imageformat
 
@@ -3754,21 +3755,10 @@ def check_recorded(data_dir: str, record_name: str, phase: str,
         check(len(data) == rec.get("bytes", len(data)),
               f"{name}: not the recorded file")
         t = time.perf_counter()
-        kind = imageformat.sniff(data)
-        if "raises" in rec:
-            try:
-                imageformat.decode(data, kind)
-                check(False, f"{name}: decoded, though its frame needs "
-                      f"{rec['raises']}")
-            except imageformat.UnsupportedImage as e:
-                check(rec["raises"] in str(e), f"{name}: refused without "
-                      f"naming {rec['raises']}: {e}")
-        else:
-            rgba = imageformat.decode(data, kind)
-            check(list(rgba.shape) == rec["shape"] and hashlib.sha256(
-                rgba.tobytes()).hexdigest() == rec["sha256"],
-                  f"{name}: the RGBA differs from "
-                  f"{versions.format(**record)}'s")
+        rgba = imageformat.decode(data, imageformat.sniff(data))
+        check(list(rgba.shape) == rec["shape"] and hashlib.sha256(
+            rgba.tobytes()).hexdigest() == rec["sha256"],
+              f"{name}: the RGBA differs from {versions.format(**record)}'s")
         decode[name] = time.perf_counter() - t
     return decode
 
@@ -3971,35 +3961,98 @@ def phase_jpeg(sess, plain_img, secs_plain: float, card: str) -> dict:
 
 
 AVIF_DATA = os.path.join(REPO, "tests", "data", "avif")
-AVIF_REF = "avif_kitchen_64"   # the CPU reference of phase avif
+AVIF_REF = "avif_kitchen_64"   # the CPU references of phase avif
+AVIF_FILTERED_REF = "avif_filtered_kitchen_64"
 AVIF_REF_SPP = 4
 
 
-def avif_maps() -> dict:
-    return {n: os.path.join(AVIF_DATA, f"{n}.avif") for n in KITCHEN_MAPS}
+def avif_maps(suffix: str = "") -> dict:
+    """The kitchen's maps as AVIF: lossless or free of in-loop filters
+    (`suffix` ""), or lossy with the filters ("_filtered": PIL's defaults
+    for the floor, which deblock; speed 4 with CDEF for the wood, which
+    adds loop restoration; speed 4 at 4:4:4 for the floor's normals)."""
+    return {n: os.path.join(AVIF_DATA, f"{n}{suffix}.avif")
+            for n in KITCHEN_MAPS}
 
 
-def phase_avif(sess, plain_img, secs_plain: float, card: str) -> dict:
-    """AVIF textures: scene/native/av1.cpp built with g++; each file of
-    tests/data/avif (the kitchen's maps lossless 4:4:4, lossless 4:2:0 and
-    lossy without in-loop filters, premultiplied alpha, screen content
-    with palette and intra block copy, limited-range grey, an avis
-    sequence) decoded through the texture dispatch and held against the
-    SHA-256 of PIL's RGBA recorded in avif.json, and the file whose frame
-    needs deblocking refused naming it; then the kitchen from the AVIF
-    maps (kitchen_from_maps): each map's slice of its atlas equal to the
-    recorded decode, its full-width lockstep frame (8 bounces, 16 spp)
-    through K1 only, both forms, its mean relative difference from the
-    PNG kitchen's frame `plain_img` printed (the maps differ from the PNGs
-    by the YUV round trip), K1 held against its plain version and timed on
-    the frame's first rays; and a 64x64 render of the AVIF kitchen
-    through K1 held against the same render on this host's CPU at
-    GOLDEN_LIMITS["kitchen_cfg3"]."""
+def avif_kitchen(sess, plain4, secs4: float, card: str, label: str,
+                 maps: dict, ref_name: str, record: dict) -> dict:
+    """One kitchen from AVIF maps (kitchen_from_maps): each map's slice of
+    its atlas equal to the recorded decode, its full-width lockstep frame
+    (8 bounces, MAP_KITCHEN_SPP spp) through K1 only, both forms, its
+    mean relative difference from the PNG kitchen's frame `plain4` at that
+    spp printed (the maps differ from the PNGs by the YUV round trip and
+    the lossy coding), K1 held against its plain version and timed on the
+    frame's first rays; and a 64x64 render of the same kitchen through K1
+    held against the same render on this host's CPU (`ref_name` of
+    cpu_references) at GOLDEN_LIMITS["kitchen_cfg3"]."""
     import hashlib
     import numpy as np
-    import torch
     from fluctus_tpu_torch.ops import traverse_stack as ts
     from fluctus_tpu_torch.render import driver
+
+    t0 = time.perf_counter()
+    msess = kitchen_from_maps(maps, sess.cfg, label)
+    t_session = time.perf_counter() - t0
+    at = msess.scene.atlas
+    sums = set()
+    for k in range(int(at.width.numel())):
+        w, h, o = int(at.width[k]), int(at.height[k]), int(at.offset[k])
+        rows = at.data[o:o + w * h * 4].cpu().numpy().reshape(h, w, 4)
+        sums.add(hashlib.sha256(
+            np.ascontiguousarray(rows[::-1]).tobytes()).hexdigest())
+    want = {record["files"][os.path.basename(p)]["sha256"]
+            for p in maps.values()}
+    check(sums == want, f"the {label} kitchen's atlas slices differ from "
+          "the recorded decodes")
+    keep: dict = {}
+    with first_rays(ts) as rays:
+        secs, mine = phase_frame_only(msess, MAP_KITCHEN_SPP, card, "avif",
+                                      "K1", f"kitchen from {label} maps,",
+                                      keep)
+    img = keep.pop("img")
+    diff = float((img - plain4).abs().mean() / plain4.abs().mean())
+    say("avif", t0, f"kitchen from {label} maps: session {t_session:.2f} "
+        f"s, {len(sums)} atlas slices equal to the recorded decodes; frame "
+        f"{secs:.3f} s (PNG frame at {MAP_KITCHEN_SPP} spp {secs4:.3f} s), "
+        f"K1 launches {mine}; mean relative difference from the PNG "
+        f"kitchen's frame {diff:.6f} (for the record), on {card}")
+    k1 = k1_on_first_rays(rays, "avif", label, card)
+    del msess, img
+    t0 = time.perf_counter()
+    small = kitchen_from_maps(maps, kitchen_cfg(64, 64), label)
+    keep = {}
+    phase_frame_only(small, AVIF_REF_SPP, card, "avif", "K1",
+                     f"64x64 kitchen from {label} maps,", keep)
+    ref, how = cpu_ref(ref_name, lambda: driver.render(
+        kitchen_from_maps(maps, kitchen_cfg(64, 64), label, "cpu"),
+        AVIF_REF_SPP, integrator="lockstep").numpy())
+    share, mean_rel = golden_share(keep["img"].cpu().numpy(), ref)
+    need_share, need_rel = GOLDEN_LIMITS["kitchen_cfg3"]
+    say("avif", t0, f"64x64 {label} kitchen through K1 against the same "
+        f"render on this host's CPU ({how}): {share * 100:.3f}% of pixels "
+        f"within rtol {RTOL} / atol {ATOL} (need {need_share * 100:.1f}%), "
+        f"mean relative error {mean_rel:.3e} (need <= {need_rel:.0e}), on "
+        f"{card}")
+    check(share >= need_share and mean_rel <= need_rel,
+          f"the {label} kitchen on the card is not held to its CPU render")
+    del small
+    return {"launches": mine, "secs": secs, "session": t_session,
+            "k1": k1, "diff": diff}
+
+
+def phase_avif(sess, plain4, secs4: float, card: str) -> dict:
+    """AVIF textures: scene/native/av1.cpp built with g++; each file of
+    tests/data/avif decoded through the texture dispatch and held against
+    the SHA-256 of PIL's RGBA recorded in avif.json (the kitchen's maps
+    lossless 4:4:4, lossless 4:2:0 and lossy without in-loop filters, and
+    lossy with them; premultiplied alpha, screen content with palette and
+    intra block copy, limited-range grey, an avis sequence, PIL's default
+    settings, each in-loop filter alone, film grain, 4:2:2 and grey with
+    every tool); then the kitchen from the AVIF maps free of filters and
+    the kitchen from the filtered maps (avif_kitchen), whose frames run
+    deblocking, CDEF and loop restoration on the host before K1 traces
+    them."""
     from fluctus_tpu_torch.scene import avif
 
     t0 = time.perf_counter()
@@ -4009,54 +4062,14 @@ def phase_avif(sess, plain_img, secs_plain: float, card: str) -> dict:
     with open(os.path.join(AVIF_DATA, "avif.json")) as f:
         record = json.load(f)
     say("avif", t0, f"g++ build {t_build:.2f} s; {len(decode)} files equal "
-        "to their recorded SHA-256 (filters_on.avif refused naming "
-        "deblocking): " + ", ".join(f"{k} {v:.4f} s"
-                                    for k, v in decode.items()))
-    t0 = time.perf_counter()
-    msess = kitchen_from_maps(avif_maps(), sess.cfg, "AVIF")
-    t_session = time.perf_counter() - t0
-    at = msess.scene.atlas
-    sums = set()
-    for k in range(int(at.width.numel())):
-        w, h, o = int(at.width[k]), int(at.height[k]), int(at.offset[k])
-        rows = at.data[o:o + w * h * 4].cpu().numpy().reshape(h, w, 4)
-        sums.add(hashlib.sha256(
-            np.ascontiguousarray(rows[::-1]).tobytes()).hexdigest())
-    want = {record["files"][f"{n}.avif"]["sha256"] for n in KITCHEN_MAPS}
-    check(sums == want, "the AVIF kitchen's atlas slices differ from the "
-          "recorded decodes")
-    keep: dict = {}
-    with first_rays(ts) as rays:
-        secs, mine = phase_frame_only(msess, 16, card, "avif", "K1",
-                                      "kitchen from AVIF maps,", keep)
-    img = keep.pop("img")
-    diff = float((img - plain_img).abs().mean() / plain_img.abs().mean())
-    say("avif", t0, f"kitchen from AVIF maps: session {t_session:.2f} s, "
-        f"{len(sums)} atlas slices equal to the recorded decodes; frame "
-        f"{secs:.3f} s (PNG frame {secs_plain:.3f} s), K1 launches {mine}; "
-        f"mean relative difference from the PNG kitchen's frame {diff:.6f} "
-        f"(for the record), on {card}")
-    k1 = k1_on_first_rays(rays, "avif", "AVIF", card)
-    del msess, img
-    t0 = time.perf_counter()
-    small = kitchen_from_maps(avif_maps(), kitchen_cfg(64, 64), "AVIF")
-    keep = {}
-    phase_frame_only(small, AVIF_REF_SPP, card, "avif", "K1",
-                     "64x64 kitchen from AVIF maps,", keep)
-    ref, how = cpu_ref(AVIF_REF, lambda: driver.render(
-        kitchen_from_maps(avif_maps(), kitchen_cfg(64, 64), "AVIF", "cpu"),
-        AVIF_REF_SPP, integrator="lockstep").numpy())
-    share, mean_rel = golden_share(keep["img"].cpu().numpy(), ref)
-    need_share, need_rel = GOLDEN_LIMITS["kitchen_cfg3"]
-    say("avif", t0, f"64x64 AVIF kitchen through K1 against the same "
-        f"render on this host's CPU ({how}): {share * 100:.3f}% of pixels "
-        f"within rtol {RTOL} / atol {ATOL} (need {need_share * 100:.1f}%), "
-        f"mean relative error {mean_rel:.3e} (need <= {need_rel:.0e})")
-    check(share >= need_share and mean_rel <= need_rel,
-          "the AVIF kitchen on the card is not held to its CPU render")
-    del small
-    return {"launches": mine, "secs": secs, "session": t_session,
-            "k1": k1, "decode": decode, "build": t_build, "diff": diff}
+        "to their recorded SHA-256 (host decode times): " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in decode.items()) + f", on {card}")
+    out = avif_kitchen(sess, plain4, secs4, card, "AVIF", avif_maps(),
+                       AVIF_REF, record)
+    out["filtered"] = avif_kitchen(sess, plain4, secs4, card,
+                                   "filtered AVIF", avif_maps("_filtered"),
+                                   AVIF_FILTERED_REF, record)
+    return dict(out, decode=decode, build=t_build)
 
 
 # ------------------------------------------------------------ protocol sweep
@@ -4418,14 +4431,14 @@ def main() -> int:
                                       "kitchen", kept)
     plain_img = kept.pop("img")
     octant = phase_octant(sess, plain_img, secs, card)
-    avif_out = phase_avif(sess, plain_img, secs, card)
-    # the kitchens from WebP, JPEG 2000 and lossless-JPEG maps render at
-    # MAP_KITCHEN_SPP against the PNG kitchen's frame at that spp
+    # the kitchens from AVIF, WebP, JPEG 2000 and lossless-JPEG maps render
+    # at MAP_KITCHEN_SPP against the PNG kitchen's frame at that spp
     kept4: dict = {}
     secs4, _ = phase_frame_only(sess, MAP_KITCHEN_SPP, card, "frame", "K1",
                                 "kitchen at 4 spp (for the map kitchens),",
                                 kept4)
     plain4 = kept4.pop("img")
+    avif_out = phase_avif(sess, plain4, secs4, card)
     webp_out = phase_webp(sess, plain4, secs4, card)
     j2k_out = phase_j2k(sess, plain4, secs4, card)
     jpeg_out = phase_jpeg(sess, plain4, secs4, card)
@@ -4643,7 +4656,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
     for maps, kept_out in (("WebP", webp_out), ("JPEG 2000", j2k_out),
-                           ("lossless JPEG", jpeg_out), ("AVIF", avif_out)):
+                           ("lossless JPEG", jpeg_out), ("AVIF", avif_out),
+                           ("filtered AVIF", avif_out["filtered"])):
         for form, label in (("closest", "closest"), ("any", "any-hit")):
             r = kept_out["k1"][form]
             kernels.append({

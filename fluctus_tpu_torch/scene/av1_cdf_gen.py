@@ -6,6 +6,7 @@ wheel ships).
 
     python3 -m fluctus_tpu_torch.scene.av1_cdf_gen /path/to/libavif.so
 
+Film grain's Gaussian sequence is dav1d's `dav1d_gaussian_sequence`.
 The quantizer matrices come from the aom 3.12.1 encoder in the same
 library (its `iwt_matrix_ref`, the spec's Quantizer_Matrix), written as
 base64. dav1d keeps the default CDFs as one `CdfModeContext`, one key-frame
@@ -102,6 +103,8 @@ DQ = 0x479ec0
 # levels 0-14, luma then chroma, every transform size's weights in a row
 QM = 0x3e3d20
 QM_SIZE = 15 * 2 * 3344
+# dav1d_gaussian_sequence[2048]: film grain's Gaussian values (int16)
+GAUSSIAN = 0x46f9c0
 
 
 def _rows(u16, off, dims, syms, pad):
@@ -173,6 +176,14 @@ def generate(lib_path: str) -> str:
     for i, name in enumerate(("dc_q", "ac_q")):
         out.append(f"static const uint16_t {name.upper()}[256] = {{"
                    + ",".join(str(int(v)) for v in dq[:, i]) + "};\n")
+    gauss = np.frombuffer(data[GAUSSIAN:GAUSSIAN + 4096], "<i2")
+    if gauss[:4].tolist() != [56, 568, -180, 172] or np.any(gauss % 4) or \
+            np.abs(gauss).max() >= 2048:
+        raise SystemExit("film grain's Gaussian sequence not found")
+    out.append("static const int16_t GAUSSIAN[2048] = {\n"
+               + ",\n".join("  " + ",".join(str(int(v)) for v in
+                                            gauss[i:i + 16])
+                             for i in range(0, 2048, 16)) + "};\n")
     qm = data[QM:QM + QM_SIZE]
     if list(qm[:4]) != [32, 43, 73, 97] or max(qm) > 255:
         raise SystemExit("quantizer matrices not found")

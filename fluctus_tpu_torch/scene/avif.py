@@ -19,9 +19,9 @@ PIL's side, copied here:
   or `clap` to the pixels (it turns `irot`/`imir` into an EXIF
   orientation), so neither does the port.
 
-AV1 frames that need an in-loop filter (deblocking, CDEF with a non-zero
-strength, loop restoration), superres or film grain, a bit depth above 8,
-grid or other derived items raise UnsupportedImage
+AV1 frames decode with their in-loop filters (deblocking, CDEF, loop
+restoration) and film grain, as dav1d applies them for libavif. Superres,
+a bit depth above 8, grid or other derived items raise UnsupportedImage
 naming the tool; a file libavif or dav1d refuses raises ValueError, which
 the texture pool turns into -1 as PIL's failure does in the JAX package.
 
@@ -42,6 +42,9 @@ from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
                     "av1.cpp")
 _lib = None
+
+# the bits of Frame.tools
+TOOLS = {"deblocking": 1, "CDEF": 2, "loop restoration": 4, "film grain": 8}
 
 ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
               b"urn:mpeg:hevc:2015:auxid:1")
@@ -66,20 +69,21 @@ def load_library():
 
 
 class Frame:
-    """One decoded AV1 frame: its planes and the sequence header's colour
-    description."""
+    """One decoded AV1 frame: its planes, the sequence header's colour
+    description, and `tools`, the filters its frame header turns on (a
+    mask of TOOLS)."""
 
     def __init__(self, info, planes):
         (self.width, self.height, self.ss_x, self.ss_y, self.mono,
-         self.bitdepth, self.cp, self.tc, self.mc, self.full_range) = (
-            int(v) for v in info)
+         self.bitdepth, self.cp, self.tc, self.mc, self.full_range,
+         self.tools) = (int(v) for v in info)
         self.planes = planes
 
 
 def decode_av1(obus: bytes) -> Frame:
     """The first shown frame of an AV1 OBU stream, as dav1d gives it."""
     lib = load_library()
-    info = np.zeros(10, np.int32)
+    info = np.zeros(11, np.int32)
     rc = lib.av1_decode(obus, len(obus), info.ctypes.data)
     if rc:
         msg = lib.av1_last_error().decode()

@@ -4,7 +4,8 @@ the planes of an AV1 frame.
 
 libavif hands the conversion to libyuv (1909) when libyuv has constants
 for the frame's matrix and range: BT.601 (and BT.470BG, and unspecified),
-BT.709 and BT.2020 non-constant luminance, full or limited. libyuv's
+BT.709 and BT.2020 non-constant luminance, full or limited (a 4:0:0 frame
+at full range only). libyuv's
 fixed-point conversion is copied here with its rounding: the luma scaled
 by `(y * 0x0101 * YG) >> 16`, the chroma terms in 6-bit coefficients, one
 arithmetic shift by 6 and a clamp. Subsampled chroma is first upsampled
@@ -36,7 +37,10 @@ _FULL = {
 
 def _libyuv_constants(mc: int, cp: int, full: bool, mono: bool):
     """libavif's getLibYUVConstants: libyuv's constants for the matrix and
-    range, or None where libavif falls back to its own code."""
+    range, or None where libavif falls back to its own code (as it does
+    for every 4:0:0 frame in limited range)."""
+    if mono and not full:
+        return None
     if mono and mc == 0:
         mc = 6
     key = {1: "709", 2: "601", 5: "601", 6: "601", 9: "2020"}.get(mc)

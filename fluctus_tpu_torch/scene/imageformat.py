@@ -23,9 +23,9 @@ header tests of its `_open`), with one of three outcomes:
   PNG, JPEG 2000 or RLE members (scene/icns.py), WebP (scene/webp.py),
   FLI and FLC (scene/fli.py), Photo CD (scene/pcd.py), IPTC
   (scene/iptc.py), JPEG 2000, JP2 or a raw codestream
-  (scene/jpeg2000.py) and AVIF (scene/avif.py, which raises
-  `UnsupportedImage` naming the tool for an AV1 frame that needs an
-  in-loop filter, superres or film grain, a depth above 8 bits or a grid
+  (scene/jpeg2000.py) and AVIF (scene/avif.py, in-loop filters and film
+  grain included, which raises `UnsupportedImage` naming the tool for an
+  AV1 frame that needs superres or a depth above 8 bits, or a grid
   item); EPS goes to scene/eps.py, which gives -1 or raises as PIL's
   Ghostscript lookup decides;
 - a plugin whose outcome is "raise" (none is left) raises

@@ -41,6 +41,7 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
                     "jpeg.cpp")
 _lib = None
 _SOURCES = {"pil": 0, "libtiff": 1, "libtiff-ojpeg": 2}
+_COLOURS = {None: 0, "none": 1, "ycc": 2}
 
 
 def load_library():
@@ -58,6 +59,9 @@ def load_library():
         lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
                                     cint, ctypes.c_void_p]
         lib.jpeg_decode.restype = ctypes.c_int
+        lib.jpeg_factors.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
+                                     cint, ctypes.c_void_p, cint]
+        lib.jpeg_factors.restype = ctypes.c_int
         lib.jpeg_planes.argtypes = [ctypes.c_char_p, ctypes.c_longlong,
                                     cint, ctypes.c_void_p, cint,
                                     ctypes.c_void_p]
@@ -90,11 +94,23 @@ def arith_table() -> np.ndarray:
     return out
 
 
-def decode_jpeg_samples(data: bytes, source: str = "pil") -> np.ndarray:
-    """JPEG bytes -> (H, W, 1) grey, (H, W, 3) RGB or (H, W, 4) CMYK
-    uint8 (as libjpeg gives them), top row first."""
+def sampling_factors(data: bytes, source: str = "pil") -> list:
+    """The frame's [(h, v)] sampling factors, one pair a component."""
     lib = load_library()
-    mode = _SOURCES[source]
+    hv = np.zeros(1 + 2 * 256, np.int32)
+    _check(lib, lib.jpeg_factors(data, len(data), _SOURCES[source],
+                                 hv.ctypes.data, hv.size))
+    return [(int(hv[1 + 2 * i]), int(hv[2 + 2 * i])) for i in range(hv[0])]
+
+
+def decode_jpeg_samples(data: bytes, source: str = "pil",
+                        colour: str | None = None) -> np.ndarray:
+    """JPEG bytes -> (H, W, 1) grey, (H, W, 3) RGB or (H, W, 4) CMYK
+    uint8 (as libjpeg gives them), top row first. `colour` sets libjpeg's
+    colour spaces over what the markers say, as libtiff does: "none"
+    passes the components through, "ycc" converts YCbCr to RGB."""
+    lib = load_library()
+    mode = _SOURCES[source] | _COLOURS[colour] << 2
     w, h, nc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     _check(lib, lib.jpeg_info(data, len(data), mode, ctypes.byref(w),
                               ctypes.byref(h), ctypes.byref(nc)))

@@ -40,10 +40,14 @@
 // libtiff's JPEG codec, whose source gives a fake EOI marker at the end of
 // the data and which ignores the errors of jpeg_finish_decompress; 2 is
 // libtiff's old-style JPEG codec, as 1 but whose source fails where
-// libjpeg would resynchronize at a restart marker.
+// libjpeg would resynchronize at a restart marker. `mode` >> 2 sets the
+// colour spaces as a caller may set them after the headers: 1 passes every
+// component through (libtiff's JCS_UNKNOWN), 2 converts YCbCr to RGB,
+// whatever JFIF or Adobe markers the stream carries.
 //
 // C interface, called through ctypes (scene/jpeg.py):
 //   jpeg_info(data, n, mode, &w, &h, &nc): parses the headers.
+//   jpeg_factors(data, n, mode, hv, cap): the components' sampling factors.
 //   jpeg_planes(data, n, mode, dims, cap, out): the components before
 //   upsampling.
 //   jpeg_decode(data, n, mode, out): out is h * w * nc bytes (nc 1, 3 or
@@ -342,6 +346,7 @@ struct Decoder {
   const uint8_t* d;
   size_t n;
   int mode = 0;              // the source: 0 PIL, 1 libtiff, 2 OJPEG
+  int colour = 0;            // 0 as read, 1 passed through, 2 YCbCr
   size_t pos = 0;
   size_t window = kChunk;    // bytes PIL has read so far (mode 0)
   bool no_suspend = false;   // inside jdarith.c, which cannot suspend
@@ -814,9 +819,10 @@ struct Decoder {
       multi_scan = ns < ncomp || progressive;
       if (!progressive && !arith && !lossless) std_tables();
       // jdcolor.c allows no colour conversion of a lossless image
-      if (lossless && ((ncomp == 3 && !rgb_space()) ||
-                       (ncomp == 4 && adobe && adobe_transform != 0)))
+      if (lossless && ((ncomp == 3 && !rgb_space()) || ycck_space()))
         throw Fail{1, "libjpeg converts no colours of a lossless JPEG"};
+      if (colour == 2 && ncomp != 3)
+        throw Fail{1, "YCbCr asked of other than three components"};
     } else if (!multi_scan) {
       throw Fail{1, "a second scan in a single-scan image"};
     }
@@ -1591,12 +1597,17 @@ struct Decoder {
   }
 
   bool rgb_space() const {
-    if (ncomp != 3) return false;
+    if (ncomp != 3 || colour == 2) return false;
+    if (colour == 1) return true;
     if (jfif) return false;
     if (adobe) return adobe_transform == 0;
     if (lossless && comps[0].id == 1 && comps[1].id == 2 && comps[2].id == 3)
       return true;
     return comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B';
+  }
+
+  bool ycck_space() const {
+    return ncomp == 4 && colour == 0 && adobe && adobe_transform != 0;
   }
 
   // Upsampled component c as a full-size plane (width x height).
@@ -1677,7 +1688,7 @@ struct Decoder {
       const size_t np = (size_t)width * height;
       for (size_t i = 0; i < np; ++i)
         for (int c = 0; c < 4; ++c) out[4 * i + c] = p[c][i];
-      if (adobe && adobe_transform != 0) ycck(out, np);
+      if (ycck_space()) ycck(out, np);
       return;
     }
     std::vector<uint8_t> p0 = upsample(comps[0]), p1 = upsample(comps[1]),
@@ -1770,13 +1781,32 @@ extern "C" void jpeg_arith_table(long long* out) {
 extern "C" int jpeg_info(const uint8_t* data, long long n, int mode, int* w,
                          int* h, int* nc) {
   return guarded([&] {
-    Decoder dec{data, (size_t)n, mode};
+    Decoder dec{data, (size_t)n, mode & 3};
+    dec.colour = mode >> 2;
     dec.headers_only = true;
     dec.parse();
     if (!dec.have_frame) throw Fail{1, "no frame"};
     *w = dec.width;
     *h = dec.height;
     *nc = dec.ncomp;
+  });
+}
+
+// The frame's sampling factors: hv gets the component count, then each
+// component's h and v factors.
+extern "C" int jpeg_factors(const uint8_t* data, long long n, int mode,
+                            int* hv, int cap) {
+  return guarded([&] {
+    Decoder dec{data, (size_t)n, mode & 3};
+    dec.headers_only = true;
+    dec.parse();
+    if (!dec.have_frame) throw Fail{1, "no frame"};
+    if (cap < 1 + 2 * dec.ncomp) throw Fail{1, "factor buffer too small"};
+    hv[0] = dec.ncomp;
+    for (int i = 0; i < dec.ncomp; ++i) {
+      hv[1 + 2 * i] = dec.comps[i].h;
+      hv[2 + 2 * i] = dec.comps[i].v;
+    }
   });
 }
 
@@ -1788,7 +1818,8 @@ extern "C" int jpeg_info(const uint8_t* data, long long n, int mode, int* w,
 extern "C" int jpeg_planes(const uint8_t* data, long long n, int mode,
                            int* dims, int cap, uint8_t* out) {
   return guarded([&] {
-    Decoder dec{data, (size_t)n, mode};
+    Decoder dec{data, (size_t)n, mode & 3};
+    dec.colour = mode >> 2;
     dec.headers_only = out == nullptr;
     if (out) dec.decode();
     else dec.parse();
@@ -1815,7 +1846,8 @@ extern "C" int jpeg_planes(const uint8_t* data, long long n, int mode,
 extern "C" int jpeg_decode(const uint8_t* data, long long n, int mode,
                            uint8_t* out) {
   return guarded([&] {
-    Decoder dec{data, (size_t)n, mode};
+    Decoder dec{data, (size_t)n, mode & 3};
+    dec.colour = mode >> 2;
     dec.decode();
     dec.output(out);
   });

@@ -501,23 +501,72 @@ def _tables_as_read(tables: bytes) -> bytes:
     return bytes(out)
 
 
-def _jpeg_chunk(raw: bytes, tables, photo: int, planar: int) -> np.ndarray:
+def _jpeg_sampling(data: bytes, t, offs, counts, spp: int, photo: int,
+                   planar: int) -> tuple:
+    """The sampling factors libtiff's JPEG codec asks of the first
+    component: YCbCrSubsampling for chunky YCbCr (where the tag is absent,
+    JPEGFixupTagsSubsampling takes them from the first chunk's SOF, or
+    keeps the default 2x2), 1x1 for every other layout."""
+    if photo != 6 or planar != 1:
+        return 1, 1
+    if 530 in t:
+        return tuple(t[530][:2]) if len(t[530]) >= 2 else (2, 2)
+    if spp != 3 or not offs or not offs[0]:
+        return 2, 2
+    raw = data[offs[0]:offs[0] + (counts[0] if counts else 0)]
+    i = 0
+    while True:                         # JPEGFixupTagsSubsamplingSec
+        while i < len(raw) and raw[i] != 0xFF:
+            i += 1
+        while i < len(raw) and raw[i] == 0xFF:
+            i += 1
+        if i >= len(raw):
+            return 2, 2
+        m = raw[i]
+        i += 1
+        if m == 0xD8:
+            continue
+        if i + 2 > len(raw):
+            return 2, 2
+        n = raw[i] << 8 | raw[i + 1]
+        i += 2
+        if m in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+            if n != 8 + spp * 3 or i + 3 * spp + 6 > len(raw):
+                return 2, 2
+            ph, pv = raw[i + 7] >> 4, raw[i + 7] & 15
+            if any(raw[i + 7 + 3 * o] != 0x11 for o in range(1, spp)) or \
+                    ph not in (1, 2, 4) or pv not in (1, 2, 4):
+                return 2, 2
+            return ph, pv
+        if not (m in (0xFE, 0xDB, 0xDA, 0xC4, 0xDD) or 0xE0 <= m <= 0xEF) \
+                or n < 2:
+            return 2, 2
+        i += n - 2
+
+
+def _jpeg_chunk(raw: bytes, tables, photo: int, planar: int,
+                sampling: tuple) -> np.ndarray:
     """One strip or tile of new-style JPEG: the JPEGTables stream (less
-    its EOI) before the chunk's (less its SOI), and an Adobe marker that
-    names the colour transform libtiff sets (none for RGB, CMYK and
-    planar planes, whose components libtiff passes through; YCbCr for
-    chunky YCbCr). Returns (rows, cols, components) uint8."""
-    from fluctus_tpu_torch.scene.jpeg import decode_jpeg_samples
+    its EOI) before the chunk's (less its SOI), decoded with the colour
+    spaces libtiff's JPEGPreDecode sets (YCbCr to RGB for chunky YCbCr;
+    every other layout passed through, whatever JFIF or Adobe markers the
+    stream carries). Where the first component's sampling factors are not
+    `sampling`, or another component's not 1x1, libtiff fails the chunk.
+    Returns (rows, cols, components) uint8."""
+    from fluctus_tpu_torch.scene.jpeg import (decode_jpeg_samples,
+                                              sampling_factors)
     if raw[:2] != b"\xff\xd8":
         raise ValueError("TIFF: JPEG chunk without SOI")
     # libtiff reads the tables as a stream of their own, ended by their EOI
     # or by the fake EOI its source gives past their last byte
     head = _tables_as_read(bytes(tables)) if tables else b"\xff\xd8"
-    if photo in (2, 5, 6) or planar == 2:
-        ycc = photo == 6 and planar == 1
-        head = head[:2] + b"\xff\xee" + struct.pack(
-            ">H5sHHHB", 14, b"Adobe", 100, 0, 0, 1 if ycc else 0) + head[2:]
-    return decode_jpeg_samples(head + raw[2:], "libtiff")
+    stream = head + raw[2:]
+    factors = sampling_factors(stream, "libtiff")
+    if factors[0] != tuple(sampling) or any(f != (1, 1)
+                                            for f in factors[1:]):
+        raise ValueError("TIFF: improper JPEG sampling factors")
+    ycc = photo == 6 and planar == 1
+    return decode_jpeg_samples(stream, "libtiff", "ycc" if ycc else "none")
 
 
 def _fp_predictor(c: np.ndarray, spp: int) -> np.ndarray:
@@ -765,6 +814,8 @@ def _samples(data, s, comp, pred, quirk16, rawmode):
         img = np.zeros((h, w, spp), dt)
         row_bytes = cw * per * b // 8
     t4 = (t.get(292) or t.get(293) or (0,))[0]
+    if comp == 7:
+        sampling = _jpeg_sampling(data, t, offs, counts, spp, photo, planar)
     fax: dict = {}    # libtiff's fax codec mode, kept from chunk to chunk
     fill = s["fill"]
     k = 0
@@ -777,7 +828,8 @@ def _samples(data, s, comp, pred, quirk16, rawmode):
                 off = offs[k]
                 if comp == 7:
                     raw = data[off:off + counts[k]]
-                    px = _jpeg_chunk(raw, t.get(347), photo, planar)
+                    px = _jpeg_chunk(raw, t.get(347), photo, planar,
+                                     sampling)
                     k += 1
                     if px.shape[0] < y1 - y0 or px.shape[1] < x1 - x0 or \
                             px.shape[2] != per:

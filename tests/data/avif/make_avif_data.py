@@ -5,7 +5,7 @@ the repository root,
 
     python tests/data/avif/make_avif_data.py
 
-Files (every AV1 frame in them needs no in-loop filter, except the last):
+Files whose AV1 frames need no in-loop filter:
 - kitchen_floor.avif: assets/kitchen_floor.png, lossless 4:4:4 (quality
   100: quantizer 0, so the frame is coded lossless and the AV1 format
   switches deblocking, CDEF and loop restoration off);
@@ -18,13 +18,28 @@ Files (every AV1 frame in them needs no in-loop filter, except the last):
 - screen.avif: few-colour screen content at quality 90 (palette and
   intra block copy);
 - grey_limited.avif: a grey image (4:0:0), limited range;
-- sequence.avif: a 3-frame `avis` sequence (PIL loads frame 0);
-- filters_on.avif: PIL's default settings (deblocking on), which the
-  port refuses naming the tool.
+- sequence.avif: a 3-frame `avis` sequence (PIL loads frame 0).
+
+Files whose frames need the in-loop filters or film grain (drawn from a
+generator of their own, so that rerunning the script rewrites the files
+above byte for byte):
+- filters_on.avif: PIL's default settings (deblocking);
+- kitchen_floor_filtered.avif: assets/kitchen_floor.png with PIL's
+  defaults (quality 75, speed 6, 4:2:0: deblocking);
+- kitchen_wood_filtered.avif: assets/kitchen_wood.png at speed 4 with
+  CDEF asked for (deblocking, CDEF and loop restoration);
+- kitchen_floor_n_filtered.avif: assets/kitchen_floor_n.png at speed 4,
+  4:4:4 (deblocking and loop restoration);
+- deblocking.avif, cdef.avif, restoration.avif: one tool alone each
+  (aom's `loopfilter-control` 0 turns deblocking off);
+- film_grain.avif: aom's film grain test vector 1;
+- all_422.avif, all_grey.avif: 4:2:2 and 4:0:0 with every tool (speed 4,
+  CDEF, film grain test vector 2).
 
 avif.json records, for each file, its size, the SHA-256 of PIL's
-`Image.open(f).convert("RGBA")` bytes and their shape (or, for
-filters_on.avif, the tool the port names), and the versions above.
+`Image.open(f).convert("RGBA")` bytes and their shape, the filters its
+frame header turns on (`tools`, as the port reads them), and the
+versions above.
 """
 import hashlib
 import io
@@ -79,7 +94,60 @@ def files():
                                    advanced=OFF)),
         "filters_on.avif": (Image.fromarray(_pattern(g, 32, 32, 3)), {}),
     }
+    g = np.random.default_rng(21)
+    cdef = {"enable-cdef": "1"}
+    every = {"enable-cdef": "1", "film-grain-test": "2"}
+    out.update({
+        "kitchen_floor_filtered.avif": (_asset("kitchen_floor.png"), {}),
+        "kitchen_wood_filtered.avif": (_asset("kitchen_wood.png"),
+                                       dict(speed=4, advanced=cdef)),
+        "kitchen_floor_n_filtered.avif": (_asset("kitchen_floor_n.png"),
+                                          dict(speed=4, subsampling="4:4:4")),
+        "deblocking.avif": (Image.fromarray(_pattern(g, 33, 47, 3)),
+                            dict(quality=60, advanced={
+                                "enable-cdef": "0",
+                                "enable-restoration": "0"})),
+        "cdef.avif": (Image.fromarray(_pattern(g, 70, 130, 3)),
+                      dict(quality=60, advanced={
+                          "loopfilter-control": "0", "enable-cdef": "1",
+                          "enable-restoration": "0"})),
+        "restoration.avif": (Image.fromarray(_pattern(g, 65, 97, 3)),
+                             dict(quality=60, speed=4, advanced={
+                                 "loopfilter-control": "0",
+                                 "enable-cdef": "0"})),
+        "film_grain.avif": (Image.fromarray(_pattern(g, 48, 80, 3)),
+                            dict(quality=60, advanced={
+                                "film-grain-test": "1"})),
+        "all_422.avif": (Image.fromarray(_pattern(g, 70, 90, 3)),
+                         dict(quality=50, speed=4, subsampling="4:2:2",
+                              advanced=every)),
+        "all_grey.avif": (Image.fromarray(_pattern(g, 70, 90, 1)[..., 0]),
+                          dict(quality=60, speed=4, advanced=every)),
+    })
     return out
+
+
+def _tools(path) -> list:
+    """The filters the port reads as turned on in the file's frame."""
+    import sys
+    sys.path.insert(0, REPO)
+    from fluctus_tpu_torch.scene import avif
+    frame = avif.decode_av1(avif.parse(open(path, "rb").read())[0])
+    return [k for k, bit in avif.TOOLS.items() if frame.tools & bit]
+
+
+def _keep_times(new: bytes, old: bytes) -> bytes:
+    """`new` with the creation and modification times of its mvhd, tkhd
+    and mdhd boxes (libavif writes the time of writing) taken from `old`,
+    the file already here."""
+    out = bytearray(new)
+    for box in (b"mvhd", b"tkhd", b"mdhd"):
+        i, j = new.find(box), old.find(box)
+        if i < 0 or j < 0 or new[i + 4] != old[j + 4]:
+            continue
+        n = 16 if new[i + 4] == 1 else 8     # version 1: 64-bit times
+        out[i + 8:i + 8 + n] = old[j + 8:j + 8 + n]
+    return bytes(out)
 
 
 def main():
@@ -96,8 +164,13 @@ def main():
     buf = io.BytesIO()
     frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:],
                    quality=100)
-    with open(os.path.join(HERE, "sequence.avif"), "wb") as f:
-        f.write(buf.getvalue())
+    path = os.path.join(HERE, "sequence.avif")
+    data = buf.getvalue()
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            data = _keep_times(data, f.read())
+    with open(path, "wb") as f:
+        f.write(data)
     for name in sorted(os.listdir(HERE)):
         if not name.endswith(".avif"):
             continue
@@ -105,9 +178,7 @@ def main():
         rgba = np.asarray(Image.open(path).convert("RGBA"))
         entry = {"bytes": os.path.getsize(path),
                  "sha256": hashlib.sha256(rgba.tobytes()).hexdigest(),
-                 "shape": list(rgba.shape)}
-        if name == "filters_on.avif":
-            entry["raises"] = "deblocking"
+                 "shape": list(rgba.shape), "tools": _tools(path)}
         record["files"][name] = entry
     with open(os.path.join(HERE, "avif.json"), "w") as f:
         json.dump(record, f, indent=1, sort_keys=True)

@@ -7,14 +7,17 @@ dav1d gives (called through ctypes in the libavif that Pillow's wheel
 ships), then the port's RGBA against PIL's `Image.open(...).convert(
 "RGBA")`. Files are the committed ones of tests/data/avif (made by its
 make_avif_data.py; their SHA-256 is what the machine with the card, which
-has no PIL, checks) and a seeded corpus PIL writes here, every frame free
-of in-loop filters: lossless and lossy at several qualities with aom's
-loop filter, CDEF and restoration off, every subsampling, both ranges,
-two speeds, tiles, alpha with and without premultiplication, the eight
-EXIF orientations, screen content (palette and intra block copy),
-quantizer matrices, delta q, 128x128 superblocks, 1x1 and odd sizes,
-and the first frame of an `avis` sequence. Frames that need a tool the port lacks (an in-loop filter,
-film grain) raise UnsupportedImage naming it."""
+has no PIL, checks; among them the kitchen's maps at PIL's defaults and
+files whose frames need each in-loop filter and film grain) and a seeded
+corpus PIL writes here, every frame free of in-loop filters: lossless and
+lossy at several qualities with aom's loop filter, CDEF and restoration
+off, every subsampling, both ranges, two speeds, tiles, alpha with and
+without premultiplication, the eight EXIF orientations, screen content
+(palette and intra block copy), quantizer matrices, delta q, 128x128
+superblocks, 1x1 and odd sizes, and the first frame of an `avis`
+sequence. The filters themselves, over every subsampling and size, have
+tests/test_torch_avif_filters.py. Only superres, depths above 8 bits and
+stated sizes that differ from the frame's raise UnsupportedImage."""
 import ctypes
 import glob
 import hashlib
@@ -154,28 +157,30 @@ def screen(h, w, seed):
 @pytest.mark.parametrize("name", sorted(RECORD["files"]))
 def test_committed_avif_files(name):
     """Each file of tests/data/avif: PIL's RGBA has the recorded SHA-256,
-    and so has the port's, with planes equal to dav1d's; the file PIL
-    writes with its defaults raises, naming deblocking."""
+    and so has the port's, with planes equal to dav1d's; the filters the
+    port reads as turned on in the frame are the recorded ones (the files
+    PIL writes with its defaults need deblocking)."""
     entry = RECORD["files"][name]
     with open(os.path.join(DATA, name), "rb") as f:
         data = f.read()
     assert len(data) == entry["bytes"]
     want = pil_rgba(data)
     assert hashlib.sha256(want.tobytes()).hexdigest() == entry["sha256"]
-    if "raises" in entry:
-        with pytest.raises(UnsupportedImage, match=entry["raises"]):
-            avif.decode_avif(data)
-        return
     assert_planes_equal_dav1d(data)
+    tools = avif.decode_av1(avif.parse(data)[0]).tools
+    assert [k for k, bit in avif.TOOLS.items() if tools & bit] == \
+        entry["tools"]
     got = avif.decode_avif(data)
     assert list(got.shape) == entry["shape"]
     assert hashlib.sha256(got.tobytes()).hexdigest() == entry["sha256"]
 
 
 def test_kitchen_maps_load_in_both_pools():
-    """The three kitchen maps as AVIF: both texture pools hold the same
-    rows, PIL's and the port's."""
-    for name in ("kitchen_floor", "kitchen_floor_n", "kitchen_wood"):
+    """The three kitchen maps as AVIF, free of filters and filtered: both
+    texture pools hold the same rows, PIL's and the port's."""
+    for name in ("kitchen_floor", "kitchen_floor_n", "kitchen_wood",
+                 "kitchen_floor_filtered", "kitchen_floor_n_filtered",
+                 "kitchen_wood_filtered"):
         pools = []
         for pool in (JaxPool(), TexturePool()):
             assert pool.try_import(os.path.join(DATA, f"{name}.avif"),
@@ -275,16 +280,16 @@ def test_corpus_equals_pil(case):
     ("loop restoration", dict(OFF, **{"enable-restoration": "1"}), 2),
 ])
 def test_frames_that_need_a_tool_raise_naming_it(tool, advanced, speed):
-    """Frames that need a tool the port lacks (PIL's defaults deblock;
-    aom's denoiser adds film grain; its restoration at speed 2) raise
-    UnsupportedImage naming it, where PIL reads them, after their tiles
-    have decoded without error. (aom, as PIL drives it, writes no CDEF
-    without deblocking.)"""
+    """Frames that need a tool the port once lacked, and refused naming
+    it (PIL's defaults deblock; aom's denoiser adds film grain; its
+    restoration at speed 2): the frame turns the tool on, and now decodes
+    to dav1d's planes and PIL's RGBA. What still raises (superres, depths
+    above 8 bits) PIL cannot write."""
     kw = {} if advanced is None else dict(advanced=advanced)
     data = avif_bytes(picture(128, 160, 7), quality=70, speed=speed, **kw)
-    assert not isinstance(pil_rgba(data), int)
-    with pytest.raises(UnsupportedImage, match=tool):
-        avif.decode_avif(data)
+    assert avif.decode_av1(avif.parse(data)[0]).tools & avif.TOOLS[tool]
+    assert_planes_equal_dav1d(data)
+    np.testing.assert_array_equal(avif.decode_avif(data), pil_rgba(data))
 
 
 def test_matrix_coefficients_follow_libavif():
@@ -315,11 +320,10 @@ def test_matrix_coefficients_follow_libavif():
 
 # ------------------------------------------------------------ damage
 
-# what the port lacks (the AV1 tools of the next slice) and libavif's
+# what the port lacks (superres, depths above 8 bits) and libavif's
 # scaling of a frame to another stated size: the only refusals a damaged
 # file that PIL reads may meet
-REFUSALS = ("deblocking", "CDEF", "loop restoration", "superres",
-            "film grain", "bit depth above 8", "stated size")
+REFUSALS = ("superres", "bit depth above 8", "stated size")
 
 
 def _agrees(want, got) -> bool:
@@ -348,16 +352,19 @@ def _both_pools(tmp_path, data: bytes):
 
 
 @pytest.mark.parametrize("name", ["kitchen_floor_n.avif", "alpha_prem.avif",
-                                  "screen.avif", "sequence.avif"])
+                                  "screen.avif", "sequence.avif",
+                                  "kitchen_wood_filtered.avif",
+                                  "film_grain.avif", "all_422.avif",
+                                  "all_grey.avif"])
 def test_damaged_files_agree_with_pil(tmp_path, name):
     """Seeded damage to committed files, through both texture pools: bit
     flips in the boxes before mdat, bit flips in the AV1 data, cuts, and a
     byte set anew among the OBU headers. The port gives -1 where PIL fails
     (libavif's box rules, dav1d's refusal of a tile read past its end or of
     a bad header) and PIL's pixels otherwise; where the damage makes the
-    frame need a tool the port lacks (a filter, film grain, libavif's
-    scaling of a frame to another stated size), it raises naming it,
-    and it raises for nothing else."""
+    frame need a tool the port lacks (superres, a depth above 8 bits,
+    libavif's scaling of a frame to another stated size), it raises
+    naming it, and it raises for nothing else."""
     with open(os.path.join(DATA, name), "rb") as f:
         data = f.read()
     mdat = data.find(b"mdat") + 4
@@ -381,7 +388,9 @@ def test_damaged_files_agree_with_pil(tmp_path, name):
 
 
 FUZZ_FILES = ("kitchen_floor_n.avif", "alpha_prem.avif", "screen.avif",
-              "sequence.avif", "grey_limited.avif", "kitchen_wood.avif")
+              "sequence.avif", "grey_limited.avif", "kitchen_wood.avif",
+              "kitchen_wood_filtered.avif", "all_422.avif",
+              "all_grey.avif", "film_grain.avif")
 
 
 def _fuzzed(seed: int, name: str, t: int) -> bytes:
@@ -438,6 +447,11 @@ def _fuzzed(seed: int, name: str, t: int) -> bytes:
     (101, "kitchen_floor_n.avif", 8),   # pixi against av1C's depth
     (114, "sequence.avif", 16),     # elst flags libavif does not read
     (125, "alpha_prem.avif", 7),    # an alpha coded in limited range
+    (130, "grey_limited.avif", 39),     # 4:0:0 in limited range, filtered
+    (13, "all_422.avif", 3),        # a frame header left with deblocking
+    (10, "kitchen_wood_filtered.avif", 31),  # restoration turned off
+    (8, "all_grey.avif", 19),       # every filter, its grain turned off
+    (7, "film_grain.avif", 3),      # film grain turned off
 ])
 def test_fuzzed_damage_agrees_with_pil(tmp_path, seed, name, t):
     """Damaged files on which the port once differed from PIL, found by a
@@ -453,7 +467,10 @@ def test_fuzzed_damage_agrees_with_pil(tmp_path, seed, name, t):
     track is decoded; it fails a cut stts, pixi depths that differ or
     disagree with av1C's, edts without elst and stsc not counting up from
     chunk 1; it skips an iref of an unknown version and reads neither
-    mvhd nor elst's other flags. PIL divides by the track's timescale."""
+    mvhd nor elst's other flags, and converts a 4:0:0 frame in limited
+    range with its own code rather than libyuv's. PIL divides by the
+    track's timescale. Damage to a filtered frame's header that changes
+    which filters run decodes as dav1d decodes it."""
     assert _agrees(*_both_pools(tmp_path, _fuzzed(seed, name, t)))
 
 
@@ -498,6 +515,17 @@ def test_kitchen_from_avif_maps_renders_like_jax(tmp_path):
     what the JAX package's does on 1,024 pixels for two samples at 64²,
     8 bounces, held as the kitchen is held (≥ 99.5 % of pixels within
     RTOL 1e-3 / ATOL 1e-4, mean relative error ≤ 1e-4)."""
+    _kitchen_like_jax(tmp_path, "")
+
+
+def test_filtered_kitchen_maps_render_like_jax(tmp_path):
+    """The same with the filtered maps (PIL's defaults for the floor,
+    speed 4 with CDEF for the wood, speed 4 at 4:4:4 for the normals),
+    whose frames the port deblocks, filters with CDEF and restores."""
+    _kitchen_like_jax(tmp_path, "_filtered")
+
+
+def _kitchen_like_jax(tmp_path, suffix: str):
     import jax
     import jax.numpy as jnp
     import torch
@@ -517,7 +545,7 @@ def test_kitchen_from_avif_maps_renders_like_jax(tmp_path):
         mtl = f.read()
     for name in ("kitchen_floor_n", "kitchen_floor", "kitchen_wood"):
         mtl = mtl.replace(f" {name}.png",
-                          " " + os.path.join(DATA, f"{name}.avif"))
+                          " " + os.path.join(DATA, f"{name}{suffix}.avif"))
     assert ".png" not in mtl
     (tmp_path / "kitchen_proxy.mtl").write_text(mtl)
     states = os.path.join(os.path.dirname(HERE), "data", "states")
@@ -545,3 +573,30 @@ def test_kitchen_from_avif_maps_renders_like_jax(tmp_path):
         assert np.isfinite(got).all()
         share, mean_rel = golden_stats(got, want, RTOL, ATOL)
         assert share >= 0.995 and mean_rel <= 1e-4, (share, mean_rel)
+
+
+def test_grey_frames_in_limited_range_follow_libavif():
+    """A 4:0:0 frame (a damaged sequence header's monochrome bit, its
+    filters turned on) under the colr box's matrix coefficients 0-18, its
+    range bit and two primaries: libavif converts it with libyuv only at
+    full range and with its own code in limited range; the RGBA equals
+    PIL's where libavif converts and both fail where it does not."""
+    data = _fuzzed(130, "grey_limited.avif", 39)
+    assert avif.decode_av1(avif.parse(data)[0]).mono
+    i = data.find(b"nclx")
+    bad = []
+    for mc in range(19):
+        for full in (0, 1):
+            for cp in (1, 4):
+                d = bytearray(data)
+                d[i + 4:i + 6] = cp.to_bytes(2, "big")
+                d[i + 8:i + 10] = mc.to_bytes(2, "big")
+                d[i + 10] = 128 * full
+                want, got = pil_rgba(bytes(d)), port_rgba(bytes(d))
+                if isinstance(want, int) or isinstance(got, (int, str)):
+                    ok = isinstance(want, int) and isinstance(got, int)
+                else:
+                    ok = np.array_equal(want, got)
+                if not ok:
+                    bad.append((mc, full, cp))
+    assert not bad, bad

@@ -694,6 +694,86 @@ def test_cut_jpeg_tables_read_on_through_the_fake_eoi(tmp_path):
     assert not bad, f"cuts {bad} differ from PIL"
 
 
+def _pil_jpeg_strip(px, subsampling: int, jfif: bool) -> bytes:
+    """PIL's JPEG of `px` at a subsampling code (0 4:4:4, 1 4:2:2 / 2x1,
+    2 4:2:0 / 2x2), with or without its JFIF APP0 segment."""
+    j = pil_jpeg(px, quality=90, subsampling=subsampling)
+    if not jfif:
+        i = j.index(b"\xff\xe0")
+        j = j[:i] + j[i + 2 + struct.unpack(">H", j[i + 2:i + 4])[0]:]
+    return j
+
+
+def _factors(j: bytes, hv: int) -> bytes:
+    """A grey JPEG whose one component claims sampling factors `hv`."""
+    b = bytearray(j)
+    b[b.index(b"\xff\xc0") + 11] = hv
+    return bytes(b)
+
+
+# name: (photometric, PlanarConfiguration, YCbCrSubSampling tag or None,
+#        PIL's subsampling code or the planes' factors, JFIF, PIL decodes)
+NEW_STYLE_CASES = {
+    # libtiff passes every layout but chunky YCbCr through, whatever
+    # markers the strip carries (the port once converted under a JFIF APP0)
+    "RGB chunky with JFIF is passed through": (2, 1, None, 0, True, True),
+    "RGB chunky without JFIF is passed through": (2, 1, None, 0, False,
+                                                  True),
+    "RGB planar with JFIF is passed through": (2, 2, None, 0x11, True, True),
+    "RGB planar without JFIF is passed through": (2, 2, None, 0x11, False,
+                                                  True),
+    "YCbCr chunky with JFIF is converted": (6, 1, (1, 1), 0, True, True),
+    # libtiff's JPEGPreDecode fails unless the first component has the
+    # YCbCr subsampling (1x1 outside chunky YCbCr) and the others 1x1
+    "RGB chunky sampled 2x2 fails": (2, 1, None, 2, True, False),
+    "RGB chunky sampled 2x1 fails": (2, 1, None, 1, False, False),
+    "RGB planar sampled 2x2 fails": (2, 2, None, 0x22, True, False),
+    "RGB planar sampled 2x1 fails": (2, 2, None, 0x21, True, False),
+    "YCbCr 2x2 under a 2x2 tag decodes": (6, 1, (2, 2), 2, True, True),
+    "YCbCr 2x1 under a 2x1 tag decodes": (6, 1, (2, 1), 1, True, True),
+    "YCbCr 2x2 under a 2x1 tag fails": (6, 1, (2, 1), 2, True, False),
+    "YCbCr 2x1 under a 2x2 tag fails": (6, 1, (2, 2), 1, False, False),
+    "YCbCr 1x1 under a 2x2 tag fails": (6, 1, (2, 2), 0, True, False),
+    # without the tag libtiff takes the first strip's factors
+    "YCbCr 2x1 without the tag decodes": (6, 1, None, 1, True, True),
+    "YCbCr 2x2 without the tag decodes": (6, 1, None, 2, False, True),
+}
+
+
+@pytest.mark.parametrize("tables", [False, True], ids=["inline", "tables"])
+@pytest.mark.parametrize("case", list(NEW_STYLE_CASES))
+def test_new_style_jpeg_tiff_colour_and_sampling(tmp_path, case, tables):
+    """New-style JPEG TIFFs as libtiff's JPEGPreDecode reads them for PIL
+    (ROADMAP Queue 3 item 1): the colour spaces it sets (YCbCr to RGB for
+    chunky YCbCr, every other layout passed through even where the
+    strip's JPEG carries a JFIF marker) and the sampling factors it
+    accepts (the YCbCrSubSampling tag's, or the first strip's where the
+    tag is absent, for chunky YCbCr; 1x1 elsewhere), with the tables
+    inline and as JPEGTables: the port's RGBA equals PIL's, or both give
+    -1."""
+    photo, planar, tag, sub, jfif, decodes = NEW_STYLE_CASES[case]
+    px = MK.picture(32, 48, 7)
+    if planar == 1:
+        strips = [_pil_jpeg_strip(px, sub, jfif)]
+    else:
+        strips = [_factors(_pil_jpeg_strip(px[..., k], 0, jfif), sub)
+                  for k in range(3)]
+    kw = {}
+    if tables:
+        split = [_jpeg_tables_split(j) for j in strips]
+        kw["tables"] = split[0][0]
+        strips = [s for _, s in split]
+    data = fixtures.tiff_bytes(48, 32, 8, 3, photo, strips, comp=7,
+                               planar=planar, subsampling=tag, **kw)
+    want, got = both(tmp_path, data, ".tif")
+    assert isinstance(want, int) != decodes, "PIL's result is not the case's"
+    if decodes:
+        assert not isinstance(got, int), "the port failed where PIL decodes"
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert got == -1, "the port decoded where libtiff fails"
+
+
 # ------------------------------------------------------------ render
 
 def test_lossless_jpeg_kitchen_maps_equal_the_png_atlas():

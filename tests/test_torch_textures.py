@@ -15,10 +15,11 @@ Every format is held byte for byte, progressive JPEG included: the
 port's decoder makes libjpeg-turbo's choices (islow IDCT, fancy
 upsampling, its YCbCr tables), so its RGBA equals PIL's exactly. A
 truncated file is -1 in both pools, and so are bytes no PIL plugin
-identifies; a well-formed file the port does not decode (an AVIF whose
-AV1 frame needs an in-loop filter, as PIL's default settings write it)
-loads in the JAX pool and raises UnsupportedImage in the port's, so the
-gap stays visible; AVIF itself has tests/test_torch_avif.py. DDS (uncompressed layouts and
+identifies; a well-formed file the port does not decode would load in
+the JAX pool and raise UnsupportedImage in the port's, so that a gap
+stays visible (an AVIF at PIL's default settings, whose AV1 frame needs
+the in-loop filters, now decodes); AVIF itself has
+tests/test_torch_avif.py and tests/test_torch_avif_filters.py. DDS (uncompressed layouts and
 BC1-BC7 through native/bcn.cpp, BC6H unsigned and signed), ICO and CUR
 equal PIL on files PIL writes and on DDS files of seeded blocks
 (`fixtures.dds_bytes`). PIL's simple plugins (XPM, XV thumbnail, IM with
@@ -2149,7 +2150,7 @@ def _unported():
         cases["webp"] = ("webp", dict(format="WEBP", lossless=True), True)
     if features.check("avif"):
         cases["avif"] = ("avif", dict(format="AVIF", quality=100), True)
-        cases["avif with filters"] = ("avif", dict(format="AVIF"), False)
+        cases["avif with filters"] = ("avif", dict(format="AVIF"), True)
     return cases
 
 
