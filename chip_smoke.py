@@ -131,9 +131,13 @@ with the TIFF codecs' zstd.cpp and ccitt.cpp built beside it) and the
 kitchen from the reversible JP2 copies of its maps (j2k); JPEG: the same
 for tests/data/jpeg (scene/native/jpeg.cpp: arithmetic, lossless,
 block-smoothed and damaged streams) and the kitchen from the lossless
-JPEG copies of its maps (jpeg); the committed
-TIFF files of tests/data/tiff are held against their SHA-256 in the
-formats block. Last, the reference-protocol
+JPEG copies of its maps (jpeg); AVIF: the same for tests/data/avif
+(scene/native/av1.cpp at 8, 10 and 12 bits, grids joined by
+scene/avif.py) and three kitchens from AVIF copies of its maps at 4 spp:
+free of filters, filtered, and at 10 and 12 bits with a grid (avif); the
+committed TIFF files of tests/data/tiff and the PNM, IM and IPTC files
+of tests/data/raster are held against their SHA-256 in the formats
+block. Last, the reference-protocol
 sweep, `python3
 -m fluctus_tpu_torch.scripts.run_protocol --duration 2` in a child
 process: the kitchen through K1 and the conference through K2, both
@@ -621,8 +625,8 @@ def cpu_references(out_dir: str) -> None:
     """The renders on this host's CPU (the plain versions) that avif,
     golden, golden-env, golden-ply and pbf hold the card's against, each
     saved as out_dir/<name>.npy, from the same inputs those phases make:
-    the AVIF kitchens' 64x64 lockstep, free of filters and filtered
-    (first, as phase avif comes early),
+    the AVIF kitchens' 64x64 lockstep, free of filters, filtered, and
+    deep and grid (first, as phase avif comes early),
     the goldens' stream, the env-lit sessions' lockstep and stream under
     the seeded sky, the grid-3 PLY's lockstep and the PBRT kitchen's and
     its PBF's stream without implicit light hits. Three threads, so that
@@ -642,7 +646,8 @@ def cpu_references(out_dir: str) -> None:
         os.replace(os.path.join(out_dir, name + ".tmp.npy"),
                    os.path.join(out_dir, name + ".npy"))
     for ref, maps in ((AVIF_REF, avif_maps()),
-                      (AVIF_FILTERED_REF, avif_maps("_filtered"))):
+                      (AVIF_FILTERED_REF, avif_maps("_filtered")),
+                      (AVIF_DEEP_REF, avif_deep_maps())):
         save(ref, driver.render(kitchen_from_maps(
             maps, kitchen_cfg(64, 64), "AVIF", "cpu"), AVIF_REF_SPP,
             integrator="lockstep").numpy())
@@ -3238,6 +3243,15 @@ def phase_raster_formats() -> dict:
         "12-bit, PA, 1-bit tiles, planar Lab) equal to their recorded "
         "SHA-256: " + ", ".join(f"{k} {v:.4f} s" for k, v in tiff.items()))
     secs.update(tiff)
+    t0 = time.perf_counter()
+    raster = check_recorded(RASTER_DATA, "raster.json", "formats",
+                            "PIL {pil}")
+    say("formats", t0, f"{len(raster)} files of tests/data/raster (PIL's "
+        "PNM test formats, IM's float, int32, bit-decoder, 2- and 4-bit "
+        "palette and 3-plane types, IPTC band records holding PGM and PNG) "
+        "equal to their recorded SHA-256: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in raster.items()))
+    secs.update(raster)
     return secs
 
 
@@ -3900,6 +3914,7 @@ def phase_webp(sess, plain_img, secs_plain: float, card: str) -> dict:
 
 J2K_DATA = os.path.join(REPO, "tests", "data", "j2k")
 TIFF_DATA = os.path.join(REPO, "tests", "data", "tiff")
+RASTER_DATA = os.path.join(REPO, "tests", "data", "raster")
 KITCHEN_MAPS = ("kitchen_floor_n", "kitchen_floor", "kitchen_wood")
 
 
@@ -3963,6 +3978,7 @@ def phase_jpeg(sess, plain_img, secs_plain: float, card: str) -> dict:
 AVIF_DATA = os.path.join(REPO, "tests", "data", "avif")
 AVIF_REF = "avif_kitchen_64"   # the CPU references of phase avif
 AVIF_FILTERED_REF = "avif_filtered_kitchen_64"
+AVIF_DEEP_REF = "avif_deep_kitchen_64"
 AVIF_REF_SPP = 4
 
 
@@ -3973,6 +3989,17 @@ def avif_maps(suffix: str = "") -> dict:
     adds loop restoration; speed 4 at 4:4:4 for the floor's normals)."""
     return {n: os.path.join(AVIF_DATA, f"{n}{suffix}.avif")
             for n in KITCHEN_MAPS}
+
+
+def avif_deep_maps() -> dict:
+    """The kitchen's maps as deep and grid AVIF (filtered, as
+    tests/data/avif/make_avif_data.py makes them): the floor at 10 bits,
+    the wood at 12 (profile 2), the floor's normals as a 2x2 grid of
+    10-bit cells."""
+    return {"kitchen_floor": os.path.join(AVIF_DATA, "kitchen_floor_10.avif"),
+            "kitchen_wood": os.path.join(AVIF_DATA, "kitchen_wood_12.avif"),
+            "kitchen_floor_n": os.path.join(AVIF_DATA,
+                                            "kitchen_floor_n_grid10.avif")}
 
 
 def avif_kitchen(sess, plain4, secs4: float, card: str, label: str,
@@ -4049,10 +4076,12 @@ def phase_avif(sess, plain4, secs4: float, card: str) -> dict:
     lossy with them; premultiplied alpha, screen content with palette and
     intra block copy, limited-range grey, an avis sequence, PIL's default
     settings, each in-loop filter alone, film grain, 4:2:2 and grey with
-    every tool); then the kitchen from the AVIF maps free of filters and
-    the kitchen from the filtered maps (avif_kitchen), whose frames run
-    deblocking, CDEF and loop restoration on the host before K1 traces
-    them."""
+    every tool, and the kitchen's maps at 10 and 12 bits and as a grid);
+    then the kitchen from the AVIF maps free of filters, the kitchen from
+    the filtered maps and the kitchen from the deep and grid maps
+    (avif_kitchen), whose frames run deblocking, CDEF and loop
+    restoration on the host (at 10 and 12 bits for the last) before K1
+    traces them."""
     from fluctus_tpu_torch.scene import avif
 
     t0 = time.perf_counter()
@@ -4069,6 +4098,13 @@ def phase_avif(sess, plain4, secs4: float, card: str) -> dict:
     out["filtered"] = avif_kitchen(sess, plain4, secs4, card,
                                    "filtered AVIF", avif_maps("_filtered"),
                                    AVIF_FILTERED_REF, record)
+    deep = avif_deep_maps()
+    say("avif", t0, "deep and grid maps' host decodes: " + ", ".join(
+        f"{k} ({os.path.basename(p)}) {decode[os.path.basename(p)]:.4f} s"
+        for k, p in deep.items()) + f", on {card}")
+    out["deep"] = avif_kitchen(sess, plain4, secs4, card,
+                               "deep and grid AVIF", deep, AVIF_DEEP_REF,
+                               record)
     return dict(out, decode=decode, build=t_build)
 
 

@@ -97,7 +97,7 @@ COEF_FIELDS = (  # name, byte offset in the struct, dims, symbols, padded row
     ("eob_hi", 5456, (5, 2, 11), 2, 2), ("txb_skip", 5896, (5, 13), 2, 2),
     ("dc_sign", 6156, (2, 3), 2, 2),
 )
-# dav1d_dq_tbl[0][256][2]: 8-bit (dc, ac)
+# dav1d_dq_tbl[3][256][2]: (dc, ac) at 8, 10 and 12 bits
 DQ = 0x479ec0
 # aom's iwt_matrix_ref[15][2][3344]: the spec's Quantizer_Matrix for
 # levels 0-14, luma then chroma, every transform size's weights in a row
@@ -170,12 +170,15 @@ def generate(lib_path: str) -> str:
             rows = np.concatenate([r, r[:, :, :, -1:]], 3).reshape(-1, 3)
             dims = (5, 2, 42)
         out.append(_emit(name, rows, (4,) + dims, syms))
-    dq = u16[DQ // 2:DQ // 2 + 512].reshape(256, 2)
-    if dq[0].tolist() != [4, 4] or dq[255].tolist() != [1336, 1828]:
+    dq = u16[DQ // 2:DQ // 2 + 3 * 512].reshape(3, 256, 2)
+    if dq[:, 0].tolist() != [[4, 4]] * 3 or dq[:, 255].tolist() != [
+            [1336, 1828], [5347, 7312], [21387, 29247]]:
         raise SystemExit("quantizer table not found")
     for i, name in enumerate(("dc_q", "ac_q")):
-        out.append(f"static const uint16_t {name.upper()}[256] = {{"
-                   + ",".join(str(int(v)) for v in dq[:, i]) + "};\n")
+        out.append(f"static const uint16_t {name.upper()}[3][256] = {{\n"
+                   + ",\n".join("  {" + ",".join(str(int(v)) for v in
+                                                  dq[d, :, i]) + "}"
+                                 for d in range(3)) + "};\n")
     gauss = np.frombuffer(data[GAUSSIAN:GAUSSIAN + 4096], "<i2")
     if gauss[:4].tolist() != [56, 568, -180, 172] or np.any(gauss % 4) or \
             np.abs(gauss).max() >= 2048:

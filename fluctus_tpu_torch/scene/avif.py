@@ -14,16 +14,27 @@ PIL's side, copied here:
   `stsz`, `stco`/`co64`, `stsc`);
 - the alpha item (an `auxl` reference with the alpha `auxC` type) and its
   `prem` reference, which makes the colour premultiplied;
+- `grid` items, colour or alpha (libavif's avifParseImageGridBox and its
+  checks on the cells: as many `dimg` cells as the grid has, each an
+  av01 item with av1C, all alike in size, depth, subsampling, range and
+  colour description, at least 64x64, even where the chroma is
+  subsampled, covering the output with the last row and column reaching
+  into it, and the grid's ispe equal to its output size); the cells are
+  joined in `dimg` order and the output cropped from them, and the `colr`
+  property read is the grid item's;
 - libavif's YUV to RGB step (scene/avif_rgb.py), and PIL's mode: RGBA
   where the file has alpha, else RGB. PIL does not apply `irot`, `imir`
   or `clap` to the pixels (it turns `irot`/`imir` into an EXIF
   orientation), so neither does the port.
 
-AV1 frames decode with their in-loop filters (deblocking, CDEF, loop
-restoration) and film grain, as dav1d applies them for libavif. Superres,
-a bit depth above 8, grid or other derived items raise UnsupportedImage
-naming the tool; a file libavif or dav1d refuses raises ValueError, which
-the texture pool turns into -1 as PIL's failure does in the JAX package.
+AV1 frames decode at 8, 10 and 12 bits with their in-loop filters
+(deblocking, CDEF, loop restoration) and film grain, as dav1d applies
+them for libavif; deeper planes are uint16, and avif_rgb.py brings them
+to PIL's 8-bit RGB as libavif does. Superres, a stated size other than
+the frame's (libavif scales it) and the derived items `iovl` and `tmap`
+raise UnsupportedImage naming the tool; a file libavif or dav1d refuses
+raises ValueError, which the texture pool turns into -1 as PIL's failure
+does in the JAX package.
 
 The library is compiled with g++ at first use into the package build
 directory; a failed compile raises, it never turns into a missing texture.
@@ -81,7 +92,8 @@ class Frame:
 
 
 def decode_av1(obus: bytes) -> Frame:
-    """The first shown frame of an AV1 OBU stream, as dav1d gives it."""
+    """The first shown frame of an AV1 OBU stream, as dav1d gives it: uint8
+    planes at 8 bits, uint16 deeper."""
     lib = load_library()
     info = np.zeros(11, np.int32)
     rc = lib.av1_decode(obus, len(obus), info.ctypes.data)
@@ -94,11 +106,12 @@ def decode_av1(obus: bytes) -> Frame:
             e.frame = Frame(info, None) if info[0] else None
             raise e
         raise ValueError(f"AV1: {msg}")
-    w, h, sx, sy, mono = (int(v) for v in info[:5])
+    w, h, sx, sy, mono, depth = (int(v) for v in info[:6])
     cw, ch = (w + sx) >> sx, (h + sy) >> sy
-    y = np.empty((h, w), np.uint8)
-    u = np.empty((ch, cw), np.uint8)
-    v = np.empty((ch, cw), np.uint8)
+    dt = np.uint8 if depth == 8 else np.uint16
+    y = np.empty((h, w), dt)
+    u = np.empty((ch, cw), dt)
+    v = np.empty((ch, cw), dt)
     lib.av1_planes(y.ctypes.data, u.ctypes.data, v.ctypes.data)
     return Frame(info, (y,) if mono else (y, u, v))
 
@@ -180,8 +193,8 @@ def _prop(stream, typ):
         stream.u(1)
         b2 = stream.u(1)
         stream.raw(1)
-        # the depth: high_bitdepth, then twelve_bit
-        return typ, 12 if b2 & 0x60 == 0x60 else 10 if b2 & 0x40 else 8
+        # the depth as libavif reads it: twelve_bit, else high_bitdepth
+        return typ, 12 if b2 & 0x20 else 10 if b2 & 0x40 else 8
     if typ == b"colr":
         kind = stream.raw(4)
         if kind == b"nclx":
@@ -305,7 +318,9 @@ def _meta(stream):
                     _bad("second iloc entry for an item")
                 method = 0
                 if v in (1, 2):
-                    method = sub.u(2) & 15
+                    method = sub.u(2)
+                    if method >> 4:        # libavif: 12 reserved bits of 0
+                        _bad("iloc reserved bits")
                     if method not in (0, 1):
                         _bad("iloc construction method")
                 sub.u(2)
@@ -409,38 +424,94 @@ def _item_data(data, it, idat):
     return out
 
 
+class Grid:
+    """A `grid` item as libavif 1.3.0 reads it: `rows` x `cols` cells (the
+    AV1 data of each `dimg` reference, in order, with its stated size),
+    joined into a `width` x `height` output."""
+
+    def __init__(self, rows, cols, width, height, cells):
+        self.rows, self.cols, self.width, self.height = rows, cols, width, \
+            height
+        self.cells = cells
+
+
+def _grid(data, items, it, idat):
+    """avifParseImageGridBox over the grid item's data, then its cells:
+    as many `dimg` references as the grid has cells, each an av01 item
+    with av1C and no unknown essential property."""
+    payload = _item_data(data, it, idat)
+    g = _Stream(payload, 0, len(payload))
+    if g.u(1) != 0:
+        _bad("grid version")
+    flags = g.u(1)
+    rows, cols = g.u(1) + 1, g.u(1) + 1
+    n = 4 if flags & 1 else 2
+    w, h = g.u(n), g.u(n)
+    if not w or not h or _too_large((w, h)) or g.left():
+        _bad("grid descriptor")
+    cells = []
+    dimg = it.refs.get(b"dimg", [])
+    if len(set(dimg)) != len(dimg):     # ISO/IEC 14496-12: at most once
+        _bad("a grid cell referenced twice")
+    for iid in dimg:
+        cell = items.get(iid)
+        if cell is None:
+            continue
+        if cell.type != b"av01" or cell.unsupported_essential:
+            _bad("grid cell that is not a decodable AV1 image")
+        if not cell.has(b"av1C"):
+            _bad("grid cell lacks av1C")
+        _check_pixi(cell, cell)
+        cells.append((_item_data(data, cell, idat), cell.prop(b"ispe")))
+    if len(cells) != rows * cols:
+        _bad("grid cell count")
+    _check_pixi(it, items[dimg[0]])
+    return Grid(rows, cols, w, h, cells)
+
+
+def _check_pixi(it, config):
+    """libavif: an item's pixi depths match the av1C depth of `config`
+    (the item itself, or a grid's first cell)."""
+    if any(d != config.prop(b"av1C") for d in it.prop(b"pixi") or []):
+        _bad("pixi depth differs from the AV1 configuration's")
+
+
 def _from_items(data, meta):
     items, primary, idat = meta
     color = items.get(primary)
     if color is None or color.unsupported_essential or color.type is None:
         _bad("no primary item")
-    if color.type in (b"grid", b"iovl", b"tmap"):
+    if color.type in (b"iovl", b"tmap"):
         raise UnsupportedImage(f"AVIF {color.type.decode()} items are not "
                                "decoded by the port")
-    if color.type != b"av01":
+    if color.type not in (b"av01", b"grid"):
         _bad("the primary item is not an AV1 image")
     alpha = None
     for iid, it in sorted(items.items()):
         if iid == primary or it.unsupported_essential or \
-                not it.extents or it.type != b"av01":
+                not it.extents or it.type not in (b"av01", b"grid"):
             continue
         if it.prop(b"auxC") in ALPHA_URNS and primary in \
                 it.refs.get(b"auxl", []):
             alpha = it
             break
+    out = []
     for it in (color, alpha):
         if it is None:
+            out.append(None)
             continue
-        if it.type != b"av01":
-            _bad("the alpha item is not an AV1 image")
-        if not it.has(b"ispe") or not it.has(b"av1C"):
-            _bad("image item lacks ispe or av1C")
-        if any(d != it.prop(b"av1C") for d in it.prop(b"pixi") or []):
-            _bad("pixi depth differs from the AV1 configuration's")
+        if not it.has(b"ispe"):
+            _bad("image item lacks ispe")
+        if it.type == b"grid":
+            out.append(_grid(data, items, it, idat))
+            continue
+        if not it.has(b"av1C"):
+            _bad("image item lacks av1C")
+        _check_pixi(it, it)
+        out.append(_item_data(data, it, idat))
     prem = alpha is not None and any(
         items.get(x) is alpha for x in color.refs.get(b"prem", []))
-    return (_item_data(data, color, idat), color.prop(b"colr"),
-            _item_data(data, alpha, idat) if alpha else None, prem,
+    return (out[0], color.prop(b"colr"), out[1], prem,
             color.prop(b"ispe"),
             alpha.prop(b"ispe") if alpha else None)
 
@@ -553,6 +624,8 @@ def _moov(stream):
                             m.version(0)
                             if m.u(4) != 0:
                                 _bad("hdlr pre_defined")
+                            m.raw(16)         # handler type, reserved
+                            m.string()        # its name, NUL-terminated
                         elif mtyp == b"minf":
                             while m.left() > 0:
                                 ntyp, n, _ = m.box()
@@ -615,8 +688,9 @@ def _from_tracks(data, tracks):
 
 
 def parse(data: bytes):
-    """(colour OBUs, colr property, alpha OBUs or None, premultiplied,
-    the colour and alpha sizes the container states) of the image PIL
+    """(colour OBUs or Grid, colr property, alpha OBUs, Grid or None,
+    premultiplied, the colour and alpha sizes the container states) of
+    the image PIL
     loads as frame 0, as libavif 1.3.0's avifParse and avifDecoderReset
     read it: the top-level boxes until those the brands need are parsed,
     each of ftyp, meta and moov once and whole."""
@@ -688,17 +762,22 @@ def _check_items(items):
             _bad("image item without a valid ispe")
 
 
-def _limited_to_full(plane: np.ndarray) -> np.ndarray:
-    """libavif's avifLimitedToFullY at 8 bits, which it applies to an
-    alpha plane coded in limited range (C division, toward zero)."""
-    x = (plane.astype(np.int32) - 16) * 255 + 109
-    q = np.where(x >= 0, x // 219, -(-x // 219))
-    return np.clip(q, 0, 255).astype(np.uint8)
+def _limited_to_full(plane: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's avifLimitedToFullY, which it applies to an alpha plane
+    coded in limited range (C division, toward zero)."""
+    lo, hi = 16 << (depth - 8), 235 << (depth - 8)
+    top = (1 << depth) - 1
+    x = (plane.astype(np.int64) - lo) * top + (hi - lo) // 2
+    q = np.where(x >= 0, x // (hi - lo), -(-x // (hi - lo)))
+    return np.clip(q, 0, top).astype(plane.dtype)
 
 
-def _frame(obus: bytes, refused: list) -> Frame:
-    """decode_av1, where a refusal of a shown frame is added to `refused`
-    and the frame's size and depth returned without planes."""
+def _frame(obus, refused: list) -> Frame:
+    """decode_av1 (of each cell and joined, for a Grid), where a refusal of
+    a shown frame is added to `refused` and the frame's size and depth
+    returned without planes."""
+    if isinstance(obus, Grid):
+        return _join(obus, refused)
     try:
         return decode_av1(obus)
     except UnsupportedImage as e:
@@ -708,6 +787,89 @@ def _frame(obus: bytes, refused: list) -> Frame:
         return e.frame
 
 
+def _sequence_header(obus: bytes) -> bytes:
+    """The stream's last sequence header OBU before its first frame (or
+    frame header) OBU, b"" if none; parsing stops at the first OBU that
+    does not fit."""
+    pos, out = 0, b""
+    while pos < len(obus):
+        head = obus[pos]
+        start = pos + 1 + ((head >> 2) & 1)
+        size, n = 0, 0
+        while start + n < len(obus) and n < 8:
+            size |= (obus[start + n] & 0x7F) << (7 * n)
+            n += 1
+            if not obus[start + n - 1] & 0x80:
+                break
+        if not head & 2 or start + n + size > len(obus):
+            break
+        typ = (head >> 3) & 15
+        if typ in (3, 6):
+            break
+        if typ == 1:
+            out = obus[pos:start + n + size]
+        pos = start + n + size
+    return out
+
+
+def _join(grid: Grid, refused: list) -> Frame:
+    """libavif's grid: every cell decoded, the cells alike (size, depth,
+    subsampling, range, colour description), covering the output with the
+    last row and column reaching into it, at least 64 x 64 and even where
+    the chroma is subsampled, then joined and cropped to the output."""
+    frames, seq = [], b""
+    for obus, wh in grid.cells:
+        # libavif decodes the cells with one dav1d context, so a cell
+        # without a sequence header takes the one before it
+        own = _sequence_header(obus)
+        f = _frame(obus if own or not seq else seq + obus, refused)
+        seq = own or seq
+        if wh is not None and tuple(wh) != (f.width, f.height):
+            refused.append(UnsupportedImage(
+                "AVIF images whose stated size differs from their AV1 "
+                "frame's (libavif scales the frame) are not decoded by the "
+                "port"))
+            f.width, f.height = wh
+            f.planes = None
+        frames.append(f)
+    first = frames[0]
+
+    def key(f):
+        return (f.width, f.height, f.bitdepth, f.ss_x, f.ss_y, f.mono,
+                f.full_range, f.cp, f.tc, f.mc)
+    if any(key(f) != key(first) for f in frames):
+        _bad("grid cells differ")
+    tw, th, W, H = first.width, first.height, grid.width, grid.height
+    if tw * grid.cols < W or th * grid.rows < H or \
+            tw * (grid.cols - 1) >= W or th * (grid.rows - 1) >= H:
+        _bad("grid cells do not cover the output")
+    sub_x = not first.mono and first.ss_x
+    sub_y = not first.mono and first.ss_x and first.ss_y
+    if tw < 64 or th < 64 or (sub_x and (W % 2 or tw % 2)) or \
+            (sub_y and (H % 2 or th % 2)):
+        _bad("grid cell size")
+    out = Frame([W, H, first.ss_x, first.ss_y, first.mono, first.bitdepth,
+                 first.cp, first.tc, first.mc, first.full_range,
+                 first.tools], None)
+    if any(f.planes is None for f in frames):
+        return out
+    planes = []
+    for p in range(len(first.planes)):
+        sx, sy = (first.ss_x, first.ss_y) if p else (0, 0)
+        pw, ph = (W + sx) >> sx, (H + sy) >> sy
+        cw, ch = (tw + sx) >> sx, (th + sy) >> sy
+        plane = np.empty((ph, pw), first.planes[0].dtype)
+        for k, f in enumerate(frames):
+            r, c = divmod(k, grid.cols)
+            y0, x0 = r * ch, c * cw
+            if y0 < ph and x0 < pw:
+                plane[y0:y0 + ch, x0:x0 + cw] = \
+                    f.planes[p][:ph - y0, :pw - x0]
+        planes.append(plane)
+    out.planes = tuple(planes)
+    return out
+
+
 def decode_avif(data: bytes) -> np.ndarray:
     """AVIF bytes -> (H, W, 4) uint8 RGBA, top row first."""
     from fluctus_tpu_torch.scene.avif_rgb import to_rgb
@@ -715,6 +877,10 @@ def decode_avif(data: bytes) -> np.ndarray:
     for wh in (size, alpha_size):     # libavif's default size limits
         if wh is not None and (not wh[0] or not wh[1] or _too_large(wh)):
             raise ValueError("AVIF: image size out of libavif's limits")
+    for g, wh in ((color_obus, size), (alpha_obus, alpha_size)):
+        if isinstance(g, Grid) and tuple(wh) != (g.width, g.height):
+            raise ValueError("AVIF: a grid's stated size differs from its "
+                             "output size")
     # what the port lacks is raised only once libavif's own failures are
     # ruled out: it decodes both items, scales each to its stated size, then
     # fails unless the alpha matches the colour in size and depth
@@ -740,7 +906,7 @@ def decode_avif(data: bytes) -> np.ndarray:
                              "item in size or depth")
         alpha = a.planes[0] if a.planes else None
         if alpha is not None and not a.full_range:
-            alpha = _limited_to_full(alpha)
+            alpha = _limited_to_full(alpha, a.bitdepth)
     if refused:
         raise refused[0]
     return to_rgb(frame, colr, alpha, prem)

@@ -1,6 +1,6 @@
-"""libavif 1.3.0's YUV to RGB step at 8 bits, as PIL 12 calls it
+"""libavif 1.3.0's YUV to 8-bit RGB step, as PIL 12 calls it
 (`avifImageYUVToRGB` with its default automatic chroma upsampling), on
-the planes of an AV1 frame.
+the planes of an AV1 frame at 8, 10 or 12 bits.
 
 libavif hands the conversion to libyuv (1909) when libyuv has constants
 for the frame's matrix and range: BT.601 (and BT.470BG, and unspecified),
@@ -15,7 +15,26 @@ rows for 4:2:0, with its edge rules). The other matrices go through
 libavif's own float conversion with bilinear chroma (identity and YCgCo
 exactly); those libavif refuses give ValueError, as PIL fails on them.
 The alpha plane (brought to full range by avif.py where it is coded in
-limited range) is un-premultiplied as libavif does for a `prem` file.
+limited range) is un-premultiplied as libavif does for a `prem` file:
+libyuv's ARGBUnattenuate after libyuv's conversion and libavif's fast
+paths, a float division inside libavif's bilinear (slow) path.
+
+Deeper frames take the routes libavif 1.3.0 takes for them, found by
+calling its `avifImageYUVToRGB` through ctypes on every depth, subsampling,
+range, matrix and alpha case (tests/test_torch_avif_deep.py does so):
+- colour with libyuv constants and no alpha: every plane cut to its top 8
+  bits (libyuv's Convert16To8Plane), then the 8-bit route;
+- with alpha at 10 bits: libyuv's 10-bit rows (I410/I210/I010 with alpha,
+  the luma's top bits repeated below it, `(y << 6) | (y >> 4)`, the
+  chroma upsampled at 10 bits then cut to 8) and the alpha cut to 8 bits;
+  at 12 bits 4:2:0, libyuv's 12-bit rows with the nearest chroma sample
+  and libavif's rounded alpha; at 12 bits otherwise the 8-bit route on
+  the cut planes, alpha cut too;
+- grey with alpha and libyuv constants (in either range, as at 8 bits):
+  the cut luma through libyuv's constants of the matrix, chroma at its
+  centre, and libavif's rounded alpha;
+- everything else, grey without alpha among it: libavif's float path with
+  tables over every code of the depth, the alpha rounded.
 """
 from __future__ import annotations
 
@@ -35,11 +54,12 @@ _FULL = {
 }
 
 
-def _libyuv_constants(mc: int, cp: int, full: bool, mono: bool):
+def _libyuv_constants(mc: int, cp: int, full: bool, mono: bool,
+                      any_range: bool = False):
     """libavif's getLibYUVConstants: libyuv's constants for the matrix and
     range, or None where libavif falls back to its own code (as it does
-    for every 4:0:0 frame in limited range)."""
-    if mono and not full:
+    for every 4:0:0 frame in limited range, unless `any_range`)."""
+    if mono and not full and not any_range:
         return None
     if mono and mc == 0:
         mc = 6
@@ -157,32 +177,38 @@ _PRIMARIES = {
 }
 
 
-def _builtin(frame, mc: int, cp: int, full: bool) -> np.ndarray:
-    """libavif's own conversion (its 8-bit fast paths, and the any-format
-    path with bilinear chroma for subsampled planes), in float32 as
-    libavif computes it."""
+def _builtin(frame, mc: int, cp: int, full: bool,
+             prem=None) -> np.ndarray:
+    """libavif's own conversion (its fast paths, and the any-format path
+    with bilinear chroma for subsampled planes), in float32 as libavif
+    computes it, over tables of every code of the frame's depth. For a
+    premultiplied image, `prem` is (alpha at the frame's depth, its 8-bit
+    values): the fast paths leave the un-premultiplying to libyuv's
+    ARGBUnattenuate afterwards, the bilinear path divides in float."""
     f32 = np.float32
-    h, w = frame.height, frame.width
+    h, w, d = frame.height, frame.width, frame.bitdepth
     mode = {0: "identity", 8: "ycgco"}.get(mc, "yuv")
     if mode == "identity" and not frame.mono and (frame.ss_x or frame.ss_y):
         raise ValueError("AVIF: the identity matrix needs 4:4:4")
     if mode == "ycgco" and not full:
         raise ValueError("AVIF: limited-range YCgCo is not converted")
-    if mode == "identity" and full and not frame.mono:
+    if mode == "identity" and full and not frame.mono and d == 8:
         y, u, v = frame.planes
-        return np.stack([v, y, u], -1)
+        out = np.stack([v, y, u], -1)
+        return _unpremultiply(out, prem[1]) if prem else out
     if mc == 12:
         kr, kb = _primaries_kr_kb(cp)
     else:
         kr, kb = (f32(k) for k in _KR_KB.get(mc, (0.299, 0.114)))
     kg = f32(1) - kr - kb
-    code = np.arange(256, dtype=f32)
+    code = np.arange(1 << d, dtype=f32)
+    top, s = f32((1 << d) - 1), 1 << (d - 8)
     if full:
-        tab_y = (code - f32(0)) / f32(255)
-        tab_uv = (code - f32(128)) / f32(255)
+        tab_y = (code - f32(0)) / top
+        tab_uv = (code - f32(1 << (d - 1))) / top
     else:
-        tab_y = (code - f32(16)) / f32(219)
-        tab_uv = (code - f32(128)) / f32(224)
+        tab_y = (code - f32(16 * s)) / f32(219 * s)
+        tab_uv = (code - f32(1 << (d - 1))) / f32(224 * s)
     if mode == "identity":
         tab_uv = tab_y
     yf = tab_y[frame.planes[0]]
@@ -205,9 +231,16 @@ def _builtin(frame, mc: int, cp: int, full: bool) -> np.ndarray:
             b = yf + (f32(2) * (f32(1) - kb)) * cb
             g = yf - ((f32(2) * ((kr * (f32(1) - kr) * cr) +
                                  (kb * (f32(1) - kb) * cb))) / kg)
-    out = [(f32(0.5) + np.clip(c, f32(0), f32(1)).astype(f32) * f32(255))
-           .astype(np.uint8) for c in (r, g, b)]
-    return np.stack(out, -1)
+    fast = mode == "yuv" and (frame.mono or not (frame.ss_x or frame.ss_y))
+    if prem and not fast:
+        a = prem[0].astype(f32) / top
+        r, g, b = (np.where(a > 0, np.minimum(np.clip(c, f32(0), f32(1)) /
+                                              np.where(a > 0, a, f32(1)),
+                                              f32(1)), f32(0))
+                   for c in (r, g, b))
+    out = np.stack([(f32(0.5) + np.clip(c, f32(0), f32(1)).astype(f32)
+                     * f32(255)).astype(np.uint8) for c in (r, g, b)], -1)
+    return _unpremultiply(out, prem[1]) if prem and fast else out
 
 
 def _bilinear(tab, c, w, h, frame):
@@ -233,39 +266,110 @@ def _bilinear(tab, c, w, h, frame):
             + tab[c[r1, c0]] * f32(3 / 16) + tab[c[r1, c1]] * f32(1 / 16))
 
 
+def _yuv_rgb(y1, u, v, consts) -> np.ndarray:
+    """libyuv's fixed-point YUV to RGB of one picture: `y1` the luma term
+    (`(y32 * YG) >> 16`), `u` and `v` the 8-bit chroma less 128."""
+    yg, yb, ub, ug, vg, vr = consts
+    base = y1 + yb
+    out = np.empty(y1.shape + (3,), np.uint8)
+    out[..., 0] = np.clip((base + vr * v) >> 6, 0, 255)
+    out[..., 1] = np.clip((base - (ug * u + vg * v)) >> 6, 0, 255)
+    out[..., 2] = np.clip((base + ub * u) >> 6, 0, 255)
+    return out
+
+
+def _cut(plane: np.ndarray, depth: int) -> np.ndarray:
+    """libyuv's Convert16To8Plane as libavif calls it (scale 1 << (24 -
+    depth)): a sample's top 8 bits."""
+    return np.minimum(255, plane.astype(np.int64) >> (depth - 8))
+
+
+def _libyuv8(frame, planes, consts) -> np.ndarray:
+    """libyuv's 8-bit route on 8-bit planes (grey: chroma at its centre)."""
+    h, w = frame.height, frame.width
+    y1 = (planes[0].astype(np.int64) * 0x0101 * consts[0]) >> 16
+    if frame.mono:
+        u = v = np.zeros((h, w), np.int64)
+    else:
+        u = upsample(planes[1], w, h, frame.ss_x, frame.ss_y)
+        v = upsample(planes[2], w, h, frame.ss_x, frame.ss_y)
+        u = u.astype(np.int64) - 128
+        v = v.astype(np.int64) - 128
+    return _yuv_rgb(y1, u, v, consts)
+
+
+def _nearest(c, w, h, ss_x, ss_y):
+    return c[(np.arange(h) >> ss_y)[:, None], (np.arange(w) >> ss_x)[None, :]]
+
+
+def _libyuv16(frame, consts, bilinear: bool) -> np.ndarray:
+    """libyuv's 10- and 12-bit rows (YuvPixel10/12): the luma's top bits
+    repeated below it, the chroma upsampled at its depth (bilinear, or the
+    nearest sample) and cut to 8 bits."""
+    d, h, w = frame.bitdepth, frame.height, frame.width
+    y = frame.planes[0].astype(np.int64)
+    y1 = (((y << (16 - d)) | (y >> (2 * d - 16))) * consts[0]) >> 16
+    up = upsample if bilinear else _nearest
+    u, v = (np.minimum(255, up(c, w, h, frame.ss_x, frame.ss_y)
+                       .astype(np.int64) >> (d - 8)) - 128
+            for c in frame.planes[1:])
+    return _yuv_rgb(y1, u, v, consts)
+
+
+def _rounded_alpha(alpha: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's avifReformatAlpha to 8 bits, in float."""
+    f32 = np.float32
+    return (f32(0.5) + (alpha.astype(f32) / f32((1 << depth) - 1))
+            * f32(255)).astype(np.uint8)
+
+
 def to_rgb(frame, colr, alpha, premultiplied) -> np.ndarray:
-    """(H, W, 4) uint8 RGBA of a decoded frame; alpha None gives 255. The
-    `colr` nclx property, where there is one, sets the matrix, the
-    primaries and the range; else the AV1 sequence header does."""
+    """(H, W, 4) uint8 RGBA of a decoded frame; `alpha` (full range, at
+    the frame's depth) None gives 255. The `colr` nclx property, where
+    there is one, sets the matrix, the primaries and the range; else the
+    AV1 sequence header does."""
     if colr is not None and colr[0] == "nclx":
         cp, mc, full = colr[1], colr[3], bool(colr[4])
     else:
         cp, mc, full = frame.cp, frame.mc, bool(frame.full_range)
     if mc in (3, 10, 11, 13, 14, 16, 17) or mc > 17:
         raise ValueError(f"AVIF: libavif does not convert matrix {mc}")
-    h, w = frame.height, frame.width
+    h, w, d = frame.height, frame.width, frame.bitdepth
     out = np.empty((h, w, 4), np.uint8)
-    consts = _libyuv_constants(mc, cp, full, frame.mono)
-    if consts is None:
-        out[..., :3] = _builtin(frame, mc, cp, full)
+    has_a = alpha is not None
+    a8 = None
+    rgb = None
+    if d == 8:
+        a8 = alpha
+        consts = _libyuv_constants(mc, cp, full, frame.mono, any_range=has_a)
+        if consts is not None:
+            rgb = _libyuv8(frame, frame.planes, consts)
+    elif frame.mono:
+        consts = _libyuv_constants(mc, cp, full, True, any_range=True) \
+            if has_a else None
+        if consts is not None:
+            rgb = _libyuv8(frame, (_cut(frame.planes[0], d),), consts)
+            a8 = _rounded_alpha(alpha, d)
     else:
-        yg, yb, ub, ug, vg, vr = consts
-        y1 = (frame.planes[0].astype(np.int64) * 0x0101 * yg) >> 16
-        if frame.mono:
-            u = v = np.zeros((h, w), np.int64)
-        else:
-            u = upsample(frame.planes[1], w, h, frame.ss_x, frame.ss_y)
-            v = upsample(frame.planes[2], w, h, frame.ss_x, frame.ss_y)
-            u = u.astype(np.int64) - 128
-            v = v.astype(np.int64) - 128
-        base = y1 + yb
-        out[..., 0] = np.clip((base + vr * v) >> 6, 0, 255)
-        out[..., 1] = np.clip((base - (ug * u + vg * v)) >> 6, 0, 255)
-        out[..., 2] = np.clip((base + ub * u) >> 6, 0, 255)
-    if alpha is None:
-        out[..., 3] = 255
+        consts = _libyuv_constants(mc, cp, full, False)
+        if consts is not None:
+            if not has_a or (d == 12 and not (frame.ss_x and frame.ss_y)):
+                rgb = _libyuv8(frame, [_cut(p, d) for p in frame.planes],
+                               consts)
+                a8 = _cut(alpha, d).astype(np.uint8) if has_a else None
+            else:
+                rgb = _libyuv16(frame, consts, bilinear=d == 10)
+                a8 = _cut(alpha, d).astype(np.uint8) if d == 10 else \
+                    _rounded_alpha(alpha, d)
+    if rgb is None:       # libavif's own code
+        if has_a and d > 8:
+            a8 = _rounded_alpha(alpha, d)
+        out[..., :3] = _builtin(frame, mc, cp, full,
+                                (alpha, a8) if premultiplied and has_a
+                                else None)
+    elif premultiplied and has_a:
+        out[..., :3] = _unpremultiply(rgb, a8)
     else:
-        out[..., 3] = alpha
-        if premultiplied:
-            out[..., :3] = _unpremultiply(out[..., :3], alpha)
+        out[..., :3] = rgb
+    out[..., 3] = 255 if a8 is None else a8
     return out

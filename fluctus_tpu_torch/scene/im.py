@@ -15,8 +15,12 @@ Decoded: the types PIL writes (its SAVE table): "0 1", "L 1" and "B1"
 PA, line-interleaved), "RGB", "RGBA", "RGBX", "CMYK" and "YCC" (one
 plane of each band a row; YCC through PIL's own YCbCr -> RGB, see
 scene/pilmodes.py), "X 24" (interleaved RGB), "L 32S" (int32), "L 16",
-"L 16L" and "L 16B" (16-bit), "L 32F" (float32); any other type PIL
-reads raises UnsupportedImage.
+"L 16L" and "L 16B" (16-bit), "L 32F" (float32), the integer types PIL
+widens to float ("L 8", "L 8S", "L 16S", "L 32", "L 32 F") or reads as
+int32 ("L 32 S"), the "L*n" types of other widths through PIL's bit
+decoder, "B2" and "B4" (2- and 4-bit palette indices) and "RGB3"/"RYB3"
+(green, red and blue planes). The types PIL has no unpacker for ("PA",
+"RLB", "RYB") fail as PIL fails.
 """
 from __future__ import annotations
 
@@ -24,7 +28,6 @@ import re
 
 import numpy as np
 
-from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 from fluctus_tpu_torch.scene.pilmodes import readline, rows, to_rgba
 
 _SPLIT = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
@@ -60,9 +63,35 @@ _MODES = {m for m, _ in _OPEN.values()}
 _LINE = {("LA", "LA;L"): 2, ("PA", "PA;L"): 2, ("RGB", "RGB;L"): 3,
          ("RGBA", "RGBA;L"): 4, ("RGB", "RGBX;L"): 4, ("CMYK", "CMYK;L"): 4,
          ("YCbCr", "YCbCr;L"): 3}
-# raw mode of one word a pixel -> its numpy type
+# raw mode of one word a pixel -> its numpy type (PIL's unpackers: "F;n"
+# widens the integer to float, "I;32" reads an int32)
 _WORDS = {"I;16": "<u2", "I;16L": "<u2", "I;16B": ">u2", "I;32S": "<i4",
-          "F;32F": "<f4"}
+          "I;32": "<i4", "F;32F": "<f4", "F;8": "u1", "F;8S": "i1",
+          "F;16": "<u2", "F;16S": "<i2", "F;32": "<u4"}
+
+
+def _bits(data: bytes, pos: int, w: int, h: int, bits: int) -> np.ndarray:
+    """PIL's "bit" decoder as ImImagePlugin calls it for the ifunc95 types
+    of other widths (bits, pad 8, fill 3, unsigned, bottom row first):
+    bytes shifted into a buffer above the bits it holds, pixels taken from
+    its low end; at a row's end the count (not the buffer) goes to 0, so
+    the rest of the last byte is OR-ed into the next one."""
+    out = np.zeros((h, w), np.float32)
+    mask, buf, cnt, x, y = (1 << bits) - 1, 0, 0, 0, h - 1
+    for byte in data[pos:]:
+        buf |= byte << cnt
+        cnt += 8
+        while cnt >= bits:
+            d = buf & mask
+            buf = byte >> (8 - (cnt - bits)) if cnt > 32 else buf >> bits
+            cnt -= bits
+            out[y, x] = d
+            x += 1
+            if x >= w:
+                y, x, cnt = y - 1, 0, 0
+                if y < 0:
+                    return out
+    raise ValueError("image file is truncated")
 
 
 def _number(s: str):
@@ -157,7 +186,23 @@ def decode_im(data: bytes) -> np.ndarray:
         dt = np.dtype(_WORDS[rawmode])
         r = rows(data, pos, h, dt.itemsize * w, bottom_up=True)
         v = np.ascontiguousarray(r).view(dt).reshape(h, w)
+        if mode == "F":
+            v = v.astype(np.float32)
         return to_rgba("F" if mode == "F" else "I", v)
-    raise UnsupportedImage(f"IM images of type {info['Image type']} "
-                           f"(raw mode {rawmode}) are not decoded by the "
-                           "port")
+    if mode == "F" and rawmode[2:].isdigit():
+        return to_rgba("F", _bits(data, pos, w, h, int(rawmode[2:])))
+    if rawmode in ("P;2", "P;4"):
+        # packed indices, first pixel in the high bits, into a palette of
+        # zeros: PIL gives these images no palette, and converts them black
+        n = int(rawmode[2:])
+        r = rows(data, pos, h, (w * n + 7) // 8, bottom_up=True)
+        idx = np.unpackbits(r, axis=1).reshape(h, -1, n)[:, :w]
+        idx = (idx * (1 << np.arange(n - 1, -1, -1))).sum(-1).astype(np.uint8)
+        return to_rgba("P", idx, np.zeros((256, 3), np.uint8))
+    if rawmode in ("RGB;T", "RYB;T"):
+        # three planes, green, red, blue, each bottom row first
+        px = np.stack([rows(data, pos + k * w * h, h, w, bottom_up=True)
+                       for k in (1, 0, 2)], -1)
+        return to_rgba("RGB", px)
+    raise ValueError(f"IM: no unpacker for type {info['Image type']} (raw "
+                     f"mode {rawmode})")

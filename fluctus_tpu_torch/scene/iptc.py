@@ -64,6 +64,32 @@ def _bytes(info: dict, key) -> bytes:
     return v
 
 
+def _pil_mode(body: bytes, kind: str):
+    """PIL's mode of an image that a band record holds, read from its
+    header (Image.merge takes a band of mode "L" only), or None for a
+    format whose mode the port does not read."""
+    if kind == "pnm":
+        from fluctus_tpu_torch.scene.pnm import MODES, _token, magic
+        m = magic(body)
+        mode = MODES.get(m)
+        if mode == "L":         # PIL's mode I past a maxval of 255
+            pos = len(m) + 1
+            for _ in range(3):
+                tok, pos = _token(body, pos)
+            mode = "I" if int(tok) > 255 else "L"
+        return mode
+    if kind == "png":
+        if len(body) < 26:
+            return "?"
+        depth, ctype = body[24], body[25]
+        if ctype == 0:
+            return {1: "1", 16: "I;16"}.get(depth, "L")
+        return {2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}.get(ctype, "?")
+    if kind in ("qoi", "webp"):
+        return "RGB"          # RGB or RGBA, never merged
+    return None
+
+
 def decode_iptc(data: bytes) -> np.ndarray:
     """IPTC bytes -> (H, W, 4) uint8 RGBA, top row first."""
     info, pos = {}, 0
@@ -122,8 +148,17 @@ def decode_iptc(data: bytes) -> np.ndarray:
         elif band is None:
             inner = imageformat.decode(body, kind)
         else:
-            raise UnsupportedImage(f"IPTC band records holding {kind} "
-                                   "images are not decoded by the port")
+            # Image.merge checks the mode of every band but the first
+            # ("L"), and copies a first band of one byte a pixel as it is
+            inner_mode = _pil_mode(body, kind)
+            first = band % (3 if mode == "RGB" else 4) == 0
+            if inner_mode is None or (first and inner_mode not in (
+                    "L", "1", "RGB", "RGBA", "LA")):
+                raise UnsupportedImage(
+                    f"IPTC band records holding {kind} images of PIL's "
+                    f"mode {inner_mode} are not decoded by the port")
+            inner = imageformat.decode(body, kind)
+            grey = inner_mode == "L" or (first and inner_mode == "1")
     if band is None:
         return inner
     if not grey:

@@ -8,14 +8,16 @@ maxval passes 255 (PIL's mode I, which its RGBA conversion clamps to 255;
 maxval 65535 takes the 16-bit value itself). Bitmaps read 1 as black. A
 PFM's floats (little-endian when the scale is negative) are stored bottom
 row first; the conversion truncates them into 0..255, NaN to 0. A colour
-PFM (`PF`) is no PIL format (the pool leaves it at -1); PIL's own test
-formats (P0CMYK, PyP, PyRGBA, PyCMYK) raise UnsupportedImage.
+PFM (`PF`) is no PIL format (the pool leaves it at -1). PIL's own test
+formats P0CMYK, PyCMYK (CMYK), PyRGBA (RGBA) and PyP (palette indices
+with no palette, which PIL converts black) are binary rows of 4 or 1
+samples a pixel, scaled as above, CMYK through PIL's cmyk2rgb.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
+from fluctus_tpu_torch.scene.pilmodes import to_rgba
 
 _WS = b"\x20\x09\x0a\x0b\x0c\x0d"
 MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
@@ -84,9 +86,6 @@ def decode_pnm(data: bytes) -> np.ndarray:
     mode = MODES.get(m)
     if mode is None:
         raise ValueError("not a PNM file")
-    if mode not in ("1", "L", "RGB", "F"):
-        raise UnsupportedImage(f"PPM: PIL's {m.decode()} test format is not "
-                               "decoded by the port")
     pos = len(m) + 1
     tok, pos = _token(data, pos)
     w = int(tok)
@@ -115,7 +114,7 @@ def decode_pnm(data: bytes) -> np.ndarray:
         maxval = int(tok)
         if not 0 < maxval < 65536:
             raise ValueError("PNM: bad maxval")
-    bands = 3 if mode == "RGB" else 1
+    bands = {"RGB": 3, "CMYK": 4, "RGBA": 4}.get(mode, 1)
     n = w * h * bands
     # the grey image of a maxval over 255 is PIL's mode I (to 65535)
     out_max = 65535 if mode == "L" and maxval > 255 else 255
@@ -157,6 +156,10 @@ def decode_pnm(data: bytes) -> np.ndarray:
         else:
             v = _scale(vals, maxval, out_max)
     v = np.minimum(v, 255).astype(np.uint8)   # mode I clamps to 255
+    if mode == "P":
+        return to_rgba("P", v.reshape(h, w), np.zeros((256, 3), np.uint8))
+    if mode in ("CMYK", "RGBA"):
+        return to_rgba(mode, v.reshape(h, w, 4))
     if bands == 1:
         return _grey(v.reshape(h, w))
     rgba = np.full((h, w, 4), 255, np.uint8)

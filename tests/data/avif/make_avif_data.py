@@ -36,6 +36,16 @@ above byte for byte):
 - all_422.avif, all_grey.avif: 4:2:2 and 4:0:0 with every tool (speed 4,
   CDEF, film grain test vector 2).
 
+Files made from those (the module's `deepen` rewrites the sequence
+header, av1C and pixi of 8-bit files; `grid_avif` writes grids through
+libavif's avifEncoderAddImageGrid):
+- kitchen_floor_10.avif: kitchen_floor_filtered.avif at 10 bits;
+- kitchen_wood_12.avif: kitchen_wood_filtered.avif at 12 bits (profile
+  2);
+- kitchen_floor_n_grid10.avif: assets/kitchen_floor_n.png as a 2x2 grid
+  of 128x128 cells (4:4:4, speed 4, quality 75: deblocking and loop
+  restoration), each cell at 10 bits.
+
 avif.json records, for each file, its size, the SHA-256 of PIL's
 `Image.open(f).convert("RGBA")` bytes and their shape, the filters its
 frame header turns on (`tools`, as the port reads them), and the
@@ -127,12 +137,479 @@ def files():
     return out
 
 
+# ------------------------------------------------------------ rewriting
+# PIL's aom encodes 8 bits only; dav1d decodes 10 and 12. AV1's tile
+# syntax differs between depths only in palette colours, so a deeper file
+# is an 8-bit file whose sequence header (in its av01 items and in av1C)
+# says another depth, with av1C's fields and pixi in step.
+
+class _Bits:
+    def __init__(self, data):
+        self.d, self.p = data, 0
+
+    def f(self, n):
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | ((self.d[self.p >> 3] >> (7 - (self.p & 7))) & 1)
+            self.p += 1
+        return v
+
+    def uvlc(self):
+        z = 0
+        while not self.f(1):
+            z += 1
+        return self.f(z) + (1 << z) - 1 if z < 32 else 2 ** 32 - 1
+
+
+class _Writer:
+    def __init__(self):
+        self.bits = []
+
+    def f(self, n, v):
+        self.bits += [(v >> (n - 1 - i)) & 1 for i in range(n)]
+
+    def bytes(self):
+        b = self.bits + [0] * (-len(self.bits) % 8)
+        return bytes(int("".join(map(str, b[i:i + 8])), 2)
+                     for i in range(0, len(b), 8))
+
+
+def _seq_color(payload):
+    """(bit position of color_config, its fields, the position after it)
+    of a sequence header OBU's payload (the AV1 specification's syntax)."""
+    b = _Bits(payload)
+    profile, _still, reduced = b.f(3), b.f(1), b.f(1)
+    if reduced:
+        b.f(5)
+    else:
+        timing = b.f(1)
+        dm, bdl = 0, 0
+        if timing:
+            b.f(32), b.f(32)
+            if b.f(1):
+                b.uvlc()
+            dm = b.f(1)
+            if dm:
+                bdl = b.f(5) + 1
+                b.f(32), b.f(5), b.f(5)
+        idd = b.f(1)
+        for _ in range(b.f(5) + 1):
+            b.f(12)
+            if b.f(5) > 7:
+                b.f(1)
+            if dm and b.f(1):
+                b.f(bdl), b.f(bdl), b.f(1)
+            if idd and b.f(1):
+                b.f(4)
+    wb, hb = b.f(4) + 1, b.f(4) + 1
+    b.f(wb), b.f(hb)
+    if not reduced and b.f(1):
+        b.f(4), b.f(3)
+    b.f(3)                                   # sb128, filter intra, edge
+    if not reduced:
+        b.f(4)
+        order = b.f(1)
+        if order:
+            b.f(2)
+        sct = 2 if b.f(1) else b.f(1)
+        if sct > 0 and not b.f(1):
+            b.f(1)
+        if order:
+            b.f(3)
+    b.f(3)                                   # superres, cdef, restoration
+    start = b.p
+    c = {"profile": profile, "high": b.f(1)}
+    c["twelve"] = b.f(1) if profile == 2 and c["high"] else 0
+    c["mono"] = 0 if profile == 1 else b.f(1)
+    c["desc"] = b.f(1)
+    c["cicp"] = (b.f(8), b.f(8), b.f(8)) if c["desc"] else None
+    c["range"] = b.f(1)
+    depth = 12 if c["twelve"] else 10 if c["high"] else 8
+    if c["mono"]:
+        c["ss"], c["csp"], c["sep"] = (1, 1), 0, 0
+        return start, c, b.p
+    if profile == 0:
+        c["ss"] = (1, 1)
+    elif profile == 1:
+        c["ss"] = (0, 0)
+    elif depth == 12:
+        sx = b.f(1)
+        c["ss"] = (sx, b.f(1) if sx else 0)
+    else:
+        c["ss"] = (1, 0)
+    c["csp"] = b.f(2) if c["ss"] == (1, 1) else 0
+    c["sep"] = b.f(1)
+    return start, c, b.p
+
+
+def _profile(depth, ss, mono):
+    """The profile a stream of this depth and subsampling needs (10-bit
+    4:2:2 and every 12-bit stream are profile 2)."""
+    if depth == 12 or (tuple(ss) == (1, 0) and not mono):
+        return 2
+    return 1 if tuple(ss) == (0, 0) and not mono else 0
+
+
+def _color_bits(w, c, depth):
+    """color_config for `depth`; returns the profile (_profile's)."""
+    ss, mono = c["ss"], c["mono"]
+    profile = _profile(depth, ss, mono)
+    w.f(1, depth > 8)
+    if profile == 2 and depth > 8:
+        w.f(1, depth == 12)
+    if profile != 1:
+        w.f(1, mono)
+    w.f(1, c["desc"])
+    if c["desc"]:
+        for v in c["cicp"]:
+            w.f(8, v)
+    w.f(1, c["range"])
+    if mono:
+        return profile
+    if profile == 2 and depth == 12:
+        w.f(1, ss[0])
+        if ss[0]:
+            w.f(1, ss[1])
+    if ss == (1, 1):
+        w.f(2, c["csp"])
+    w.f(1, c["sep"])
+    return profile
+
+
+def deepen_obus(obus: bytes, depth: int) -> bytes:
+    """The OBU stream with each sequence header rewritten for `depth`."""
+    out, off = b"", 0
+    while off < len(obus):
+        head = obus[off]
+        typ, ext = (head >> 3) & 15, (head >> 2) & 1
+        hdr = 1 + ext
+        size, n, shift = 0, 0, 0
+        while True:
+            v = obus[off + hdr + n]
+            size |= (v & 127) << shift
+            n, shift = n + 1, shift + 7
+            if not v & 128:
+                break
+        payload = obus[off + hdr + n:off + hdr + n + size]
+        if typ == 1:
+            start, c, end = _seq_color(payload)
+            bits = _Bits(payload)
+            w = _Writer()
+            w.f(3, 0)
+            bits.f(3)
+            for _ in range(start - 3):
+                w.f(1, bits.f(1))
+            profile = _color_bits(w, c, depth)
+            w.bits[:3] = [(profile >> 2) & 1, (profile >> 1) & 1, profile & 1]
+            bits.p = end
+            w.f(1, bits.f(1))                # film_grain_params_present
+            w.f(1, 1)                        # trailing bits
+            payload = w.bytes()
+        leb = b""
+        v = len(payload)
+        while True:
+            leb += bytes([(v & 127) | (128 if v > 127 else 0)])
+            v >>= 7
+            if not v:
+                break
+        out += bytes([head | 2]) + obus[off + 1:off + hdr] + leb + payload
+        off += hdr + n + size
+    return out
+
+
+def _boxes(data, pos=0, end=None):
+    end = len(data) if end is None else end
+    while pos < end:
+        size = int.from_bytes(data[pos:pos + 4], "big")
+        yield data[pos + 4:pos + 8], data[pos + 8:pos + size]
+        pos += size
+
+
+def _box(typ, payload):
+    return (8 + len(payload)).to_bytes(4, "big") + typ + payload
+
+
+def _u(b, i, n):
+    return int.from_bytes(b[i:i + n], "big")
+
+
+def _ipma(b: bytes, assoc) -> bytes:
+    """An ipma payload (version 0, flags 0) with each item's property
+    bytes (essential bit and 1-based index) through assoc(id, list)."""
+    if b[:4] != b"\0\0\0\0":
+        raise ValueError("ipma of version 0 and flags 0 only")
+    out, pos = b[:8], 8
+    for _ in range(_u(b, 4, 4)):
+        iid, c = _u(b, pos, 2), b[pos + 2]
+        props = assoc(iid, list(b[pos + 3:pos + 3 + c]))
+        out += iid.to_bytes(2, "big") + bytes([len(props)]) + bytes(props)
+        pos += 3 + c
+    return out
+
+
+def rewrite(data: bytes, item=lambda iid, typ, b: b, prop=lambda t, p: p,
+            new_props=(), assoc=None) -> bytes:
+    """An AVIF still image rebuilt as ftyp, meta, mdat: each item's data
+    (construction method 0) through item(id, type, bytes), each ipco
+    property's payload through prop(type, payload), the (type, payload)
+    pairs of `new_props` appended to ipco, and each item's ipma list
+    through assoc(id, list) where given; iloc is written anew (version
+    1, 4-byte offsets and lengths, one extent an item)."""
+    top = dict(_boxes(data))
+    meta = top[b"meta"]
+    children = list(_boxes(meta, 4))
+    iloc = dict(children)[b"iloc"]
+    types = {}
+    for typ, b in children:
+        if typ == b"iinf":
+            v = b[0]
+            pos = 6 if v == 0 else 8
+            for _, e in _boxes(b, pos):
+                ev = e[0]
+                iid = _u(e, 4, 2 if ev == 2 else 4)
+                k = 4 + (2 if ev == 2 else 4) + 2
+                types[iid] = e[k:k + 4]
+    v = iloc[0]
+    off_sz, len_sz, base_sz = iloc[4] >> 4, iloc[4] & 15, iloc[5] >> 4
+    idx_sz = iloc[5] & 15 if v in (1, 2) else 0
+    entries = []
+    count = _u(iloc, 6, 2 if v < 2 else 4)
+    pos = 8 if v < 2 else 10
+    for _ in range(count):
+        iid = _u(iloc, pos, 2 if v < 2 else 4)
+        pos += 2 if v < 2 else 4
+        method = 0
+        if v in (1, 2):
+            method = _u(iloc, pos, 2) & 15
+            pos += 2
+        pos += 2
+        base = _u(iloc, pos, base_sz)
+        pos += base_sz
+        ext, n = [], _u(iloc, pos, 2)
+        pos += 2
+        for _ in range(n):
+            pos += idx_sz
+            ext.append((base + _u(iloc, pos, off_sz),
+                        _u(iloc, pos + off_sz, len_sz)))
+            pos += off_sz + len_sz
+        entries.append((iid, method, ext))
+    items = []
+    for iid, method, ext in entries:
+        if method == 1:
+            items.append((iid, 1, ext, None))
+        else:
+            b = b"".join(data[o:o + n] for o, n in ext)
+            items.append((iid, 0, None, item(iid, types.get(iid), b)))
+
+    def new_meta(mdat_start):
+        body, at = [], mdat_start
+        for iid, method, ext, b in items:
+            e = iid.to_bytes(2, "big") + method.to_bytes(2, "big") + b"\0\0"
+            if method == 1:
+                e += len(ext).to_bytes(2, "big") + b"".join(
+                    o.to_bytes(4, "big") + n.to_bytes(4, "big")
+                    for o, n in ext)
+            else:
+                e += b"\0\1" + at.to_bytes(4, "big") + \
+                    len(b).to_bytes(4, "big")
+                at += len(b)
+            body.append(e)
+        loc = _box(b"iloc", b"\1\0\0\0\x44\0" + len(items).to_bytes(2, "big")
+                   + b"".join(body))
+        out = b""
+        for typ, b in children:
+            if typ == b"iloc":
+                out += loc
+            elif typ == b"iprp":
+                pp = b""
+                for ptyp, pb in _boxes(b):
+                    if ptyp == b"ipco":
+                        pp += _box(b"ipco", b"".join(
+                            _box(t, prop(t, q)) for t, q in _boxes(pb))
+                            + b"".join(_box(t, q) for t, q in new_props))
+                    elif ptyp == b"ipma" and assoc is not None:
+                        pp += _box(b"ipma", _ipma(pb, assoc))
+                    else:
+                        pp += _box(ptyp, pb)
+                out += _box(b"iprp", pp)
+            else:
+                out += _box(typ, b)
+        return _box(b"meta", meta[:4] + out)
+
+    ftyp = _box(b"ftyp", top[b"ftyp"])
+    m = new_meta(0)
+    m = new_meta(len(ftyp) + len(m) + 8)
+    mdat = b"".join(b for _, method, _, b in items if method == 0)
+    return ftyp + m + _box(b"mdat", mdat)
+
+
+def deepen(data: bytes, depth: int) -> bytes:
+    """An 8-bit AVIF still image (any item layout) as a `depth`-bit one:
+    every av01 item's sequence header, av1C and pixi rewritten."""
+    def prop(t, p):
+        if t == b"av1C":
+            mono, sx, sy = (p[2] >> 4) & 1, (p[2] >> 3) & 1, (p[2] >> 2) & 1
+            b1 = (_profile(depth, (sx, sy), mono) << 5) | (p[1] & 31)
+            b2 = (p[2] & 0x9f) | ((depth > 8) << 6) | ((depth == 12) << 5)
+            return p[:1] + bytes([b1, b2]) + p[3:4] + (
+                deepen_obus(p[4:], depth) if len(p) > 4 else b"")
+        if t == b"pixi":
+            return p[:5] + bytes([depth] * p[4])
+        return p
+    return rewrite(data, lambda iid, typ, b: deepen_obus(b, depth)
+                   if typ == b"av01" else b, prop)
+
+
+# ------------------------------------------------------------ grids
+def _libavif():
+    import ctypes
+    import glob
+    lib = ctypes.CDLL(glob.glob(os.path.join(os.path.dirname(
+        os.path.dirname(Image.__file__)), "pillow.libs", "libavif-*"))[0])
+    vp = ctypes.c_void_p
+    lib.avifImageCreate.restype = vp
+    lib.avifImageCreate.argtypes = [ctypes.c_uint32] * 4
+    lib.avifEncoderCreate.restype = vp
+    for f, args in (("avifRGBImageSetDefaults", [vp, vp]),
+                    ("avifImageRGBToYUV", [vp, vp]),
+                    ("avifImageDestroy", [vp]),
+                    ("avifEncoderDestroy", [vp]),
+                    ("avifEncoderSetCodecSpecificOption", [vp, ctypes.c_char_p,
+                                                          ctypes.c_char_p]),
+                    ("avifEncoderAddImageGrid", [vp, ctypes.c_uint32,
+                                                 ctypes.c_uint32, vp,
+                                                 ctypes.c_int]),
+                    ("avifEncoderFinish", [vp, vp]),
+                    ("avifRWDataFree", [vp])):
+        getattr(lib, f).argtypes = args
+    return lib
+
+
+_FORMATS = {"4:4:4": 1, "4:2:2": 2, "4:2:0": 3, "4:0:0": 4}
+
+
+def grid_avif(cells, cols, rows, subsampling="4:2:0", quality=75, speed=6,
+              full=True, advanced=None):
+    """A grid image written by libavif 1.3.0's avifEncoderAddImageGrid
+    (aom 3.12.1): `cells` are (H, W, 3 or 4) uint8 arrays in row-major
+    order, every one the same size; 4 channels add an alpha grid. The
+    encoder's speed and quality sit at byte offsets 8 and 32 of its
+    struct; each image keeps libavif's default CICP (2, 2, 2)."""
+    import ctypes
+    lib = _libavif()
+    images = []
+    try:
+        for a in cells:
+            a = np.ascontiguousarray(a, np.uint8)
+            h, w, c = a.shape
+            img = lib.avifImageCreate(w, h, 8, _FORMATS[subsampling])
+            images.append(img)
+            ctypes.memmove(img + 16, (ctypes.c_int * 1)(int(full)), 4)
+            rgb = ctypes.create_string_buffer(128)
+            lib.avifRGBImageSetDefaults(rgb, img)
+            base = ctypes.addressof(rgb)
+            ctypes.memmove(base + 12, (ctypes.c_int * 1)(1 if c == 4 else 0),
+                           4)
+            ctypes.memmove(base + 48, (ctypes.c_uint64 * 1)(a.ctypes.data), 8)
+            ctypes.memmove(base + 56, (ctypes.c_uint32 * 1)(w * c), 4)
+            if lib.avifImageRGBToYUV(img, rgb):
+                raise ValueError("avifImageRGBToYUV failed")
+        enc = lib.avifEncoderCreate()
+        try:
+            ctypes.memmove(enc + 8, (ctypes.c_int * 1)(speed), 4)
+            ctypes.memmove(enc + 32, (ctypes.c_int * 2)(quality, quality), 8)
+            for k, v in (advanced or {}).items():
+                lib.avifEncoderSetCodecSpecificOption(enc, k.encode(),
+                                                      v.encode())
+            arr = (ctypes.c_void_p * len(images))(*images)
+            if lib.avifEncoderAddImageGrid(enc, cols, rows, arr, 2):
+                raise ValueError("avifEncoderAddImageGrid failed")
+            out = ctypes.create_string_buffer(16)
+            if lib.avifEncoderFinish(enc, out):
+                raise ValueError("avifEncoderFinish failed")
+            ptr, size = np.frombuffer(out.raw, np.uint64)
+            data = ctypes.string_at(int(ptr), int(size))
+            lib.avifRWDataFree(out)
+        finally:
+            lib.avifEncoderDestroy(enc)
+    finally:
+        for img in images:
+            lib.avifImageDestroy(img)
+    return data
+
+
+def grid_cells(a, cols, rows):
+    """An image cut into cols x rows equal cells, row-major."""
+    h, w = a.shape[0] // rows, a.shape[1] // cols
+    return [a[r * h:(r + 1) * h, c * w:(c + 1) * w]
+            for r in range(rows) for c in range(cols)]
+
+
+def regrid(data: bytes, size=None, cells=None, ispe=None) -> bytes:
+    """A grid file with its grid descriptor's output size set to `size`
+    (w, h), the data of cell k (in dimg order) replaced by `cells[k]`, and
+    each ispe property of a size in `ispe` ({(w, h): (w2, h2)}) restated."""
+    meta = dict(_boxes(dict(_boxes(data))[b"meta"], 4))
+    iref = meta[b"iref"]
+    dimg = []
+    for typ, b in _boxes(iref, 4):
+        if typ == b"dimg":
+            dimg += [_u(b, 4 + 2 * k, 2) for k in range(_u(b, 2, 2))]
+
+    def item(iid, typ, b):
+        if typ == b"grid" and size is not None:
+            w, h = size
+            big = w > 65535 or h > 65535
+            n = 4 if big else 2
+            return b[:1] + bytes([int(big)]) + b[2:4] + w.to_bytes(n, "big") \
+                + h.to_bytes(n, "big")
+        if cells and iid in dimg and dimg.index(iid) in cells:
+            return cells[dimg.index(iid)]
+        return b
+
+    def prop(t, p):
+        if t == b"ispe" and ispe:
+            wh = (_u(p, 4, 4), _u(p, 8, 4))
+            if wh in ispe:
+                w, h = ispe[wh]
+                return p[:4] + w.to_bytes(4, "big") + h.to_bytes(4, "big")
+        return p
+    return rewrite(data, item, prop)
+
+
+def obus_of(data: bytes) -> bytes:
+    """The primary item's AV1 data of a plain (not grid) AVIF file."""
+    out = []
+    rewrite(data, lambda iid, typ, b: out.append((iid, b)) or b)
+    return dict(out)[_u(dict(_boxes(dict(_boxes(data))[b"meta"], 4))[
+        b"pitm"], 4, 2)]
+
+
+def derived() -> dict:
+    """{name: bytes} of the deep and grid files, made from files already
+    written."""
+    def read(name):
+        with open(os.path.join(HERE, name), "rb") as f:
+            return f.read()
+    floor_n = np.asarray(_asset("kitchen_floor_n.png"))
+    grid = grid_avif(grid_cells(floor_n, 2, 2), 2, 2, subsampling="4:4:4",
+                     quality=75, speed=4)
+    return {"kitchen_floor_10.avif": deepen(read(
+                "kitchen_floor_filtered.avif"), 10),
+            "kitchen_wood_12.avif": deepen(read(
+                "kitchen_wood_filtered.avif"), 12),
+            "kitchen_floor_n_grid10.avif": deepen(grid, 10)}
+
+
 def _tools(path) -> list:
     """The filters the port reads as turned on in the file's frame."""
     import sys
     sys.path.insert(0, REPO)
     from fluctus_tpu_torch.scene import avif
-    frame = avif.decode_av1(avif.parse(open(path, "rb").read())[0])
+    obus = avif.parse(open(path, "rb").read())[0]
+    if isinstance(obus, avif.Grid):            # the first cell's
+        obus = obus.cells[0][0]
+    frame = avif.decode_av1(obus)
     return [k for k, bit in avif.TOOLS.items() if frame.tools & bit]
 
 
@@ -157,6 +634,9 @@ def main():
         buf = io.BytesIO()
         img.save(buf, "AVIF", **kw)
         data = buf.getvalue()
+        with open(os.path.join(HERE, name), "wb") as f:
+            f.write(data)
+    for name, data in derived().items():
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(data)
     frames = [Image.fromarray(_pattern(np.random.default_rng(k), 24, 40, 3))

@@ -16,8 +16,9 @@ without premultiplication, the eight EXIF orientations, screen content
 (palette and intra block copy), quantizer matrices, delta q, 128x128
 superblocks, 1x1 and odd sizes, and the first frame of an `avis`
 sequence. The filters themselves, over every subsampling and size, have
-tests/test_torch_avif_filters.py. Only superres, depths above 8 bits and
-stated sizes that differ from the frame's raise UnsupportedImage."""
+tests/test_torch_avif_filters.py, depths of 10 and 12 bits and grids
+tests/test_torch_avif_deep.py. Only superres and stated sizes that differ
+from the frame's raise UnsupportedImage."""
 import ctypes
 import glob
 import hashlib
@@ -60,7 +61,8 @@ def _libavif():
 
 def dav1d_planes(obus: bytes):
     """The planes dav1d 1.5.1 gives for an OBU stream (one thread, as
-    libavif configures it for PIL here), or None where it fails."""
+    libavif configures it for PIL here), or None where it fails: uint8 at
+    8 bits, uint16 where the picture's bits per component are more."""
     lib = _libavif()
     settings = ctypes.create_string_buffer(4096)
     lib.dav1d_default_settings(settings)
@@ -78,8 +80,9 @@ def dav1d_planes(obus: bytes):
             raw = pic.raw
             ptrs = np.frombuffer(raw[16:40], np.uint64)
             strides = np.frombuffer(raw[40:56], np.int64)
-            w, h, layout, _ = np.frombuffer(raw[56:72], np.int32)
+            w, h, layout, bpc = np.frombuffer(raw[56:72], np.int32)
             sx, sy = int(layout in (1, 2)), int(layout == 1)
+            dt = np.uint8 if bpc == 8 else np.uint16
             planes = []
             for p in range(1 if layout == 0 else 3):
                 pw, ph = (w, h) if p == 0 else ((w + sx) >> sx,
@@ -87,8 +90,8 @@ def dav1d_planes(obus: bytes):
                 st = int(strides[min(p, 1)])
                 buf = (ctypes.c_uint8 * (st * int(ph))).from_address(
                     int(ptrs[p]))
-                planes.append(np.frombuffer(buf, np.uint8).reshape(
-                    ph, st)[:, :pw].copy())
+                planes.append(np.frombuffer(buf, dt).reshape(
+                    ph, st // dt().itemsize)[:, :pw].copy())
             lib.dav1d_picture_unref(pic)
     finally:
         lib.dav1d_data_unref(data)
@@ -114,13 +117,22 @@ def port_rgba(data: bytes):
         return -1
 
 
-def assert_planes_equal_dav1d(data: bytes):
+def colour_streams(data: bytes) -> list:
+    """The AV1 data of the colour item: one stream, or a grid's cells."""
     obus = avif.parse(data)[0]
-    want = dav1d_planes(obus)
-    got = avif.decode_av1(obus).planes
-    assert want is not None and len(want) == len(got)
-    for a, b in zip(want, got):
-        np.testing.assert_array_equal(b, a)
+    if isinstance(obus, avif.Grid):
+        return [c for c, _ in obus.cells]
+    return [obus]
+
+
+def assert_planes_equal_dav1d(data: bytes):
+    for obus in colour_streams(data):
+        want = dav1d_planes(obus)
+        got = avif.decode_av1(obus).planes
+        assert want is not None and len(want) == len(got)
+        for a, b in zip(want, got):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(b, a)
 
 
 def avif_bytes(img, **kw) -> bytes:
@@ -167,7 +179,7 @@ def test_committed_avif_files(name):
     want = pil_rgba(data)
     assert hashlib.sha256(want.tobytes()).hexdigest() == entry["sha256"]
     assert_planes_equal_dav1d(data)
-    tools = avif.decode_av1(avif.parse(data)[0]).tools
+    tools = avif.decode_av1(colour_streams(data)[0]).tools
     assert [k for k, bit in avif.TOOLS.items() if tools & bit] == \
         entry["tools"]
     got = avif.decode_avif(data)
@@ -283,8 +295,8 @@ def test_frames_that_need_a_tool_raise_naming_it(tool, advanced, speed):
     """Frames that need a tool the port once lacked, and refused naming
     it (PIL's defaults deblock; aom's denoiser adds film grain; its
     restoration at speed 2): the frame turns the tool on, and now decodes
-    to dav1d's planes and PIL's RGBA. What still raises (superres, depths
-    above 8 bits) PIL cannot write."""
+    to dav1d's planes and PIL's RGBA. What still raises (superres) PIL
+    cannot write."""
     kw = {} if advanced is None else dict(advanced=advanced)
     data = avif_bytes(picture(128, 160, 7), quality=70, speed=speed, **kw)
     assert avif.decode_av1(avif.parse(data)[0]).tools & avif.TOOLS[tool]
@@ -320,10 +332,10 @@ def test_matrix_coefficients_follow_libavif():
 
 # ------------------------------------------------------------ damage
 
-# what the port lacks (superres, depths above 8 bits) and libavif's
-# scaling of a frame to another stated size: the only refusals a damaged
-# file that PIL reads may meet
-REFUSALS = ("superres", "bit depth above 8", "stated size")
+# what the port lacks (superres) and libavif's scaling of a frame to
+# another stated size: the only refusals a damaged file that PIL reads may
+# meet
+REFUSALS = ("superres", "stated size")
 
 
 def _agrees(want, got) -> bool:
@@ -355,16 +367,18 @@ def _both_pools(tmp_path, data: bytes):
                                   "screen.avif", "sequence.avif",
                                   "kitchen_wood_filtered.avif",
                                   "film_grain.avif", "all_422.avif",
-                                  "all_grey.avif"])
+                                  "all_grey.avif", "kitchen_wood_12.avif",
+                                  "kitchen_floor_n_grid10.avif"])
 def test_damaged_files_agree_with_pil(tmp_path, name):
     """Seeded damage to committed files, through both texture pools: bit
     flips in the boxes before mdat, bit flips in the AV1 data, cuts, and a
     byte set anew among the OBU headers. The port gives -1 where PIL fails
     (libavif's box rules, dav1d's refusal of a tile read past its end or of
     a bad header) and PIL's pixels otherwise; where the damage makes the
-    frame need a tool the port lacks (superres, a depth above 8 bits,
-    libavif's scaling of a frame to another stated size), it raises
-    naming it, and it raises for nothing else."""
+    frame need a tool the port lacks (superres, libavif's scaling of a
+    frame to another stated size), it raises naming it, and it raises for
+    nothing else. Among the files, a 12-bit one and a grid of 10-bit
+    cells."""
     with open(os.path.join(DATA, name), "rb") as f:
         data = f.read()
     mdat = data.find(b"mdat") + 4
@@ -390,7 +404,8 @@ def test_damaged_files_agree_with_pil(tmp_path, name):
 FUZZ_FILES = ("kitchen_floor_n.avif", "alpha_prem.avif", "screen.avif",
               "sequence.avif", "grey_limited.avif", "kitchen_wood.avif",
               "kitchen_wood_filtered.avif", "all_422.avif",
-              "all_grey.avif", "film_grain.avif")
+              "all_grey.avif", "film_grain.avif", "kitchen_wood_12.avif",
+              "kitchen_floor_n_grid10.avif")
 
 
 def _fuzzed(seed: int, name: str, t: int) -> bytes:
@@ -452,6 +467,13 @@ def _fuzzed(seed: int, name: str, t: int) -> bytes:
     (10, "kitchen_wood_filtered.avif", 31),  # restoration turned off
     (8, "all_grey.avif", 19),       # every filter, its grain turned off
     (7, "film_grain.avif", 3),      # film grain turned off
+    (22, "kitchen_floor_n_grid10.avif", 0),   # iloc's reserved bits set
+    (28, "kitchen_floor_n_grid10.avif", 12),  # the same, another item
+    (36, "kitchen_floor_n_grid10.avif", 4),   # a cell referenced twice
+    (52, "kitchen_floor_n_grid10.avif", 20),  # a cell without its header
+    (55, "kitchen_floor_n_grid10.avif", 20),  # pixi against a cell's av1C
+    (173, "kitchen_wood_12.avif", 0),   # av1C's twelve_bit without high
+    (213, "sequence.avif", 12),     # a track's hdlr name unterminated
 ])
 def test_fuzzed_damage_agrees_with_pil(tmp_path, seed, name, t):
     """Damaged files on which the port once differed from PIL, found by a
@@ -464,10 +486,16 @@ def test_fuzzed_damage_agrees_with_pil(tmp_path, seed, name, t):
     (which aom never codes). libavif: an alpha must match the colour in
     depth and size, and one coded in limited range is brought to full
     range; every image item with data needs a valid ispe, also where the
-    track is decoded; it fails a cut stts, pixi depths that differ or
+    track is decoded; a track's hdlr needs its name's terminating NUL;
+    it reads av1C's depth as 12 wherever twelve_bit is
+    set; it fails an iloc (version 1 or 2) whose 12 bits
+    before an item's construction method are not 0, a grid naming a
+    cell twice, a cut stts, pixi depths that differ or
     disagree with av1C's, edts without elst and stsc not counting up from
     chunk 1; it skips an iref of an unknown version and reads neither
-    mvhd nor elst's other flags, and converts a 4:0:0 frame in limited
+    mvhd nor elst's other flags, decodes a grid's cells with one dav1d
+    context (a cell without a sequence header takes the one before
+    it), and converts a 4:0:0 frame in limited
     range with its own code rather than libyuv's. PIL divides by the
     track's timescale. Damage to a filtered frame's header that changes
     which filters run decodes as dav1d decodes it."""
