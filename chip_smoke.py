@@ -625,8 +625,9 @@ def cpu_references(out_dir: str) -> None:
     """The renders on this host's CPU (the plain versions) that avif,
     golden, golden-env, golden-ply and pbf hold the card's against, each
     saved as out_dir/<name>.npy, from the same inputs those phases make:
-    the AVIF kitchens' 64x64 lockstep, free of filters, filtered, and
-    deep and grid (first, as phase avif comes early),
+    the AVIF kitchens' 64x64 lockstep, free of filters, filtered, deep
+    and grid, and scaled, superres and show_existing (first, as phase avif
+    comes early),
     the goldens' stream, the env-lit sessions' lockstep and stream under
     the seeded sky, the grid-3 PLY's lockstep and the PBRT kitchen's and
     its PBF's stream without implicit light hits. Three threads, so that
@@ -647,7 +648,8 @@ def cpu_references(out_dir: str) -> None:
                    os.path.join(out_dir, name + ".npy"))
     for ref, maps in ((AVIF_REF, avif_maps()),
                       (AVIF_FILTERED_REF, avif_maps("_filtered")),
-                      (AVIF_DEEP_REF, avif_deep_maps())):
+                      (AVIF_DEEP_REF, avif_deep_maps()),
+                      (AVIF_SCALED_REF, avif_scaled_maps())):
         save(ref, driver.render(kitchen_from_maps(
             maps, kitchen_cfg(64, 64), "AVIF", "cpu"), AVIF_REF_SPP,
             integrator="lockstep").numpy())
@@ -3979,6 +3981,7 @@ AVIF_DATA = os.path.join(REPO, "tests", "data", "avif")
 AVIF_REF = "avif_kitchen_64"   # the CPU references of phase avif
 AVIF_FILTERED_REF = "avif_filtered_kitchen_64"
 AVIF_DEEP_REF = "avif_deep_kitchen_64"
+AVIF_SCALED_REF = "avif_scaled_kitchen_64"
 AVIF_REF_SPP = 4
 
 
@@ -4000,6 +4003,22 @@ def avif_deep_maps() -> dict:
             "kitchen_wood": os.path.join(AVIF_DATA, "kitchen_wood_12.avif"),
             "kitchen_floor_n": os.path.join(AVIF_DATA,
                                             "kitchen_floor_n_grid10.avif")}
+
+
+def avif_scaled_maps() -> dict:
+    """The kitchen's maps as AVIF that libavif scales, AV1 superres and a
+    first picture shown by show_existing_frame (as
+    tests/data/avif/make_avif_data.py makes them): the wood coded at
+    192x160 and stated at 256x256 (libyuv's bilinear upscale), the floor
+    coded 128 wide and upscaled to 256 by superres (filtered with CDEF at
+    128), the floor's normals a hidden key frame that
+    show_existing_frame shows."""
+    return {"kitchen_floor": os.path.join(AVIF_DATA,
+                                          "kitchen_floor_superres.avif"),
+            "kitchen_wood": os.path.join(AVIF_DATA,
+                                         "kitchen_wood_scaled.avif"),
+            "kitchen_floor_n": os.path.join(AVIF_DATA,
+                                            "kitchen_floor_n_hidden.avif")}
 
 
 def avif_kitchen(sess, plain4, secs4: float, card: str, label: str,
@@ -4076,11 +4095,15 @@ def phase_avif(sess, plain4, secs4: float, card: str) -> dict:
     lossy with them; premultiplied alpha, screen content with palette and
     intra block copy, limited-range grey, an avis sequence, PIL's default
     settings, each in-loop filter alone, film grain, 4:2:2 and grey with
-    every tool, and the kitchen's maps at 10 and 12 bits and as a grid);
-    then the kitchen from the AVIF maps free of filters, the kitchen from
-    the filtered maps and the kitchen from the deep and grid maps
-    (avif_kitchen), whose frames run deblocking, CDEF and loop
-    restoration on the host (at 10 and 12 bits for the last) before K1
+    every tool, and the kitchen's maps at 10 and 12 bits and as a grid;
+    colour, alpha and grid cells libavif scales to their stated sizes,
+    superres at 8 and 12 bits, hidden key and intra-only frames shown by
+    show_existing_frame in an item and a track); then the kitchen from the
+    AVIF maps free of filters, the kitchen from the filtered maps, the
+    kitchen from the deep and grid maps and the kitchen from the scaled,
+    superres and show_existing maps (avif_kitchen), whose frames run
+    deblocking, CDEF, superres upscaling, loop restoration and libyuv's
+    scaling on the host (at 10 and 12 bits for the deep maps) before K1
     traces them."""
     from fluctus_tpu_torch.scene import avif
 
@@ -4105,6 +4128,16 @@ def phase_avif(sess, plain4, secs4: float, card: str) -> dict:
     out["deep"] = avif_kitchen(sess, plain4, secs4, card,
                                "deep and grid AVIF", deep, AVIF_DEEP_REF,
                                record)
+    t1 = time.perf_counter()
+    scaled = avif_scaled_maps()
+    say("avif", t0, "scaled, superres and show_existing maps' host "
+        "decodes: " + ", ".join(
+            f"{k} ({os.path.basename(p)}) {decode[os.path.basename(p)]:.4f} s"
+            for k, p in scaled.items()) + f", on {card}")
+    out["scaled"] = avif_kitchen(sess, plain4, secs4, card,
+                                 "scaled, superres and show_existing AVIF",
+                                 scaled, AVIF_SCALED_REF, record)
+    out["scaled"]["phase_secs"] = time.perf_counter() - t1
     return dict(out, decode=decode, build=t_build)
 
 

@@ -28,13 +28,16 @@ PIL's side, copied here:
   orientation), so neither does the port.
 
 AV1 frames decode at 8, 10 and 12 bits with their in-loop filters
-(deblocking, CDEF, loop restoration) and film grain, as dav1d applies
-them for libavif; deeper planes are uint16, and avif_rgb.py brings them
-to PIL's 8-bit RGB as libavif does. Superres, a stated size other than
-the frame's (libavif scales it) and the derived items `iovl` and `tmap`
-raise UnsupportedImage naming the tool; a file libavif or dav1d refuses
-raises ValueError, which the texture pool turns into -1 as PIL's failure
-does in the JAX package.
+(deblocking, CDEF, superres upscaling, loop restoration) and film grain,
+as dav1d applies them for libavif, also where the first picture is an
+earlier frame that `show_existing_frame` shows; deeper planes are uint16.
+A frame whose size differs from the size its item or track states is
+scaled to it as libavif scales it (scene/avif_scale.py, colour, alpha and
+each grid cell), and avif_rgb.py brings the planes to PIL's 8-bit RGB as
+libavif does. A first shown inter frame and the derived items `iovl` and
+`tmap` raise UnsupportedImage naming the tool; a file libavif or dav1d
+refuses raises ValueError, which the texture pool turns into -1 as PIL's
+failure does in the JAX package.
 
 The library is compiled with g++ at first use into the package build
 directory; a failed compile raises, it never turns into a missing texture.
@@ -48,6 +51,7 @@ import struct
 import numpy as np
 
 from fluctus_tpu_torch.build import build_shared
+from fluctus_tpu_torch.scene import avif_scale
 from fluctus_tpu_torch.scene.imageformat import UnsupportedImage
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
@@ -55,7 +59,8 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
 _lib = None
 
 # the bits of Frame.tools
-TOOLS = {"deblocking": 1, "CDEF": 2, "loop restoration": 4, "film grain": 8}
+TOOLS = {"deblocking": 1, "CDEF": 2, "loop restoration": 4, "film grain": 8,
+         "superres": 16}
 
 ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
               b"urn:mpeg:hevc:2015:auxid:1")
@@ -772,19 +777,26 @@ def _limited_to_full(plane: np.ndarray, depth: int) -> np.ndarray:
     return np.clip(q, 0, top).astype(plane.dtype)
 
 
-def _frame(obus, refused: list) -> Frame:
+def _frame(obus, refused: list, alpha: bool = False) -> Frame:
     """decode_av1 (of each cell and joined, for a Grid), where a refusal of
     a shown frame is added to `refused` and the frame's size and depth
-    returned without planes."""
+    returned without planes. An `alpha` frame keeps its first plane,
+    brought to full range where coded in limited range (libavif's
+    avifImageLimitedToFullAlpha, before it scales the frame)."""
     if isinstance(obus, Grid):
-        return _join(obus, refused)
+        return _join(obus, refused, alpha)
     try:
-        return decode_av1(obus)
+        f = decode_av1(obus)
     except UnsupportedImage as e:
         if e.frame is None:
             raise
         refused.append(e)
         return e.frame
+    if alpha:
+        f.planes = f.planes[:1]
+        if not f.full_range:
+            f.planes = (_limited_to_full(f.planes[0], f.bitdepth),)
+    return f
 
 
 def _sequence_header(obus: bytes) -> bytes:
@@ -812,26 +824,37 @@ def _sequence_header(obus: bytes) -> bytes:
     return out
 
 
-def _join(grid: Grid, refused: list) -> Frame:
-    """libavif's grid: every cell decoded, the cells alike (size, depth,
-    subsampling, range, colour description), covering the output with the
-    last row and column reaching into it, at least 64 x 64 and even where
-    the chroma is subsampled, then joined and cropped to the output."""
+def _to_size(f: Frame, wh, luma_only: bool = False) -> Frame:
+    """The frame scaled to its stated size `wh` (None: as it is) as
+    libavif scales a decoded tile (avif_scale.py); `luma_only` for an
+    alpha frame, whose first plane libavif keeps. A refused frame (no
+    planes) takes the size alone; libavif's refusal to scale raises
+    ValueError."""
+    if wh is None or tuple(wh) == (f.width, f.height):
+        return f
+    planes = f.planes
+    if planes is not None and luma_only:
+        planes = planes[:1]
+    f.planes, _ = avif_scale.scale_frame(planes, None, f.width, f.height,
+                                         f.ss_x, f.ss_y, f.bitdepth, *wh)
+    f.width, f.height = wh
+    return f
+
+
+def _join(grid: Grid, refused: list, alpha: bool = False) -> Frame:
+    """libavif's grid: every cell decoded and scaled to its stated size,
+    the cells alike (size, depth, subsampling, range, colour description),
+    covering the output with the last row and column reaching into it, at
+    least 64 x 64 and even where the chroma is subsampled, then joined and
+    cropped to the output."""
     frames, seq = [], b""
     for obus, wh in grid.cells:
         # libavif decodes the cells with one dav1d context, so a cell
         # without a sequence header takes the one before it
         own = _sequence_header(obus)
-        f = _frame(obus if own or not seq else seq + obus, refused)
+        f = _frame(obus if own or not seq else seq + obus, refused, alpha)
         seq = own or seq
-        if wh is not None and tuple(wh) != (f.width, f.height):
-            refused.append(UnsupportedImage(
-                "AVIF images whose stated size differs from their AV1 "
-                "frame's (libavif scales the frame) are not decoded by the "
-                "port"))
-            f.width, f.height = wh
-            f.planes = None
-        frames.append(f)
+        frames.append(_to_size(f, wh, alpha))
     first = frames[0]
 
     def key(f):
@@ -877,36 +900,37 @@ def decode_avif(data: bytes) -> np.ndarray:
     for wh in (size, alpha_size):     # libavif's default size limits
         if wh is not None and (not wh[0] or not wh[1] or _too_large(wh)):
             raise ValueError("AVIF: image size out of libavif's limits")
-    for g, wh in ((color_obus, size), (alpha_obus, alpha_size)):
-        if isinstance(g, Grid) and tuple(wh) != (g.width, g.height):
-            raise ValueError("AVIF: a grid's stated size differs from its "
-                             "output size")
     # what the port lacks is raised only once libavif's own failures are
-    # ruled out: it decodes both items, scales each to its stated size, then
-    # fails unless the alpha matches the colour in size and depth
+    # ruled out: it decodes both items, brings a limited-range alpha to
+    # full range, scales each to its stated size, then fails unless the
+    # alpha matches the colour in size and depth
     refused: list = []
-    frame = _frame(color_obus, refused)
-    c_size = (frame.width, frame.height)
-    if size is not None and tuple(size) != c_size:
-        refused.append(UnsupportedImage(
-            "AVIF images whose stated size differs from their AV1 frame's "
-            "(libavif scales the frame) are not decoded by the port"))
-        c_size = tuple(size)
+    grid = isinstance(color_obus, Grid)
+    frame = _to_size(_frame(color_obus, refused), None if grid else size)
     alpha = None
     if alpha_obus is not None:
-        a = _frame(alpha_obus, refused)
-        a_size = (a.width, a.height)
-        if alpha_size is not None and tuple(alpha_size) != a_size:
-            refused.append(UnsupportedImage(
-                "AVIF images whose alpha frame differs from its stated size "
-                "(libavif scales the frame) are not decoded by the port"))
-            a_size = tuple(alpha_size)
-        if a_size != c_size or a.bitdepth != frame.bitdepth:
+        a = _frame(alpha_obus, refused, True)
+        if not isinstance(alpha_obus, Grid):
+            a = _to_size(a, alpha_size, True)
+        if (a.width, a.height) != (frame.width, frame.height) or \
+                a.bitdepth != frame.bitdepth:
             raise ValueError("AVIF: the alpha item differs from the colour "
                              "item in size or depth")
         alpha = a.planes[0] if a.planes else None
-        if alpha is not None and not a.full_range:
-            alpha = _limited_to_full(alpha, a.bitdepth)
     if refused:
         raise refused[0]
-    return to_rgb(frame, colr, alpha, prem)
+    rgba = to_rgb(frame, colr, alpha, prem)
+    if size is None or tuple(size) == rgba.shape[1::-1]:
+        return rgba
+    # a grid's output size, not its item's ispe, sizes libavif's image; PIL
+    # sizes its own from the ispe and reads libavif's RGB(A) bytes into it
+    # row after row, and fails where they are too few
+    c = 3 if alpha_obus is None else 4
+    w, h = size
+    flat = rgba[..., :c].reshape(-1)
+    if flat.size < w * h * c:
+        raise ValueError("AVIF: a grid's output holds fewer pixels than its "
+                         "stated size")
+    out = np.full((h, w, 4), 255, np.uint8)
+    out[..., :c] = flat[:w * h * c].reshape(h, w, c)
+    return out

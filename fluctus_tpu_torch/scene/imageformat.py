@@ -23,10 +23,11 @@ header tests of its `_open`), with one of three outcomes:
   PNG, JPEG 2000 or RLE members (scene/icns.py), WebP (scene/webp.py),
   FLI and FLC (scene/fli.py), Photo CD (scene/pcd.py), IPTC
   (scene/iptc.py), JPEG 2000, JP2 or a raw codestream
-  (scene/jpeg2000.py) and AVIF (scene/avif.py, in-loop filters and film
-  grain included, which raises `UnsupportedImage` naming the tool for an
-  AV1 frame that needs superres or a depth above 8 bits, or a grid
-  item); EPS goes to scene/eps.py, which gives -1 or raises as PIL's
+  (scene/jpeg2000.py) and AVIF (scene/avif.py, in-loop filters, film
+  grain, superres, 10 and 12 bits, grids and stated sizes libavif scales
+  to included, which raises `UnsupportedImage` naming the tool for a
+  first shown AV1 inter frame or an `iovl` or `tmap` item); EPS goes to
+  scene/eps.py, which gives -1 or raises as PIL's
   Ghostscript lookup decides;
 - a plugin whose outcome is "raise" (none is left) raises
   `UnsupportedImage` naming the format, so a map the JAX package would

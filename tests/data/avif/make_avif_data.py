@@ -46,6 +46,29 @@ libavif's avifEncoderAddImageGrid):
   of 128x128 cells (4:4:4, speed 4, quality 75: deblocking and loop
   restoration), each cell at 10 bits.
 
+Files libavif scales, superres files and first pictures shown by
+show_existing_frame (`scaled()`; PIL's aom writes neither superres nor
+hidden frames, so `rewrite_key` rewrites the headers of frames it codes:
+the sequence header in full, superres with the frame coded at the
+downscaled width, a key or intra-only frame made hidden and a frame
+header OBU with show_existing_frame appended; `restate` restates ispe
+sizes, `retrack` an avis track's first sample and tkhd size):
+- kitchen_wood_scaled.avif: assets/kitchen_wood.png at 192x160, stated
+  at 256x256 (libyuv's bilinear upscale);
+- kitchen_floor_superres.avif: assets/kitchen_floor.png at 128x256
+  (speed 4, CDEF), upscaled to 256 by superres (denominator 16);
+- kitchen_floor_n_hidden.avif: kitchen_floor_n_filtered.avif's frame
+  hidden in slot 3 and shown by show_existing_frame;
+- alpha_scaled.avif: alpha_prem.avif's colour and alpha stated at 3/4;
+- grid_scaled.avif: kitchen_floor_n_grid10.avif's cells stated at 96x96
+  and its output at 192x192;
+- superres_12.avif: a pattern at 97x65 with loop restoration (speed 4),
+  upscaled to 145 (denominator 12), at 12 bits;
+- hidden_intra_grain.avif: film_grain.avif's frame as a hidden
+  intra-only frame, shown from slot 5;
+- hidden_sequence.avif: sequence.avif whose first sample is a hidden key
+  frame with frame ids, shown from slot 1, the track stated at 60x36.
+
 avif.json records, for each file, its size, the SHA-256 of PIL's
 `Image.open(f).convert("RGBA")` bytes and their shape, the filters its
 frame header turns on (`tools`, as the port reads them), and the
@@ -315,6 +338,265 @@ def deepen_obus(obus: bytes, depth: int) -> bytes:
         out += bytes([head | 2]) + obus[off + 1:off + hdr] + leb + payload
         off += hdr + n + size
     return out
+
+
+def _obus(obus: bytes):
+    """(header bytes before the size, type, payload) of each OBU."""
+    off = 0
+    while off < len(obus):
+        head = obus[off]
+        hdr = 1 + ((head >> 2) & 1)
+        size, n, shift = 0, 0, 0
+        while True:
+            v = obus[off + hdr + n]
+            size |= (v & 127) << shift
+            n, shift = n + 1, shift + 7
+            if not v & 128:
+                break
+        yield obus[off:off + hdr], (head >> 3) & 15, \
+            obus[off + hdr + n:off + hdr + n + size]
+        off += hdr + n + size
+
+
+def _obu(head: bytes, payload: bytes) -> bytes:
+    leb, v = b"", len(payload)
+    while True:
+        leb += bytes([(v & 127) | (128 if v > 127 else 0)])
+        v >>= 7
+        if not v:
+            break
+    return bytes([head[0] | 2]) + head[1:] + leb + payload
+
+
+def _seq_fields(payload: bytes) -> dict:
+    """A sequence header's fields (reduced or not, without timing info),
+    its color_config bits as they are and film_grain_params_present."""
+    b = _Bits(payload)
+    s = {"profile": b.f(3), "still": b.f(1), "reduced": b.f(1), "tier": 0}
+    if s["reduced"]:
+        s["level"] = b.f(5)
+    else:
+        if b.f(1):
+            raise ValueError("sequence headers with timing info are not "
+                             "rewritten")
+        idd = b.f(1)
+        ops = []
+        for _ in range(b.f(5) + 1):
+            idc, lv = b.f(12), b.f(5)
+            ops.append((idc, lv, b.f(1) if lv > 7 else 0))
+            if idd and b.f(1):
+                b.f(4)
+        _, s["level"], s["tier"] = ops[0]
+    wb, hb = b.f(4) + 1, b.f(4) + 1
+    s["max_w"], s["max_h"] = b.f(wb) + 1, b.f(hb) + 1
+    s["ids"] = None
+    if not s["reduced"] and b.f(1):
+        delta = b.f(4) + 2
+        s["ids"] = (delta, b.f(3) + delta + 1)
+    s["sb128"], s["fi"], s["edge"] = b.f(1), b.f(1), b.f(1)
+    s["tools4"], s["order"], s["jnt"], s["sct"], s["imv"] = 0, 0, 0, 2, 2
+    s["order_bits"] = 0
+    if not s["reduced"]:
+        s["tools4"], s["order"] = b.f(4), b.f(1)
+        if s["order"]:
+            s["jnt"] = b.f(2)
+        s["sct"] = 2 if b.f(1) else b.f(1)
+        s["imv"] = (2 if b.f(1) else b.f(1)) if s["sct"] > 0 else 2
+        if s["order"]:
+            s["order_bits"] = b.f(3) + 1
+    s["superres"], s["cdef"], s["lr"] = b.f(1), b.f(1), b.f(1)
+    start, _, end = _seq_color(payload)
+    bits = _Bits(payload)
+    bits.p = start
+    s["color"] = [bits.f(1) for _ in range(end - start)]
+    s["grain"] = bits.f(1)
+    return s
+
+
+def _seq_write(s: dict, superres: int, max_w: int, max_h: int, wbits: int,
+               hbits: int, ids) -> bytes:
+    """A sequence header (not reduced, one operating point, no timing
+    info) from _seq_fields' `s` with superres, the maximum size and its
+    field widths and frame ids ((delta length, id length) or None) set."""
+    w = _Writer()
+    w.f(3, s["profile"])
+    w.f(1, s["still"])
+    w.f(3, 0)                     # not reduced, no timing info or delays
+    w.f(5, 0)
+    w.f(12, 0)
+    w.f(5, s["level"])
+    if s["level"] > 7:
+        w.f(1, s["tier"])
+    w.f(4, wbits - 1)
+    w.f(4, hbits - 1)
+    w.f(wbits, max_w - 1)
+    w.f(hbits, max_h - 1)
+    w.f(1, ids is not None)
+    if ids is not None:
+        w.f(4, ids[0] - 2)
+        w.f(3, ids[1] - ids[0] - 1)
+    for k in ("sb128", "fi", "edge"):
+        w.f(1, s[k])
+    w.f(4, s["tools4"])
+    w.f(1, s["order"])
+    if s["order"]:
+        w.f(2, s["jnt"])
+    for k in ("sct", "imv"):
+        if k == "imv" and s["sct"] == 0:
+            break
+        w.f(1, s[k] == 2)
+        if s[k] != 2:
+            w.f(1, s[k])
+    if s["order"]:
+        w.f(3, s["order_bits"] - 1)
+    w.f(1, superres)
+    w.f(1, s["cdef"])
+    w.f(1, s["lr"])
+    w.bits += s["color"]
+    w.f(1, s["grain"])
+    w.f(1, 1)                     # trailing bits
+    return w.bytes()
+
+
+def _frame_prefix(payload: bytes, s: dict) -> dict:
+    """The fields of a key or intra-only frame header up to its
+    disable_frame_end_update_cdf, and the bit position after them."""
+    b = _Bits(payload)
+    f = {"type": 0, "show": 1, "err": 1}
+    if not s["reduced"]:
+        if b.f(1):
+            raise ValueError("a show_existing_frame header")
+        f["type"], f["show"] = b.f(2), b.f(1)
+        if not f["show"]:
+            b.f(1)
+        if not (f["type"] == 0 and f["show"]):
+            f["err"] = b.f(1)
+    if f["type"] not in (0, 2):
+        raise ValueError("an inter frame")
+    f["dcu"] = b.f(1)
+    f["sct"] = b.f(1) if s["sct"] == 2 else s["sct"]
+    f["imv"] = b.f(1) if f["sct"] and s["imv"] == 2 else None
+    if s["ids"]:
+        b.f(s["ids"][1])
+    override = 0 if s["reduced"] else b.f(1)
+    b.f(s["order_bits"])
+    if not (f["type"] == 0 and f["show"]):
+        refresh = b.f(8)
+        if refresh != 0xFF and f["err"] and s["order"]:
+            b.f(8 * s["order_bits"])
+    if override:
+        raise ValueError("frame size override is not rewritten")
+    if s["superres"] and b.f(1):
+        raise ValueError("a superres frame")
+    f["render"] = b.f(1)
+    if f["render"]:
+        f["rw"], f["rh"] = b.f(16), b.f(16)
+    f["intrabc"] = b.f(1) if f["sct"] else 0
+    if not s["reduced"] and not f["dcu"]:
+        b.f(1)
+    f["end"] = b.p
+    return f
+
+
+def _bits_of(data: bytes) -> list:
+    return [(v >> (7 - i)) & 1 for v in data for i in range(8)]
+
+
+def rewrite_key(obus: bytes, frame_type=0, show=True, refresh=0xFF,
+                denom=None, up_w=None, ids=None, frame_id=0,
+                show_slot=None) -> bytes:
+    """An OBU stream whose first frame is a key frame, rewritten: the
+    sequence header written out in full (AV1's reduced still-picture form
+    has no show_existing_frame), the frame made `frame_type` (0 key, 2
+    intra-only), hidden (`show` False: showable, error resilient,
+    refreshing the slots of `refresh`) or shown, with superres (`denom`
+    9-16, the frame upscaled to `up_w`, whose downscaled width must be the
+    coded width) and frame ids ((delta length, id length) and `frame_id`);
+    `show_slot` appends a frame header OBU whose show_existing_frame shows
+    that slot. The header's fields before disable_frame_end_update_cdf
+    are written anew and the rest of the frame OBU copied bit for bit: a
+    frame size override of chosen field widths keeps the tile data on a
+    byte boundary."""
+    items = list(_obus(obus))
+    seq = next(p for _, t, p in items if t == 1)
+    s = _seq_fields(seq)
+    coded_w, h = s["max_w"], s["max_h"]
+    if denom is not None:
+        up_w = up_w or coded_w
+        if max((up_w * 8 + denom // 2) // denom, min(16, up_w)) != coded_w:
+            raise ValueError("the downscaled width is not the coded width")
+    else:
+        up_w = coded_w
+    need_w, need_h = max((up_w - 1).bit_length(), 1), \
+        max((h - 1).bit_length(), 1)
+    out = []
+    for head, typ, payload in items:
+        if typ not in (1, 6):
+            out.append(_obu(head, payload))
+            continue
+        if typ == 6:
+            f = _frame_prefix(payload, s)
+            if f["intrabc"] and denom is not None:
+                raise ValueError("intra block copy and superres")
+            rest = _bits_of(payload)[f["end"]:]
+            for override, wb, hb in [(0, need_w, need_h)] + [
+                    (1, a, c) for a in range(need_w, 17)
+                    for c in range(need_h, 17)]:
+                w = _Writer()
+                w.f(1, 0)
+                w.f(2, frame_type)
+                w.f(1, int(show))
+                if not show:
+                    w.f(1, 1)                        # showable_frame
+                if not (frame_type == 0 and show):
+                    w.f(1, 1)                        # error_resilient_mode
+                w.f(1, f["dcu"])
+                if s["sct"] == 2:
+                    w.f(1, f["sct"])
+                if f["sct"] and s["imv"] == 2:
+                    w.f(1, f["imv"])
+                if ids is not None:
+                    w.f(ids[1], frame_id)
+                w.f(1, override)
+                w.f(s["order_bits"], 0)
+                if not (frame_type == 0 and show):
+                    w.f(8, refresh)
+                    if refresh != 0xFF and s["order"]:
+                        w.f(8 * s["order_bits"], 0)
+                if override:
+                    w.f(wb, up_w - 1)
+                    w.f(hb, h - 1)
+                if denom is not None:
+                    w.f(1, 1)
+                    w.f(3, denom - 9)
+                w.f(1, f["render"])
+                if f["render"]:
+                    w.f(16, f["rw"])
+                    w.f(16, f["rh"])
+                if f["sct"] and denom is None:
+                    w.f(1, f["intrabc"])
+                if not f["dcu"]:
+                    w.f(1, 1)                # disable_frame_end_update_cdf
+                if (len(w.bits) - f["end"]) % 8 == 0:
+                    break
+            wbits, hbits = wb, hb
+            w.bits += rest
+            out.append(_obu(head, w.bytes()))
+            if show_slot is not None:
+                e = _Writer()
+                e.f(1, 1)
+                e.f(3, show_slot)
+                if ids is not None:
+                    e.f(ids[1], frame_id)
+                e.f(1, 1)
+                out.append(_obu(bytes([3 << 3]), e.bytes()))
+        else:          # written once the frame has chosen the field widths
+            seq_at = len(out)
+            out.append(head)
+    out[seq_at] = _obu(out[seq_at], _seq_write(
+        s, int(denom is not None or s["superres"]), up_w, h, wbits, hbits,
+        ids))
+    return b"".join(out)
 
 
 def _boxes(data, pos=0, end=None):
@@ -601,6 +883,162 @@ def derived() -> dict:
             "kitchen_floor_n_grid10.avif": deepen(grid, 10)}
 
 
+def _find_box(data: bytes, path) -> int:
+    """The offset of the box at `path` (types from the top level down)."""
+    pos, end = 0, len(data)
+    for k, typ in enumerate(path):
+        while pos < end:
+            size = int.from_bytes(data[pos:pos + 4], "big")
+            if data[pos + 4:pos + 8] == typ:
+                break
+            pos += size
+        else:
+            raise KeyError(path)
+        if k < len(path) - 1:
+            end = pos + size
+            pos += 12 if typ == b"meta" else 8
+    return pos
+
+
+_STBL = (b"moov", b"trak", b"mdia", b"minf", b"stbl")
+
+
+def retrack(data: bytes, sample0=None, size=None) -> bytes:
+    """An `avis` file (one track, its samples in one chunk in mdat, which
+    follows moov) with its first sample replaced by `sample0` and its
+    tkhd's size restated as `size` (w, h)."""
+    d = bytearray(data)
+    if size is not None:
+        i = _find_box(data, (b"moov", b"trak", b"tkhd"))
+        end = i + _u(data, i, 4)
+        d[end - 8:end] = (size[0] << 16).to_bytes(4, "big") + \
+            (size[1] << 16).to_bytes(4, "big")
+    if sample0 is None:
+        return bytes(d)
+    i = _find_box(data, _STBL + (b"stsz",))
+    if _u(data, i + 12, 4):
+        raise ValueError("samples of one size")
+    old = _u(data, i + 20, 4)
+    d[i + 20:i + 24] = len(sample0).to_bytes(4, "big")
+    co = _find_box(data, _STBL + (b"stco",))
+    if _u(data, co + 12, 4) != 1:
+        raise ValueError("more than one chunk")
+    at = _u(data, co + 16, 4)
+    m = _find_box(data, (b"mdat",))
+    if not m < at <= m + _u(data, m, 4) or m < co:
+        raise ValueError("the chunk is not in an mdat after moov")
+    d = d[:at] + bytes(sample0) + d[at + old:]
+    d[m:m + 4] = (_u(data, m, 4) + len(sample0) - old).to_bytes(4, "big")
+    return bytes(d)
+
+
+def first_sample(data: bytes) -> bytes:
+    i = _find_box(data, _STBL + (b"stsz",))
+    co = _find_box(data, _STBL + (b"stco",))
+    at = _u(data, co + 16, 4)
+    return data[at:at + _u(data, i + 20, 4)]
+
+
+def reframe(data: bytes, **kw) -> bytes:
+    """A still AVIF file whose av01 items' frames (and av1C's sequence
+    header) go through rewrite_key(**kw); with superres the ispe states
+    the upscaled width."""
+    up_w = kw.get("up_w")
+
+    def prop(t, p):
+        if t == b"av1C" and len(p) > 4:
+            return p[:4] + rewrite_key(p[4:], **{
+                k: v for k, v in kw.items() if k != "show_slot"})
+        if t == b"ispe" and up_w:
+            return p[:4] + up_w.to_bytes(4, "big") + p[8:]
+        return p
+    return rewrite(data, lambda iid, typ, b: rewrite_key(b, **kw)
+                   if typ == b"av01" else b, prop)
+
+
+def restate(data: bytes, sizes: dict) -> bytes:
+    """A still AVIF file with each ispe of a size in `sizes` ({(w, h):
+    (w2, h2)}) restated, and a grid's output size with its item's."""
+    def prop(t, p):
+        wh = (_u(p, 4, 4), _u(p, 8, 4)) if t == b"ispe" else None
+        if wh in sizes:
+            w, h = sizes[wh]
+            return p[:4] + w.to_bytes(4, "big") + h.to_bytes(4, "big")
+        return p
+
+    def item(iid, typ, b):
+        if typ == b"grid":
+            n = 4 if b[1] & 1 else 2
+            wh = (_u(b, 4, n), _u(b, 4 + n, n))
+            if wh in sizes:
+                w, h = sizes[wh]
+                return b[:4] + w.to_bytes(n, "big") + h.to_bytes(n, "big")
+        return b
+    return rewrite(data, item, prop)
+
+
+def superres_width(coded: int, denom: int) -> int:
+    """The narrowest upscaled width whose superres downscale by denom/8
+    is `coded` (dav1d's rounding)."""
+    return next(u for u in range(coded, 3 * coded + 16)
+                if max((u * 8 + denom // 2) // denom, min(16, u)) == coded)
+
+
+def _encode(img, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, "AVIF", **kw)
+    return buf.getvalue()
+
+
+def scaled() -> dict:
+    """{name: bytes} of the files libavif scales, superres files and
+    files whose first picture is shown by show_existing_frame, made from
+    the assets (with a generator of their own) and from files already
+    written."""
+    def read(name):
+        with open(os.path.join(HERE, name), "rb") as f:
+            return f.read()
+    g = np.random.default_rng(22)
+    wood = _asset("kitchen_wood.png").resize((192, 160), Image.LANCZOS)
+    floor = _asset("kitchen_floor.png").resize((128, 256), Image.LANCZOS)
+    sup = _encode(Image.fromarray(_pattern(g, 65, 97, 3)), quality=60,
+                  speed=4, advanced={"loopfilter-control": "0",
+                                     "enable-cdef": "0"})
+    seq = read("sequence.avif")
+    return {
+        # coded 192x160, stated 256x256: libyuv's bilinear upscale
+        "kitchen_wood_scaled.avif": restate(_encode(wood), {
+            (192, 160): (256, 256)}),
+        # coded 128 wide, upscaled to 256 (denominator 16), deblocked and
+        # filtered with CDEF
+        "kitchen_floor_superres.avif": reframe(_encode(
+            floor, speed=4, advanced={"enable-cdef": "1",
+                                      "enable-restoration": "0"}),
+            denom=16, up_w=256),
+        # a hidden key frame in slot 3, shown by show_existing_frame
+        "kitchen_floor_n_hidden.avif": reframe(read(
+            "kitchen_floor_n_filtered.avif"), show=False, refresh=0x08,
+            show_slot=3),
+        # colour and alpha stated at 3/4 of their 48x40
+        "alpha_scaled.avif": restate(read("alpha_prem.avif"), {
+            (48, 40): (36, 30)}),
+        # a grid of 128x128 cells stated at 96x96, the output at 192x192
+        "grid_scaled.avif": restate(read("kitchen_floor_n_grid10.avif"), {
+            (128, 128): (96, 96), (256, 256): (192, 192)}),
+        # 12 bits, upscaled from 97 to 145 (denominator 12), restored
+        "superres_12.avif": deepen(reframe(sup, denom=12, up_w=145), 12),
+        # film grain's frame as a hidden intra-only frame
+        "hidden_intra_grain.avif": reframe(
+            read("film_grain.avif"), frame_type=2, show=False,
+            refresh=0x21, show_slot=5),
+        # the sequence's first sample as a hidden key frame with frame
+        # ids, shown by show_existing_frame, the track stated at 60x36
+        "hidden_sequence.avif": retrack(seq, rewrite_key(
+            first_sample(seq), show=False, refresh=0x02, show_slot=1,
+            ids=(5, 9), frame_id=300), size=(60, 36)),
+    }
+
+
 def _tools(path) -> list:
     """The filters the port reads as turned on in the file's frame."""
     import sys
@@ -651,6 +1089,9 @@ def main():
             data = _keep_times(data, f.read())
     with open(path, "wb") as f:
         f.write(data)
+    for name, data in scaled().items():
+        with open(os.path.join(HERE, name), "wb") as f:
+            f.write(data)
     for name in sorted(os.listdir(HERE)):
         if not name.endswith(".avif"):
             continue

@@ -17,8 +17,10 @@ without premultiplication, the eight EXIF orientations, screen content
 superblocks, 1x1 and odd sizes, and the first frame of an `avis`
 sequence. The filters themselves, over every subsampling and size, have
 tests/test_torch_avif_filters.py, depths of 10 and 12 bits and grids
-tests/test_torch_avif_deep.py. Only superres and stated sizes that differ
-from the frame's raise UnsupportedImage."""
+tests/test_torch_avif_deep.py, stated sizes libavif scales to, superres
+and first pictures shown by show_existing_frame
+tests/test_torch_avif_scaled.py. Only a first shown inter frame raises
+UnsupportedImage."""
 import ctypes
 import glob
 import hashlib
@@ -295,8 +297,8 @@ def test_frames_that_need_a_tool_raise_naming_it(tool, advanced, speed):
     """Frames that need a tool the port once lacked, and refused naming
     it (PIL's defaults deblock; aom's denoiser adds film grain; its
     restoration at speed 2): the frame turns the tool on, and now decodes
-    to dav1d's planes and PIL's RGBA. What still raises (superres) PIL
-    cannot write."""
+    to dav1d's planes and PIL's RGBA. What still raises (a first shown
+    inter frame) PIL cannot write as a still image."""
     kw = {} if advanced is None else dict(advanced=advanced)
     data = avif_bytes(picture(128, 160, 7), quality=70, speed=speed, **kw)
     assert avif.decode_av1(avif.parse(data)[0]).tools & avif.TOOLS[tool]
@@ -332,10 +334,9 @@ def test_matrix_coefficients_follow_libavif():
 
 # ------------------------------------------------------------ damage
 
-# what the port lacks (superres) and libavif's scaling of a frame to
-# another stated size: the only refusals a damaged file that PIL reads may
-# meet
-REFUSALS = ("superres", "stated size")
+# what the port lacks (a first shown inter frame): the only refusal a
+# damaged file that PIL reads may meet
+REFUSALS = ("inter frames",)
 
 
 def _agrees(want, got) -> bool:
@@ -374,10 +375,10 @@ def test_damaged_files_agree_with_pil(tmp_path, name):
     flips in the boxes before mdat, bit flips in the AV1 data, cuts, and a
     byte set anew among the OBU headers. The port gives -1 where PIL fails
     (libavif's box rules, dav1d's refusal of a tile read past its end or of
-    a bad header) and PIL's pixels otherwise; where the damage makes the
-    frame need a tool the port lacks (superres, libavif's scaling of a
-    frame to another stated size), it raises naming it, and it raises for
-    nothing else. Among the files, a 12-bit one and a grid of 10-bit
+    a bad header) and PIL's pixels otherwise, also where the damage
+    restates a size libavif scales to or turns superres on; where it makes
+    the first shown frame an inter frame, which the port lacks, it raises
+    naming it, and it raises for nothing else. Among the files, a 12-bit one and a grid of 10-bit
     cells."""
     with open(os.path.join(DATA, name), "rb") as f:
         data = f.read()
@@ -408,12 +409,12 @@ FUZZ_FILES = ("kitchen_floor_n.avif", "alpha_prem.avif", "screen.avif",
               "kitchen_floor_n_grid10.avif")
 
 
-def _fuzzed(seed: int, name: str, t: int) -> bytes:
+def _fuzzed(seed: int, name: str, t: int, files=FUZZ_FILES) -> bytes:
     """Case `t` of `name` in a wider damage fuzz: one generator of `seed`
-    runs over FUZZ_FILES in order, 40 cases each, with the four kinds of
+    runs over `files` in order, 40 cases each, with the four kinds of
     damage of test_damaged_files_agree_with_pil."""
     g = np.random.default_rng(seed)
-    for fname in FUZZ_FILES:
+    for fname in files:
         with open(os.path.join(DATA, fname), "rb") as f:
             data = f.read()
         mdat = data.find(b"mdat") + 4
@@ -474,6 +475,15 @@ def _fuzzed(seed: int, name: str, t: int) -> bytes:
     (55, "kitchen_floor_n_grid10.avif", 20),  # pixi against a cell's av1C
     (173, "kitchen_wood_12.avif", 0),   # av1C's twelve_bit without high
     (213, "sequence.avif", 12),     # a track's hdlr name unterminated
+    (7, "kitchen_wood.avif", 27),   # a frame of another size than stated
+    (11, "all_422.avif", 25),       # the same in 4:2:2
+    (9, "all_grey.avif", 15),       # the same in grey
+    (8, "film_grain.avif", 7),      # the same with film grain
+    (8, "kitchen_wood_12.avif", 39),    # the same at 12 bits
+    (9, "sequence.avif", 11),       # a track's frame of another size
+    (14, "alpha_prem.avif", 19),    # an alpha of another size than stated
+    (7, "alpha_prem.avif", 4),      # colour and alpha, both
+    (7, "kitchen_floor_n_grid10.avif", 23),  # a grid cell, the same
 ])
 def test_fuzzed_damage_agrees_with_pil(tmp_path, seed, name, t):
     """Damaged files on which the port once differed from PIL, found by a
@@ -487,6 +497,8 @@ def test_fuzzed_damage_agrees_with_pil(tmp_path, seed, name, t):
     depth and size, and one coded in limited range is brought to full
     range; every image item with data needs a valid ispe, also where the
     track is decoded; a track's hdlr needs its name's terminating NUL;
+    a frame (colour, alpha or a grid cell, also a track's) whose size
+    differs from the one its item or track states is scaled to it;
     it reads av1C's depth as 12 wherever twelve_bit is
     set; it fails an iloc (version 1 or 2) whose 12 bits
     before an item's construction method are not 0, a grid naming a
